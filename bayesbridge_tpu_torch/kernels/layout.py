@@ -1,0 +1,108 @@
+"""The design blocks' storage contract, shared by both sweeps.
+
+A block is a row-major ``(n, ld)`` tensor of int8, bfloat16 or float32
+whose first ``p <= ld`` columns are logical. For the CUDA kernels the
+row stride must be a whole number of 16-byte vectors (``ld`` a multiple
+of 16 / itemsize) and the base 16-byte aligned; the design pads its
+blocks with zero columns to a multiple of ``COL_ALIGN`` elements, which
+satisfies every storage type. The plain versions read ``X[:, :p]`` and
+take any layout.
+
+Also here: the plain chunked products that up-convert a narrow block in
+row chunks, so that no full float32 copy of a block ever exists (the
+flagship's 4.5 GB int8 block would be 18 GB in f32).
+"""
+
+import math
+
+import torch
+
+COL_ALIGN = 16
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+# Bound on the float32 transient of one up-converted row chunk.
+CHUNK_BYTES = 2 ** 28
+
+
+def padded_width(p):
+    """Stored column count for `p` logical columns."""
+    return max(COL_ALIGN, -(-p // COL_ALIGN) * COL_ALIGN)
+
+
+def check_block(X, p, name='X'):
+    """Validate a stored block for the kernels; returns (n, ld)."""
+    if X.dim() != 2:
+        raise ValueError(f"{name} must be 2-d, got shape {tuple(X.shape)}")
+    if X.dtype not in DTYPE_CODE:
+        raise TypeError(f"{name}: storage dtype {X.dtype} not in "
+                        "int8 / bfloat16 / float32")
+    if not X.is_contiguous():
+        raise ValueError(f"{name} must be contiguous (row-major)")
+    n, ld = X.shape
+    if not 0 < p <= ld:
+        raise ValueError(f"{name}: logical width {p} outside (0, {ld}]")
+    return n, ld
+
+
+def check_cuda_layout(X, name='X'):
+    """The kernels read whole 16-byte vectors of every row."""
+    vec = 16 // X.element_size()
+    if X.shape[1] % vec or X.data_ptr() % 16:
+        raise ValueError(
+            f"{name}: the CUDA kernels need a 16-byte row stride and base "
+            f"(row width {X.shape[1]} must be a multiple of {vec}); store "
+            f"blocks with `padded_width` columns")
+
+
+def check_vector(x, n, name, device):
+    if x.dtype != torch.float32 or x.dim() != 1 or x.shape[0] != n \
+            or x.device != device or not x.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous float32 vector of "
+                         f"length {n} on {device}; got {x.dtype} "
+                         f"{tuple(x.shape)} on {x.device}")
+
+
+def segments(n, tiles, device):
+    """(n_seg, rows_per_seg) for the column pass: enough row segments that
+    `tiles` column tiles times the segments fill the card about four
+    blocks deep, none shorter than 256 rows."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    n_seg = max(1, min(math.ceil(4 * sms / max(tiles, 1)),
+                       math.ceil(n / 256)))
+    rows = math.ceil(n / n_seg)
+    return math.ceil(n / rows), rows
+
+
+def col_tiles(p, X):
+    """Column tiles of the column pass over a block (256 threads x one
+    16-byte vector each)."""
+    return math.ceil(p / (256 * (16 // X.element_size())))
+
+
+def _row_chunk(X, p):
+    return max(1, CHUNK_BYTES // (4 * max(p, 1)))
+
+
+def matvec(X, p, v):
+    """X[:, :p] @ v in float32, up-converting X in row chunks."""
+    n = X.shape[0]
+    step = _row_chunk(X, p)
+    if step >= n:
+        return X[:, :p].float() @ v
+    return torch.cat([X[i:i + step, :p].float() @ v
+                      for i in range(0, n, step)])
+
+
+def rmatvec(X, p, U, square=False):
+    """X[:, :p]' @ U in float32 (U: (n,) or (n, k)), or (X.X)' @ U with
+    `square`, up-converting X in row chunks and summing the chunks'
+    partial products in order."""
+    n = X.shape[0]
+    step = _row_chunk(X, p)
+    out = None
+    for i in range(0, n, step):
+        Xc = X[i:i + step, :p].float()
+        if square:
+            Xc = Xc * Xc
+        part = Xc.T @ U[i:i + step]
+        out = part if out is None else out + part
+    return out

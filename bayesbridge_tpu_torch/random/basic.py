@@ -1,0 +1,51 @@
+"""Random-state facade for the Gibbs sampler.
+
+Port of ``bayesbridge_tpu/random/basic.py``: all randomness flows from
+one ``torch.Generator`` on the model's device (Philox on CUDA). Its
+state is the checkpoint, so a resumed chain equals an uninterrupted one.
+JAX's threefry keys and torch's generators give different numbers from
+the same seed; the two packages agree in distribution, not in bits.
+"""
+
+import numpy as np
+import torch
+
+from .polya_gamma import sample_polya_gamma
+from .tilted_stable import sample_tilted_stable
+
+
+class BasicRandom:
+    """Owns the generator and exposes the sampler kernels."""
+
+    def __init__(self, device, seed=None):
+        self.device = torch.device(device)
+        self.gen = torch.Generator(device=self.device)
+        self.set_seed(seed)
+
+    def set_seed(self, seed):
+        if seed is None:
+            seed = int(np.random.SeedSequence().entropy % (2 ** 63))
+        self.gen.manual_seed(int(seed))
+
+    def get_state(self):
+        return {'torch_generator_state':
+                self.gen.get_state().cpu().numpy().copy()}
+
+    def set_state(self, state):
+        self.gen.set_state(torch.from_numpy(
+            np.asarray(state['torch_generator_state'], np.uint8).copy()))
+
+    def _tensor(self, x):
+        return torch.as_tensor(np.asarray(x, np.float64),
+                               dtype=torch.float32, device=self.device)
+
+    # Eager convenience wrappers for chain initialization (host out); the
+    # Gibbs step calls the functional samplers directly with `gen`.
+
+    def polya_gamma(self, shape, tilt):
+        tilt = tilt if isinstance(tilt, torch.Tensor) else self._tensor(tilt)
+        return sample_polya_gamma(self.gen, shape, tilt).cpu().numpy()
+
+    def tilted_stable(self, char_exponent, tilt):
+        return sample_tilted_stable(self.gen, char_exponent,
+                                    self._tensor(tilt)).cpu().numpy()

@@ -1,0 +1,212 @@
+"""The Gibbs step and chain runner.
+
+Port of ``bayesbridge_tpu/step.py`` (reference:
+bayesbridge/bayesbridge.py:210-240). One step draws, in the reference's
+order, the coefficients, then the observation precision, then the global
+scale, then the local scale. The JAX package traces the step once and
+scans it on the device; here the step runs eagerly, a Python loop drives
+it, and the carry is a dict of device tensors. All randomness comes from
+one ``torch.Generator``, so the carry plus the generator state is the
+checkpoint.
+"""
+
+import math
+
+import numpy as np
+import torch
+
+from .ops.reg_coef import sample_gaussian_posterior
+from .ops.summarizer import summarizer_init
+from .random.polya_gamma import sample_polya_gamma
+from .random.tilted_stable import sample_tilted_stable
+
+SAMPLE_KEYS = ('coef', 'local_scale', 'global_scale', 'obs_prec', 'logp')
+
+
+class GibbsStepConfig:
+    """Static configuration of the step."""
+
+    def __init__(self, model, prior, options, n_unshrunk,
+                 prior_sd_for_unshrunk):
+        self.bridge_exp = float(prior.bridge_exp)
+        self.slab_size = float(prior.slab_size)
+        self.gscale_prior_shape = float(
+            prior.param['gscale_neg_power']['shape'])
+        self.gscale_prior_rate = float(
+            prior.param['gscale_neg_power']['rate'])
+        self.gscale_update_method = options.gscale_update
+        self.cg_atol_multiplier = float(options.cg_atol_multiplier)
+        self.n_unshrunk = n_unshrunk
+        self.prior_sd_for_unshrunk = np.asarray(prior_sd_for_unshrunk,
+                                                dtype=np.float64)
+        self.n_pred = model.n_pred
+        self.n_shrunk = model.n_pred - n_unshrunk
+        # Lower bound on the global scale: the value at which the prior
+        # expected coefficient magnitude is 0.001 (bayesbridge.py:418-423).
+        ave_magnitude = math.gamma(2 / self.bridge_exp) \
+            / math.gamma(1 / self.bridge_exp)
+        self.gscale_lower_bd = 0.001 / ave_magnitude
+        finite_sd = self.prior_sd_for_unshrunk[
+            np.isfinite(self.prior_sd_for_unshrunk)]
+        self.neg_log_prior_sd_sum = -float(np.sum(np.log(finite_sd))) \
+            if len(finite_sd) else 0.0
+
+
+def update_obs_precision(cfg, model, gen, lin_pred):
+    """obs_prec | coef for logit: Polya-Gamma draws tilted by the linear
+    predictor (bayesbridge.py:397-410)."""
+    return sample_polya_gamma(gen, model.n_trial_np, lin_pred)
+
+
+def update_global_scale(cfg, gen, gscale, coef_shrunk):
+    """gscale | coef via the conjugate Gamma update on
+    phi = gscale^(-bridge_exp), the MC-EM 'optimize' variant and the
+    lower-bound guard (bayesbridge.py:412-456). Returns (gscale,
+    clamped)."""
+    dev = coef_shrunk.device
+    if cfg.n_shrunk == 0:
+        return torch.ones((), device=dev), torch.zeros((), dtype=torch.bool,
+                                                       device=dev)
+    alpha = cfg.bridge_exp
+    method = cfg.gscale_update_method
+    abs_power_sum = torch.sum(coef_shrunk.abs() ** alpha)
+    if method == 'optimize':
+        phi = cfg.n_shrunk / alpha / abs_power_sum
+        new_gscale = phi ** (-1.0 / alpha)
+    elif method == 'sample':
+        shape = cfg.gscale_prior_shape + cfg.n_shrunk / alpha
+        rate = cfg.gscale_prior_rate + abs_power_sum
+        draw = torch._standard_gamma(
+            torch.tensor([shape], dtype=torch.float32, device=dev),
+            generator=gen)[0]
+        new_gscale = (draw / rate) ** (-1.0 / alpha)
+        all_zero = torch.count_nonzero(coef_shrunk) == 0
+        new_gscale = torch.where(all_zero, torch.zeros_like(new_gscale),
+                                 new_gscale)
+    elif method is None:
+        return gscale, torch.zeros((), dtype=torch.bool, device=dev)
+    else:
+        raise ValueError(method)
+    clamped = new_gscale < cfg.gscale_lower_bd
+    return torch.clamp_min(new_gscale, cfg.gscale_lower_bd), clamped
+
+
+def update_local_scale(cfg, gen, gscale, coef_shrunk):
+    """lscale | gscale, coef via exponentially tilted stable draws, with
+    the reference's under/overflow guards (bayesbridge.py:458-478).
+    Returns (lscale, n_underflow, n_overflow)."""
+    dev = coef_shrunk.device
+    if cfg.bridge_exp == 2:
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        return 0.5 * torch.ones(cfg.n_shrunk, device=dev), zero, zero
+    ts = sample_tilted_stable(gen, cfg.bridge_exp / 2.0,
+                              (coef_shrunk / gscale) ** 2)
+    lscale = torch.sqrt(0.5 / ts)
+    underflow = lscale == 0.0
+    overflow = torch.isinf(lscale)
+    lscale = torch.where(underflow, torch.full_like(lscale, 1e-15), lscale)
+    lscale = torch.where(overflow, 2.0 / gscale, lscale)
+    return lscale, underflow.sum().to(torch.int32), \
+        overflow.sum().to(torch.int32)
+
+
+def compute_posterior_logprob(cfg, model, coef, gscale, lin_pred):
+    """Joint log density of (coef, gscale | rest), matching the
+    reference's bookkeeping (bayesbridge.py:480-511)."""
+    loglik = model.loglik_from_lin_pred(lin_pred)
+    if np.isfinite(cfg.slab_size):
+        loglik = loglik - 0.5 * torch.sum((coef / cfg.slab_size) ** 2)
+    coef_shrunk = coef[cfg.n_unshrunk:]
+    coef_unshrunk = coef[:cfg.n_unshrunk]
+    prior_sd = torch.as_tensor(cfg.prior_sd_for_unshrunk,
+                               dtype=torch.float32, device=coef.device)
+    prior_logp = -cfg.n_shrunk * torch.log(gscale) \
+        - torch.sum((coef_shrunk / gscale).abs() ** cfg.bridge_exp)
+    finite_sd = torch.isfinite(prior_sd)
+    ratio = coef_unshrunk / torch.where(finite_sd, prior_sd,
+                                        torch.ones_like(prior_sd))
+    prior_logp = prior_logp - 0.5 * torch.sum(
+        torch.where(finite_sd, ratio ** 2, torch.zeros_like(ratio)))
+    prior_logp = prior_logp + cfg.neg_log_prior_sd_sum \
+        + (cfg.gscale_prior_shape - 1.0) * torch.log(gscale) \
+        - cfg.gscale_prior_rate * gscale
+    return loglik + prior_logp
+
+
+def gibbs_step(cfg, model, gen, carry):
+    """One Gibbs iteration: returns (carry, outputs)."""
+    obs_prec = carry['obs_prec']
+    # Polya-Gamma collapse to a Gaussian observation.
+    y_gauss = (model.n_success - model.n_trial / 2.0) / obs_prec
+    coef, summ, info = sample_gaussian_posterior(
+        gen, model.design, y_gauss, obs_prec, carry['gscale'],
+        carry['lscale'], cfg.prior_sd_for_unshrunk, cfg.slab_size,
+        carry['summ'], cg_atol_multiplier=cfg.cg_atol_multiplier)
+    n_unconverged = carry['n_cg_unconverged'] + int(
+        not info.pop('cg_converged'))
+    # ONE linear predictor per iteration, shared by the observation
+    # precision draw and the log density (step.py:261-270).
+    lin_pred = model.design.dot(coef)
+    obs_prec = update_obs_precision(cfg, model, gen, lin_pred)
+    gscale, clamped = update_global_scale(cfg, gen, carry['gscale'],
+                                          coef[cfg.n_unshrunk:])
+    lscale, n_under, n_over = update_local_scale(
+        cfg, gen, gscale, coef[cfg.n_unshrunk:])
+    logp = compute_posterior_logprob(cfg, model, coef, gscale, lin_pred)
+    carry = {
+        **carry, 'summ': summ,
+        'coef': coef, 'obs_prec': obs_prec,
+        'gscale': gscale, 'lscale': lscale,
+        'n_gscale_clamped': carry['n_gscale_clamped'] + clamped.to(
+            torch.int32),
+        'n_lscale_underflow': carry['n_lscale_underflow'] + n_under,
+        'n_lscale_overflow': carry['n_lscale_overflow'] + n_over,
+        'n_cg_unconverged': n_unconverged,
+    }
+    outputs = {'coef': coef, 'local_scale': lscale, 'global_scale': gscale,
+               'obs_prec': obs_prec, 'logp': logp, **info}
+    return carry, outputs
+
+
+def init_carry(device, coef, obs_prec, gscale, lscale, summ=None):
+    """Chain state on `device` from host values; `summ` None starts a
+    fresh summarizer."""
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float64),
+                               dtype=torch.float32, device=device)
+
+    coef = f32(coef)
+    zero = torch.zeros((), dtype=torch.int32, device=device)
+    return {
+        'coef': coef, 'obs_prec': f32(obs_prec),
+        'gscale': f32(gscale), 'lscale': f32(lscale),
+        'summ': summ if summ is not None
+        else summarizer_init(coef.shape[0], device),
+        'n_gscale_clamped': zero, 'n_lscale_underflow': zero,
+        'n_lscale_overflow': zero, 'n_cg_unconverged': 0,
+    }
+
+
+def run_chain(cfg, model, gen, carry, n_burnin, n_sample, thin,
+              n_remainder, save_keys, status=None):
+    """Run n_burnin + n_sample*thin + n_remainder iterations, keeping every
+    `thin`-th post-burn-in draw (gibbs_util.py:164-199 semantics, as in
+    step.run_chain). Returns (carry, outputs) with outputs[key] a list of
+    per-sample tensors (or ints for the sampler diagnostics).
+
+    `status` (optional): (callback(iteration, n_iter), interval) for
+    progress printing."""
+    n_iter = n_burnin + n_sample * thin + n_remainder
+    outputs = {}
+    n_saved = 0
+    for it in range(n_iter):
+        carry, out = gibbs_step(cfg, model, gen, carry)
+        if it >= n_burnin and (it - n_burnin) % thin == thin - 1 \
+                and n_saved < n_sample:
+            for key, val in out.items():
+                if key in save_keys or key not in SAMPLE_KEYS:
+                    outputs.setdefault(key, []).append(val)
+            n_saved += 1
+        if status is not None and (it + 1) % status[1] == 0:
+            status[0](it + 1, n_iter)
+    return carry, outputs
