@@ -9,7 +9,7 @@ numpy arrays and flags.
 import numpy as np
 import torch
 
-from .design.sparse import SparseDesignMatrix
+from .design.sparse import PACKED_ARRAYS, SparseDesignMatrix
 from .kernels import layout
 from .step import init_carry
 
@@ -50,6 +50,7 @@ def design_from_numpy(X_exact, X_float, exact_cols, float_cols,
     exact_cols = np.asarray(exact_cols)
     float_cols = np.asarray(float_cols)
     parts = dict(
+        backend='hybrid',
         X_exact=_block_tensor(np.asarray(X_exact)[:n], len(exact_cols)),
         X_float=torch.from_numpy(_pad_cols(
             np.asarray(X_float, np.float32)[:n, :len(float_cols)],
@@ -57,6 +58,35 @@ def design_from_numpy(X_exact, X_float, exact_cols, float_cols,
         exact_cols=exact_cols, float_cols=float_cols,
         column_offset=np.asarray(column_offset, np.float64),
         shape_main=(n, p), nnz=None, exact_is_binary=exact_is_binary)
+    return SparseDesignMatrix(None, center_predictor=center_predictor,
+                              add_intercept=add_intercept, fused=fused,
+                              device=device, _parts=parts)
+
+
+def packed_design_from_numpy(backend, arrays, meta, column_offset, shape,
+                             nnz=None, add_intercept=True,
+                             center_predictor=False, device='cuda',
+                             fused=None):
+    """A bitpack or winell SparseDesignMatrix from the JAX design's arrays.
+
+    Parameters
+    ----------
+    backend : 'bitpack' | 'winell'
+    arrays : {name: numpy array} holding the JAX design's attributes of
+        those names: bits_col, bits_row, X_float, bin_cols, float_cols
+        (bitpack); widx_dot, wval_dot, widx_tdot, wval_tdot, sd_idx,
+        sd_val, st_idx, st_val (winell)
+    meta : the JAX design's ``_bitpack_meta`` / ``_winell_meta``
+    column_offset : (p,) centering offsets (zeros when not centered)
+    shape : (n, p) of the main design, intercept excluded
+    """
+    if backend not in PACKED_ARRAYS:
+        raise ValueError(f"backend must be one of {sorted(PACKED_ARRAYS)}")
+    parts = {name: np.asarray(arrays[name])
+             for name in PACKED_ARRAYS[backend]}
+    parts.update(backend=backend, column_offset=np.asarray(
+        column_offset, np.float64), shape_main=tuple(shape), nnz=nnz,
+        meta=tuple(meta))
     return SparseDesignMatrix(None, center_predictor=center_predictor,
                               add_intercept=add_intercept, fused=fused,
                               device=device, _parts=parts)

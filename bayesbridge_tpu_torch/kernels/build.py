@@ -1,8 +1,9 @@
 """Build and load the hand-written CUDA kernels.
 
 The sources under ``bayesbridge_tpu_torch/csrc/`` have a plain C
-interface and are compiled with ``nvcc`` into one shared library, loaded
-with ctypes (no PyTorch headers, so the build takes seconds). The build
+interface. Each is compiled by its own ``nvcc`` process, all started
+together, and the objects are linked into one shared library loaded with
+ctypes (no PyTorch headers, so the build takes seconds). The build
 runs on first use, on the machine with the card, into
 ``bayesbridge_tpu_torch/_build/<hash>/`` where the hash covers the
 sources and the compiler flags; a later call with the same sources
@@ -21,10 +22,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_ROOT = _PKG / '_build'
-SOURCES = ('ne_sweep.cu', 'tdots_sweep.cu')
+SOURCES = ('ne_sweep.cu', 'tdots_sweep.cu', 'bitlut.cu', 'winell.cu')
 HEADERS = ('sweep_common.cuh',)
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC')
+              '-O3', '-Xcompiler', '-fPIC')
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -34,6 +35,9 @@ _SIGNATURES = {
                     _P, _P, _I, _I, _P, _I, _L, _P, _P, _P, _P, _P],
     'bb_tdots_sweep': [_I, _P, _L, _I, _I, _P, _L, _I, _L, _P, _P, _P,
                        _I, _L, _P, _P, _P],
+    'bb_bitlut': [_P, _L, _L, _P, _I, _I, _I, _P, _P, _P],
+    'bb_winell': [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                  _P],
     'bb_rows_per_block': [],
 }
 
@@ -74,6 +78,42 @@ def _source_hash():
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; (stdout+stderr of each, failed)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    return logs, any(p.returncode != 0 for p in procs)
+
+
+def _compile_and_link(out_dir, so_path):
+    """One nvcc per source, all at once, then one link. Builds into
+    private names and renames at the end, so a concurrent build never
+    loads a half-written library. Returns the compiler log."""
+    tmp = Path(tempfile.mkdtemp(dir=out_dir))
+    try:
+        objs = [tmp / (Path(src).stem + '.o') for src in SOURCES]
+        logs, failed = _run_all(
+            [[_nvcc(), *NVCC_FLAGS, '-Xptxas', '-v', '-c', '-o', str(o),
+              str(CSRC / src)] for src, o in zip(SOURCES, objs)])
+        log = ''.join(logs)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + log)
+        so_tmp = tmp / so_path.name
+        link = subprocess.run(
+            [_nvcc(), '-gencode', 'arch=compute_90a,code=sm_90a', '-shared',
+             '-o', str(so_tmp), *map(str, objs)],
+            capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError("nvcc link failed:\n" + log)
+        os.replace(so_tmp, so_path)
+        return log
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def load_library():
     """Build (once per source hash) and load the kernel library."""
     global _LOADED
@@ -85,18 +125,7 @@ def load_library():
     t0 = time.perf_counter()
     if not so_path.exists():
         out_dir.mkdir(parents=True, exist_ok=True)
-        # Build into a private name, then rename: a concurrent build
-        # never loads a half-written library.
-        fd, tmp = tempfile.mkstemp(suffix='.so', dir=out_dir)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, '-Xptxas', '-v', '-o', tmp,
-               *[str(CSRC / s) for s in SOURCES]]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError("nvcc failed:\n" + log)
-        os.replace(tmp, so_path)
+        log = _compile_and_link(out_dir, so_path)
     build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(so_path))
     for name, argtypes in _SIGNATURES.items():

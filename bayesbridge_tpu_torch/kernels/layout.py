@@ -72,6 +72,19 @@ def segments(n, tiles, device):
     return math.ceil(n / rows), rows
 
 
+def splits(n_units, tiles, device):
+    """(n_split, units_per_split): contiguous splits of `n_units` work
+    units (byte-group chunks, input windows) such that `tiles` blocks
+    times the splits fill the card at most four blocks deep. Rounding
+    down: a few blocks over 4 x SMs leave some SMs a fifth block while
+    the rest hold four, and the kernel waits for them (rounding up gave
+    bitlut's X v at the flagship 25 x 22 = 550 blocks on 132 SMs)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    n_split = max(1, min(4 * sms // max(tiles, 1), n_units))
+    per = math.ceil(n_units / n_split)
+    return math.ceil(n_units / per), per
+
+
 def col_tiles(p, X):
     """Column tiles of the column pass over a block (256 threads x one
     16-byte vector each)."""

@@ -1,8 +1,8 @@
 """User-facing constructor that turns raw data into a likelihood model.
 
 Port of ``bayesbridge_tpu/models/factory.py`` for the slice the torch
-package serves: the logit family on a sparse X, stored on the hybrid
-backend on an explicit device.
+package serves: the logit family on a sparse X, stored on the hybrid,
+bitpack or winell backend on an explicit device.
 """
 
 from .logistic import LogisticModel
@@ -23,10 +23,12 @@ def RegressionModel(outcome, X, family='logit', add_intercept=None,
     center_predictor : bool
         Column-center X implicitly (never materialized).
     dtype : float32 (the only working dtype of the port); None = float32
-    fused : None | 'full' | '1' — the fused sweeps (the hand-written
-        kernels on CUDA, their plain versions on the CPU). 'auto' / '0'
-        (the composed path) raise NotImplementedError.
-    backend : None | 'auto' | 'hybrid'
+    fused : None | 'full' | '1' — the hybrid backend's fused sweeps (the
+        hand-written kernels on CUDA, their plain versions on the CPU);
+        'auto' / '0' (its composed path) raise NotImplementedError. The
+        bitpack and winell backends always compose and accept any value.
+    backend : None | 'auto' | 'hybrid' | 'bitpack' | 'winell'; 'auto'
+        (the default) picks as the JAX package does, 'ell' raises
     device : 'cuda' (default) or 'cpu'; 'cuda' without a GPU raises.
     """
     if family != 'logit':

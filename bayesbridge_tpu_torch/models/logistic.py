@@ -3,7 +3,8 @@
 Port of ``bayesbridge_tpu/models/logistic.py`` (reference behavior:
 bayesbridge/model/logistic_model.py:6-121). The log-likelihood uses the
 numerically stable softplus form; loglik and gradient together come from
-one fused sweep of the design (``design.fused_link_grad``).
+one fused sweep of the design (``design.fused_link_grad``) where the
+design has one, else from `dot` and `Tdot`.
 """
 
 from warnings import warn
@@ -56,9 +57,17 @@ class LogisticModel(AbstractModel):
                 "Number of successes cannot be larger than that of trials.")
 
     def compute_loglik_and_gradient(self, beta):
-        # Loglik + score in ONE design sweep (logistic.py:72-91).
-        return self.design.fused_link_grad(
+        """(loglik, gradient) at beta: one fused design sweep where the
+        design has one, else dot then Tdot (logistic.py:72-91)."""
+        fused = self.design.fused_link_grad(
             beta, self.n_success, self.n_trial, 'logit')
+        if fused is not None:
+            return fused
+        logit_prob = self.design.dot(beta)
+        loglik = self.loglik_from_lin_pred(logit_prob)
+        grad = self.design.Tdot(
+            self.n_success - self.n_trial * torch.sigmoid(logit_prob))
+        return loglik, grad
 
     def loglik_from_lin_pred(self, lin_pred):
         """Log-likelihood from a precomputed linear predictor X beta."""

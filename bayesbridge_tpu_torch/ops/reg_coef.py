@@ -1,9 +1,9 @@
 """Regression-coefficient sampler facade.
 
-Port of ``bayesbridge_tpu/ops/reg_coef.py`` for the fused policy
-(reference: bayesbridge/reg_coef_sampler/reg_coef_sampler.py:20-429):
-the collapsed Gaussian update by CG inside the Gibbs step, and the MAP
-search (scipy L-BFGS-B over a torch objective) for chain initialization.
+Port of ``bayesbridge_tpu/ops/reg_coef.py`` (reference:
+bayesbridge/reg_coef_sampler/reg_coef_sampler.py:20-429): the collapsed
+Gaussian update by CG inside the Gibbs step, and the MAP search (scipy
+L-BFGS-B over a torch objective) for chain initialization.
 The Cholesky, HMC and NUTS samplers are not ported.
 """
 
@@ -11,7 +11,7 @@ import numpy as np
 import scipy.optimize
 import torch
 
-from .cg import sample_gaussian_cg
+from .cg import choose_diag_preconditioner, sample_gaussian_cg
 from .summarizer import (
     compute_prior_shrunk_scale, extrapolate_coef_condmean,
     summarizer_update,
@@ -26,11 +26,14 @@ def sample_gaussian_posterior(
     ('diag') preconditioner (reg_coef.py:25-133, the 'cg' branch).
     Returns (coef, summ_state, info).
 
-    Under the fused policy the warm start is not folded into the
-    pre-solve and the CG loop does not accumulate the linear predictor
-    (reg_coef.py:79-100): the pre-solve is one `tdots` sweep and every
-    operator application, the initial residual's included, one `ne`
-    sweep.
+    Hybrid designs (fused sweeps): the pre-solve is one `tdots` sweep
+    and every operator application, the initial residual's included, one
+    `ne` sweep. Designs on the composed path (bitpack, winell): the
+    pre-solve reductions are separate `Tdot`s and the Fisher diagonal
+    (reg_coef.py:103-115), and the CG loop accumulates the draw's linear
+    predictor, returned as ``info['lin_pred']`` (reg_coef.py:79-80,
+    125-127). The warm start's fold into a batched pre-solve
+    (reg_coef.py:90-96) needs the hybrid composed path, not ported.
     """
     n_unshrunk = len(prior_sd_for_unshrunk)
     dev = y_gauss.device
@@ -43,21 +46,39 @@ def sample_gaussian_posterior(
     coef_init = extrapolate_coef_condmean(summ_state, gscale, lscale,
                                           n_unshrunk, slab_size)
     n_obs, n_pred = design.shape
-    # The b-vector noise is drawn here, eps_obs then eps_prior, so that
-    # the three pre-solve reductions share one sweep.
-    eps_obs = torch.randn(n_obs, generator=gen, dtype=torch.float32,
-                          device=dev)
-    eps_prior = torch.randn(n_pred, generator=gen, dtype=torch.float32,
-                            device=dev)
-    v, pert, fisher_diag = design.presolve_reductions(
-        obs_prec * y_gauss, torch.sqrt(obs_prec) * eps_obs, obs_prec)
-    precond_scale = 1.0 / torch.sqrt(prior_prec_sqrt ** 2 + fisher_diag)
-    coef, info = sample_gaussian_cg(
+    want_lin_pred = design.fused_ne_mode('quad') is None
+
+    # The b-vector noise is drawn here, eps_obs then eps_prior, on both
+    # branches, so that the pre-solve reductions can share one call.
+    def draw_eps():
+        return (torch.randn(n_obs, generator=gen, dtype=torch.float32,
+                            device=dev),
+                torch.randn(n_pred, generator=gen, dtype=torch.float32,
+                            device=dev))
+
+    if design.has_presolve_reductions():
+        eps_obs, eps_prior = draw_eps()
+        v, pert, fisher_diag = design.presolve_reductions(
+            obs_prec * y_gauss, torch.sqrt(obs_prec) * eps_obs, obs_prec)
+        precond_scale = 1.0 / torch.sqrt(prior_prec_sqrt ** 2 + fisher_diag)
+    else:
+        v = design.Tdot(obs_prec * y_gauss)
+        eps_obs, eps_prior = draw_eps()
+        pert = design.Tdot(torch.sqrt(obs_prec) * eps_obs)
+        precond_scale = choose_diag_preconditioner(design, obs_prec,
+                                                   prior_prec_sqrt)
+    res = sample_gaussian_cg(
         gen, design, obs_prec, prior_prec_sqrt, v,
         coef_cg_init=coef_init, precond_scale=precond_scale,
         maxiter=cg_maxiter,
         atol=cg_atol_multiplier * 1e-5 * np.sqrt(n_pred),
-        perturbation=pert + prior_prec_sqrt * eps_prior)
+        perturbation=pert + prior_prec_sqrt * eps_prior,
+        return_lin_pred=want_lin_pred)
+    if want_lin_pred:
+        coef, lin_pred, info = res
+        info = {**info, 'lin_pred': lin_pred}
+    else:
+        coef, info = res
     summ_state = summarizer_update(summ_state, coef, gscale, lscale,
                                    n_unshrunk, slab_size)
     return coef, summ_state, info
@@ -87,7 +108,8 @@ def search_mode(coef, lscale, gscale, obs_prec, model,
     """Conditional MAP of coef | scales by scipy L-BFGS-B over a torch
     objective (reg_coef.py:216-273; reg_coef_sampler.py:281-391). Each
     objective evaluation is one fused GLM sweep (loglik and gradient
-    together), counted as two design matvecs as in the reference."""
+    together) on the hybrid backend, `dot` then `Tdot` elsewhere, counted
+    as two design matvecs as in the reference."""
     dev = model.design.device
     lscale = torch.as_tensor(np.asarray(lscale, np.float64),
                              dtype=torch.float32, device=dev)

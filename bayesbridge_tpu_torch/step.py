@@ -145,8 +145,11 @@ def gibbs_step(cfg, model, gen, carry):
     n_unconverged = carry['n_cg_unconverged'] + int(
         not info.pop('cg_converged'))
     # ONE linear predictor per iteration, shared by the observation
-    # precision draw and the log density (step.py:261-270).
-    lin_pred = model.design.dot(coef)
+    # precision draw and the log density (step.py:261-270): on the
+    # composed path the CG loop accumulated it, otherwise one dot.
+    lin_pred = info.pop('lin_pred', None)
+    if lin_pred is None:
+        lin_pred = model.design.dot(coef)
     obs_prec = update_obs_precision(cfg, model, gen, lin_pred)
     gscale, clamped = update_global_scale(cfg, gen, carry['gscale'],
                                           coef[cfg.n_unshrunk:])

@@ -7,7 +7,8 @@ machine with the card:
 
 Each kernel is held against its plain PyTorch version on the same
 tensors: rtol 1e-4 of max|plain| (the two sum in different orders), and
-a small chain on the card must resume exactly.
+a small chain on the card must resume exactly, on the hybrid backend and
+on the bitpack and winell backends' composed path.
 """
 
 import numpy as np
@@ -16,6 +17,8 @@ import torch
 
 from bayesbridge_tpu_torch.kernels import layout, launch_counts, \
     reset_launch_counts
+from bayesbridge_tpu_torch.kernels.bitlut import bitlut, bitlut_plain
+from bayesbridge_tpu_torch.kernels.winell import winell, winell_plain
 from bayesbridge_tpu_torch.kernels.ne_sweep import ne_sweep, ne_sweep_plain
 from bayesbridge_tpu_torch.kernels.tdots_sweep import (
     tdots_sweep, tdots_sweep_plain,
@@ -79,20 +82,79 @@ def test_tdots_kernel_matches_plain_and_is_deterministic(dev):
         assert torch.equal(x, y)
 
 
-def test_chain_resumes_exactly_on_card(dev):
-    from bayesbridge_tpu_torch import (
-        BayesBridge, RegressionCoefPrior, RegressionModel,
-    )
+@pytest.mark.parametrize('g_pad,m_pad,n_out', [(8, 128, 1), (40, 384, 300),
+                                                (200, 8320, 8200)])
+@pytest.mark.parametrize('tag', ['dot', 'tdot'])
+def test_bitlut_kernel_matches_plain(dev, g_pad, m_pad, n_out, tag):
+    """Ragged shapes: byte-groups not a multiple of 32, outputs not a
+    multiple of 128; two launches give the same bits."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    bits = torch.randint(0, 256, (g_pad, m_pad), generator=g, device=dev,
+                         dtype=torch.uint8)
+    v = torch.randn(8 * g_pad, generator=g, device=dev)
+    reset_launch_counts()
+    got = bitlut(bits, v, n_out, tag)
+    again = bitlut(bits, v, n_out, tag)
+    assert launch_counts()[f'bitlut[{tag}]'] == 2
+    _assert_close([got], [bitlut_plain(bits, v, n_out)])
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize('square', [False, True])
+@pytest.mark.parametrize('transpose', [False, True])
+def test_winell_kernel_matches_plain(dev, transpose, square):
+    """A packing with overfull cells (its spill is the design's, not the
+    kernel's) and a ragged output tile."""
+    import scipy.sparse as sps
+    from bayesbridge_tpu_torch.design.winell import pack_winell, \
+        plan_windows
+    rng = np.random.default_rng(3)
+    n, p = 1037, 613
+    X = rng.standard_normal((n, p)) * (rng.random((n, p)) < .03)
+    X[::50, :200] = rng.standard_normal((len(range(0, n, 50)), 200))
+    X[:300, ::40] = rng.standard_normal((300, len(range(0, p, 40))))
+    X = sps.csr_matrix(X.T if transpose else X)
+    n_out, n_in = X.shape
+    W, K = plan_windows(n_in, n_out, X.nnz)
+    idx, val, spill = pack_winell(X, W, K)
+    assert spill is not None
+    idx, val = torch.from_numpy(idx).to(dev), torch.from_numpy(val).to(dev)
+    v = torch.from_numpy(rng.standard_normal(n_in).astype(np.float32)).to(dev)
+    got = winell(idx, val, v, n_out, W, K, square)
+    again = winell(idx, val, v, n_out, W, K, square)
+    _assert_close([got], [winell_plain(idx, val, v, n_out, W, K, square)])
+    assert torch.equal(got, again)
+
+
+def _chain_problem():
     from bayesbridge_tpu_torch.utils.simulate_data import (
         simulate_design, simulate_outcome,
     )
     X = simulate_design(500, 60, binary_frac=.9, seed=1)
     outcome = simulate_outcome(X, np.r_[np.ones(3), np.zeros(57)], 'logit',
                                seed=2)
-    bridge = BayesBridge(RegressionModel(outcome, X, family='logit'),
+    return X, outcome
+
+
+@pytest.mark.parametrize('backend', ['hybrid', 'bitpack', 'winell'])
+def test_chain_resumes_exactly_on_card(dev, backend):
+    from bayesbridge_tpu_torch import (
+        BayesBridge, RegressionCoefPrior, RegressionModel,
+    )
+    X, outcome = _chain_problem()
+    bridge = BayesBridge(RegressionModel(outcome, X, family='logit',
+                                         backend=backend),
                          RegressionCoefPrior(bridge_exponent=.5))
+    reset_launch_counts()
     full, _ = bridge.gibbs(12, seed=0, coef_sampler_type='cg',
                            params_to_save='all')
+    counts = launch_counts()
+    kern = {'hybrid': 'ne_sweep', 'bitpack': 'bitlut',
+            'winell': 'winell'}[backend]
+    if backend == 'hybrid':
+        assert counts['ne_sweep[ne]'] > 12 and counts['tdots_sweep'] == 12
+    else:
+        assert counts[f'{kern}[dot]'] > 12 and counts[f'{kern}[tdot]'] > 12
     part, info = bridge.gibbs(7, seed=0, coef_sampler_type='cg',
                               params_to_save='all')
     merged, _ = bridge.gibbs_resume(info, 5, merge=True, prev_samples=part)

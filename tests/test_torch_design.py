@@ -5,8 +5,8 @@ JAX one with ``fused='1'`` (its Pallas sweeps in interpret mode off-TPU),
 the port's on the CPU (plain versions of its sweeps). Checked: the
 exact/float column split and storage dtypes, ``convert.design_from_numpy``
 on the JAX design's arrays, and dot, Tdot, quad_matvec,
-presolve_reductions and fused_link_grad with centering and intercept on
-and off.
+presolve_reductions, the Fisher diagonal and fused_link_grad with
+centering and intercept on and off.
 
 Tolerances: dot rtol 2e-5 / atol 2e-4 * max|ref| (row sums in another
 order); the column reductions rtol 2e-4 / atol 2e-4 * max|ref|, as in
@@ -110,6 +110,8 @@ def test_products_match_jax(monkeypatch, centered, intercept):
         _close(g.numpy(), r)
     got4 = td.presolve_reductions(u, u, w, u4=w * 2)
     _close(got4[3].numpy(), jd.Tdot(w * 2))
+    _close(td.compute_fisher_info(w, diag_only=True).numpy(),
+           jd.compute_fisher_info(w, diag_only=True))
 
     a = rng.integers(0, 2, size=n).astype(np.float32)
     b = np.ones(n, np.float32)
@@ -154,8 +156,8 @@ def test_unported_options_raise():
         SparseDesignMatrix(X, fused='auto', device='cpu')
     with pytest.raises(NotImplementedError, match='composed'):
         SparseDesignMatrix(X, fused='0', device='cpu')
-    with pytest.raises(NotImplementedError, match='hybrid'):
-        SparseDesignMatrix(X, backend='bitpack', device='cpu')
+    with pytest.raises(NotImplementedError, match='ell'):
+        SparseDesignMatrix(X, backend='ell', device='cpu')
     with pytest.raises(NotImplementedError, match='float32'):
         SparseDesignMatrix(X, dtype=np.float64, device='cpu')
     with pytest.raises(NotImplementedError, match='dense'):
