@@ -1,7 +1,7 @@
 """BayesBridge: the Gibbs sampler orchestrator.
 
 Port of ``bayesbridge_tpu/bridge.py`` for the slice the torch package
-serves (logit model, CG sampler, fused sweeps), API-compatible with the
+serves (logit model, CG sampler, sparse designs), API-compatible with the
 reference sampler (reference: bayesbridge/bayesbridge.py:13-511):
 ``gibbs()`` returns (samples, mcmc_info) with samples' last axis indexing
 iterations, and ``gibbs_resume()`` restores the full sampler state (chain

@@ -9,6 +9,10 @@
 //                 linear: -b (a - t)^2 / 2
 //   out_b = X_b' u                                  (phase B, column pass)
 //
+// The two passes are also entries of their own, the hybrid design's
+// composed products: bb_ne_rows returns t (the row pass with the
+// identity map, X v + c), bb_colpass returns X_b' u (the column pass).
+//
 // Replaces the TPU kernel bayesbridge_tpu/design/fusedne.py:_ne_kernel
 // (launched by _run), which kept one row panel in VMEM and ran both phases on
 // it, accumulating out_b across a sequential grid.
@@ -31,7 +35,7 @@
 namespace bbsweep {
 namespace {
 
-enum Mid { MID_NE = 0, MID_LOGIT = 1, MID_LINEAR = 2 };
+enum Mid { MID_NE = 0, MID_LOGIT = 1, MID_LINEAR = 2, MID_ROWS = 3 };
 
 constexpr int kRowsPerWarp = 4;
 constexpr int kRowsPerBlock = (kThreads / 32) * kRowsPerWarp;
@@ -107,17 +111,20 @@ __global__ void __launch_bounds__(kThreads) ne_rows_kernel(
     for (int r = 1; r < kRowsPerWarp; ++r) if (lane == r) t = acc[r];
     const int64_t row = row0 + lane;
     t += c[c_stride * row];
-    const float bb = b[row];
     float uu;
-    if (mid == MID_NE) {
-      uu = bb * t;
+    if (mid == MID_ROWS) {
+      uu = t;
+    } else if (mid == MID_NE) {
+      uu = b[row] * t;
     } else if (mid == MID_LOGIT) {
       const float aa = a[row];
+      const float bb = b[row];
       uu = aa - bb * (1.f / (1.f + expf(-t)));
       // y t - n log(1 + e^t), the softplus written stably.
       if (with_logp)
         lp = aa * t - bb * (fmaxf(t, 0.f) + log1pf(expf(-fabsf(t))));
     } else {
+      const float bb = b[row];
       const float resid = a[row] - t;
       uu = bb * resid;
       if (with_logp) lp = -0.5f * bb * resid * resid;
@@ -169,8 +176,8 @@ cudaError_t ne_sweep_impl(const void* X0, int64_t ld0, int p0,
   if (with_logp)
     sum_partials_kernel<<<1, kThreads, 0, stream>>>(lp_partial, grid_a, lp);
   launch_colpass<T0, T1, 1>(X0, ld0, p0, X1, ld1, p1, n, n_seg,
-                            rows_per_seg, u, nullptr, nullptr, partial, out,
-                            stream);
+                            rows_per_seg, u, nullptr, nullptr, nullptr,
+                            partial, out, stream);
   return cudaGetLastError();
 }
 
@@ -197,6 +204,39 @@ extern "C" int bb_ne_sweep(int dt0, const void* X0, long long ld0, int p0,
           X0, ld0, p0, v0, X1, ld1, p1, v1, n, c, c_stride, a, b, mid,
           with_logp, u, n_seg, rows_per_seg, partial, out, lp_partial, lp,
           s)));
+}
+
+// The row pass alone: t = X0 v0 (+ X1 v1) + c, written to t (n floats).
+extern "C" int bb_ne_rows(int dt0, const void* X0, long long ld0, int p0,
+                          const float* v0, int dt1, const void* X1,
+                          long long ld1, int p1, const float* v1,
+                          long long n, const float* c, int c_stride,
+                          float* t, void* stream) {
+  using namespace bbsweep;
+  auto s = static_cast<cudaStream_t>(stream);
+  const int grid_a = (int)((n + kRowsPerBlock - 1) / kRowsPerBlock);
+  BB_DISPATCH(dt0, T0, BB_DISPATCH(dt1, T1,
+      ne_rows_kernel<T0, T1><<<grid_a, kThreads, 0, s>>>(
+          static_cast<const T0*>(X0), ld0, p0, v0,
+          static_cast<const T1*>(X1), ld1, p1, v1, n, c, c_stride, nullptr,
+          nullptr, MID_ROWS, 0, t, nullptr);
+      return (int)cudaGetLastError()));
+}
+
+// The column pass alone: out = [X0' u ; X1' u] ((p0 + p1) floats), with
+// partial n_seg * (p0 + p1) floats of scratch.
+extern "C" int bb_colpass(int dt0, const void* X0, long long ld0, int p0,
+                          int dt1, const void* X1, long long ld1, int p1,
+                          long long n, const float* u, int n_seg,
+                          long long rows_per_seg, float* partial, float* out,
+                          void* stream) {
+  using namespace bbsweep;
+  auto s = static_cast<cudaStream_t>(stream);
+  BB_DISPATCH(dt0, T0, BB_DISPATCH(dt1, T1,
+      launch_colpass<T0, T1, 1>(X0, ld0, p0, X1, ld1, p1, n, n_seg,
+                                rows_per_seg, u, nullptr, nullptr, nullptr,
+                                partial, out, s);
+      return (int)cudaGetLastError()));
 }
 
 extern "C" int bb_rows_per_block() { return bbsweep::kRowsPerBlock; }

@@ -70,7 +70,12 @@ __device__ __forceinline__ uint4 load16(const T* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
-// acc += x * u_row for the staged row i (K = 4 adds the square moment).
+// acc += x * u_row for the staged row i. K = 1: X'u0. K = 4 adds X'u1,
+// X'u2 and the square moment (X.X)'u2. K = 5 adds X'u3 after those.
+template <int K> struct NumU {
+  static constexpr int value = K == 1 ? 1 : K - 1;
+};
+
 template <int K, int N>
 __device__ __forceinline__ void accumulate(float (&acc)[K][N],
                                            const float (&xs)[N],
@@ -88,22 +93,27 @@ __device__ __forceinline__ void accumulate(float (&acc)[K][N],
       acc[2][e] = fmaf(xs[e], w2, acc[2][e]);
       acc[3][e] = fmaf(xs[e] * xs[e], w2, acc[3][e]);
     }
+    if constexpr (K == 5) {
+      const float w3 = su[3 * kUrows + i];
+#pragma unroll
+      for (int e = 0; e < N; ++e) acc[4][e] = fmaf(xs[e], w3, acc[4][e]);
+    }
   }
 }
 
 // Column pass over one block: this thread owns N consecutive columns of
-// tile `tile` and sums rows [r0, r1) of X' [u0 (u1 u2)] into registers,
-// then writes them to its segment's partial row. K = 1: X'u0. K = 4:
-// X'u0, X'u1, X'u2 and (X.X)'u2. `su` is kUrows * (K == 1 ? 1 : 3) floats
-// of shared memory.
+// tile `tile` and sums rows [r0, r1) of X' [u0 (u1 u2 (u3))] into
+// registers, then writes them to its segment's partial row (the K
+// reductions of `accumulate`). `su` is kUrows * NumU<K> floats of shared
+// memory.
 template <typename T, int K>
 __device__ __forceinline__ void col_tile(
     const T* __restrict__ X, int64_t ld, int p, int tile, int64_t r0,
     int64_t r1, const float* __restrict__ u0, const float* __restrict__ u1,
-    const float* __restrict__ u2, float* su, float* __restrict__ part,
-    int64_t p_total, int col_off) {
+    const float* __restrict__ u2, const float* __restrict__ u3, float* su,
+    float* __restrict__ part, int64_t p_total, int col_off) {
   constexpr int N = Vec<T>::N;
-  constexpr int NU = K == 1 ? 1 : 3;
+  constexpr int NU = NumU<K>::value;
   const int c0 = tile * (kThreads * N) + threadIdx.x * N;
   float acc[K][N];
 #pragma unroll
@@ -116,10 +126,11 @@ __device__ __forceinline__ void col_tile(
     __syncthreads();
     for (int i = threadIdx.x; i < cnt; i += kThreads) {
       su[i] = u0[rb + i];
-      if constexpr (NU == 3) {
+      if constexpr (NU >= 3) {
         su[kUrows + i] = u1[rb + i];
         su[2 * kUrows + i] = u2[rb + i];
       }
+      if constexpr (NU == 4) su[3 * kUrows + i] = u3[rb + i];
     }
     __syncthreads();
     if (c0 < p) {
@@ -162,18 +173,18 @@ __global__ void __launch_bounds__(kThreads) colpass_kernel(
     const T1* __restrict__ X1, int64_t ld1, int p1, int64_t n,
     int64_t rows_per_seg, const float* __restrict__ u0,
     const float* __restrict__ u1, const float* __restrict__ u2,
-    float* __restrict__ partial) {
-  __shared__ float su[kUrows * (K == 1 ? 1 : 3)];
+    const float* __restrict__ u3, float* __restrict__ partial) {
+  __shared__ float su[kUrows * NumU<K>::value];
   const int64_t p_total = (int64_t)p0 + p1;
   const int64_t r0 = (int64_t)blockIdx.y * rows_per_seg;
   const int64_t r1 = min64(n, r0 + rows_per_seg);
   float* part = partial + (int64_t)blockIdx.y * K * p_total;
   if ((int)blockIdx.x < tiles0)
-    col_tile<T0, K>(X0, ld0, p0, blockIdx.x, r0, r1, u0, u1, u2, su, part,
-                    p_total, 0);
+    col_tile<T0, K>(X0, ld0, p0, blockIdx.x, r0, r1, u0, u1, u2, u3, su,
+                    part, p_total, 0);
   else
     col_tile<T1, K>(X1, ld1, p1, blockIdx.x - tiles0, r0, r1, u0, u1, u2,
-                    su, part, p_total, p0);
+                    u3, su, part, p_total, p0);
 }
 
 // Second pass: out[j] = sum over segments s, in order, of partial[s, j]
@@ -201,14 +212,14 @@ template <typename T0, typename T1, int K>
 void launch_colpass(const void* X0, int64_t ld0, int p0, const void* X1,
                     int64_t ld1, int p1, int64_t n, int n_seg,
                     int64_t rows_per_seg, const float* u0, const float* u1,
-                    const float* u2, float* partial, float* out,
-                    cudaStream_t stream) {
+                    const float* u2, const float* u3, float* partial,
+                    float* out, cudaStream_t stream) {
   const int tiles0 = tiles_of(p0, vec_of<T0>());
   const int tiles1 = p1 > 0 ? tiles_of(p1, vec_of<T1>()) : 0;
   dim3 grid(tiles0 + tiles1, n_seg);
   colpass_kernel<T0, T1, K><<<grid, kThreads, 0, stream>>>(
       static_cast<const T0*>(X0), ld0, p0, tiles0,
-      static_cast<const T1*>(X1), ld1, p1, n, rows_per_seg, u0, u1, u2,
+      static_cast<const T1*>(X1), ld1, p1, n, rows_per_seg, u0, u1, u2, u3,
       partial);
   const int64_t width = (int64_t)K * ((int64_t)p0 + p1);
   const int rgrid = (int)min64((width + kThreads - 1) / kThreads, 4096);

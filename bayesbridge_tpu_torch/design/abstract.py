@@ -72,10 +72,15 @@ class AbstractDesignMatrix(abc.ABC):
         this design; None = the caller composes dot and Tdot."""
         return None
 
+    def cg_blockorder_ctx(self):
+        """(perm, unperm, offset_bo) where the CG solve runs in block
+        order (hybrid composed path), else None."""
+        return None
+
     def has_presolve_reductions(self):
-        """True where a fused sweep serves `presolve_reductions`; else
-        the caller composes the pre-solve from `Tdot` and the Fisher
-        diagonal."""
+        """True where one read of the design serves
+        `presolve_reductions`; else the caller composes the pre-solve
+        from `Tdot` and the Fisher diagonal."""
         return self.fused_ne_mode('presolve') is not None
 
     # -- bookkeeping ---------------------------------------------------- #

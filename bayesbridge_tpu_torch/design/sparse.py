@@ -6,12 +6,16 @@ Port of ``bayesbridge_tpu/design/sparse.py`` (unsharded, float32).
     Dense blocks split by column representability: the exactly
     representable columns form one narrow block (int8 when every value
     is an integer in [-127, 127], else bf16 over the bf16-exact set,
-    whichever moves fewer bytes), the rest stay float32. The CG operator,
-    the pre-solve reductions and the GLM score each read the stored
-    blocks through one hand-written sweep (:mod:`..kernels.ne_sweep`,
-    :mod:`..kernels.tdots_sweep`); `dot` and `Tdot` are plain PyTorch
-    over row chunks. Blocks are stored with their column count padded to
-    a multiple of 16 zero columns (``kernels.layout``).
+    whichever moves fewer bytes), the rest stay float32. `dot` is the row
+    pass of :mod:`..kernels.ne_sweep` (``ne_rows``), `Tdot` its column
+    pass (``colpass``), the pre-solve reductions and the Fisher diagonal
+    one :mod:`..kernels.tdots_sweep` read. The `fused` policy
+    (:mod:`.fusedne`; default 'auto' = composed, as in the JAX package)
+    decides per call site whether the CG operator, the pre-solve and the
+    GLM score run composed (block-ordered CG, the warm start folded into
+    the pre-solve, the linear predictor from the CG loop) or as one fused
+    sweep each. Blocks are stored with their column count padded to a
+    multiple of 16 zero columns (``kernels.layout``).
 ``bitpack``
     Beyond the hybrid budget, for mostly 0/1 designs: the binary columns
     as a dual bitmap, one bit per element in each orientation
@@ -27,19 +31,20 @@ Port of ``bayesbridge_tpu/design/sparse.py`` (unsharded, float32).
 The fused sweeps serve the hybrid backend only; the other two run the
 composed path (`quad_matvec` = `dot` then `Tdot`, the pre-solve as
 separate `Tdot`s and the Fisher diagonal), whatever `fused` says, as in
-the JAX package. ``backend='auto'`` applies the JAX package's float32
-rule and budgets, so the same design picks the same backend in both.
+the JAX package; so does a hybrid design without an exact column.
+``backend='auto'`` applies the JAX package's float32 rule and budgets, so
+the same design picks the same backend in both.
 
 Shared semantics with the JAX package (and the reference): centering is
 a rank-1 ``column_offset`` correction, never materialized; the
 intercept column is implicit.
 
 Not ported (each raises NotImplementedError): the ell backend, the int4
-tier (no int4 MMA on Hopper), a float64 working dtype, the composed
-'auto' / '0' policies on the hybrid backend, and the dense Fisher
-information (Cholesky path).
+tier (no int4 MMA on Hopper), a float64 working dtype and the dense
+Fisher information (Cholesky path).
 """
 
+import copy
 import os
 import time
 
@@ -51,9 +56,10 @@ from . import bitlut as bitlut_mod
 from . import winell as winell_mod
 from .abstract import AbstractDesignMatrix
 from .ell import csr_to_ell
+from .fusedne import POLICIES, dispatch_mode
 from ..kernels import layout
 from ..kernels.bitlut import bitlut
-from ..kernels.ne_sweep import ne_sweep
+from ..kernels.ne_sweep import colpass, ne_rows, ne_sweep
 from ..kernels.tdots_sweep import tdots_sweep
 from ..kernels.winell import winell
 from ..utils.dtypes import check_float32, resolve_device
@@ -68,10 +74,6 @@ _BITPACK_MIN_BINARY_FRAC = 0.5
 # Stored entries handled per vectorized densify step.
 _DENSIFY_CHUNK = 2 ** 25
 
-_COMPOSED = ("the composed path of the hybrid backend (fused='auto' or "
-             "'0': multi-RHS pre-solve, block-ordered CG) is not ported "
-             "yet; see ROADMAP.md Queue 1 item 11")
-_POLICIES = (None, 'auto', 'full', '1', '0')
 # The arrays each packed backend stores, by the JAX design's names
 # (``convert.packed_design_from_numpy`` takes them so).
 PACKED_ARRAYS = {
@@ -80,14 +82,6 @@ PACKED_ARRAYS = {
     'winell': ('widx_dot', 'wval_dot', 'widx_tdot', 'wval_tdot', 'sd_idx',
                'sd_val', 'st_idx', 'st_val'),
 }
-
-
-def check_fused_policy(fused):
-    """The hybrid backend's fused policy: None, 'full' and '1' all mean
-    the fused sweeps (kernels on CUDA tensors, plain versions on CPU
-    tensors); 'auto' and '0' raise."""
-    if fused in ('auto', '0'):
-        raise NotImplementedError(f"fused={fused!r}: {_COMPOSED}")
 
 
 def _exact_column_mask(X_csr, bad_entry):
@@ -181,11 +175,14 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         # Host seconds of the build's main steps, for the record.
         self.build_seconds = {}
         check_float32(dtype)
-        if fused not in _POLICIES:
+        if fused not in POLICIES:
             raise ValueError(f"unknown fused policy {fused!r}")
+        # The hybrid backend's fused-sweep policy (.fusedne); the packed
+        # backends always compose (sparse.py:1049).
+        self.fused_policy = fused
         if _parts is not None:  # convert.*_from_numpy
             parts = dict(_parts)
-            self._set_backend(parts.pop('backend'), fused)
+            self._set_backend(parts.pop('backend'))
             getattr(self, '_set_' + self.backend)(**parts)
             return
         if not sps.issparse(X):
@@ -208,7 +205,7 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         if backend == 'auto':
             backend = choose_backend(X, masks['int8'], masks['bf16'],
                                      masks['binary'])
-        self._set_backend(backend, fused)
+        self._set_backend(backend)
         if backend == 'hybrid':
             self._build_hybrid(X, data, offsets, masks['int8'],
                                masks['bf16'])
@@ -217,7 +214,18 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         else:
             self._build_winell(X, offsets)
 
-    def _set_backend(self, backend, fused):
+    def with_policy(self, fused):
+        """This design's stored arrays (shared, not copied) under another
+        fused policy, with its matvec counters at zero: one densified
+        design serves both the fused and the composed path."""
+        if fused not in POLICIES:
+            raise ValueError(f"unknown fused policy {fused!r}")
+        other = copy.copy(self)
+        other.fused_policy = fused
+        other.dot_count = other.Tdot_count = 0
+        return other
+
+    def _set_backend(self, backend):
         if backend == 'ell':
             raise NotImplementedError(
                 "backend='ell': the dual-ELL backend is not ported "
@@ -225,10 +233,6 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         if backend not in ('hybrid', 'bitpack', 'winell'):
             raise ValueError(f"Unknown backend '{backend}'")
         self.backend = backend
-        # The policy governs the hybrid sweeps only; the packed backends
-        # always compose (sparse.py:1049).
-        if backend == 'hybrid':
-            check_fused_policy(fused)
 
     # -- construction ---------------------------------------------------- #
 
@@ -347,10 +351,6 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         self.float_cols = self._dev(float_cols, torch.int64)
         self.n_exact = int(self.exact_cols.numel())
         self.n_float = int(self.float_cols.numel())
-        if self.fused_ne_mode() is None:
-            raise NotImplementedError(
-                "this design has no int8/bf16 exact column, so the JAX "
-                "package runs it on " + _COMPOSED)
 
     def _set_bitpack(self, bits_col, bits_row, X_float, bin_cols,
                      float_cols, column_offset, shape_main, nnz, meta):
@@ -424,14 +424,24 @@ class SparseDesignMatrix(AbstractDesignMatrix):
                    for X in self._stored_tensors())
 
     def fused_ne_mode(self, kind='quad'):
-        """True where the fused sweeps serve this design (unsharded f32
-        hybrid with an int8/bf16/f32 exact block; sparse.py:1039-1070
-        without the sharding cases), else None: the composed path."""
-        if (self.backend != 'hybrid' or self.dtype != torch.float32
+        """True where the fused sweep serves the `kind` call site ('quad'
+        | 'presolve' | 'link') of this design: the policy fuses the kind
+        (.fusedne.dispatch_mode) and the design is an f32 hybrid with an
+        int8/bf16/f32 exact block (sparse.py:1039-1070 without the
+        sharding cases); else None, the composed path."""
+        if (dispatch_mode(kind, self.fused_policy) is None
+                or self.backend != 'hybrid' or self.dtype != torch.float32
                 or self.X_exact.dtype not in layout.DTYPE_CODE
                 or self.n_exact == 0):
             return None
         return True
+
+    def has_presolve_reductions(self):
+        """The hybrid backend serves the batched pre-solve (one
+        `tdots_sweep` read, with the warm-start column on the composed
+        path) wherever it has an exact column (sparse.py:1319-1323); the
+        other backends compose per reduction."""
+        return self.backend == 'hybrid' and self.n_exact > 0
 
     # -- helpers --------------------------------------------------------- #
 
@@ -444,30 +454,33 @@ class SparseDesignMatrix(AbstractDesignMatrix):
             return v[0], v[1:]
         return torch.zeros((), dtype=v.dtype, device=v.device), v
 
+    def _block_cols(self):
+        """Original column indices of each non-empty block, in block
+        order: exact (or binary) columns, then float columns."""
+        if self.backend == 'hybrid':
+            first = [self.exact_cols] if self.n_exact else []
+        else:
+            first = [self.bin_cols]
+        return first + ([self.float_cols] if self.n_float else [])
+
     def _blocks(self, v_main):
         """[(X_b, v_b)] of the non-empty hybrid blocks, exact first."""
-        blocks = [(self.X_exact, v_main[self.exact_cols])]
-        if self.n_float:
-            blocks.append((self.X_float, v_main[self.float_cols]))
-        return blocks
+        return [(X, v_main[cols]) for (X, _), cols
+                in zip(self._stored(), self._block_cols())]
 
     def _stored(self):
         """[(X_b, p_b)] of the non-empty hybrid blocks, exact first."""
-        out = [(self.X_exact, self.n_exact)]
+        out = [(self.X_exact, self.n_exact)] if self.n_exact else []
         if self.n_float:
             out.append((self.X_float, self.n_float))
         return out
 
     def _assemble(self, parts):
-        """Scatter per-block column results back to original order
-        (blocks: exact or binary columns, then float columns)."""
+        """Scatter per-block column results back to original order."""
         res = torch.zeros(self._shape_main[1], dtype=torch.float32,
                           device=self.device)
-        first = self.exact_cols if self.backend == 'hybrid' \
-            else self.bin_cols
-        res[first] = parts[0]
-        if self.n_float:
-            res[self.float_cols] = parts[1]
+        for cols, part in zip(self._block_cols(), parts):
+            res[cols] = part
         return res
 
     def _with_intercept(self, s, main):
@@ -512,14 +525,17 @@ class SparseDesignMatrix(AbstractDesignMatrix):
 
     # -- core products --------------------------------------------------- #
 
+    def _hybrid_Xs(self):
+        stored = self._stored()
+        return [X for X, _ in stored], [p for _, p in stored]
+
     def main_dot(self, v_main):
-        """(X_main - 1 column_offset') @ v_main."""
+        """(X_main - 1 column_offset') @ v_main. Hybrid: the row pass
+        (``ne_rows``), the centering folded into its row offset."""
         if self.backend == 'hybrid':
-            result = None
-            for X, vb in self._blocks(v_main):
-                part = layout.matvec(X, vb.shape[0], vb)
-                result = part if result is None else result + part
-        elif self.backend == 'bitpack':
+            return ne_rows(self._blocks(v_main),
+                           -(self.column_offset @ v_main))
+        if self.backend == 'bitpack':
             result = self._bitpack_dot_bin(v_main[self.bin_cols])
             if self.n_float:
                 result = result + layout.matvec(
@@ -529,8 +545,13 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         return result - self.column_offset @ v_main
 
     def main_Tdot(self, u):
-        """(X_main - 1 column_offset')' @ u."""
-        return self._weighted_col_moments(u, 1) - u.sum() * self.column_offset
+        """(X_main - 1 column_offset')' @ u. Hybrid: the column pass
+        (``colpass``)."""
+        if self.backend == 'hybrid':
+            raw = self._assemble(colpass(*self._hybrid_Xs(), u))
+        else:
+            raw = self._weighted_col_moments(u, 1)
+        return raw - u.sum() * self.column_offset
 
     def dot(self, v):
         v0, v_main = self._split(self._as_tensor(v))
@@ -544,8 +565,8 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         return result
 
     def quad_matvec(self, v, weight, return_t=False):
-        """X' (weight * (X v)): the CG operator's design part. On the
-        hybrid backend one fused sweep of the stored blocks
+        """X' (weight * (X v)): the CG operator's design part. Where the
+        policy fuses 'quad', one ``ne_sweep`` of the hybrid blocks
         (sparse.py:1108-1174; the intercept and centering fold into the
         sweep's row offset c = v0 - offset . v_main and into u = weight *
         (X v)); elsewhere, or with `return_t`, `dot` then `Tdot`."""
@@ -562,11 +583,71 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         self.Tdot_count += 1
         return self._with_intercept(sum_u, result)
 
+    # -- block-ordered CG data path (sparse.py:1176-1256) ----------------- #
+
+    def cg_blockorder_ctx(self):
+        """(perm, unperm, offset_bo) for a block-ordered CG solve, or None
+        where inapplicable (not hybrid, or a fused CG operator).
+
+        The hybrid backend stores its columns split by dtype, so every
+        composed operator application would gather its operand into block
+        order and scatter the result back. CG is permutation-equivariant,
+        so the solver instead conjugates the whole solve by the block
+        permutation: operands reorder once at entry, and
+        `quad_matvec_blockorder` splits them by slices. `perm` maps block
+        order to original positions, `unperm` inverts it, `offset_bo` is
+        the centering offset in block order."""
+        if self.backend != 'hybrid' \
+                or self.fused_ne_mode('quad') is not None:
+            return None
+        return self._blockorder_perm()
+
+    def _blockorder_perm(self):
+        perm_main = torch.cat((self.exact_cols, self.float_cols))
+        offset_bo = self.column_offset[perm_main]
+        if self.intercept_added:
+            perm = torch.cat((torch.zeros(1, dtype=perm_main.dtype,
+                                          device=self.device),
+                              perm_main + 1))
+        else:
+            perm = perm_main
+        unperm = torch.empty_like(perm)
+        unperm[perm] = torch.arange(perm.shape[0], dtype=perm.dtype,
+                                    device=self.device)
+        return perm, unperm, offset_bo
+
+    def quad_matvec_blockorder(self, v_bo, weight, offset_bo,
+                               return_t=False):
+        """`quad_matvec` on a block-ordered operand: out_bo with
+        out_bo[unperm] == quad_matvec(v_bo[unperm], weight), as the row
+        pass and then the column pass over slices of the operand. With
+        `return_t` also the row pass's ``t = X v`` (observation order),
+        from which the CG loop accumulates the draw's linear
+        predictor."""
+        v_bo = self._as_tensor(v_bo)
+        weight = self._as_tensor(weight)
+        v0, v_main_bo = self._split(v_bo)
+        pe = self.n_exact
+        parts = (v_main_bo[:pe], v_main_bo[pe:])
+        blocks = [(X, vb) for (X, _), vb
+                  in zip(self._stored(), parts[0 if pe else 1:])]
+        t = ne_rows(blocks, v0 - offset_bo @ v_main_bo)
+        u = weight * t
+        sum_u = u.sum()
+        main = torch.cat(colpass([X for X, _ in blocks],
+                                 [vb.shape[0] for _, vb in blocks], u))
+        main = main - sum_u * offset_bo
+        self.dot_count += 1
+        self.Tdot_count += 1
+        out = self._with_intercept(sum_u, main)
+        return (out, t) if return_t else out
+
     def fused_link_grad(self, v, a, b, mid):
         """(loglik, gradient) of the GLM in one sweep of the hybrid
         blocks: the `mid` link score u of t = X v, its loglik rows summed,
-        and X' u (sparse.py:1258-1317). None on the packed backends: the
-        model composes dot and Tdot."""
+        and X' u (sparse.py:1258-1317). None where the policy composes
+        'link' and on the packed backends: the model composes dot and
+        Tdot."""
         if self.fused_ne_mode('link') is None:
             return None
         v = self._as_tensor(v)
@@ -582,16 +663,21 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         return logp, self._with_intercept(sum_u, grad)
 
     def presolve_reductions(self, u1, u2, u3, u4=None):
-        """(Tdot(u1), Tdot(u2), fisher_diag(u3)[, Tdot(u4)]): one fused
-        sweep of the hybrid blocks for the first three
-        (sparse.py:1390-1464); `u4` composes as a separate Tdot, the
-        sweep's reduction set being fixed at four. Hybrid only: the
-        packed backends' callers compose the pre-solve
-        (`has_presolve_reductions` is False)."""
+        """(Tdot(u1), Tdot(u2), fisher_diag(u3)[, Tdot(u4)]) from one
+        ``tdots_sweep`` read of the hybrid blocks (sparse.py:1390-1464).
+        Composed 'presolve' (the JAX package's multi-RHS pre-solve,
+        sparse.py:1325-1388): `u4` rides the same read as a fifth
+        reduction. Fused: `u4` composes as a separate Tdot, the fused
+        sweep's reduction set being fixed at four. The squared moment is
+        computed from the loaded values, for 0/1 blocks too (where it
+        equals X'u3)."""
         u1, u2, u3 = (self._as_tensor(u) for u in (u1, u2, u3))
-        stored = self._stored()
-        outs = tdots_sweep([X for X, _ in stored], [p for _, p in stored],
-                           u1, u2, u3)
+        fused = self.fused_ne_mode('presolve') is not None
+        fold = u4 is not None and not fused
+        if u4 is not None:
+            u4 = self._as_tensor(u4)
+        outs = tdots_sweep(*self._hybrid_Xs(), u1, u2, u3,
+                           u4 if fold else None)
         sums = [u.sum() for u in (u1, u2, u3)]
 
         def assemble(idx):
@@ -610,36 +696,45 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         self.Tdot_count += 2
         if u4 is None:
             return v, pert, diag
-        return v, pert, diag, self.Tdot(u4)
+        if not fold:
+            return v, pert, diag, self.Tdot(u4)
+        sum4 = u4.sum()
+        tdot4 = self._with_intercept(
+            sum4, assemble(4) - sum4 * self.column_offset)
+        self.Tdot_count += 1
+        return v, pert, diag, tdot4
 
     # -- Fisher information ---------------------------------------------- #
 
     def _weighted_col_moments(self, weight, power):
-        """sum_i weight_i * X_ij^power per main column j, uncentered
-        (sparse.py:1490-1508). 0/1 bits are idempotent under powers, so
-        the bitmaps serve both moments as X' w; dense blocks square in
-        row chunks, never as a whole-block transient."""
+        """sum_i weight_i * X_ij^power per main column j, uncentered, on
+        the packed backends (sparse.py:1490-1508). 0/1 bits are
+        idempotent under powers, so the bitmaps serve both moments as
+        X' w; the float side block squares in row chunks, never as a
+        whole-block transient."""
         if self.backend == 'winell':
             return self._winell_tdot_main(weight, power=power)
-        square = power == 2
-        if self.backend == 'bitpack':
-            parts = [self._bitpack_tdot_bin(weight)]
-        else:
-            parts = [layout.rmatvec(self.X_exact, self.n_exact, weight,
-                                    square=square)]
+        parts = [self._bitpack_tdot_bin(weight)]
         if self.n_float:
             parts.append(layout.rmatvec(self.X_float, self.n_float, weight,
-                                        square=square))
+                                        square=power == 2))
         return self._assemble(parts)
 
     def compute_fisher_diag(self, weight):
         """diag(X' W X) with centering/intercept corrections
-        (sparse.py:1539-1550)."""
+        (sparse.py:1539-1550). Hybrid: both column moments from one
+        ``tdots_sweep`` read."""
         weight = self._as_tensor(weight)
-        diag = self._weighted_col_moments(weight, 2)
+        if self.backend == 'hybrid':
+            outs = tdots_sweep(*self._hybrid_Xs(), weight, weight, weight)
+            diag = self._assemble([blk[3] for blk in outs])
+            col_sum = self._assemble([blk[2] for blk in outs])
+        else:
+            diag = self._weighted_col_moments(weight, 2)
+            col_sum = self._weighted_col_moments(weight, 1) \
+                if self.centered else None
         if self.centered:
-            weighted_col_sum = self._weighted_col_moments(weight, 1)
-            diag = diag - 2.0 * self.column_offset * weighted_col_sum
+            diag = diag - 2.0 * self.column_offset * col_sum
             diag = diag + weight.sum() * self.column_offset ** 2
         return self._with_intercept(weight.sum(), diag)
 
@@ -651,8 +746,7 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         n, p = self._shape_main
         X = torch.zeros((n, p), dtype=torch.float32)
         if self.backend == 'hybrid':
-            for (blk, k), cols in zip(self._stored(),
-                                      (self.exact_cols, self.float_cols)):
+            for (blk, k), cols in zip(self._stored(), self._block_cols()):
                 X[:, cols.cpu()] = blk[:, :k].float().cpu()
             return X
         if self.backend == 'bitpack':

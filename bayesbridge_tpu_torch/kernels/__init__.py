@@ -1,7 +1,8 @@
 """Hand-written Hopper kernels and their plain PyTorch versions.
 
 Counterparts of the Pallas kernels of ``bayesbridge_tpu/design/``
-(``fusedne.py``, ``bitlut.py``, ``winell.py``). One dispatch point
+(``fusedne.py``, ``bitlut.py``, ``winell.py``) and of the sweep A/B
+harness ``baselines/dev_ne_variants.py``. One dispatch point
 per kernel: each wrapper launches its CUDA kernel for CUDA tensors and
 runs its plain version (beside it in the same module) for CPU tensors;
 no call site branches on the device. ``REGISTRY`` names each kernel's
@@ -9,7 +10,9 @@ source and the TPU kernel it replaces, for the chip smoke's report.
 """
 
 from . import bitlut as _bl
+from . import ne_onepass as _op
 from . import ne_sweep as _ne
+from . import stream_probe as _sp
 from . import tdots_sweep as _td
 from . import winell as _we
 from .build import load_library
@@ -23,23 +26,31 @@ REGISTRY = {
                    replaces='bayesbridge_tpu/design/bitlut.py:83'),
     'winell': dict(source='bayesbridge_tpu_torch/csrc/winell.cu',
                    replaces='bayesbridge_tpu/design/winell.py:149'),
+    'ne_onepass': dict(source='bayesbridge_tpu_torch/csrc/ne_onepass.cu',
+                       replaces='baselines/dev_ne_variants.py:302'),
+    'stream_probe': dict(source='bayesbridge_tpu_torch/csrc/stream_probe.cu',
+                         replaces='baselines/dev_ne_variants.py:393'),
 }
 
 
 def launch_counts():
-    """{'ne_sweep[ne]': k, 'ne_sweep[logit]': ..., 'tdots_sweep': ...,
-    'bitlut[dot]': ..., 'bitlut[tdot]': ..., 'winell[dot]': ...,
-    'winell[tdot]': ...}."""
-    counts = {f'ne_sweep[{mid}]': k for mid, k in _ne.launches.items()}
+    """{'ne_sweep[ne]': k, ..., 'ne_sweep[rows]': ..., 'ne_sweep[cols]':
+    ..., 'tdots_sweep': ..., 'tdots_sweep[u4]': ..., 'bitlut[dot]': ...,
+    'winell[tdot]': ..., 'ne_onepass': ..., 'stream_probe[i32]': ...}."""
+    counts = {f'ne_sweep[{key}]': k for key, k in _ne.launches.items()}
     counts['tdots_sweep'] = _td.launches['tdots']
-    for name, mod in (('bitlut', _bl), ('winell', _we)):
+    counts['tdots_sweep[u4]'] = _td.launches['u4']
+    for name, mod in (('bitlut', _bl), ('winell', _we),
+                      ('stream_probe', _sp)):
         counts.update({f'{name}[{tag}]': k
                        for tag, k in mod.launches.items()})
+    counts['ne_onepass'] = _op.launches['onepass']
     return counts
 
 
 def reset_launch_counts():
-    for counter in (_ne.launches, _td.launches, _bl.launches, _we.launches):
+    for counter in (_ne.launches, _td.launches, _bl.launches, _we.launches,
+                    _op.launches, _sp.launches):
         for key in counter:
             counter[key] = 0
 

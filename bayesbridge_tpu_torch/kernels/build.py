@@ -22,7 +22,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_ROOT = _PKG / '_build'
-SOURCES = ('ne_sweep.cu', 'tdots_sweep.cu', 'bitlut.cu', 'winell.cu')
+SOURCES = ('ne_sweep.cu', 'tdots_sweep.cu', 'bitlut.cu', 'winell.cu',
+           'ne_onepass.cu', 'stream_probe.cu')
 HEADERS = ('sweep_common.cuh',)
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC')
@@ -33,11 +34,18 @@ _L = ctypes.c_longlong
 _SIGNATURES = {
     'bb_ne_sweep': [_I, _P, _L, _I, _P, _I, _P, _L, _I, _P, _L, _P, _I,
                     _P, _P, _I, _I, _P, _I, _L, _P, _P, _P, _P, _P],
-    'bb_tdots_sweep': [_I, _P, _L, _I, _I, _P, _L, _I, _L, _P, _P, _P,
+    'bb_ne_rows': [_I, _P, _L, _I, _P, _I, _P, _L, _I, _P, _L, _P, _I, _P,
+                   _P],
+    'bb_colpass': [_I, _P, _L, _I, _I, _P, _L, _I, _L, _P, _I, _L, _P, _P,
+                   _P],
+    'bb_tdots_sweep': [_I, _P, _L, _I, _I, _P, _L, _I, _L, _P, _P, _P, _P,
                        _I, _L, _P, _P, _P],
     'bb_bitlut': [_P, _L, _L, _P, _I, _I, _I, _P, _P, _P],
     'bb_winell': [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                   _P],
+    'bb_ne_onepass': [_P, _L, _I, _P, _L, _I, _P, _P, _P, _P, _L, _I, _I,
+                      _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    'bb_stream_probe': [_P, _L, _L, _I, _P, _P, _P, _P, _I, _P],
     'bb_rows_per_block': [],
 }
 
@@ -134,5 +142,7 @@ def load_library():
         fn.restype = ctypes.c_int
     lib.bb_error_string.argtypes = [ctypes.c_int]
     lib.bb_error_string.restype = ctypes.c_char_p
+    lib.bb_ne_onepass_smem.argtypes = [_I, _I, _I, _I]
+    lib.bb_ne_onepass_smem.restype = ctypes.c_longlong
     _LOADED = KernelLibrary(lib, so_path, build_seconds, log)
     return _LOADED

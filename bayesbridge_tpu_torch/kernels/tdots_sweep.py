@@ -5,12 +5,15 @@ Counterpart of ``bayesbridge_tpu/design/fusedne.py`` ``fused_tdots``
 blocks with logical widths ``ps`` it returns, per block, the four
 ``(p_b,)`` float32 vectors
 
-    X_b' u1,  X_b' u2,  X_b' u3,  (X_b . X_b)' u3
+    X_b' u1,  X_b' u2,  X_b' u3,  (X_b . X_b)' u3  [,  X_b' u4]
 
-from one read of the blocks. On a CUDA tensor :func:`tdots_sweep`
-launches the hand-written kernel of ``csrc/tdots_sweep.cu`` (or raises);
-on a CPU tensor it runs :func:`tdots_sweep_plain`. ``launches['tdots']``
-counts the kernel launches.
+from one read of the blocks. The optional fifth reduction is the
+composed path's pre-solve (``sparse.py:1325-1388``, the JAX package's
+multi-RHS dot with the warm start's column). On a CUDA tensor
+:func:`tdots_sweep` launches the hand-written kernel of
+``csrc/tdots_sweep.cu`` (or raises); on a CPU tensor it runs
+:func:`tdots_sweep_plain`. ``launches['tdots']`` and ``launches['u4']``
+count the kernel's launches with four and with five reductions.
 """
 
 import torch
@@ -18,28 +21,32 @@ import torch
 from . import layout
 from .build import load_library
 
-launches = {'tdots': 0}
+launches = {'tdots': 0, 'u4': 0}
 
 
-def tdots_sweep_plain(Xs, ps, u1, u2, u3):
+def tdots_sweep_plain(Xs, ps, u1, u2, u3, u4=None):
     """The reductions in plain PyTorch (float32, row-chunked)."""
-    U = torch.stack((u1, u2, u3), dim=1)
+    U = torch.stack((u1, u2, u3) + ((u4,) if u4 is not None else ()),
+                    dim=1)
     outs = []
     for X, p in zip(Xs, ps):
         R = layout.rmatvec(X, p, U)
         sq = layout.rmatvec(X, p, u3, square=True)
-        outs.append((R[:, 0], R[:, 1], R[:, 2], sq))
+        outs.append((R[:, 0], R[:, 1], R[:, 2], sq)
+                    + ((R[:, 3],) if u4 is not None else ()))
     return outs
 
 
-def tdots_sweep(Xs, ps, u1, u2, u3):
-    """Per block (X'u1, X'u2, X'u3, (X.X)'u3); see the module docstring.
+def tdots_sweep(Xs, ps, u1, u2, u3, u4=None):
+    """Per block (X'u1, X'u2, X'u3, (X.X)'u3[, X'u4]); see the module
+    docstring.
 
     Parameters
     ----------
     Xs : one or two (n, ld_b) int8/bf16/f32 stored blocks
     ps : their logical widths p_b <= ld_b
     u1, u2, u3 : (n,) float32
+    u4 : (n,) float32 or None
     """
     if not 1 <= len(Xs) == len(ps) <= 2:
         raise ValueError("one or two blocks, each with its width")
@@ -49,16 +56,17 @@ def tdots_sweep(Xs, ps, u1, u2, u3):
         if X.device != device or X.shape[0] != n:
             raise ValueError("blocks must share the device and row count")
         layout.check_block(X, p, f"X{i}")
-    for name, u in (('u1', u1), ('u2', u2), ('u3', u3)):
-        layout.check_vector(u, n, name, device)
+    us = (u1, u2, u3) + ((u4,) if u4 is not None else ())
+    for i, u in enumerate(us):
+        layout.check_vector(u, n, f'u{i + 1}', device)
     if device.type == 'cpu':
-        return tdots_sweep_plain(Xs, ps, u1, u2, u3)
+        return tdots_sweep_plain(Xs, ps, u1, u2, u3, u4)
     if device.type != 'cuda':
         raise ValueError(f"no tdots_sweep for device {device}")
-    return _tdots_sweep_cuda(Xs, ps, u1, u2, u3)
+    return _tdots_sweep_cuda(Xs, ps, u1, u2, u3, u4)
 
 
-def _tdots_sweep_cuda(Xs, ps, u1, u2, u3):
+def _tdots_sweep_cuda(Xs, ps, u1, u2, u3, u4):
     kl = load_library()
     device, n = Xs[0].device, Xs[0].shape[0]
     args, tiles = [], 0
@@ -70,19 +78,21 @@ def _tdots_sweep_cuda(Xs, ps, u1, u2, u3):
         args += [0, None, 0, 0]
     n_seg, rows_per_seg = layout.segments(n, tiles, device)
     p_total = sum(ps)
-    out = torch.empty((4, p_total), dtype=torch.float32, device=device)
-    partial = torch.empty(n_seg * 4 * p_total, dtype=torch.float32,
+    k_red = 4 if u4 is None else 5
+    out = torch.empty((k_red, p_total), dtype=torch.float32, device=device)
+    partial = torch.empty(n_seg * k_red * p_total, dtype=torch.float32,
                           device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         rc = kl.lib.bb_tdots_sweep(
-            *args, n, u1.data_ptr(), u2.data_ptr(), u3.data_ptr(), n_seg,
-            rows_per_seg, partial.data_ptr(), out.data_ptr(), stream)
+            *args, n, u1.data_ptr(), u2.data_ptr(), u3.data_ptr(),
+            None if u4 is None else u4.data_ptr(), n_seg, rows_per_seg,
+            partial.data_ptr(), out.data_ptr(), stream)
     kl.check(rc, 'tdots_sweep')
-    launches['tdots'] += 1
+    launches['tdots' if u4 is None else 'u4'] += 1
     outs, off = [], 0
     for p in ps:
         blk = out[:, off:off + p]
-        outs.append(tuple(blk[k] for k in range(4)))
+        outs.append(tuple(blk[k] for k in range(k_red)))
         off += p
     return outs

@@ -23,10 +23,12 @@ def RegressionModel(outcome, X, family='logit', add_intercept=None,
     center_predictor : bool
         Column-center X implicitly (never materialized).
     dtype : float32 (the only working dtype of the port); None = float32
-    fused : None | 'full' | '1' — the hybrid backend's fused sweeps (the
-        hand-written kernels on CUDA, their plain versions on the CPU);
-        'auto' / '0' (its composed path) raise NotImplementedError. The
-        bitpack and winell backends always compose and accept any value.
+    fused : None | 'auto' | '0' | '1' | 'full' — the hybrid backend's
+        fused-sweep policy (``design.fusedne``): '0' composes every call
+        site (block-ordered CG over the row and column passes, the warm
+        start in the multi-RHS pre-solve), '1' / 'full' run the fused
+        sweeps, 'auto' picks per call site; None reads ``BB_FUSED_NE``,
+        default 'auto'. The bitpack and winell backends always compose.
     backend : None | 'auto' | 'hybrid' | 'bitpack' | 'winell'; 'auto'
         (the default) picks as the JAX package does, 'ell' raises
     device : 'cuda' (default) or 'cpu'; 'cuda' without a GPU raises.

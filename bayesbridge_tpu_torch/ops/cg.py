@@ -8,18 +8,20 @@ diag(prior_prec_sqrt)^2, by CG-solving Phi beta = b with
     b = z + X'(sqrt(obs_prec) eps_1) + prior_prec_sqrt * eps_2,
 
 preconditioned by `precond_scale`. Each iteration applies the operator
-through ``design.quad_matvec``: one fused sweep of the stored blocks on
-the hybrid backend, `dot` then `Tdot` on the composed path, where the
-loop can also accumulate the draw's linear predictor from the forward
-intermediates (`return_lin_pred`).
+through ``design.quad_matvec``: one fused sweep of the stored blocks
+where the hybrid design's policy fuses the CG operator, `dot` then
+`Tdot` on the composed path, where the loop can also accumulate the
+draw's linear predictor from the forward intermediates
+(`return_lin_pred`). On the hybrid composed path the whole solve is
+block-ordered (``design.cg_blockorder_ctx``), and a caller-supplied warm
+start (`warm_tdot` / `lin_pred0`) saves the initial residual's operator
+application.
 
 The JAX loop is a ``lax.while_loop`` with no host round-trips. Here the
 loop runs eagerly and reads the stopping test ``rs > atol^2`` on the
 host once per iteration; the rule, including the float32 floor on the
 tolerance, is the reference's, so ``n_cg_iter`` matches it on the same
-inputs. The block-ordered solve and the caller-supplied warm start
-(`warm_tdot` / `lin_pred0`) of the JAX package serve its hybrid composed
-path and come with it (ROADMAP Queue 1 item 11).
+inputs.
 """
 
 import torch
@@ -35,7 +37,8 @@ def choose_diag_preconditioner(design, obs_prec, prior_prec_sqrt):
 
 def sample_gaussian_cg(gen, design, obs_prec, prior_prec_sqrt, z,
                        coef_cg_init, precond_scale, maxiter=500, atol=1e-6,
-                       perturbation=None, return_lin_pred=False):
+                       perturbation=None, warm_tdot=None, lin_pred0=None,
+                       return_lin_pred=False):
     """One CG-sampled draw. Returns (coef, info), or (coef, lin_pred,
     info) with `return_lin_pred`; info = {'n_cg_iter': int,
     'cg_converged': bool}.
@@ -43,6 +46,14 @@ def sample_gaussian_cg(gen, design, obs_prec, prior_prec_sqrt, z,
     `perturbation` (optional): the precomputed b-vector noise
     X'(sqrt(obs_prec) eps_1) + prior_prec_sqrt * eps_2; when omitted it
     is drawn here from `gen` (eps_1 first, then eps_2).
+
+    `warm_tdot` (optional): ``X'(obs_prec * (X coef_cg_init))`` in the
+    original column order. The design part of the operator at the warm
+    start x0 = coef_cg_init / precond_scale depends on coef_cg_init alone,
+    so the caller can ride it on the pre-solve read
+    (``presolve_reductions`` u4); the initial residual then needs no
+    operator application. With `return_lin_pred` supply `lin_pred0` =
+    X coef_cg_init beside it (ops/cg.py:63-71, 149-163).
 
     `return_lin_pred`: also return the draw's linear predictor X coef,
     accumulated from the operator's forward intermediates
@@ -61,19 +72,47 @@ def sample_gaussian_cg(gen, design, obs_prec, prior_prec_sqrt, z,
     b = precond_scale * (z + perturbation)
     precond_prior_prec = (precond_scale * prior_prec_sqrt) ** 2
 
+    # Block-ordered solve on the hybrid composed path: conjugating the
+    # whole solve by the block permutation turns the operator's
+    # per-iteration gather and scatter into slices (ops/cg.py:110-147).
+    bo_ctx = design.cg_blockorder_ctx()
+    if bo_ctx is not None:
+        perm, unperm, offset_bo = bo_ctx
+        b = b[perm]
+        precond_scale = precond_scale[perm]
+        precond_prior_prec = precond_prior_prec[perm]
+        coef_cg_init = coef_cg_init[perm]
+        if warm_tdot is not None:
+            warm_tdot = warm_tdot[perm]
+
+        def quad(x, return_t=False):
+            return design.quad_matvec_blockorder(x, obs_prec, offset_bo,
+                                                 return_t=return_t)
+    else:
+        def quad(x, return_t=False):
+            return design.quad_matvec(x, obs_prec, return_t=return_t)
+
     def matvec(x):
         # Phi-tilde x = D P D x + s X' (omega X (s x)), s the
         # preconditioner scale (cg_sampler.py:104-113).
         return precond_prior_prec * x + precond_scale * \
-            design.quad_matvec(precond_scale * x, obs_prec)
+            quad(precond_scale * x)
 
     def matvec_t(x):
-        out, t = design.quad_matvec(precond_scale * x, obs_prec,
-                                    return_t=True)
+        out, t = quad(precond_scale * x, return_t=True)
         return precond_prior_prec * x + precond_scale * out, t
 
     x = coef_cg_init / precond_scale
-    if return_lin_pred:
+    yhat = None
+    if warm_tdot is not None:
+        if return_lin_pred and lin_pred0 is None:
+            raise ValueError("return_lin_pred with warm_tdot requires "
+                             "lin_pred0 (= X coef_cg_init)")
+        # s * x0 = coef_cg_init up to one rounding, so the design part of
+        # matvec(x0) is the caller-supplied reduction.
+        r = b - (precond_prior_prec * x + precond_scale * warm_tdot)
+        yhat = lin_pred0
+    elif return_lin_pred:
         Ax, yhat = matvec_t(x)
         r = b - Ax
     else:
@@ -103,6 +142,8 @@ def sample_gaussian_cg(gen, design, obs_prec, prior_prec_sqrt, z,
         rs = rs_new
         n_iter += 1
     coef = precond_scale * x
+    if bo_ctx is not None:
+        coef = coef[unperm]
     info = {'n_cg_iter': n_iter, 'cg_converged': bool(rs <= thresh)}
     if return_lin_pred:
         return coef, yhat, info

@@ -26,14 +26,17 @@ def sample_gaussian_posterior(
     ('diag') preconditioner (reg_coef.py:25-133, the 'cg' branch).
     Returns (coef, summ_state, info).
 
-    Hybrid designs (fused sweeps): the pre-solve is one `tdots` sweep
-    and every operator application, the initial residual's included, one
-    `ne` sweep. Designs on the composed path (bitpack, winell): the
-    pre-solve reductions are separate `Tdot`s and the Fisher diagonal
-    (reg_coef.py:103-115), and the CG loop accumulates the draw's linear
-    predictor, returned as ``info['lin_pred']`` (reg_coef.py:79-80,
-    125-127). The warm start's fold into a batched pre-solve
-    (reg_coef.py:90-96) needs the hybrid composed path, not ported.
+    Hybrid designs with an exact column: the pre-solve is one
+    `tdots_sweep` read. Where the CG operator composes (the default
+    policy), the CG loop accumulates the draw's linear predictor, returned
+    as ``info['lin_pred']`` (reg_coef.py:79-80, 125-127); where the
+    pre-solve composes too, the warm start's residual reduction
+    X'(obs_prec * X coef_init) rides the pre-solve read as a fifth
+    reduction, after one `dot` for X coef_init (reg_coef.py:90-96). Under
+    a fused policy every operator application, the initial residual's
+    included, is one `ne_sweep`. Other designs (bitpack, winell, a hybrid
+    without an exact column): the pre-solve reductions are separate
+    `Tdot`s and the Fisher diagonal (reg_coef.py:103-115).
     """
     n_unshrunk = len(prior_sd_for_unshrunk)
     dev = y_gauss.device
@@ -56,10 +59,18 @@ def sample_gaussian_posterior(
                 torch.randn(n_pred, generator=gen, dtype=torch.float32,
                             device=dev))
 
+    lin_pred0 = warm_tdot = None
     if design.has_presolve_reductions():
         eps_obs, eps_prior = draw_eps()
-        v, pert, fisher_diag = design.presolve_reductions(
-            obs_prec * y_gauss, torch.sqrt(obs_prec) * eps_obs, obs_prec)
+        if design.fused_ne_mode('presolve') is None:  # fold the warm start
+            lin_pred0 = design.dot(coef_init)
+            v, pert, fisher_diag, warm_tdot = design.presolve_reductions(
+                obs_prec * y_gauss, torch.sqrt(obs_prec) * eps_obs,
+                obs_prec, obs_prec * lin_pred0)
+        else:
+            v, pert, fisher_diag = design.presolve_reductions(
+                obs_prec * y_gauss, torch.sqrt(obs_prec) * eps_obs,
+                obs_prec)
         precond_scale = 1.0 / torch.sqrt(prior_prec_sqrt ** 2 + fisher_diag)
     else:
         v = design.Tdot(obs_prec * y_gauss)
@@ -73,6 +84,7 @@ def sample_gaussian_posterior(
         maxiter=cg_maxiter,
         atol=cg_atol_multiplier * 1e-5 * np.sqrt(n_pred),
         perturbation=pert + prior_prec_sqrt * eps_prior,
+        warm_tdot=warm_tdot, lin_pred0=lin_pred0,
         return_lin_pred=want_lin_pred)
     if want_lin_pred:
         coef, lin_pred, info = res

@@ -13,33 +13,50 @@ Phases, each of which raises on failure (exit code != 0):
    with nvcc for sm_90a (one nvcc per source, all started together);
 3. each kernel against its plain PyTorch version on the card at ragged
    small shapes: every ne_sweep mode (ne / logit / linear, with and
-   without logp) and tdots_sweep over int8 / bf16 / f32 exact blocks,
-   one and two blocks, garbage in the padding; bitlut on bitmaps whose
-   byte-groups and outputs fill no block, both orientations; winell on
-   packings with overfull cells, both orientations, ``square`` off and
-   on; and small bitpack and winell designs (spill present) against
-   their dense form;
-4. ne_sweep and tdots_sweep at the flagship block shapes, with
-   CUDA-event timings of kernel and plain version and the bound;
-5. the hybrid slice: a 100,000 x 50,000 sparse logit design (90% binary
+   without logp), its row pass (``ne_rows``) and column pass
+   (``colpass``) alone, and tdots_sweep with four and five reductions,
+   over int8 / bf16 / f32 exact blocks, one and two blocks, garbage in
+   the padding; every variant of the one-read sweep ``ne_onepass`` (phase
+   A fma / mma2 / mma1, phase B fma / mma2 / mma3, convert once or not)
+   over rows spanning many panels; ``stream_probe`` on aligned blocks;
+   bitlut on bitmaps whose byte-groups and outputs fill no block, both
+   orientations; winell on packings with overfull cells, both
+   orientations, ``square`` off and on; and small bitpack and winell
+   designs (spill present) against their dense form;
+4. the sweeps, their row and column passes, the five-reduction
+   tdots_sweep and every ne_onepass variant at the flagship block shapes,
+   and stream_probe over 2 GB, with CUDA-event timings of kernel and
+   plain version, the bound and, where one PyTorch call computes the
+   same function, that call's time;
+5. the hybrid slices: a 100,000 x 50,000 sparse logit design (90% binary
    columns at 10% density, as bench.py builds it) on the hybrid int8 +
-   f32 backend, ``gibbs(30)`` with the CG sampler and bridge exponent
-   0.5 (MAP search included), launch counters read right after it, 20
-   more iterations through ``gibbs_resume`` timed, and resume on the
-   card: ``gibbs(20)`` + ``gibbs_resume(10, merge=True)`` must equal the
-   ``gibbs(30)`` run exactly; then the MAP search's witness: the search
-   again with the fused objective and with the composed one (``dot``,
-   then ``Tdot``) on the same design, and the two objectives compared;
+   f32 backend, first under the fused policy (``fused='1'``), then, on
+   the same stored blocks, composed (``fused='0'``: block-ordered CG over
+   the row and column passes, the warm start in the five-reduction
+   pre-solve, the linear predictor from the CG loop), and under 'auto'
+   too where it resolves to neither. Each: ``gibbs(30)`` with the CG
+   sampler and bridge exponent 0.5 (MAP search included), launch
+   counters read right after it, 20 more iterations through
+   ``gibbs_resume`` timed, resume on the card (``gibbs(20)`` +
+   ``gibbs_resume(10, merge=True)`` must equal the ``gibbs(30)`` run
+   exactly) and a profiler window; then the MAP search's witness (the
+   search with the fused objective and with the composed one on the same
+   design, and the two objectives compared) and the two objectives'
+   times;
 6. the bitpack slice: the same X with ``backend='bitpack'`` (bitmaps of
    5,632 x 106,496 and 12,512 x 49,152 bytes plus a 100,000 x 5,000 f32
    block); bitlut against its plain version on the design's bitmaps,
    timed beside its bound and beside cuSPARSE (``torch.sparse_csr_tensor
-   @ v``) on the binary columns' CSR; then the chain of phase 5 on the
+   @ v``) on the binary columns' CSR; then a 15-iteration chain on the
    composed CG path, and its MAP search against the hybrid's;
 7. the winell slice: a 131,072 x 16,384 design with 164 standard-normal
    entries per row (``backend='auto'`` picks winell); winell against its
    plain version on the design's packings, timed beside its bound and
-   beside cuSPARSE on the full CSR; then the same chain.
+   beside cuSPARSE on the full CSR; then the same chain;
+8. the sweep A/B harness (``bayesbridge_tpu_torch.baselines.
+   dev_ne_variants``) at the flagship block shape: the composed pair,
+   ne_sweep and the default one-read variants, then ``--probe`` and
+   ``--presolve``, its launch counters read right after it.
 
 The line before the last is ``nvidia-smi``'s name and power limit, the
 one before it a JSON summary of the kernels, and the last line
@@ -197,6 +214,75 @@ def kernel_checks():
                   [o for blk in ref for o in blk])
 
 
+def composed_and_onepass_checks():
+    """Phase 3 for the composed products (ne_rows, colpass, tdots_sweep
+    with u4), every ne_onepass variant and stream_probe."""
+    import torch
+    from bayesbridge_tpu_torch.kernels import layout
+    from bayesbridge_tpu_torch.kernels.ne_onepass import (
+        A_MODES, B_MODES, ne_onepass, ne_onepass_plain)
+    from bayesbridge_tpu_torch.kernels.ne_sweep import (
+        colpass, colpass_plain, ne_rows, ne_rows_plain)
+    from bayesbridge_tpu_torch.kernels.stream_probe import (
+        stream_probe, stream_probe_plain)
+    from bayesbridge_tpu_torch.kernels.tdots_sweep import (
+        tdots_sweep, tdots_sweep_plain)
+    n, pe, pf = 1037, 4097, 513
+    gen = torch.Generator(device='cuda').manual_seed(4)
+    log(f"row pass, column pass and five-reduction tdots vs plain, ragged "
+        f"n={n} p_e={pe} p_f={pf} (padding holds garbage)")
+    for kind in ('int8', 'bf16', 'f32'):
+        Xe = random_block(kind, n, pe, layout.padded_width(pe), gen)
+        Xf = random_block('f32', n, pf, layout.padded_width(pf), gen)
+        for two in (False, True):
+            Xs, ps = ([Xe, Xf], [pe, pf]) if two else ([Xe], [pe])
+            tag = f"{kind}{'+f32' if two else ''}"
+            vs, c, _, u = sweep_args(ps, n, gen, scalar_c=two)
+            blocks = list(zip(Xs, vs))
+            check(f"ne_rows {tag}", [ne_rows(blocks, c)],
+                  [ne_rows_plain(blocks, c)])
+            check(f"colpass {tag}", colpass(Xs, ps, u),
+                  colpass_plain(Xs, ps, u))
+            us = [torch.randn(n, generator=gen, device='cuda')
+                  for _ in range(4)]
+            check(f"tdots_sweep[u4] {tag}",
+                  [o for blk in tdots_sweep(Xs, ps, *us) for o in blk],
+                  [o for blk in tdots_sweep_plain(Xs, ps, *us) for o in blk])
+
+    log(f"ne_onepass vs plain, every variant, ragged n={n} p_e={pe} "
+        f"p_f={pf}, 2 KiB panels (1-2 rows, {n} panels) and 64 KiB")
+    Xe = random_block('int8', n, pe, layout.padded_width(pe), gen)
+    Xf = random_block('f32', n, pf, layout.padded_width(pf), gen)
+    (ve, vf), c, _, w = sweep_args([pe, pf], n, gen, scalar_c=False)
+    for a_mode in A_MODES:
+        for b_mode in B_MODES:
+            for cvt in (False, True):
+                ref = ne_onepass_plain(Xe, Xf, ve, vf, c, w, a_mode, b_mode,
+                                       cvt)
+                for kib in (2, 64):
+                    got = ne_onepass(Xe, Xf, ve, vf, c, w, a_mode, b_mode,
+                                     cvt, panel_bytes=kib * 1024)
+                    again = ne_onepass(Xe, Xf, ve, vf, c, w, a_mode, b_mode,
+                                       cvt, panel_bytes=kib * 1024)
+                    tag = f"{a_mode},{b_mode}{',cvt' if cvt else ''}"
+                    check(f"ne_onepass[{tag}] {kib} KiB outs", got[:2],
+                          ref[:2])
+                    check(f"ne_onepass[{tag}] {kib} KiB u", [got[2]],
+                          [ref[2]])
+                    assert all(torch.equal(x, y) for x, y in
+                               zip(got, again)), "ne_onepass not deterministic"
+
+    log("stream_probe vs plain, aligned 96 x 4096 int8 (and its int32 view)")
+    X8 = torch.randint(-128, 128, (96, 4096), generator=gen, device='cuda',
+                       dtype=torch.int8)
+    v = torch.randn(4096, generator=gen, device='cuda')
+    seed = torch.tensor(3.0, device='cuda')
+    for kind, X, vv in (('i32', X8.view(torch.int32), None), ('cvt', X8, None),
+                        ('mul', X8, v)):
+        check(f"stream_probe[{kind}]", [stream_probe(X, seed, kind, vv)],
+              [stream_probe_plain(X, seed, kind, vv)])
+
+
 def packed_kernel_checks():
     """Phase 3 for bitlut and winell: raw ragged bitmaps and packings with
     spill against the plain versions, then small bitpack and winell
@@ -286,8 +372,11 @@ def flagship_kernel_checks():
     timings and bound. No single PyTorch call multiplies int8 by f32, so
     the sweeps have no library time."""
     import torch
+    from bayesbridge_tpu_torch.kernels.ne_onepass import (
+        A_MODES, B_MODES, ne_onepass, ne_onepass_plain)
     from bayesbridge_tpu_torch.kernels.ne_sweep import (
-        ne_sweep, ne_sweep_plain)
+        colpass, colpass_plain, ne_rows, ne_rows_plain, ne_sweep,
+        ne_sweep_plain)
     from bayesbridge_tpu_torch.kernels.tdots_sweep import (
         tdots_sweep, tdots_sweep_plain)
     Xe, Xf, pe, pf, gen = flagship_blocks()
@@ -296,50 +385,151 @@ def flagship_kernel_checks():
         f"{N_OBS} x {pf} f32 ({gb:.3f} GB stored)")
     vs, c, a, b = sweep_args([pe, pf], N_OBS, gen, scalar_c=True)
     blocks = [(Xe, vs[0]), (Xf, vs[1])]
-    u1, u2, u3 = (torch.randn(N_OBS, generator=gen, device='cuda')
-                  for _ in range(3))
+    u1, u2, u3, u4 = (torch.randn(N_OBS, generator=gen, device='cuda')
+                      for _ in range(4))
+    c_vec = torch.randn(N_OBS, generator=gen, device='cuda') * 0.1
+    def flat(blks):
+        return [[o for blk in blks for o in blk]]
     results = {}
+    # name: (kernel, plain version, groups of outputs to compare: outs,
+    # u, logp each against its own scale)
     cases = {
         'ne_sweep[ne]': (lambda: ne_sweep(blocks, c, None, b, 'ne'),
-                         lambda: ne_sweep_plain(blocks, c, None, b, 'ne')),
+                         lambda: ne_sweep_plain(blocks, c, None, b, 'ne'),
+                         lambda r: [r[0], [r[1]]]),
         'ne_sweep[logit]': (
             lambda: ne_sweep(blocks, c * 0.01, a, b, 'logit', True),
-            lambda: ne_sweep_plain(blocks, c * 0.01, a, b, 'logit', True)),
+            lambda: ne_sweep_plain(blocks, c * 0.01, a, b, 'logit', True),
+            lambda r: [r[0], [r[1]], [r[2]]]),
+        'ne_sweep[linear]': (
+            lambda: ne_sweep(blocks, c * 0.01, a, b, 'linear', True),
+            lambda: ne_sweep_plain(blocks, c * 0.01, a, b, 'linear', True),
+            lambda r: [r[0], [r[1]], [r[2]]]),
         'tdots_sweep': (
             lambda: tdots_sweep([Xe, Xf], [pe, pf], u1, u2, u3),
-            lambda: tdots_sweep_plain([Xe, Xf], [pe, pf], u1, u2, u3)),
+            lambda: tdots_sweep_plain([Xe, Xf], [pe, pf], u1, u2, u3), flat),
+        'ne_sweep[rows]': (lambda: [ne_rows(blocks, c)],
+                           lambda: [ne_rows_plain(blocks, c)],
+                           lambda r: [r]),
+        'ne_sweep[cols]': (lambda: colpass([Xe, Xf], [pe, pf], u1),
+                           lambda: colpass_plain([Xe, Xf], [pe, pf], u1),
+                           lambda r: [r]),
+        'tdots_sweep[u4]': (
+            lambda: tdots_sweep([Xe, Xf], [pe, pf], u1, u2, u3, u4),
+            lambda: tdots_sweep_plain([Xe, Xf], [pe, pf], u1, u2, u3, u4),
+            flat),
     }
     n_elem = N_OBS * (pe + pf)
     vec = 4 * (pe + pf)  # one p-length vector in f32
     row = 4 * N_OBS      # one n-length vector in f32
-    # Bytes read once and written once, and float32 operations: ne and
-    # logit read X, v, b (and a) and write u and X'u, two FMAs per
-    # element; tdots reads X and u1..u3 and writes 4 p-vectors, four FMAs
-    # and a multiply per element.
-    work = {'ne_sweep[ne]': (gb * 1e9 + 2 * vec + 2 * row, 4 * n_elem),
-            'ne_sweep[logit]': (gb * 1e9 + 2 * vec + 3 * row, 4 * n_elem),
-            'tdots_sweep': (gb * 1e9 + 4 * vec + 3 * row, 9 * n_elem)}
-    for name, (kern, plain) in cases.items():
+    X_b = gb * 1e9
+    # Bytes read once and written once, and float32 operations: ne,
+    # logit and linear read X, v, b (and a) and write u and X'u, two FMAs
+    # per element; the row pass reads X and v and writes t, the column
+    # pass reads X and u and writes X'u, one FMA per element each; tdots
+    # reads X and u1..u3 (u4) and writes 4 (5) p-vectors, four (five)
+    # FMAs and a multiply per element; ne_onepass reads X, v, c, w and
+    # writes u and X'u.
+    work = {'ne_sweep[ne]': (X_b + 2 * vec + 2 * row, 4 * n_elem),
+            'ne_sweep[logit]': (X_b + 2 * vec + 3 * row, 4 * n_elem),
+            'ne_sweep[linear]': (X_b + 2 * vec + 3 * row, 4 * n_elem),
+            'tdots_sweep': (X_b + 4 * vec + 3 * row, 9 * n_elem),
+            'ne_sweep[rows]': (X_b + vec + row, 2 * n_elem),
+            'ne_sweep[cols]': (X_b + vec + row, 2 * n_elem),
+            'tdots_sweep[u4]': (X_b + 5 * vec + 4 * row, 11 * n_elem),
+            'ne_onepass': (X_b + 2 * vec + 3 * row, 4 * n_elem)}
+    reads = {'ne_sweep[ne]': 2, 'ne_sweep[logit]': 2, 'ne_sweep[linear]': 2}
+    for name, (kern, plain, outs) in cases.items():
         got, ref = kern(), plain()
         torch.cuda.synchronize()
-        if name == 'tdots_sweep':
-            err = check(name, [o for blk in got for o in blk],
-                        [o for blk in ref for o in blk])
-        else:
-            err = check(name + ' outs', got[0], ref[0])
-            err = max(err, check(name + ' u', [got[1]], [ref[1]]))
-            if got[2] is not None:
-                check(name + ' logp', [got[2]], [ref[2]])
+        err = max(check(f"{name} [{i}]", g, r)
+                  for i, (g, r) in enumerate(zip(outs(got), outs(ref))))
         del got, ref
         ms, plain_ms = time_ms(kern), time_ms(plain)
         bound, by = bound_ms(*work[name])
-        reads = 1 if name == 'tdots_sweep' else 2
+        k = reads.get(name, 1)
         log(f"  {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{bound:.3f} ms ({by}); kernel reads {reads} x {gb:.3f} GB = "
-            f"{reads * gb / (ms / 1e3):.1f} GB/s of 3350")
+            f"{bound:.3f} ms ({by}); kernel reads {k} x {gb:.3f} GB = "
+            f"{k * gb / (ms / 1e3):.1f} GB/s of 3350")
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound, bound_by=by, library_ms=None)
+
+    log("ne_onepass at the flagship blocks, every variant (one read of X; "
+        "v, c, w as the harness's)")
+    ve, vf = vs[0] / pe ** .5, vs[1] / pf ** .5
+    w = b - 0.4
+    onepass = {}
+    for a_mode in A_MODES:
+        for b_mode in B_MODES:
+            for cvt in (False, True):
+                tag = f"{a_mode},{b_mode}{',cvt' if cvt else ''}"
+
+                def kern(a_mode=a_mode, b_mode=b_mode, cvt=cvt):
+                    return ne_onepass(Xe, Xf, ve, vf, c_vec, w, a_mode,
+                                      b_mode, cvt)
+                ref = ne_onepass_plain(Xe, Xf, ve, vf, c_vec, w, a_mode,
+                                       b_mode, cvt)
+                got = kern()
+                err = max(check(f"ne_onepass[{tag}] outs", got[:2], ref[:2]),
+                          check(f"ne_onepass[{tag}] u", [got[2]], [ref[2]]))
+                del got, ref
+                onepass[tag] = (err, time_ms(kern, reps=5))
+    bound, by = bound_ms(*work['ne_onepass'])
+    for tag, (err, ms) in onepass.items():
+        log(f"  ne_onepass[{tag}]: kernel {ms:.3f} ms, bound {bound:.3f} ms "
+            f"({by}), {gb / (ms / 1e3):.1f} GB/s of 3350")
+    # The kernels line carries the plain variant (phase A and B on the CUDA
+    # cores, no convert-once); the log above has every variant.
+    err, ms = onepass['fma,fma']
+    plain_ms = time_ms(lambda: ne_onepass_plain(Xe, Xf, ve, vf, c_vec, w),
+                       reps=3)
+    results['ne_onepass'] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                 bound_ms=bound, bound_by=by,
+                                 library_ms=None)
     del Xe, Xf, blocks
+    torch.cuda.empty_cache()
+    return results
+
+
+def probe_timings():
+    """stream_probe over the harness's 2 GB int8 stream (and its int32
+    view): agreement, timings of kernel, plain version and the one
+    ``torch.sum`` that reads the same stream (none for mul), and the
+    bound."""
+    import torch
+    from bayesbridge_tpu_torch.baselines.dev_ne_variants import (
+        PROBE_GB, probe_block)
+    from bayesbridge_tpu_torch.kernels.stream_probe import (
+        stream_probe, stream_probe_plain)
+    gen = torch.Generator(device='cuda').manual_seed(6)
+    X8 = probe_block(N_OBS, PROBE_GB, gen, 'cuda')
+    n_elem = X8.numel()
+    log(f"stream_probe at {tuple(X8.shape)} int8 ({n_elem / 1e9:.3f} GB)")
+    seed = torch.tensor(1e-3, device='cuda')
+    library = {'i32': lambda: torch.sum(X8.view(torch.int32)),
+               'cvt': lambda: torch.sum(X8, dtype=torch.float32),
+               'mul': None}
+    # Operations per byte: i32 one add per 4 bytes, cvt a convert and an
+    # add per byte, mul a convert and an FMA per byte (v from cache).
+    ops = {'i32': n_elem / 4, 'cvt': 2 * n_elem, 'mul': 3 * n_elem}
+    results = {}
+    for kind in ('i32', 'cvt', 'mul'):
+        X = X8.view(torch.int32) if kind == 'i32' else X8
+        kern = lambda X=X, k=kind: stream_probe(X, seed, k)  # noqa: E731
+        plain = lambda X=X, k=kind: stream_probe_plain(X, seed, k)  # noqa
+        err = check(f"stream_probe[{kind}]", [kern()], [plain()])
+        ms, plain_ms = time_ms(kern), time_ms(plain, reps=3)
+        lib_ms = time_ms(library[kind]) if library[kind] else None
+        bound, by = bound_ms(n_elem + 4, ops[kind])
+        log(f"  stream_probe[{kind}]: kernel {ms:.4f} ms "
+            f"({n_elem / 1e9 / (ms / 1e3):.1f} GB/s of 3350), plain "
+            f"{plain_ms:.3f} ms, torch.sum "
+            f"{'-' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{bound:.4f} ms ({by})")
+        results[f'stream_probe[{kind}]'] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=by, library_ms=lib_ms)
+    del X8
     torch.cuda.empty_cache()
     return results
 
@@ -502,8 +692,12 @@ def packed_kernel_timings(design, X, kind):
 
 def run_chain(model, label, step_bytes, n_first=30, n_more=20):
     """``gibbs(n_first)`` with the launch counts read right after it, then
-    ``gibbs_resume(n_more)`` timed, then the exact-resume check. Returns
-    (counts, n_cg of the first run, its mcmc info)."""
+    ``gibbs_resume(n_more)`` timed, then the exact-resume check and a
+    profiler window. Returns (counts, n_cg of the first run, its mcmc
+    info, {'ips', 'mean_cg', 'busy', 'signal', 'chain'}): steady-state
+    iter/s, mean CG iterations of the timed iterations, the device's busy
+    share, the mean of coef[1:11] over the first run, and (bridge, mcmc
+    info after the timed iterations) to continue the chain from."""
     import numpy as np
     import torch
     from bayesbridge_tpu_torch import BayesBridge, RegressionCoefPrior
@@ -527,10 +721,11 @@ def run_chain(model, label, step_bytes, n_first=30, n_more=20):
     assert samples['coef'].shape == (n_pred, n_first)
     assert np.all(np.isfinite(samples['coef']))
     assert n_cg.max() < 500, n_cg.max()
+    signal = float(samples['coef'][1:11].mean())
     log(f"[{label}] logp: first {samples['logp'][0]:.6g}, last "
         f"{samples['logp'][-1]:.6g}; intercept mean "
         f"{samples['coef'][0].mean():.4f}; mean coef[1:11] "
-        f"{samples['coef'][1:11].mean():.4f}, |coef[11:]| mean "
+        f"{signal:.4f}, |coef[11:]| mean "
         f"{np.abs(samples['coef'][11:]).mean():.2e}")
 
     torch.cuda.synchronize()
@@ -560,14 +755,17 @@ def run_chain(model, label, step_bytes, n_first=30, n_more=20):
                                  f"{key}")
     log(f"[{label}] resume check: gibbs({n_a}) + gibbs_resume("
         f"{n_first - n_a}, merge=True) == gibbs({n_first}) exactly")
-    profile_window(bridge, info, label)
-    return counts, n_cg, info
+    busy = profile_window(bridge, info, label)
+    stats = dict(ips=ips, mean_cg=float(cg_more.mean()), busy=busy,
+                 signal=signal, chain=(bridge, i_more))
+    return counts, n_cg, info, stats
 
 
 def profile_window(bridge, info, label, n_iter=3):
     """torch.profiler over `n_iter` more iterations: the device's busy
-    share of the window's wall clock (profiler overhead included) and
-    the kernels that took the most device time."""
+    share of the window's wall clock (profiler overhead included; None
+    where the profiler saw no device events), logged with the kernels
+    that took the most device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -589,12 +787,13 @@ def profile_window(bridge, info, label, n_iter=3):
     if not kernels:
         log(f"[{label}] profiler: no device events (busy share not "
             f"measured)")
-        return
+        return None
     log(f"[{label}] profiler over {n_iter} iterations: device busy "
         f"{busy:.1f} ms of {wall:.1f} ms wall ({100 * busy / wall:.1f}%, "
         f"idle {100 - 100 * busy / wall:.1f}%)")
     for e in sorted(kernels, key=dev_ms, reverse=True)[:8]:
         log(f"    {dev_ms(e):9.2f} ms  {e.count:6d} x  {e.key[:90]}")
+    return busy / wall
 
 
 def map_search(model):
@@ -649,11 +848,7 @@ def map_witness(model, label, ref=None):
     import torch
     fused_lp, fused_grad = model.compute_loglik_and_gradient(
         torch.as_tensor(coef, dtype=torch.float32, device='cuda'))
-    model.design.fused_link_grad = lambda *args: None  # compose instead
-    try:
-        coef_c, info_c = map_search(model)
-    finally:
-        del model.design.fused_link_grad
+    coef_c, info_c = map_search(with_policy(model, '0'))
     lp_c = composed_objective(model, coef_c)[0]
     log(f"[{label}] MAP witness: composed objective on the same design "
         f"{info_c}, composed loglik at its MAP {lp_c:.9g}; at the first "
@@ -664,14 +859,27 @@ def map_witness(model, label, ref=None):
     return {'coef': coef, 'lp': lp, 'grad': grad}
 
 
+def with_policy(model, fused):
+    """The model over the same stored design arrays under another fused
+    policy (no second densify or transfer)."""
+    import copy
+    other = copy.copy(model)
+    other.design = model.design.with_policy(fused)
+    return other
+
+
 def run_hybrid(X, outcome):
-    """Phase 5. Returns the path's launch counts and its MAP witness."""
+    """Phase 5: the fused slice, the composed slice on the same blocks,
+    'auto' where it resolves to neither, the MAP witness and the link
+    objective both ways. Returns ({slice: launch counts}, the MAP
+    witness)."""
     import numpy as np
     import torch
     from bayesbridge_tpu_torch import RegressionModel
+    from bayesbridge_tpu_torch.design import fusedne
     t0 = time.perf_counter()
     model = RegressionModel(outcome, X, family='logit', dtype=np.float32,
-                            device='cuda')
+                            fused='1', device='cuda')
     torch.cuda.synchronize()
     design = model.design
     gb = design.storage_bytes() / 1e9
@@ -682,21 +890,101 @@ def run_hybrid(X, outcome):
     assert design.backend == 'hybrid'
     assert design.X_exact.dtype == torch.int8
     assert 6.0 < gb < 7.0, gb
-    # Reads of the stored blocks per iteration: 2 per ne sweep (k CG
-    # iterations + the initial residual), 1 tdots sweep, 1 linear
-    # predictor.
-    counts, n_cg, _ = run_chain(
-        model, 'hybrid', lambda k: (2 * (k + 1) + 2) * gb * 1e9)
-    assert counts['tdots_sweep'] >= 30, counts
-    assert counts['ne_sweep[ne]'] >= int(np.sum(n_cg + 1)), counts
-    assert counts['ne_sweep[logit]'] >= 1, counts
-    witness = map_witness(model, 'hybrid')
-    del model, design
+    # The fused slice, the composed one on the same stored blocks, and
+    # 'auto' where it resolves to neither.
+    policies = {'hybrid_fused': '1', 'hybrid_composed': '0'}
+    auto = {kind: fusedne.dispatch_mode(kind, 'auto') is not None
+            for kind in fusedne.KINDS}
+    log(f"[hybrid] 'auto' resolves to {auto} (True = fused)")
+    if any(auto.values()) and not all(auto.values()):
+        policies['hybrid_auto'] = 'auto'
+    counts, stats, witness = {}, {}, None
+    for label, policy in policies.items():
+        m = with_policy(model, policy)
+        fused = {kind: fusedne.dispatch_mode(kind, policy) is not None
+                 for kind in fusedne.KINDS}
+        # Reads of the stored blocks per iteration with k CG iterations: 2
+        # per operator application, 1 pre-solve read; a composed pre-solve
+        # adds the warm start's row pass and spares the initial residual's
+        # application; a fused CG operator adds the linear predictor's
+        # row pass.
+        extra = (1 if not fused['presolve'] else 2) + int(fused['quad'])
+        counts[label], n_cg, info, stats[label] = run_chain(
+            m, label, lambda k, e=extra: (2 * k + 1 + e) * gb * 1e9)
+        c = counts[label]
+        n_cg_sum = int(np.sum(n_cg))
+        if fused['quad']:
+            assert c['ne_sweep[ne]'] >= n_cg_sum + 30, c
+            assert c['ne_sweep[rows]'] >= 30, c
+        else:
+            assert c['ne_sweep[ne]'] == 0, c
+            assert c['ne_sweep[rows]'] >= n_cg_sum, c
+            assert c['ne_sweep[cols]'] >= n_cg_sum, c
+        if fused['presolve']:
+            assert c['tdots_sweep'] == 30 and c['tdots_sweep[u4]'] == 0, c
+        else:
+            assert c['tdots_sweep[u4]'] == 30 and c['tdots_sweep'] == 0, c
+        if fused['link']:
+            assert c['ne_sweep[logit]'] >= 1, c
+        else:
+            n_map = info['_init_optim_info']['n_design_matvec'] // 2
+            assert c['ne_sweep[logit]'] == 0, c
+            assert c['ne_sweep[cols]'] >= n_cg_sum + n_map, c
+        if label == 'hybrid_fused':
+            witness = map_witness(m, label)
+        del m
+    for label, st in stats.items():
+        busy = 'not measured' if st['busy'] is None \
+            else f"{100 * st['busy']:.1f}%"
+        log(f"[{label}] steady state {st['ips']:.4f} iter/s, mean CG "
+            f"iterations {st['mean_cg']:.2f}, device busy {busy}, signal "
+            f"mean coef[1:11] {st['signal']:.4f}")
+    ab_segments({label: st.pop('chain') for label, st in stats.items()})
+
+    beta = torch.as_tensor(witness['coef'], dtype=torch.float32,
+                           device='cuda')
+    composed = with_policy(model, '0')
+    link = {name: time_ms(lambda m=m: m.compute_loglik_and_gradient(beta))
+            for name, m in (('fused', model), ('composed', composed))}
+    log(f"[hybrid] MAP objective (loglik + gradient) at the MAP: fused "
+        f"sweep {link['fused']:.3f} ms, composed (row pass, loglik rows, "
+        f"column pass) {link['composed']:.3f} ms")
+    del model, design, composed
     torch.cuda.empty_cache()
     return counts, witness
 
 
-def run_packed(X, outcome, backend, map_ref=None):
+def ab_segments(chains, n_iter=10, rounds=4):
+    """Steady-state A/B of the hybrid policies in one call: `rounds`
+    rounds of `n_iter` iterations per chain through ``gibbs_resume``, each
+    chain continuing from its last state, the order reversed every other
+    round (ABBA), so drift of the host and of the chains' CG counts falls
+    on both alike. Logs every segment and each policy's median."""
+    import numpy as np
+    import torch
+    state = {label: info for label, (_, info) in chains.items()}
+    ips = {label: [] for label in chains}
+    cgs = {label: [] for label in chains}
+    for r in range(rounds):
+        order = list(chains) if r % 2 == 0 else list(chains)[::-1]
+        for label in order:
+            bridge = chains[label][0]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, state[label] = bridge.gibbs_resume(state[label], n_iter)
+            torch.cuda.synchronize()
+            ips[label].append(n_iter / (time.perf_counter() - t0))
+            cgs[label].append(float(np.mean(
+                state[label]['_reg_coef_sampling_info']['n_cg_iter'])))
+    for label in chains:
+        log(f"[{label}] A/B segments of {n_iter} iterations (ABBA order): "
+            f"iter/s {[round(x, 4) for x in ips[label]]}, median "
+            f"{statistics.median(ips[label]):.4f}; mean CG iterations "
+            f"{[round(x, 2) for x in cgs[label]]}")
+    return {label: statistics.median(v) for label, v in ips.items()}
+
+
+def run_packed(X, outcome, backend, map_ref=None, n_first=15, n_more=10):
     """Phases 6 and 7: build, kernel timings at the design's shapes, the
     chain on the composed path; with `map_ref` (the hybrid's MAP witness
     on the same X), the MAP witness. Returns (kernel results, launch
@@ -745,19 +1033,48 @@ def run_packed(X, outcome, backend, map_ref=None):
     del design
     # Per iteration: dot + Tdot per CG operator application (k + 1), two
     # pre-solve Tdots and the Fisher diagonal's two moments.
-    counts, n_cg, info = run_chain(
-        model, backend, lambda k: (k + 1) * (dot_b + tdot_b) + 4 * tdot_b)
+    counts, n_cg, info, _ = run_chain(
+        model, backend, lambda k: (k + 1) * (dot_b + tdot_b) + 4 * tdot_b,
+        n_first=n_first, n_more=n_more)
     kern = 'bitlut' if backend == 'bitpack' else 'winell'
     n_map = info['_init_optim_info']['n_design_matvec'] // 2
     need = int(np.sum(n_cg + 1))
     assert counts[f'{kern}[dot]'] >= need + n_map, counts
-    assert counts[f'{kern}[tdot]'] >= need + 4 * 30 + n_map, counts
+    assert counts[f'{kern}[tdot]'] >= need + 4 * n_first + n_map, counts
     assert counts['ne_sweep[ne]'] == counts['tdots_sweep'] == 0, counts
     if map_ref is not None:
         map_witness(model, backend, map_ref)
     del model
     torch.cuda.empty_cache()
     return results, counts
+
+
+def run_harness():
+    """Phase 8: the sweep A/B harness at the flagship block shape, with the
+    launch counts of its run. Returns the counts."""
+    import torch
+    from bayesbridge_tpu_torch.baselines import dev_ne_variants as harness
+    from bayesbridge_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts)
+    pe = int(N_PRED * BINARY_FRAC)
+    dev = torch.device('cuda')
+    reset_launch_counts()
+    harness.run_main(N_OBS, pe, N_PRED - pe,
+                     harness.DEFAULT_VARIANTS.split(','), chain=10, reps=5,
+                     budget_kib=harness.PANEL_BYTES // 1024, device=dev,
+                     log=log)
+    torch.cuda.empty_cache()
+    harness.run_probes(N_OBS, 10, 5, dev, log=log)
+    torch.cuda.empty_cache()
+    harness.run_presolve(N_OBS, pe, N_PRED - pe, 10, 5, dev, log=log)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"[harness] launch counts of this path: {counts}")
+    assert counts['ne_onepass'] > 0 and counts['ne_sweep[rows]'] > 0, counts
+    assert all(counts[f'stream_probe[{k}]'] > 0
+               for k in ('i32', 'cvt', 'mul')), counts
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main():
@@ -792,14 +1109,15 @@ def main():
             log('  ptxas: ' + line.strip())
     t0 = phase('build', t0)
     kernel_checks()
+    composed_and_onepass_checks()
     packed_kernel_checks()
     t0 = phase('ragged kernel checks', t0)
     results = flagship_kernel_checks()
-    t0 = phase('flagship sweep checks', t0)
+    results.update(probe_timings())
+    t0 = phase('flagship kernel checks', t0)
     X, outcome = build_data()
-    counts = {}
-    counts['hybrid'], witness = run_hybrid(X, outcome)
-    t0 = phase('hybrid slice', t0)
+    counts, witness = run_hybrid(X, outcome)
+    t0 = phase('hybrid slices', t0)
     res, counts['bitpack'] = run_packed(X, outcome, 'bitpack', witness)
     results.update(res)
     del X, outcome
@@ -808,17 +1126,32 @@ def main():
     res, counts['winell'] = run_packed(X, outcome, 'winell')
     results.update(res)
     del X, outcome
-    phase('winell slice', t0)
+    t0 = phase('winell slice', t0)
+    counts['harness'] = run_harness()
+    phase('harness', t0)
 
+    # The path whose run each kernel's launch count is read from. The
+    # sweep's 'linear' mode serves the linear model, which no path here
+    # runs: its timing is logged above and left out of the line.
+    path_of = {'ne_sweep[ne]': 'hybrid_fused',
+               'ne_sweep[logit]': 'hybrid_fused',
+               'tdots_sweep': 'hybrid_fused',
+               'ne_sweep[rows]': 'hybrid_composed',
+               'ne_sweep[cols]': 'hybrid_composed',
+               'tdots_sweep[u4]': 'hybrid_composed',
+               'ne_onepass': 'harness'}
     kernels = []
     for name, res in results.items():
         base = name.split('[')[0]
-        path = {'ne_sweep': 'hybrid', 'tdots_sweep': 'hybrid',
-                'bitlut': 'bitpack', 'winell': 'winell'}[base]
+        path = path_of.get(name, {'bitlut': 'bitpack', 'winell': 'winell',
+                                  'stream_probe': 'harness'}.get(base))
+        if path is None:
+            continue
+        launches = counts[path][name]
+        assert launches > 0, (name, path, counts[path])
         kernels.append(dict(
             name=name, route='cuda', source=REGISTRY[base]['source'],
-            replaces=REGISTRY[base]['replaces'],
-            launches=counts[path][name], **res))
+            replaces=REGISTRY[base]['replaces'], launches=launches, **res))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({'kernels': kernels}))
     print(card_line())

@@ -7,8 +7,9 @@ machine with the card:
 
 Each kernel is held against its plain PyTorch version on the same
 tensors: rtol 1e-4 of max|plain| (the two sum in different orders), and
-a small chain on the card must resume exactly, on the hybrid backend and
-on the bitpack and winell backends' composed path.
+a small chain on the card must resume exactly, on the hybrid backend
+(composed, its default, and fused) and on the bitpack and winell
+backends' composed path.
 """
 
 import numpy as np
@@ -19,7 +20,15 @@ from bayesbridge_tpu_torch.kernels import layout, launch_counts, \
     reset_launch_counts
 from bayesbridge_tpu_torch.kernels.bitlut import bitlut, bitlut_plain
 from bayesbridge_tpu_torch.kernels.winell import winell, winell_plain
-from bayesbridge_tpu_torch.kernels.ne_sweep import ne_sweep, ne_sweep_plain
+from bayesbridge_tpu_torch.kernels.ne_onepass import (
+    A_MODES, B_MODES, ne_onepass, ne_onepass_plain,
+)
+from bayesbridge_tpu_torch.kernels.ne_sweep import (
+    colpass, colpass_plain, ne_rows, ne_rows_plain, ne_sweep, ne_sweep_plain,
+)
+from bayesbridge_tpu_torch.kernels.stream_probe import (
+    stream_probe, stream_probe_plain,
+)
 from bayesbridge_tpu_torch.kernels.tdots_sweep import (
     tdots_sweep, tdots_sweep_plain,
 )
@@ -82,6 +91,106 @@ def test_tdots_kernel_matches_plain_and_is_deterministic(dev):
         assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize('dtype', [torch.int8, torch.bfloat16,
+                                   torch.float32])
+@pytest.mark.parametrize('two', [False, True])
+def test_row_and_column_pass_entries_match_plain(dev, dtype, two):
+    """The composed products' kernels: ne_rows (t = X v + c) and colpass
+    (X' u), one and two blocks, garbage in the padding columns."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    n, pe, pf = 1037, 4097, 513
+    Xe = (torch.randn((n, layout.padded_width(pe)), generator=g,
+                      device=dev) * 2).round().to(dtype)
+    Xe[:, pe:] = 7 if dtype == torch.int8 else float('nan')
+    Xf = torch.randn((n, layout.padded_width(pf)), generator=g, device=dev)
+    Xf[:, pf:] = float('nan')
+    Xs, ps = ([Xe, Xf], [pe, pf]) if two else ([Xe], [pe])
+    blocks = [(X, torch.randn(p, generator=g, device=dev))
+              for X, p in zip(Xs, ps)]
+    c = torch.randn(n, generator=g, device=dev)
+    u = torch.randn(n, generator=g, device=dev)
+    reset_launch_counts()
+    t = ne_rows(blocks, c)
+    outs = colpass(Xs, ps, u)
+    assert launch_counts()['ne_sweep[rows]'] == 1
+    assert launch_counts()['ne_sweep[cols]'] == 1
+    _assert_close([t], [ne_rows_plain(blocks, c)])
+    _assert_close(outs, colpass_plain(Xs, ps, u))
+    assert torch.equal(torch.cat(outs), torch.cat(colpass(Xs, ps, u)))
+
+
+def test_tdots_fifth_reduction_matches_plain(dev):
+    """tdots_sweep with the warm-start column u4 (five reductions)."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    n, pe, pf = 5000, 3000, 100
+    Xe = torch.randint(-3, 4, (n, layout.padded_width(pe)), generator=g,
+                       device=dev, dtype=torch.int8)
+    Xf = torch.randn((n, layout.padded_width(pf)), generator=g, device=dev)
+    us = [torch.randn(n, generator=g, device=dev) for _ in range(4)]
+    reset_launch_counts()
+    got = tdots_sweep([Xe, Xf], [pe, pf], *us)
+    assert launch_counts()['tdots_sweep[u4]'] == 1
+    ref = tdots_sweep_plain([Xe, Xf], [pe, pf], *us)
+    assert all(len(blk) == 5 for blk in got)
+    _assert_close([o for blk in got for o in blk],
+                  [o for blk in ref for o in blk])
+
+
+@pytest.mark.parametrize('cvt', [False, True])
+@pytest.mark.parametrize('b_mode', sorted(B_MODES))
+@pytest.mark.parametrize('a_mode', sorted(A_MODES))
+def test_ne_onepass_matches_plain(dev, a_mode, b_mode, cvt):
+    """Every variant of the one-read sweep, at a ragged shape whose rows
+    span many row panels (small panels) and at the default panel; two
+    launches give the same bits."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    n, pe, pf = 1037, 4097, 513
+    Xe = torch.randint(-3, 4, (n, layout.padded_width(pe)), generator=g,
+                       device=dev, dtype=torch.int8)
+    Xe[:, pe:] = 5
+    Xf = torch.randn((n, layout.padded_width(pf)), generator=g, device=dev)
+    Xf[:, pf:] = float('nan')
+    ve = torch.randn(pe, generator=g, device=dev)
+    vf = torch.randn(pf, generator=g, device=dev)
+    c = torch.randn(n, generator=g, device=dev)
+    w = torch.rand(n, generator=g, device=dev) + .1
+    ref = ne_onepass_plain(Xe, Xf, ve, vf, c, w, a_mode, b_mode, cvt)
+    for panel_bytes in (2048, 64 * 1024):
+        reset_launch_counts()
+        got = ne_onepass(Xe, Xf, ve, vf, c, w, a_mode, b_mode, cvt,
+                         panel_bytes=panel_bytes)
+        again = ne_onepass(Xe, Xf, ve, vf, c, w, a_mode, b_mode, cvt,
+                           panel_bytes=panel_bytes)
+        assert launch_counts()['ne_onepass'] == 2
+        _assert_close(got[:2], ref[:2])
+        _assert_close([got[2]], [ref[2]])
+        for x, y in zip(got, again):
+            assert torch.equal(x, y)
+    one = ne_onepass(Xe, None, ve, None, c, w, a_mode, b_mode, cvt)
+    ref1 = ne_onepass_plain(Xe, None, ve, None, c, w, a_mode, b_mode, cvt)
+    assert one[1] is None
+    _assert_close([one[0], one[2]], [ref1[0], ref1[2]])
+
+
+@pytest.mark.parametrize('kind', ['i32', 'cvt', 'mul'])
+def test_stream_probe_matches_plain(dev, kind):
+    g = torch.Generator(device=dev).manual_seed(8)
+    n, p = 96, 2048
+    X8 = torch.randint(-128, 128, (n, p), generator=g, device=dev,
+                       dtype=torch.int8)
+    X = X8.view(torch.int32) if kind == 'i32' else X8
+    v = torch.randn(p, generator=g, device=dev) if kind == 'mul' else None
+    seed = torch.tensor(3.0, device=dev)
+    reset_launch_counts()
+    got = stream_probe(X, seed, kind, v)
+    assert launch_counts()[f'stream_probe[{kind}]'] == 1
+    ref = stream_probe_plain(X, seed, kind, v)
+    # i32: the wrapped row sums are exact, their float32 total is summed in
+    # another order (rows up to 2**31 each).
+    scale = n * 2.0 ** 31 if kind == 'i32' else max(abs(float(ref)), 1.0)
+    assert abs(float(got) - float(ref)) <= 1e-6 * scale
+
+
 @pytest.mark.parametrize('g_pad,m_pad,n_out', [(8, 128, 1), (40, 384, 300),
                                                 (200, 8320, 8200)])
 @pytest.mark.parametrize('tag', ['dot', 'tdot'])
@@ -136,22 +245,30 @@ def _chain_problem():
     return X, outcome
 
 
-@pytest.mark.parametrize('backend', ['hybrid', 'bitpack', 'winell'])
+@pytest.mark.parametrize('backend', ['hybrid', 'hybrid_fused', 'bitpack',
+                                     'winell'])
 def test_chain_resumes_exactly_on_card(dev, backend):
+    """'hybrid' runs the composed path (the default policy), 'hybrid_fused'
+    the fused sweeps (fused='1')."""
     from bayesbridge_tpu_torch import (
         BayesBridge, RegressionCoefPrior, RegressionModel,
     )
     X, outcome = _chain_problem()
+    fused = '1' if backend == 'hybrid_fused' else None
     bridge = BayesBridge(RegressionModel(outcome, X, family='logit',
-                                         backend=backend),
+                                         backend=backend.split('_')[0],
+                                         fused=fused),
                          RegressionCoefPrior(bridge_exponent=.5))
     reset_launch_counts()
     full, _ = bridge.gibbs(12, seed=0, coef_sampler_type='cg',
                            params_to_save='all')
     counts = launch_counts()
-    kern = {'hybrid': 'ne_sweep', 'bitpack': 'bitlut',
-            'winell': 'winell'}[backend]
+    kern = {'bitpack': 'bitlut', 'winell': 'winell'}.get(backend)
     if backend == 'hybrid':
+        assert counts['ne_sweep[rows]'] > 12 and counts['ne_sweep[cols]'] > 12
+        assert counts['tdots_sweep[u4]'] == 12
+        assert counts['ne_sweep[ne]'] == counts['tdots_sweep'] == 0
+    elif backend == 'hybrid_fused':
         assert counts['ne_sweep[ne]'] > 12 and counts['tdots_sweep'] == 12
     else:
         assert counts[f'{kern}[dot]'] > 12 and counts[f'{kern}[tdot]'] > 12

@@ -1,8 +1,8 @@
 """The torch port's hybrid design against the JAX package's.
 
-Both packages build a hybrid design from the same scipy CSR matrix; the
-JAX one with ``fused='1'`` (its Pallas sweeps in interpret mode off-TPU),
-the port's on the CPU (plain versions of its sweeps). Checked: the
+Both packages build a hybrid design from the same scipy CSR matrix with
+``fused='1'``: the JAX one runs its Pallas sweeps in interpret mode
+off-TPU, the port's the plain versions of its sweeps on the CPU. Checked: the
 exact/float column split and storage dtypes, ``convert.design_from_numpy``
 on the JAX design's arrays, and dot, Tdot, quad_matvec,
 presolve_reductions, the Fisher diagonal and fused_link_grad with
@@ -43,7 +43,7 @@ def _pair(monkeypatch, X, centered, intercept):
                    backend='hybrid', dtype=np.float32, fused='1')
     td = SparseDesignMatrix(X, center_predictor=centered,
                             add_intercept=intercept, dtype=np.float32,
-                            device='cpu')
+                            fused='1', device='cpu')
     return jd, td
 
 
@@ -151,24 +151,26 @@ def test_matvec_counters(monkeypatch):
 
 
 def test_unported_options_raise():
+    """'auto' and '0' (the composed path) and a design without an exact
+    column build and run composed; the unported options raise."""
     X = _design_data()
-    with pytest.raises(NotImplementedError, match='Queue 1 item 11'):
-        SparseDesignMatrix(X, fused='auto', device='cpu')
-    with pytest.raises(NotImplementedError, match='composed'):
-        SparseDesignMatrix(X, fused='0', device='cpu')
+    rng = np.random.default_rng(0)
+    no_exact = sps.csr_matrix(rng.standard_normal((20, 3)))
+    for fused, Xd in (('auto', X), ('0', X), (None, no_exact)):
+        d = SparseDesignMatrix(Xd, fused=fused, device='cpu')
+        assert d.fused_ne_mode() is None and d.cg_blockorder_ctx() is not None
+        assert d.has_presolve_reductions() == (Xd is X)
+        v = np.ones(d.shape[1], np.float32)
+        w = np.ones(d.shape[0], np.float32)
+        ref = d.toarray().astype(np.float64)
+        _close(d.quad_matvec(v, w).numpy(), ref.T @ (ref @ v))
     with pytest.raises(NotImplementedError, match='ell'):
         SparseDesignMatrix(X, backend='ell', device='cpu')
     with pytest.raises(NotImplementedError, match='float32'):
         SparseDesignMatrix(X, dtype=np.float64, device='cpu')
     with pytest.raises(NotImplementedError, match='dense'):
         SparseDesignMatrix(X.toarray(), device='cpu')
-    # No int8/bf16-exact column: the JAX package's gate sends this design
-    # to the composed path, which is not ported.
-    rng = np.random.default_rng(0)
-    with pytest.raises(NotImplementedError, match='exact column'):
-        SparseDesignMatrix(sps.csr_matrix(rng.standard_normal((20, 3))),
-                           device='cpu')
-    for fused in (None, 'full', '1'):
+    for fused in ('full', '1'):
         assert SparseDesignMatrix(X, fused=fused, device='cpu') \
             .fused_ne_mode() is True
 

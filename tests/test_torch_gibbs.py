@@ -137,8 +137,8 @@ def jax_chain():
 
 
 def test_chain_matches_jax_posterior(jax_chain):
-    """Port (fused sweeps, CPU plain versions) vs the JAX package on the
-    same data and prior."""
+    """Port (composed hybrid path, the default policy; CPU plain versions)
+    vs the JAX package on the same data and prior."""
     X, outcome = _parity_problem()
     model = RegressionModel(outcome, X, family='logit', device='cpu')
     ours, _ = BayesBridge(model, RegressionCoefPrior(**PRIOR_KW)).gibbs(

@@ -1,5 +1,6 @@
-"""The torch port stands alone: importing it pulls in no JAX, its
-sources name neither jax nor the JAX package, and an explicit CUDA
+"""The torch port stands alone: importing it (the sweep A/B harness
+included) pulls in no JAX, its sources name neither jax nor the JAX
+package nor its ``baselines``, and an explicit CUDA
 request without a usable GPU raises instead of moving to the CPU."""
 
 import pathlib
@@ -27,8 +28,13 @@ REPO = PKG.parent
 def test_import_pulls_in_no_jax():
     code = ("import sys, bayesbridge_tpu_torch, bayesbridge_tpu_torch.convert;"
             "import bayesbridge_tpu_torch.kernels;"
+            "import bayesbridge_tpu_torch.design.fusedne;"
+            "import bayesbridge_tpu_torch.kernels.ne_onepass;"
+            "import bayesbridge_tpu_torch.kernels.stream_probe;"
+            "import bayesbridge_tpu_torch.baselines.dev_ne_variants;"
+            "import bayesbridge_tpu_torch.baselines.onepass_ablation;"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
-            "('jax.', 'jaxlib', 'bayesbridge_tpu.'))"
+            "('jax.', 'jaxlib', 'bayesbridge_tpu.', 'baselines'))"
             " or m == 'bayesbridge_tpu'];"
             "assert not bad, bad")
     subprocess.run([sys.executable, '-c', code], check=True, cwd=REPO,
@@ -37,7 +43,8 @@ def test_import_pulls_in_no_jax():
 
 def test_sources_do_not_import_jax():
     pattern = re.compile(r'^\s*(import jax|from jax|import bayesbridge_tpu\b'
-                         r'|from bayesbridge_tpu\b(?!_torch))', re.M)
+                         r'|from bayesbridge_tpu\b(?!_torch)'
+                         r'|import baselines|from baselines)', re.M)
     files = list(PKG.rglob('*.py')) + [REPO / 'chip_smoke.py']
     hits = [str(f) for f in files if pattern.search(f.read_text())]
     assert not hits, hits
