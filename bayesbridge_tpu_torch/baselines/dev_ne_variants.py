@@ -9,8 +9,10 @@ calls (each call's normalized outputs are the next call's v):
 main mode
     ``composed`` (the row pass ``ne_rows`` then the column pass
     ``colpass``: the hybrid design's composed pair, two reads of X),
-    ``ne_sweep`` (the fused sweep, also two reads), then each
-    ``--variants`` spec through ``ne_onepass`` (one read). The TPU spec
+    ``ne_sweep`` (the fused sweep's two-pass route, also two reads),
+    ``ne_oneread`` (the fused sweep's one-read route, the hybrid CG
+    operator on the card), then each ``--variants`` spec through
+    ``ne_onepass`` (one read). The TPU spec
     names map onto Hopper modes (printed): phase A v1 / wide / chunkwide
     / reshape -> fma, mxu2a / mxd2a -> mma2, mxu1a -> mma1, suffix s ->
     convert once; phase B v1 / fold8 -> fma, mxu2 -> mma2, mxu3 / mxuf
@@ -46,6 +48,7 @@ import torch
 
 from ..kernels import layout
 from ..kernels.ne_onepass import PANEL_BYTES, map_spec, ne_onepass
+from ..kernels.ne_oneread import ne_oneread
 from ..kernels.ne_sweep import colpass, ne_rows, ne_sweep
 from ..kernels.stream_probe import stream_probe
 from ..kernels.tdots_sweep import tdots_sweep
@@ -100,7 +103,13 @@ def composed(Xe, Xf, ve, vf, c, w):
 
 
 def fused_sweep(Xe, Xf, ve, vf, c, w):
-    outs, u, _ = ne_sweep([(Xe, ve), (Xf, vf)], c, None, w, 'ne')
+    outs, u, _ = ne_sweep([(Xe, ve), (Xf, vf)], c, None, w, 'ne',
+                          route='twopass')
+    return outs[0], outs[1], u
+
+
+def oneread_sweep(Xe, Xf, ve, vf, c, w):
+    outs, u = ne_oneread([(Xe, ve), (Xf, vf)], c, w)
     return outs[0], outs[1], u
 
 
@@ -161,8 +170,9 @@ def run_main(n, pe, pf, variants, chain, reps, budget_kib, device,
     gb = (Xe[:, :pe].numel() + 4 * Xf[:, :pf].numel()) / 1e9
     log(f"n={n} pe={pe} pf={pf} stored={gb:.3f} GB budget={budget_kib}KiB "
         f"device={device}")
-    rows = [('composed', None, composed, 2), ('ne_sweep', None, fused_sweep,
-                                              2)]
+    rows = [('composed', None, composed, 2),
+            ('ne_sweep', None, fused_sweep, 2),
+            ('ne_oneread', None, oneread_sweep, 1)]
     for spec in variants:
         rows.append((spec, map_spec(spec),
                      onepass_fn(spec, budget_kib * 1024), 1))

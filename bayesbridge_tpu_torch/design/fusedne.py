@@ -6,9 +6,10 @@ policy only; the sweeps themselves are :mod:`..kernels.ne_sweep` and
 of three kinds:
 
 ``'quad'``
-    the CG operator X'(w * (X v)): fused = one ``ne_sweep``; composed =
-    the row pass ``X v`` and the column pass ``X' u`` (block-ordered CG,
-    the linear predictor accumulated in the CG loop).
+    the CG operator X'(w * (X v)): fused = one ``ne_sweep`` (on the card
+    the one-read kernel); composed = the row pass ``X v`` and the column
+    pass ``X' u`` (block-ordered CG, the linear predictor accumulated in
+    the CG loop).
 ``'presolve'``
     the pre-solve reductions: fused = one ``tdots_sweep`` of
     ``X'[u1 u2 u3]`` plus the squared moment, the warm start's residual
@@ -24,20 +25,21 @@ interpret mode to distinguish); ``'auto'`` takes the per-kind choice of
 ``AUTO``. ``None`` reads ``BB_FUSED_NE``, default ``'auto'``.
 
 ``AUTO`` composes every kind, as the JAX package does, from H100 80GB
-HBM3 measurements at the flagship (``PERF.md`` §6, ``chip_smoke.py`` and
-the sweep A/B harness):
+HBM3 measurements at the flagship (``PERF.md`` §6, ``chip_smoke.py``):
 
-- 'quad': the composed pair takes what the fused sweep takes (4.568 vs
-  4.604 ms; ``ne_sweep`` is the same row and column kernels), and per
-  Gibbs step the composed path reads X 2k + 2 times against 2k + 4 (233
-  vs 247 ms of device time per 3 iterations);
+- 'quad': the one-read kernel (``kernels.ne_oneread``) takes 2.85-3.14
+  ms against the composed pair's 4.39-4.94, and the fused slice took
+  58.76-59.61 device ms per iteration against 75.06-78.14; but it runs
+  one operator application more per step and a row pass for the linear
+  predictor, and the alternating A/B segments did not favour it in
+  every call (median iter/s fused minus composed +2.3%, +6.9%, -3.6%,
+  then +9.2% over 8 rounds). Fusing needs both, lower device time and a
+  higher A/B median; with one call of four against, it waits for a
+  second 8-round call to repeat the last one;
 - 'presolve': five reductions in one read plus the warm start's row pass
-  (3.098 + 2.375 ms) against four plus a fused operator application
-  (3.344 + 4.965 ms);
-- 'link': 4.842-5.189 vs 4.857-5.153 ms, a tie.
-
-The one-read sweep (``kernels.ne_onepass``, 4.87-5.33 ms) does not beat
-the composed pair yet; revisit when it does.
+  (3.004 + 2.259 ms) against four plus a one-read operator application
+  (3.245 + 2.940 ms);
+- 'link': 4.846 against 4.861 ms for the two-pass link sweep, a tie.
 """
 
 import os

@@ -10,12 +10,14 @@ Port of ``bayesbridge_tpu/design/sparse.py`` (unsharded, float32).
     pass of :mod:`..kernels.ne_sweep` (``ne_rows``), `Tdot` its column
     pass (``colpass``), the pre-solve reductions and the Fisher diagonal
     one :mod:`..kernels.tdots_sweep` read. The `fused` policy
-    (:mod:`.fusedne`; default 'auto' = composed, as in the JAX package)
-    decides per call site whether the CG operator, the pre-solve and the
-    GLM score run composed (block-ordered CG, the warm start folded into
-    the pre-solve, the linear predictor from the CG loop) or as one fused
-    sweep each. Blocks are stored with their column count padded to a
-    multiple of 16 zero columns (``kernels.layout``).
+    (:mod:`.fusedne`, default 'auto') decides per call site whether the
+    CG operator, the pre-solve and the GLM score run composed
+    (block-ordered CG, the warm start folded into the pre-solve, the
+    linear predictor from the CG loop) or as one fused sweep each; the
+    fused CG operator reads X once on the card
+    (:mod:`..kernels.ne_oneread`, through ``ne_sweep``'s 'ne' mode).
+    Blocks are stored with their column count padded to a multiple of
+    16 zero columns (``kernels.layout``).
 ``bitpack``
     Beyond the hybrid budget, for mostly 0/1 designs: the binary columns
     as a dual bitmap, one bit per element in each orientation
@@ -23,10 +25,13 @@ Port of ``bayesbridge_tpu/design/sparse.py`` (unsharded, float32).
     (:mod:`..kernels.bitlut`); the other columns ride in a dense float32
     side block.
 ``winell``
-    Beyond the hybrid budget, for general-valued designs: a dual
-    windowed-ELL packing (:mod:`.winell`) multiplied by the winell kernel
-    (:mod:`..kernels.winell`), with small plain-ELL spill matrices for
-    overfull cells (a torch gather).
+    Beyond the hybrid budget, for general-valued designs. The device
+    holds a dual windowed CSR (:mod:`.wincsr`, every nonzero in its
+    place, no spill) multiplied by the wincsr kernel
+    (:mod:`..kernels.wincsr`). The JAX package's dual windowed-ELL
+    packing with its plain-ELL spill (:mod:`.winell`) is planned
+    alongside and packed only on demand (``winell_packing``); a JAX
+    design's packing carries across into the windowed CSR.
 
 The fused sweeps serve the hybrid backend only; the other two run the
 composed path (`quad_matvec` = `dot` then `Tdot`, the pre-solve as
@@ -53,15 +58,15 @@ import scipy.sparse as sps
 import torch
 
 from . import bitlut as bitlut_mod
+from . import wincsr as wincsr_mod
 from . import winell as winell_mod
 from .abstract import AbstractDesignMatrix
-from .ell import csr_to_ell
 from .fusedne import POLICIES, dispatch_mode
 from ..kernels import layout
 from ..kernels.bitlut import bitlut
 from ..kernels.ne_sweep import colpass, ne_rows, ne_sweep
 from ..kernels.tdots_sweep import tdots_sweep
-from ..kernels.winell import winell
+from ..kernels.wincsr import wincsr
 from ..utils.dtypes import check_float32, resolve_device
 
 # Budgets of the JAX package's auto rule (sized for a 16 GB-HBM chip;
@@ -293,9 +298,10 @@ class SparseDesignMatrix(AbstractDesignMatrix):
             (p_bin, gcol_pad, n_pad, k_dot, grow_pad, pbin_pad, k_tdot))
 
     def _build_winell(self, X, offsets):
-        """Dual windowed-ELL packing (row-major for X v, column-major for
-        X' u) plus plain-ELL spill matrices for cells deeper than the
-        slot budget (sparse.py:551-593)."""
+        """The windowed CSR of both orientations, and the JAX design's
+        windowed-ELL plan (window width, slot depth, whether it spills)
+        for each (sparse.py:551-593), whose packing
+        :meth:`winell_packing` builds on demand."""
         n, p = X.shape
         nnz = X.nnz
         t0 = time.perf_counter()
@@ -303,27 +309,12 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         X.eliminate_zeros()  # occupancy == (value != 0)
         X.sort_indices()
         w_dot, k_dot = winell_mod.plan_windows(p, n, X.nnz)
-        idx_d, val_d, spill_d = winell_mod.pack_winell(X, w_dot, k_dot)
-        Xt = X.T.tocsr()
-        Xt.sort_indices()
         w_tdot, k_tdot = winell_mod.plan_windows(n, p, X.nnz)
-        idx_t, val_t, spill_t = winell_mod.pack_winell(Xt, w_tdot, k_tdot)
-
-        def ell_or_empty(spill):
-            if spill is None:
-                return (np.zeros((0, 1), np.int32),
-                        np.zeros((0, 1), np.float32))
-            return csr_to_ell(spill.indptr, spill.indices,
-                              spill.data.astype(np.float32), spill.shape[1])
-
-        sd_idx, sd_val = ell_or_empty(spill_d)
-        st_idx, st_val = ell_or_empty(spill_t)
-        self.build_seconds['pack'] = time.perf_counter() - t0
-        self._set_winell(
-            idx_d, val_d, idx_t, val_t, sd_idx, sd_val, st_idx, st_val,
-            offsets, (n, p), nnz,
-            (w_dot, k_dot, w_tdot, k_tdot, spill_d is not None,
-             spill_t is not None))
+        has_st = winell_mod.spills(X.T.tocsr(), w_tdot, k_tdot)
+        meta = (w_dot, k_dot, w_tdot, k_tdot,
+                winell_mod.spills(X, w_dot, k_dot), has_st)
+        self._set_wincsr(offsets, (n, p), nnz, meta, X)
+        self.build_seconds['wincsr'] = time.perf_counter() - t0
 
     def _set_common(self, column_offset, shape_main, nnz):
         self._shape_main = tuple(shape_main)
@@ -371,22 +362,36 @@ class SparseDesignMatrix(AbstractDesignMatrix):
     def _set_winell(self, widx_dot, wval_dot, widx_tdot, wval_tdot, sd_idx,
                     sd_val, st_idx, st_val, column_offset, shape_main, nnz,
                     meta):
-        """`meta` = (w_dot, k_dot, w_tdot, k_tdot, has_sd, has_st), the
+        """A design from the JAX design's windowed-ELL arrays: the row
+        packing and its spill encode X exactly, and give the windowed
+        CSR. `meta` = (w_dot, k_dot, w_tdot, k_tdot, has_sd, has_st), the
         JAX design's ``_winell_meta`` (a trailing interpret flag is
         ignored)."""
+        X_csr = wincsr_mod.csr_from_winell(widx_dot, wval_dot, sd_idx,
+                                           sd_val, shape_main, *meta[:2])
+        self._set_wincsr(column_offset, shape_main, nnz, meta, X_csr)
+
+    def _set_wincsr(self, column_offset, shape_main, nnz, meta, X_csr):
+        """The device's windowed CSR of both orientations from `X_csr`
+        (the main design, explicit zeros eliminated)."""
         self._set_common(column_offset, shape_main, nnz)
         self.exact_is_binary = False
         w_dot, k_dot, w_tdot, k_tdot, has_sd, has_st = meta[:6]
         self._winell_meta = (int(w_dot), int(k_dot), int(w_tdot),
                              int(k_tdot), bool(has_sd), bool(has_st))
-        self.widx_dot = self._dev(widx_dot, torch.int16)
-        self.wval_dot = self._dev(wval_dot, torch.float32)
-        self.widx_tdot = self._dev(widx_tdot, torch.int16)
-        self.wval_tdot = self._dev(wval_tdot, torch.float32)
-        self.sd_idx = self._dev(sd_idx, torch.int64)
-        self.sd_val = self._dev(sd_val, torch.float32)
-        self.st_idx = self._dev(st_idx, torch.int64)
-        self.st_val = self._dev(st_val, torch.float32)
+        X_csr = sps.csr_matrix(X_csr)
+        self.wc_dot = wincsr_mod.build_wincsr(X_csr).to(self.device)
+        self.wc_tdot = wincsr_mod.build_wincsr(
+            X_csr.T.tocsr()).to(self.device)
+
+    def winell_packing(self):
+        """The JAX package's windowed-ELL arrays of this winell design (by
+        the names of ``PACKED_ARRAYS['winell']``, numpy, element for
+        element the JAX design's), packed on the host from the stored
+        layout: the design keeps only the windowed CSR."""
+        X = self.wc_dot.to_scipy()
+        X.sort_indices()
+        return winell_mod.pack_dual(X, *self._winell_meta[:4])
 
     # -- shape / metadata ------------------------------------------------ #
 
@@ -414,9 +419,7 @@ class SparseDesignMatrix(AbstractDesignMatrix):
             return (self.X_exact, self.X_float)
         if self.backend == 'bitpack':
             return (self.bits_col, self.bits_row, self.X_float)
-        return (self.widx_dot, self.wval_dot, self.widx_tdot,
-                self.wval_tdot, self.sd_idx, self.sd_val, self.st_idx,
-                self.st_val)
+        return self.wc_dot.tensors() + self.wc_tdot.tensors()
 
     def storage_bytes(self):
         """Device bytes of the stored design arrays."""
@@ -507,21 +510,10 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         return bitlut(self.bits_row, u_pad, p_bin, 'tdot')
 
     def _winell_dot_main(self, v_main):
-        w_dot, k_dot, _, _, has_sd, _ = self._winell_meta
-        r = winell(self.widx_dot, self.wval_dot, v_main, self._shape_main[0],
-                   w_dot, k_dot, tag='dot')
-        if has_sd:
-            r = r + (self.sd_val * v_main[self.sd_idx]).sum(1)
-        return r
+        return wincsr(self.wc_dot, v_main, tag='dot')
 
     def _winell_tdot_main(self, u, power=1):
-        _, _, w_tdot, k_tdot, _, has_st = self._winell_meta
-        r = winell(self.widx_tdot, self.wval_tdot, u, self._shape_main[1],
-                   w_tdot, k_tdot, square=power == 2, tag='tdot')
-        if has_st:
-            val = self.st_val * self.st_val if power == 2 else self.st_val
-            r = r + (val * u[self.st_idx]).sum(1)
-        return r
+        return wincsr(self.wc_tdot, u, square=power == 2, tag='tdot')
 
     # -- core products --------------------------------------------------- #
 
@@ -760,21 +752,7 @@ class SparseDesignMatrix(AbstractDesignMatrix):
             if self.n_float:
                 X[:, self.float_cols.cpu()] = self.X_float.cpu()
             return X
-        w_dot, k_dot, *_ = self._winell_meta
-        T, _ = winell_mod.tile_block(n)
-        idx = self.widx_dot.cpu().long()
-        wn = idx.shape[0] // (T * k_dot)
-        cell = torch.arange(idx.shape[0]) // k_dot
-        rows = ((cell % T) * 128)[:, None] + torch.arange(128)[None, :]
-        cols = ((cell // T) * w_dot)[:, None] + idx
-        # Empty slots add value 0 at (row, window start): inert.
-        full = torch.zeros((T * 128, wn * w_dot), dtype=torch.float32)
-        full.index_put_((rows, cols), self.wval_dot.cpu(), accumulate=True)
-        X = full[:n, :p].clone()
-        if self._winell_meta[4]:
-            rows = torch.arange(n)[:, None].expand_as(self.sd_idx.cpu())
-            X.index_put_((rows, self.sd_idx.cpu()), self.sd_val.cpu(),
-                         accumulate=True)
+        X[:] = torch.from_numpy(self.wc_dot.to_scipy().toarray())
         return X
 
     def toarray(self):

@@ -2,7 +2,9 @@
 
 Port of the host part of ``bayesbridge_tpu/design/winell.py``: the
 window/slot plan, the storage estimate used by ``backend='auto'`` and
-the packer. The matvec on this layout is the ``winell`` kernel of
+the packer (the winell design keeps the windowed CSR of :mod:`.wincsr`
+on the card and packs these arrays only on demand). The matvec on this
+layout is the ``winell`` kernel of
 :mod:`bayesbridge_tpu_torch.kernels.winell`:
 
     out[tile, lane] += sum_slot val[slot, lane] * v[window, idx[slot, lane]]
@@ -18,6 +20,8 @@ element for element.
 
 import numpy as np
 import scipy.sparse as sps
+
+from .ell import csr_to_ell
 
 _LANE = 128
 
@@ -111,3 +115,36 @@ def pack_winell(X_csr, W, K):
     spill = sps.csr_matrix(
         (data[rest], (rows[rest], cols[rest])), shape=(n_out, n_in))
     return idx, val, spill
+
+
+def spills(X_csr, W, K):
+    """True where some (output, window) cell of a CSR matrix (rows =
+    outputs) holds more than K entries: where :func:`pack_winell` spills."""
+    if X_csr.nnz == 0:
+        return False
+    n_out, n_in = X_csr.shape
+    Wn = max(1, _ceil_to(n_in, W) // W)
+    rows = np.repeat(np.arange(n_out, dtype=np.int64), np.diff(X_csr.indptr))
+    return int(np.bincount(rows * Wn + X_csr.indices // W).max()) > K
+
+
+def pack_dual(X_csr, w_dot, k_dot, w_tdot, k_tdot):
+    """The JAX winell design's arrays of a CSR matrix (explicit zeros
+    eliminated, indices sorted), by its names: the packing of X for X v
+    (``widx_dot``, ``wval_dot``), of X' for X' u (``widx_tdot``,
+    ``wval_tdot``), and each one's spill as plain ELL (``sd_idx``,
+    ``sd_val``, ``st_idx``, ``st_val``; 0 x 1 where nothing spills)."""
+    Xt = X_csr.T.tocsr()
+    Xt.sort_indices()
+    out = {}
+    for tag, spill_tag, M, W, K in (('dot', 'sd', X_csr, w_dot, k_dot),
+                                    ('tdot', 'st', Xt, w_tdot, k_tdot)):
+        idx, val, spill = pack_winell(M, W, K)
+        if spill is None:
+            ell = (np.zeros((0, 1), np.int32), np.zeros((0, 1), np.float32))
+        else:
+            ell = csr_to_ell(spill.indptr, spill.indices,
+                             spill.data.astype(np.float32), spill.shape[1])
+        out.update({f'widx_{tag}': idx, f'wval_{tag}': val,
+                    f'{spill_tag}_idx': ell[0], f'{spill_tag}_val': ell[1]})
+    return out

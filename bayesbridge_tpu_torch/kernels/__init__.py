@@ -11,9 +11,11 @@ source and the TPU kernel it replaces, for the chip smoke's report.
 
 from . import bitlut as _bl
 from . import ne_onepass as _op
+from . import ne_oneread as _or
 from . import ne_sweep as _ne
 from . import stream_probe as _sp
 from . import tdots_sweep as _td
+from . import wincsr as _wc
 from . import winell as _we
 from .build import load_library
 
@@ -26,6 +28,10 @@ REGISTRY = {
                    replaces='bayesbridge_tpu/design/bitlut.py:83'),
     'winell': dict(source='bayesbridge_tpu_torch/csrc/winell.cu',
                    replaces='bayesbridge_tpu/design/winell.py:149'),
+    'wincsr': dict(source='bayesbridge_tpu_torch/csrc/wincsr.cu',
+                   replaces='bayesbridge_tpu/design/winell.py:149'),
+    'ne_oneread': dict(source='bayesbridge_tpu_torch/csrc/ne_oneread.cu',
+                       replaces='bayesbridge_tpu/design/fusedne.py:136'),
     'ne_onepass': dict(source='bayesbridge_tpu_torch/csrc/ne_onepass.cu',
                        replaces='baselines/dev_ne_variants.py:302'),
     'stream_probe': dict(source='bayesbridge_tpu_torch/csrc/stream_probe.cu',
@@ -36,21 +42,23 @@ REGISTRY = {
 def launch_counts():
     """{'ne_sweep[ne]': k, ..., 'ne_sweep[rows]': ..., 'ne_sweep[cols]':
     ..., 'tdots_sweep': ..., 'tdots_sweep[u4]': ..., 'bitlut[dot]': ...,
-    'winell[tdot]': ..., 'ne_onepass': ..., 'stream_probe[i32]': ...}."""
+    'winell[tdot]': ..., 'wincsr[dot]': ..., 'ne_onepass': ...,
+    'ne_oneread': ..., 'stream_probe[i32]': ...}."""
     counts = {f'ne_sweep[{key}]': k for key, k in _ne.launches.items()}
     counts['tdots_sweep'] = _td.launches['tdots']
     counts['tdots_sweep[u4]'] = _td.launches['u4']
-    for name, mod in (('bitlut', _bl), ('winell', _we),
+    for name, mod in (('bitlut', _bl), ('winell', _we), ('wincsr', _wc),
                       ('stream_probe', _sp)):
         counts.update({f'{name}[{tag}]': k
                        for tag, k in mod.launches.items()})
     counts['ne_onepass'] = _op.launches['onepass']
+    counts['ne_oneread'] = _or.launches['ne']
     return counts
 
 
 def reset_launch_counts():
     for counter in (_ne.launches, _td.launches, _bl.launches, _we.launches,
-                    _op.launches, _sp.launches):
+                    _wc.launches, _op.launches, _or.launches, _sp.launches):
         for key in counter:
             counter[key] = 0
 

@@ -22,8 +22,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_ROOT = _PKG / '_build'
-SOURCES = ('ne_sweep.cu', 'tdots_sweep.cu', 'bitlut.cu', 'winell.cu',
-           'ne_onepass.cu', 'stream_probe.cu')
+SOURCES = ('ne_oneread.cu', 'ne_sweep.cu', 'tdots_sweep.cu', 'bitlut.cu',
+           'winell.cu', 'wincsr.cu', 'ne_onepass.cu', 'stream_probe.cu')
 HEADERS = ('sweep_common.cuh',)
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC')
@@ -43,6 +43,10 @@ _SIGNATURES = {
     'bb_bitlut': [_P, _L, _L, _P, _I, _I, _I, _P, _P, _P],
     'bb_winell': [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                   _P],
+    'bb_wincsr': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    'bb_ne_oneread': [_I, _P, _L, _I, _P, _I, _P, _L, _I, _P, _L, _P, _I,
+                      _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    'bb_ne_oneread_fit': [_I, _I, _I, _I, _I, _I],
     'bb_ne_onepass': [_P, _L, _I, _P, _L, _I, _P, _P, _P, _P, _L, _I, _I,
                       _I, _I, _I, _I, _I, _P, _P, _P, _P],
     'bb_stream_probe': [_P, _L, _L, _I, _P, _P, _P, _P, _I, _P],

@@ -13,9 +13,12 @@ Counterpart of ``bayesbridge_tpu/design/fusedne.py`` ``_run`` /
             with_logp=True)
 
 and returns ``(outs, u, logp)``. On a CUDA tensor :func:`ne_sweep`
-launches the hand-written kernel of ``csrc/ne_sweep.cu`` (or raises); on a
-CPU tensor it runs :func:`ne_sweep_plain`. ``launches[mid]`` counts the
-kernel launches.
+launches a hand-written kernel (or raises); on a CPU tensor it runs
+:func:`ne_sweep_plain`. The ``'ne'`` mode (the CG operator) takes the
+one-read kernel of :mod:`.ne_oneread` (``csrc/ne_oneread.cu``, counted
+there) wherever its plan fits the blocks, else the two-pass kernel of
+``csrc/ne_sweep.cu``, as do the link modes; ``launches[mid]`` counts the
+two-pass kernel's launches. ``route`` forces either.
 
 Its two passes are entries of their own, the hybrid design's composed
 products (the JAX package's XLA dots ``Xe @ v`` and ``Xe.T @ u``,
@@ -27,6 +30,7 @@ products (the JAX package's XLA dots ``Xe @ v`` and ``Xe.T @ u``,
 import torch
 
 from . import layout
+from . import ne_oneread as _oneread
 from .build import load_library
 
 MIDS = {'ne': 0, 'logit': 1, 'linear': 2}
@@ -58,7 +62,10 @@ def ne_sweep_plain(blocks, c, a, b, mid='ne', with_logp=False):
     return outs, u, (lp_rows.sum() if with_logp else None)
 
 
-def ne_sweep(blocks, c, a, b, mid='ne', with_logp=False):
+ROUTES = (None, 'oneread', 'twopass')
+
+
+def ne_sweep(blocks, c, a, b, mid='ne', with_logp=False, route=None):
     """(outs, u, logp) of the sweep; see the module docstring.
 
     Parameters
@@ -68,22 +75,40 @@ def ne_sweep(blocks, c, a, b, mid='ne', with_logp=False):
     c : (n,) float32, or a 0-d float32 tensor added to every row
     a : (n,) float32 ('logit' / 'linear'), or None for 'ne'
     b : (n,) float32 row weights
+    route : None (mode 'ne': the one-read kernel where its plan fits,
+        else two-pass; the link modes: two-pass), 'oneread' (mode 'ne'
+        only; raises where no plan fits) or 'twopass'; read on CUDA
+        tensors only
     """
     if mid not in MIDS:
         raise ValueError(f"mid must be one of {sorted(MIDS)}, got {mid!r}")
     if with_logp and mid == 'ne':
         raise ValueError("with_logp needs a 'logit' or 'linear' mid")
+    if route not in ROUTES or (route == 'oneread' and mid != 'ne'):
+        raise ValueError(f"route must be one of {ROUTES} ('oneread' for "
+                         f"mid 'ne' only), got {route!r}")
+    device, n = check_sweep_args(blocks, c, b)
+    if mid != 'ne':
+        layout.check_vector(a, n, 'a', device)
+    if not _on_cuda(device, 'ne_sweep'):
+        return ne_sweep_plain(blocks, c, a, b, mid, with_logp)
+    if mid == 'ne' and route != 'twopass' and (
+            route == 'oneread' or _oneread.block_plan(blocks) is not None):
+        outs, u = _oneread.ne_oneread(blocks, c, b)
+        return outs, u, None
+    return _ne_sweep_cuda(blocks, c, a, b, mid, with_logp)
+
+
+def check_sweep_args(blocks, c, w):
+    """(device, n) of the blocks after checking them, their vectors, the
+    row offset `c` and the row weights `w`."""
     device, n = _check_blocks([X for X, _ in blocks],
                               [v.shape[0] for _, v in blocks])
     for i, (_, v) in enumerate(blocks):
         layout.check_vector(v, v.shape[0], f"v{i}", device)
-    layout.check_vector(b, n, 'b', device)
-    if mid != 'ne':
-        layout.check_vector(a, n, 'a', device)
+    layout.check_vector(w, n, 'b', device)
     _check_c(c, n, device)
-    if not _on_cuda(device, 'ne_sweep'):
-        return ne_sweep_plain(blocks, c, a, b, mid, with_logp)
-    return _ne_sweep_cuda(blocks, c, a, b, mid, with_logp)
+    return device, n
 
 
 def _check_blocks(Xs, ps):

@@ -19,10 +19,12 @@ import torch
 from bayesbridge_tpu_torch.kernels import layout, launch_counts, \
     reset_launch_counts
 from bayesbridge_tpu_torch.kernels.bitlut import bitlut, bitlut_plain
+from bayesbridge_tpu_torch.kernels.wincsr import wincsr, wincsr_plain
 from bayesbridge_tpu_torch.kernels.winell import winell, winell_plain
 from bayesbridge_tpu_torch.kernels.ne_onepass import (
     A_MODES, B_MODES, ne_onepass, ne_onepass_plain,
 )
+from bayesbridge_tpu_torch.kernels.ne_oneread import block_plan, ne_oneread
 from bayesbridge_tpu_torch.kernels.ne_sweep import (
     colpass, colpass_plain, ne_rows, ne_rows_plain, ne_sweep, ne_sweep_plain,
 )
@@ -66,7 +68,8 @@ def test_ne_sweep_kernel_matches_plain(dev, dtype, mid):
     a_ = None if mid == 'ne' else a
     lp = mid != 'ne'
     reset_launch_counts()
-    got = ne_sweep(blocks, c, a_, b, mid, lp)
+    # The two-pass kernel: mode 'ne' takes the one-read route by default.
+    got = ne_sweep(blocks, c, a_, b, mid, lp, route='twopass')
     assert launch_counts()[f'ne_sweep[{mid}]'] == 1
     ref = ne_sweep_plain(blocks, c, a_, b, mid, lp)
     _assert_close(got[0], ref[0])
@@ -235,6 +238,69 @@ def test_winell_kernel_matches_plain(dev, transpose, square):
     assert torch.equal(got, again)
 
 
+@pytest.mark.parametrize('square', [False, True])
+@pytest.mark.parametrize('window', [None, 64])
+@pytest.mark.parametrize('transpose', [False, True])
+def test_wincsr_kernel_matches_plain(dev, transpose, window, square):
+    """Ragged rows (empty ones too), one window or many (64 inputs); two
+    runs give the same bits."""
+    import scipy.sparse as sps
+    from bayesbridge_tpu_torch.design.wincsr import build_wincsr
+    rng = np.random.default_rng(7)
+    n, p = 1037, 613
+    X = rng.standard_normal((n, p)) * (rng.random((n, p)) < .03)
+    X[::50, :200] = rng.standard_normal((len(range(0, n, 50)), 200))
+    X[100:140] = 0.0
+    X = sps.csr_matrix(X.T if transpose else X)
+    m = build_wincsr(X, window).to(dev)
+    v = torch.from_numpy(rng.standard_normal(X.shape[1]).astype(np.float32))
+    v = v.to(dev)
+    reset_launch_counts()
+    got = wincsr(m, v, square, 'tdot')
+    again = wincsr(m, v, square, 'tdot')
+    assert launch_counts()['wincsr[tdot]'] == 2
+    _assert_close([got], [wincsr_plain(m, v, square)])
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize('pair', ['int8+f32', 'bf16+f32', 'int8', 'f32'])
+def test_ne_oneread_matches_plain(dev, pair):
+    """Every block pair of the hybrid design, ragged rows (the last panel
+    partial) and columns, NaN in the float padding; two runs give the
+    same bits, and ne_sweep('ne') routes here."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    n, pe, pf = 1037, 4097, 513
+    kinds = pair.split('+')
+    dtypes = {'int8': torch.int8, 'bf16': torch.bfloat16,
+              'f32': torch.float32}
+    blocks = []
+    for kind, p in zip(kinds, (pe, pf)):
+        X = (torch.randn((n, layout.padded_width(p)), generator=g,
+                         device=dev) * 2).round()
+        if kind != 'int8':
+            X[:, p:] = float('nan')
+        blocks.append((X.to(dtypes[kind]),
+                       torch.randn(p, generator=g, device=dev)))
+    c = torch.randn(n, generator=g, device=dev)
+    w = torch.rand(n, generator=g, device=dev) + .5
+    assert block_plan(blocks) is not None
+    reset_launch_counts()
+    got = ne_oneread(blocks, c, w)
+    again = ne_oneread(blocks, c, w)
+    routed = ne_sweep(blocks, c, None, w, 'ne')
+    counts = launch_counts()
+    assert counts['ne_oneread'] == 3 and counts['ne_sweep[ne]'] == 0
+    ref = ne_sweep_plain(blocks, c, None, w, 'ne')
+    _assert_close(got[0], ref[0])
+    _assert_close([got[1]], [ref[1]])
+    assert all(torch.equal(x, y) for x, y in zip(got[0], again[0]))
+    assert torch.equal(got[1], again[1])
+    assert all(torch.equal(x, y) for x, y in zip(got[0], routed[0]))
+    two = ne_sweep(blocks, c, None, w, 'ne', route='twopass')
+    assert launch_counts()['ne_sweep[ne]'] == 1
+    _assert_close(two[0], ref[0])
+
+
 def _chain_problem():
     from bayesbridge_tpu_torch.utils.simulate_data import (
         simulate_design, simulate_outcome,
@@ -263,13 +329,15 @@ def test_chain_resumes_exactly_on_card(dev, backend):
     full, _ = bridge.gibbs(12, seed=0, coef_sampler_type='cg',
                            params_to_save='all')
     counts = launch_counts()
-    kern = {'bitpack': 'bitlut', 'winell': 'winell'}.get(backend)
+    kern = {'bitpack': 'bitlut', 'winell': 'wincsr'}.get(backend)
     if backend == 'hybrid':
         assert counts['ne_sweep[rows]'] > 12 and counts['ne_sweep[cols]'] > 12
         assert counts['tdots_sweep[u4]'] == 12
         assert counts['ne_sweep[ne]'] == counts['tdots_sweep'] == 0
+        assert counts['ne_oneread'] == 0
     elif backend == 'hybrid_fused':
-        assert counts['ne_sweep[ne]'] > 12 and counts['tdots_sweep'] == 12
+        assert counts['ne_oneread'] > 12 and counts['tdots_sweep'] == 12
+        assert counts['ne_sweep[ne]'] == 0
     else:
         assert counts[f'{kern}[dot]'] > 12 and counts[f'{kern}[tdot]'] > 12
     part, info = bridge.gibbs(7, seed=0, coef_sampler_type='cg',

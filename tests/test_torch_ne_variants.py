@@ -182,8 +182,9 @@ def test_harness_cli_on_cpu(capsys):
     out = capsys.readouterr().out
     rows = [ln.split() for ln in out.splitlines()
             if ln.split() and ln.split()[0] in
-            ['composed', 'ne_sweep'] + harness.DEFAULT_VARIANTS.split(',')]
-    assert len(rows) == 8
+            ['composed', 'ne_sweep', 'ne_oneread']
+            + harness.DEFAULT_VARIANTS.split(',')]
+    assert len(rows) == 9
     assert all(float(r[-1]) < 1e-5 for r in rows), out
     assert harness.main(args + ['--probe', '--probe-gb', '1e-4']) == 0
     assert harness.main(args + ['--presolve']) == 0
@@ -196,9 +197,10 @@ def test_run_main_records(blocks):
     recs = harness.run_main(64, 100, 20, ['wide:mxu2'], chain=1, reps=1,
                             budget_kib=1, device=torch.device('cpu'),
                             log=lambda *a: None)
-    assert [r['name'] for r in recs] == ['composed', 'ne_sweep', 'wide:mxu2']
-    assert [r['reads'] for r in recs] == [2, 2, 1]
-    assert recs[2]['modes'] == ('fma', 'mma2', False)
+    assert [r['name'] for r in recs] == ['composed', 'ne_sweep',
+                                         'ne_oneread', 'wide:mxu2']
+    assert [r['reads'] for r in recs] == [2, 2, 1, 1]
+    assert recs[3]['modes'] == ('fma', 'mma2', False)
 
 
 def test_ablation_copies_cut_their_part():

@@ -93,8 +93,9 @@ def test_design_packing_identical():
     jd, td = _pair(X)
     assert td._winell_meta == tuple(jd._winell_meta[:6])
     assert td._winell_meta[4] and td._winell_meta[5]  # both spill
+    packing = td.winell_packing()
     for name in PACKED_ARRAYS['winell']:
-        np.testing.assert_array_equal(getattr(td, name).numpy(),
+        np.testing.assert_array_equal(packing[name],
                                       np.asarray(getattr(jd, name)))
     np.testing.assert_allclose(td.toarray(), jd.toarray(), rtol=1e-6,
                                atol=1e-6)
