@@ -139,8 +139,8 @@ def run(n, pe, pf, reps, log=print):
             rc = lib.bb_ne_oneread(
                 codes[0], Xe.data_ptr(), Xe.shape[1], pe, pads[0].data_ptr(),
                 codes[1], Xf.data_ptr(), Xf.shape[1], pf, pads[1].data_ptr(),
-                n, c.data_ptr(), 1, w.data_ptr(), p.units[0], p.units[1],
-                p.ue, p.uf, p.n_cons, p.stages, fit, u.data_ptr(),
+                n, c.data_ptr(), 1, w.data_ptr(), None, 0, 0, p.units[0],
+                p.units[1], p.ue, p.uf, p.n_cons, p.stages, fit, u.data_ptr(),
                 partial.data_ptr(), out.data_ptr(), stream)
             if rc:
                 raise RuntimeError(f"{name}: CUDA error {rc}")

@@ -1,19 +1,24 @@
-// The hybrid CG operator from one read of X:
+// The hybrid CG operator, and the GLM score with its log-likelihood,
+// from one read of X:
 //
 //   t     = X0 v0 (+ X1 v1) + c        (phase A)
-//   u     = w * t, 0 past row n
+//   u     = mid(t; a, w), 0 past row n   'ne': w t (the CG operator)
+//                                        'logit': a - w sigmoid(t)
+//                                        'linear': w (a - t)
 //   out_b = X_b' u                     (phase B)
+//   logp  = sum of the rows' log-likelihood (link modes, with_logp)
 //
 // over one or two row-aligned blocks (int8, bf16 or f32 storage, f32
 // accumulation), every stored byte of the logical columns read from
 // device memory once per call.
 //
 // Replaces the TPU kernel bayesbridge_tpu/design/fusedne.py:_ne_kernel
-// (mid='ne', launched by fused_ne_matvec / fused_ne_matvec2), which kept
-// a row panel in VMEM for both phases. csrc/ne_sweep.cu computes the same
-// function from two reads (row pass, column pass) and csrc/ne_onepass.cu
-// is the harness's one-read port; this is the design behind
-// kernels/ne_sweep.py ne_sweep(..., 'ne') on the card.
+// (mid='ne', launched by fused_ne_matvec / fused_ne_matvec2; mid='logit' /
+// 'linear' with or without logp, launched by fused_link_matvec), which
+// kept a row panel in VMEM for both phases. csrc/ne_sweep.cu computes the
+// same function from two reads (row pass, column pass) and
+// csrc/ne_onepass.cu is the harness's one-read port; this is the design
+// behind kernels/ne_sweep.py ne_sweep(...) on the card, every mode.
 //
 // What bounds it on the H100: bytes (1 B int8 / 2 B bf16 / 4 B f32 per
 // element for two FMAs). ne_onepass's ablation showed its stream and its
@@ -53,14 +58,21 @@
 // there (PERF.md). So the cluster size is fixed at 8: block pairs whose
 // units do not fit 8 CTAs take the two-pass route (kernels/ne_oneread.py).
 //
+// The link modes' log-likelihood: every CTA of a cluster forms the same
+// u, so only rank 0's finisher warp sums the rows, per lane in panel
+// order, then over its lanes in lane order into the cluster's slot of
+// `partial` (one column past the output columns), which the ordered
+// second pass sums over the clusters with the outputs.
+//
 // Padding: a unit's columns past p are masked in phase A (f32 / bf16
 // padding may hold NaN) and dropped in the output; rows past n are not
-// copied, get u = 0 and add exact zeros (the stage ring starts zeroed and
-// then holds finite design values). No float atomics: two runs give the
-// same bits.
+// copied, get u = 0 and lp = 0 and add exact zeros (the stage ring
+// starts zeroed and then holds finite design values). No float atomics:
+// two runs give the same bits.
 
 #include <cooperative_groups.h>
 
+#include "mbarrier.cuh"
 #include "sweep_common.cuh"
 
 namespace cg = cooperative_groups;
@@ -68,6 +80,7 @@ namespace cg = cooperative_groups;
 namespace bboneread {
 namespace {
 
+using namespace bbasync;
 using bbsweep::Vec;
 
 constexpr int kRows = 4;            // rows per panel
@@ -86,6 +99,9 @@ struct Args {
   const char* X0; int64_t ldb0; int p0; const float* v0;  // ldb: bytes
   const char* X1; int64_t ldb1; int p1; const float* v1;
   const float* c; int c_stride; const float* w; int64_t n;
+  const float* a;  // (n,) the link modes' first operand; unused for 'ne'
+  int mid;         // bbsweep::Mid: MID_NE, MID_LOGIT or MID_LINEAR
+  int with_logp;
   int U0, U1;      // live 16-byte units of each block
   int ue, uf;      // units per CTA of each block
   int ue_pad;      // consumer threads of block 0 (ue rounded up to 32)
@@ -93,7 +109,8 @@ struct Args {
   int stages;
   int64_t n_panels;
   float* u;        // (n,)
-  float* partial;  // (clusters, p0 + p1)
+  float* partial;  // (clusters, width)
+  int64_t width;   // p0 + p1, + 1 (the logp column) with with_logp
 };
 
 struct Smem {
@@ -123,60 +140,6 @@ __device__ inline Smem carve(char* base) {
   return s;
 }
 
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(saddr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   saddr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          saddr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Wait for the phase of the given parity to complete; kCluster: acquire
-// at cluster scope (for arrivals from peers). Bounded at about ten
-// seconds: a miscounted phase traps, a launch error, instead of hanging
-// the card.
-template <bool kCluster>
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  const long long t0 = clock64();
-  for (;;) {
-    uint32_t done;
-    if constexpr (kCluster)
-      asm volatile(
-          "{\n\t.reg .pred p;\n\t"
-          "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, "
-          "[%1], %2;\n\tselp.u32 %0, 1, 0, p;\n}\n"
-          : "=r"(done)
-          : "r"(saddr(bar)), "r"(parity)
-          : "memory");
-    else
-      asm volatile(
-          "{\n\t.reg .pred p;\n\t"
-          "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-          "selp.u32 %0, 1, 0, p;\n}\n"
-          : "=r"(done)
-          : "r"(saddr(bar)), "r"(parity)
-          : "memory");
-    if (done) return;
-    if (clock64() - t0 > 20000000000LL) __trap();
-  }
-}
-
 // This CTA's shared address `a` as the same offset in CTA `rank` of the
 // cluster.
 __device__ __forceinline__ uint32_t peer_addr(uint32_t a, int rank) {
@@ -196,15 +159,6 @@ __device__ __forceinline__ void peer_arrive(uint32_t bar) {
   asm volatile(
       "mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(
           bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(saddr(dst)),
-      "l"(src), "r"(bytes), "r"(saddr(bar))
       : "memory");
 }
 
@@ -385,33 +339,38 @@ __device__ __forceinline__ void push_panel(const Smem& s, int rank, int C,
 }
 
 // The cluster's partials of panel k summed in rank order (every CTA gets
-// the same bits) -> u, staged for phase B.
-__device__ __forceinline__ void finish_panel(const Args& a, const Smem& s,
-                                             int rank, int C, int64_t cid,
-                                             int64_t ncl, int64_t k) {
+// the same bits) -> u, staged for phase B. Returns this lane's row's
+// log-likelihood (0 past row n, on lanes without a row and without
+// with_logp).
+__device__ __forceinline__ float finish_panel(const Args& a, const Smem& s,
+                                              int rank, int C, int64_t cid,
+                                              int64_t ncl, int64_t k) {
   const int lane = threadIdx.x & 31;
   const int j = (int)(k % kSlots);
-  // The row's weight and offset load while the exchange is in flight.
+  // The row's operands load while the exchange is in flight.
   const int64_t row = (cid + k * ncl) * kRows + lane;
-  float wr = 0.f, cr = 0.f;
+  float wr = 0.f, cr = 0.f, ar = 0.f;
   if (lane < kRows && row < a.n) {
     wr = __ldg(a.w + row);
     cr = __ldg(a.c + (int64_t)a.c_stride * row);
+    if (a.mid != bbsweep::MID_NE) ar = __ldg(a.a + row);
   }
   bar_wait<true>(&s.cbar[j], (uint32_t)((k / kSlots) & 1));
+  float lp = 0.f;
   if (lane < kRows) {
     float t = 0.f;
     for (int q = 0; q < C; ++q)
       t += s.cpart[(j * kCluster + q) * kRows + lane];
     float uu = 0.f;
     if (row < a.n) {
-      uu = wr * (t + cr);
+      uu = bbsweep::row_map(a.mid, t + cr, ar, wr, a.with_logp, lp);
       if (rank == 0) a.u[row] = uu;
     }
     s.su[j * kRows + lane] = uu;
   }
   __syncwarp();
   if (lane == 0) bar_arrive(&s.ubar[j]);
+  return lp;
 }
 
 // The pusher warp and the finisher warp.
@@ -419,9 +378,25 @@ __device__ void pusher(const Smem& s, int rank, int C, int64_t K, int ncw) {
   for (int64_t k = 0; k < K; ++k) push_panel(s, rank, C, k, ncw);
 }
 
+// With with_logp, rank 0's finisher also sums the cluster's rows'
+// log-likelihood: per lane in panel order, then lanes 0..kRows-1 in order,
+// into the cluster's logp slot.
 __device__ void finisher(const Args& a, const Smem& s, int rank, int C,
                          int64_t cid, int64_t ncl, int64_t K) {
-  for (int64_t k = 0; k < K; ++k) finish_panel(a, s, rank, C, cid, ncl, k);
+  float lp = 0.f;
+  for (int64_t k = 0; k < K; ++k)
+    lp += finish_panel(a, s, rank, C, cid, ncl, k);
+  if (a.with_logp && rank == 0) {
+    float rows[kRows];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) rows[r] = __shfl_sync(0xffffffffu, lp, r);
+    if ((threadIdx.x & 31) == 0) {
+      float sum = 0.f;
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) sum += rows[r];
+      a.partial[cid * a.width + a.p0 + a.p1] = sum;
+    }
+  }
 }
 
 template <typename T0, typename T1>
@@ -462,7 +437,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1) oneread_kernel(Args a) {
   const int my_ue = max(0, min(a.ue, a.U0 - ue0));
   const int my_uf = max(0, min(a.uf, a.U1 - uf0));
   const int warp = threadIdx.x >> 5;
-  float* part_row = a.partial + cid * ((int64_t)a.p0 + a.p1);
+  float* part_row = a.partial + cid * a.width;
   if (warp < ncw) {
     const int t = threadIdx.x;
     if (t < a.ue_pad)
@@ -526,30 +501,32 @@ cudaError_t launch(const Args& a, int clusters, float* out,
   cfg.stream = stream;
   err = cudaLaunchKernelEx(&cfg, oneread_kernel<T0, T1>, a);
   if (err != cudaSuccess) return err;
-  const int64_t width = (int64_t)a.p0 + a.p1;
   const int rgrid = (int)bbsweep::min64(
-      (width + bbsweep::kThreads - 1) / bbsweep::kThreads, 4096);
+      (a.width + bbsweep::kThreads - 1) / bbsweep::kThreads, 4096);
   bbsweep::reduce_segments_kernel<<<rgrid, bbsweep::kThreads, 0, stream>>>(
-      a.partial, clusters, width, out);
+      a.partial, clusters, a.width, out);
   return cudaGetLastError();
 }
 
 Args make_args(const void* X0, long long ld0, int p0, const float* v0,
                const void* X1, long long ld1, int p1, const float* v1,
                long long n, const float* c, int c_stride, const float* w,
-               int U0, int U1, int ue, int uf, int n_cons, int stages,
-               int esz0, int esz1, float* u, float* partial) {
+               const float* link_a, int mid, int with_logp, int U0, int U1,
+               int ue, int uf, int n_cons, int stages, int esz0, int esz1,
+               float* u, float* partial) {
   Args a;
   a.X0 = static_cast<const char*>(X0); a.ldb0 = ld0 * esz0; a.p0 = p0;
   a.v0 = v0;
   a.X1 = static_cast<const char*>(X1); a.ldb1 = ld1 * esz1; a.p1 = p1;
   a.v1 = v1;
   a.c = c; a.c_stride = c_stride; a.w = w; a.n = n;
+  a.a = link_a; a.mid = mid; a.with_logp = with_logp;
   a.U0 = U0; a.U1 = U1; a.ue = ue; a.uf = uf;
   a.ue_pad = (ue + 31) / 32 * 32;
   a.n_cons = n_cons; a.stages = stages;
   a.n_panels = (n + kRows - 1) / kRows;
   a.u = u; a.partial = partial;
+  a.width = (int64_t)p0 + p1 + (with_logp ? 1 : 0);
   return a;
 }
 
@@ -580,34 +557,41 @@ extern "C" int bb_ne_oneread_fit(int dt0, int dt1, int ue, int uf,
   using namespace bboneread;
   if (!valid(ue, uf, n_cons, stages)) return -1;
   Args a = make_args(nullptr, 0, 0, nullptr, nullptr, 0, 0, nullptr, 0,
-                     nullptr, 0, nullptr, 0, 0, ue, uf, n_cons, stages, 1, 1,
-                     nullptr, nullptr);
+                     nullptr, 0, nullptr, nullptr, bbsweep::MID_NE, 0, 0, 0,
+                     ue, uf, n_cons, stages, 1, 1, nullptr, nullptr);
   BB_DISPATCH2(dt0, dt1, T0, T1, return fit_clusters<T0, T1>(a));
 }
 
 // C interface (ctypes). dt*: 0 f32, 1 bf16, 2 int8, dt1 = -1 for one
 // block. ld*: row stride in elements; v*: padded with zeros to the live
-// units' columns; c read as c[c_stride * row]. U*: live 16-byte units
+// units' columns; c read as c[c_stride * row]; w: the row weights (b);
+// a: the link modes' first operand (unused for mid 0). mid: 0 'ne',
+// 1 'logit', 2 'linear'; with_logp (link modes): out gets the summed
+// log-likelihood rows after the columns. U*: live 16-byte units
 // (ceil(p / elements per unit)); ue / uf: units per CTA; n_cons consumer
 // threads; clusters from bb_ne_oneread_fit (at most). partial: clusters *
-// (p0 + p1) floats of scratch; out: p0 + p1 floats; u: n floats. Returns
-// the CUDA error of the launches (0 = ok).
+// (p0 + p1 + with_logp) floats of scratch; out: p0 + p1 + with_logp
+// floats; u: n floats. Returns the CUDA error of the launches (0 = ok).
 extern "C" int bb_ne_oneread(int dt0, const void* X0, long long ld0, int p0,
                              const float* v0, int dt1, const void* X1,
                              long long ld1, int p1, const float* v1,
                              long long n, const float* c, int c_stride,
-                             const float* w, int U0, int U1, int ue, int uf,
+                             const float* w, const float* a, int mid,
+                             int with_logp, int U0, int U1, int ue, int uf,
                              int n_cons, int stages, int clusters,
                              float* u, float* partial, float* out,
                              void* stream) {
   using namespace bboneread;
-  if (!valid(ue, uf, n_cons, stages) || clusters < 1 || n <= 0)
+  if (!valid(ue, uf, n_cons, stages) || clusters < 1 || n <= 0 ||
+      mid < bbsweep::MID_NE || mid > bbsweep::MID_LINEAR ||
+      (mid != bbsweep::MID_NE && a == nullptr) ||
+      (with_logp && mid == bbsweep::MID_NE))
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
-  Args a = make_args(X0, ld0, p0, v0, X1, ld1, p1, v1, n, c, c_stride, w,
-                     U0, U1, ue, uf, n_cons, stages, esize(dt0),
-                     dt1 < 0 ? 4 : esize(dt1), u, partial);
-  if (clusters > a.n_panels) clusters = (int)a.n_panels;
+  Args args = make_args(X0, ld0, p0, v0, X1, ld1, p1, v1, n, c, c_stride, w,
+                        a, mid, with_logp, U0, U1, ue, uf, n_cons, stages,
+                        esize(dt0), dt1 < 0 ? 4 : esize(dt1), u, partial);
+  if (clusters > args.n_panels) clusters = (int)args.n_panels;
   BB_DISPATCH2(dt0, dt1, T0, T1,
-               return (int)launch<T0, T1>(a, clusters, out, s));
+               return (int)launch<T0, T1>(args, clusters, out, s));
 }

@@ -35,8 +35,6 @@
 namespace bbsweep {
 namespace {
 
-enum Mid { MID_NE = 0, MID_LOGIT = 1, MID_LINEAR = 2, MID_ROWS = 3 };
-
 constexpr int kRowsPerWarp = 4;
 constexpr int kRowsPerBlock = (kThreads / 32) * kRowsPerWarp;
 
@@ -111,25 +109,9 @@ __global__ void __launch_bounds__(kThreads) ne_rows_kernel(
     for (int r = 1; r < kRowsPerWarp; ++r) if (lane == r) t = acc[r];
     const int64_t row = row0 + lane;
     t += c[c_stride * row];
-    float uu;
-    if (mid == MID_ROWS) {
-      uu = t;
-    } else if (mid == MID_NE) {
-      uu = b[row] * t;
-    } else if (mid == MID_LOGIT) {
-      const float aa = a[row];
-      const float bb = b[row];
-      uu = aa - bb * (1.f / (1.f + expf(-t)));
-      // y t - n log(1 + e^t), the softplus written stably.
-      if (with_logp)
-        lp = aa * t - bb * (fmaxf(t, 0.f) + log1pf(expf(-fabsf(t))));
-    } else {
-      const float bb = b[row];
-      const float resid = a[row] - t;
-      uu = bb * resid;
-      if (with_logp) lp = -0.5f * bb * resid * resid;
-    }
-    u[row] = uu;
+    const float aa = mid == MID_LOGIT || mid == MID_LINEAR ? a[row] : 0.f;
+    const float bb = mid == MID_ROWS ? 0.f : b[row];
+    u[row] = row_map(mid, t, aa, bb, with_logp, lp);
   }
   if (with_logp) {
 #pragma unroll

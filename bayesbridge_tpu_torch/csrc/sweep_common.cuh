@@ -1,4 +1,5 @@
-// Shared pieces of the two design sweeps (ne_sweep.cu, tdots_sweep.cu).
+// Shared pieces of the design sweeps (ne_sweep.cu, tdots_sweep.cu,
+// ne_oneread.cu).
 //
 // Storage contract (checked by the Python wrappers): each design block is
 // a row-major (n, ld) array of int8, bf16 (raw uint16 bits) or f32 whose
@@ -63,6 +64,29 @@ template <> struct Vec<int8_t> {
 
 __host__ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
+}
+
+// The sweeps' per-row maps from t = (X v)[row] + c[row] and the row's
+// operands a, b to the phase-B value u, with the log-likelihood row in
+// `lp` (0 unless with_logp): 'ne' u = b t (the CG operator), 'logit'
+// u = a - b sigmoid(t), 'linear' u = b (a - t); MID_ROWS: u = t (the row
+// pass alone).
+enum Mid { MID_NE = 0, MID_LOGIT = 1, MID_LINEAR = 2, MID_ROWS = 3 };
+
+__device__ __forceinline__ float row_map(int mid, float t, float a, float b,
+                                         bool with_logp, float& lp) {
+  lp = 0.f;
+  if (mid == MID_ROWS) return t;
+  if (mid == MID_NE) return b * t;
+  if (mid == MID_LOGIT) {
+    // y t - n log(1 + e^t), the softplus written stably.
+    if (with_logp)
+      lp = a * t - b * (fmaxf(t, 0.f) + log1pf(expf(-fabsf(t))));
+    return a - b * (1.f / (1.f + expf(-t)));
+  }
+  const float resid = a - t;
+  if (with_logp) lp = -0.5f * b * resid * resid;
+  return b * resid;
 }
 
 template <typename T>

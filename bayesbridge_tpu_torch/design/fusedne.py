@@ -17,15 +17,18 @@ of three kinds:
     that also carries the warm-start column ``X' u4``.
 ``'link'``
     the GLM loglik and gradient of the MAP search: fused = one
-    ``ne_sweep`` in its link mode; composed = ``dot`` then ``Tdot``.
+    ``ne_sweep`` in its link mode (on the card the one-read kernel);
+    composed = ``dot`` then ``Tdot``.
 
 Policies: ``'0'`` composes every kind; ``'1'`` and ``'full'`` fuse every
 kind (on CPU tensors the sweeps run their plain versions; the port has no
 interpret mode to distinguish); ``'auto'`` takes the per-kind choice of
 ``AUTO``. ``None`` reads ``BB_FUSED_NE``, default ``'auto'``.
 
-``AUTO`` composes every kind, as the JAX package does, from H100 80GB
-HBM3 measurements at the flagship (``PERF.md`` §6, ``chip_smoke.py``):
+``AUTO`` composes the CG operator and the pre-solve, as the JAX package
+does, and fuses the MAP search's objective, from H100 80GB HBM3
+measurements at 700 W at the flagship (``PERF.md`` §6,
+``chip_smoke.py``):
 
 - 'quad': the one-read kernel (``kernels.ne_oneread``) takes 2.85-3.14
   ms against the composed pair's 4.39-4.94, and the fused slice took
@@ -39,7 +42,16 @@ HBM3 measurements at the flagship (``PERF.md`` §6, ``chip_smoke.py``):
 - 'presolve': five reductions in one read plus the warm start's row pass
   (3.004 + 2.259 ms) against four plus a one-read operator application
   (3.245 + 2.940 ms);
-- 'link': 4.846 against 4.861 ms for the two-pass link sweep, a tie.
+- 'link': fused on the one-read kernel, which computes the logit score,
+  its log-likelihood sum and X' u from one read of X: 2.968 ms against
+  the two-pass link sweep's 4.696 and 3.079 against the composed
+  objective's 4.832 (row pass, loglik rows, column pass), each timed in
+  turns at the flagship blocks; at the hybrid design the whole objective
+  took 3.586 ms fused against 5.192 composed, and the MAP searches with
+  either objective ended within 7.6e-5 of each other (relative), their
+  log-likelihoods within 3e-7 (relative). Fusing needs the one-read call
+  faster in every full smoke run and that witness; the two-pass link
+  sweep (4.846 ms) had tied the composed objective (4.861).
 """
 
 import os
@@ -47,7 +59,7 @@ import os
 KINDS = ('quad', 'presolve', 'link')
 POLICIES = (None, 'auto', 'full', '1', '0')
 # Fused (True) or composed (False) per kind under 'auto'.
-AUTO = {'quad': False, 'presolve': False, 'link': False}
+AUTO = {'quad': False, 'presolve': False, 'link': True}
 
 
 def dispatch_mode(kind='quad', policy=None):

@@ -43,7 +43,8 @@ def launch_counts():
     """{'ne_sweep[ne]': k, ..., 'ne_sweep[rows]': ..., 'ne_sweep[cols]':
     ..., 'tdots_sweep': ..., 'tdots_sweep[u4]': ..., 'bitlut[dot]': ...,
     'winell[tdot]': ..., 'wincsr[dot]': ..., 'ne_onepass': ...,
-    'ne_oneread': ..., 'stream_probe[i32]': ...}."""
+    'ne_oneread': ... (the CG operator), 'ne_oneread[logit]': ...,
+    'ne_oneread[linear]': ..., 'stream_probe[i32]': ...}."""
     counts = {f'ne_sweep[{key}]': k for key, k in _ne.launches.items()}
     counts['tdots_sweep'] = _td.launches['tdots']
     counts['tdots_sweep[u4]'] = _td.launches['u4']
@@ -53,6 +54,8 @@ def launch_counts():
                        for tag, k in mod.launches.items()})
     counts['ne_onepass'] = _op.launches['onepass']
     counts['ne_oneread'] = _or.launches['ne']
+    counts.update({f'ne_oneread[{mid}]': _or.launches[mid]
+                   for mid in ('logit', 'linear')})
     return counts
 
 

@@ -24,7 +24,7 @@ CSRC = _PKG / 'csrc'
 BUILD_ROOT = _PKG / '_build'
 SOURCES = ('ne_oneread.cu', 'ne_sweep.cu', 'tdots_sweep.cu', 'bitlut.cu',
            'winell.cu', 'wincsr.cu', 'ne_onepass.cu', 'stream_probe.cu')
-HEADERS = ('sweep_common.cuh',)
+HEADERS = ('sweep_common.cuh', 'mbarrier.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC')
 
@@ -40,12 +40,13 @@ _SIGNATURES = {
                    _P],
     'bb_tdots_sweep': [_I, _P, _L, _I, _I, _P, _L, _I, _L, _P, _P, _P, _P,
                        _I, _L, _P, _P, _P],
-    'bb_bitlut': [_P, _L, _L, _P, _I, _I, _I, _P, _P, _P],
+    'bb_bitlut': [_P, _L, _L, _P, _I, _I, _I, _P, _P, _P, _I, _P],
     'bb_winell': [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                   _P],
     'bb_wincsr': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     'bb_ne_oneread': [_I, _P, _L, _I, _P, _I, _P, _L, _I, _P, _L, _P, _I,
-                      _P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+                      _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                      _P, _P],
     'bb_ne_oneread_fit': [_I, _I, _I, _I, _I, _I],
     'bb_ne_onepass': [_P, _L, _I, _P, _L, _I, _P, _P, _P, _P, _L, _I, _I,
                       _I, _I, _I, _I, _I, _P, _P, _P, _P],

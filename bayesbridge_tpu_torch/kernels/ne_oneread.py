@@ -1,17 +1,20 @@
-"""The hybrid CG operator from one read of X: plan, wrapper, counter.
+"""The hybrid sweep from one read of X: plan, wrappers, counters.
 
 For one or two row-aligned stored blocks ``[(X_b, v_b)]`` (int8, bf16 or
 f32; the hybrid design's exact block beside its f32 block, or either
-alone) it computes
+alone) :func:`ne_oneread` computes the CG operator
 
     t = sum_b X_b[:, :p_b] v_b + c,   u = w * t,   out_b = X_b[:, :p_b]' u
 
-and returns ``(outs, u)``: the ``'ne'`` mode of
-:func:`.ne_sweep.ne_sweep`, which routes there on the card. On a CUDA
-tensor :func:`ne_oneread` launches the kernel of ``csrc/ne_oneread.cu``
-(or raises); on a CPU tensor it runs the sweep's plain version,
-:func:`.ne_sweep.ne_sweep_plain`. ``launches['ne']`` counts the kernel
-launches.
+and returns ``(outs, u)``; :func:`ne_oneread_link` computes the GLM
+score of the link modes, ``u = a - b sigmoid(t)`` ('logit') or
+``u = b (a - t)`` ('linear'), ``out_b = X_b' u`` and, with
+``with_logp``, the summed log-likelihood rows, and returns
+``(outs, u, logp)``. They are the modes of :func:`.ne_sweep.ne_sweep`,
+which routes there on the card. On a CUDA tensor each launches the
+kernel of ``csrc/ne_oneread.cu`` (or raises); on a CPU tensor it runs
+the sweep's plain version, :func:`.ne_sweep.ne_sweep_plain`.
+``launches[mid]`` counts the kernel launches per mode.
 
 The kernel spreads each panel of ``ROWS`` rows over a thread-block
 cluster of ``CLUSTER`` CTAs, each owning 1/8 of every block's 16-byte
@@ -42,7 +45,7 @@ SMEM_CAP = 232_448       # dynamic shared memory a block may use on sm_90
 CLUSTER = 8              # CTAs per cluster (csrc kCluster)
 UNIT_BYTES = 16
 
-launches = {'ne': 0}
+launches = {'ne': 0, 'logit': 0, 'linear': 0}
 _FIT = {}  # (dtype codes, plan) -> clusters that fit on the card at once
 
 
@@ -104,11 +107,27 @@ def ne_oneread(blocks, c, w):
     c : (n,) float32, or a 0-d float32 tensor added to every row
     w : (n,) float32 row weights
     """
+    outs, u, _ = _sweep(blocks, c, None, w, 'ne', False)
+    return outs, u
+
+
+def ne_oneread_link(blocks, c, a, b, mid, with_logp=False):
+    """(outs, u, logp) of the link mode `mid` ('logit' | 'linear'); logp
+    is None without `with_logp`. `blocks` and `c` as for
+    :func:`ne_oneread`; a, b (n,) float32 the rows' operands (b the row
+    weights)."""
+    if mid not in ('logit', 'linear'):
+        raise ValueError(f"mid must be 'logit' or 'linear', got {mid!r}")
+    return _sweep(blocks, c, a, b, mid, with_logp)
+
+
+def _sweep(blocks, c, a, b, mid, with_logp):
     from .ne_sweep import check_sweep_args, ne_sweep_plain
-    device, n = check_sweep_args(blocks, c, w)
+    device, n = check_sweep_args(blocks, c, b)
+    if mid != 'ne':
+        layout.check_vector(a, n, 'a', device)
     if device.type == 'cpu':
-        outs, u, _ = ne_sweep_plain(blocks, c, None, w, 'ne')
-        return outs, u
+        return ne_sweep_plain(blocks, c, a, b, mid, with_logp)
     if device.type != 'cuda':
         raise ValueError(f"no ne_oneread for device {device}")
     p = block_plan(blocks)
@@ -116,7 +135,7 @@ def ne_oneread(blocks, c, w):
         raise ValueError(
             f"ne_oneread: a cluster of {CLUSTER} CTAs does not hold these "
             f"blocks' column units in {MAX_CONSUMERS} threads each")
-    return _ne_oneread_cuda(blocks, c, w, p)
+    return _ne_oneread_cuda(blocks, c, a, b, mid, with_logp, p)
 
 
 def fit_clusters(kl, codes, p):
@@ -131,7 +150,8 @@ def fit_clusters(kl, codes, p):
     return _FIT[key]
 
 
-def _ne_oneread_cuda(blocks, c, w, p):
+def _ne_oneread_cuda(blocks, c, a, w, mid, with_logp, p):
+    from .ne_sweep import MIDS
     kl = load_library()
     X0 = blocks[0][0]
     device, n = X0.device, X0.shape[0]
@@ -150,17 +170,20 @@ def _ne_oneread_cuda(blocks, c, w, p):
     codes = (args[0], args[5])
     clusters = fit_clusters(kl, codes, p)
     widths = [v.shape[0] for _, v in blocks]
+    width = sum(widths) + int(with_logp)  # logp after the columns
     u = torch.empty(n, dtype=torch.float32, device=device)
-    out = torch.empty(sum(widths), dtype=torch.float32, device=device)
-    partial = torch.empty(clusters * sum(widths), dtype=torch.float32,
+    out = torch.empty(width, dtype=torch.float32, device=device)
+    partial = torch.empty(clusters * width, dtype=torch.float32,
                           device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         rc = kl.lib.bb_ne_oneread(
             *args, n, c.data_ptr(), 0 if c.dim() == 0 else 1, w.data_ptr(),
+            None if a is None else a.data_ptr(), MIDS[mid], int(with_logp),
             p.units[0], p.units[1], p.ue, p.uf, p.n_cons, p.stages,
             clusters, u.data_ptr(), partial.data_ptr(),
             out.data_ptr(), stream)
     kl.check(rc, 'ne_oneread')
-    launches['ne'] += 1
-    return list(torch.split(out, widths)), u
+    launches[mid] += 1
+    outs = list(torch.split(out[:sum(widths)], widths))
+    return outs, u, (out[-1] if with_logp else None)

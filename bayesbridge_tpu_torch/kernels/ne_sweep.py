@@ -14,11 +14,11 @@ Counterpart of ``bayesbridge_tpu/design/fusedne.py`` ``_run`` /
 
 and returns ``(outs, u, logp)``. On a CUDA tensor :func:`ne_sweep`
 launches a hand-written kernel (or raises); on a CPU tensor it runs
-:func:`ne_sweep_plain`. The ``'ne'`` mode (the CG operator) takes the
-one-read kernel of :mod:`.ne_oneread` (``csrc/ne_oneread.cu``, counted
-there) wherever its plan fits the blocks, else the two-pass kernel of
-``csrc/ne_sweep.cu``, as do the link modes; ``launches[mid]`` counts the
-two-pass kernel's launches. ``route`` forces either.
+:func:`ne_sweep_plain`. Every mode takes the one-read kernel of
+:mod:`.ne_oneread` (``csrc/ne_oneread.cu``, counted there per mode)
+wherever its plan fits the blocks, else the two-pass kernel of
+``csrc/ne_sweep.cu``; ``launches[mid]`` counts the two-pass kernel's
+launches. ``route`` forces either.
 
 Its two passes are entries of their own, the hybrid design's composed
 products (the JAX package's XLA dots ``Xe @ v`` and ``Xe.T @ u``,
@@ -75,27 +75,27 @@ def ne_sweep(blocks, c, a, b, mid='ne', with_logp=False, route=None):
     c : (n,) float32, or a 0-d float32 tensor added to every row
     a : (n,) float32 ('logit' / 'linear'), or None for 'ne'
     b : (n,) float32 row weights
-    route : None (mode 'ne': the one-read kernel where its plan fits,
-        else two-pass; the link modes: two-pass), 'oneread' (mode 'ne'
-        only; raises where no plan fits) or 'twopass'; read on CUDA
-        tensors only
+    route : None (the one-read kernel where its plan fits, else
+        two-pass), 'oneread' (raises where no plan fits) or 'twopass';
+        read on CUDA tensors only
     """
     if mid not in MIDS:
         raise ValueError(f"mid must be one of {sorted(MIDS)}, got {mid!r}")
     if with_logp and mid == 'ne':
         raise ValueError("with_logp needs a 'logit' or 'linear' mid")
-    if route not in ROUTES or (route == 'oneread' and mid != 'ne'):
-        raise ValueError(f"route must be one of {ROUTES} ('oneread' for "
-                         f"mid 'ne' only), got {route!r}")
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
     device, n = check_sweep_args(blocks, c, b)
     if mid != 'ne':
         layout.check_vector(a, n, 'a', device)
     if not _on_cuda(device, 'ne_sweep'):
         return ne_sweep_plain(blocks, c, a, b, mid, with_logp)
-    if mid == 'ne' and route != 'twopass' and (
+    if route != 'twopass' and (
             route == 'oneread' or _oneread.block_plan(blocks) is not None):
-        outs, u = _oneread.ne_oneread(blocks, c, b)
-        return outs, u, None
+        if mid == 'ne':
+            outs, u = _oneread.ne_oneread(blocks, c, b)
+            return outs, u, None
+        return _oneread.ne_oneread_link(blocks, c, a, b, mid, with_logp)
     return _ne_sweep_cuda(blocks, c, a, b, mid, with_logp)
 
 

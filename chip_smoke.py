@@ -12,51 +12,65 @@ Phases, each of which raises on failure (exit code != 0):
 2. build the hand-written kernels from ``bayesbridge_tpu_torch/csrc``
    with nvcc for sm_90a (one nvcc per source, all started together);
 3. each kernel against its plain PyTorch version on the card at ragged
-   small shapes: every ne_sweep mode (ne / logit / linear, with and
-   without logp), its row pass (``ne_rows``) and column pass
-   (``colpass``) alone, and tdots_sweep with four and five reductions,
+   small shapes: every mode of ne_sweep's two-pass route (ne / logit /
+   linear, with and without logp), its row pass (``ne_rows``) and column
+   pass (``colpass``) alone, and tdots_sweep with four and five
+   reductions,
    over int8 / bf16 / f32 exact blocks, one and two blocks, garbage in
    the padding; every variant of the one-read sweep ``ne_onepass`` (phase
    A fma / mma2 / mma1, phase B fma / mma2 / mma3, convert once or not)
-   over rows spanning many panels; the one-read CG operator
-   ``ne_oneread`` on every block pair the hybrid design builds (int8 /
-   bf16 / f32 exact block beside f32, or alone), with a rerun's bits and
-   the ``ne_sweep`` route to it;
+   over rows spanning many panels; the one-read kernel ``ne_oneread``
+   in every mode (the CG operator; logit and linear with and without
+   logp) on every block pair the hybrid design builds (int8 / bf16 / f32
+   exact block beside f32, or alone), with a rerun's bits and the
+   ``ne_sweep`` route to it;
    ``stream_probe`` on aligned blocks; bitlut on bitmaps whose
-   byte-groups and outputs fill no block, both orientations; winell on
+   byte-groups and outputs fill no block (one with more table chunks
+   per block than its stage ring holds), both orientations, and its
+   byte-table and L2 modes against their plain versions; winell on
    packings with overfull cells and wincsr on windowed-CSR layouts with
    empty rows (one window, or windows of 64), both orientations,
    ``square`` off and on, with a rerun's bits; and small bitpack and
    winell designs (spill present) against their dense form;
-4. the sweeps (``ne_sweep[ne]`` on its two-pass route), their row and
-   column passes, the five-reduction tdots_sweep, ``ne_oneread`` (also
-   against the composed pair in turns) and every ne_onepass variant at
-   the flagship block shapes, and stream_probe over 2 GB, with
-   CUDA-event timings of kernel and plain version, the bound and, where
-   one PyTorch call computes the same function, that call's time;
+4. the sweeps (``ne_sweep[ne]``, ``[logit]`` and ``[linear]`` on their
+   two-pass route), their row and column passes, the five-reduction
+   tdots_sweep, ``ne_oneread`` (also against the composed pair in
+   turns), ``ne_oneread[logit]`` with logp (the MAP search's objective;
+   also in turns against the two-pass link sweep and against the
+   composed objective: row pass, loglik rows, column pass, the
+   launches of these turns counted) and every ne_onepass variant at the
+   flagship block shapes, and stream_probe over 2 GB, with CUDA-event
+   timings of kernel and plain version, the bound and, where one PyTorch
+   call computes the same function, that call's time;
 5. the hybrid slices: a 100,000 x 50,000 sparse logit design (90% binary
    columns at 10% density, as bench.py builds it) on the hybrid int8 +
    f32 backend, first under the fused policy (``fused='1'``), then, on
-   the same stored blocks, composed (``fused='0'``: block-ordered CG over
-   the row and column passes, the warm start in the five-reduction
-   pre-solve, the linear predictor from the CG loop; 'auto', the
-   default, resolves to it), and under 'auto' too where it resolves to
-   neither. The fused CG operator runs on ``ne_oneread``. Each:
+   the same stored blocks, composed (block-ordered CG over the row and
+   column passes, the warm start in the five-reduction pre-solve, the
+   linear predictor from the CG loop): under 'auto', the default, where
+   it composes the CG operator and the pre-solve (whichever way it takes
+   the MAP search's objective), else under ``fused='0'`` and 'auto' in
+   a slice of its own. The fused sweeps run on ``ne_oneread``. Each:
    ``gibbs(30)`` with the CG sampler and bridge exponent 0.5 (MAP search
    included), launch counters read right after it, 20 more iterations
    through ``gibbs_resume`` timed, resume on the card (``gibbs(20)`` +
    ``gibbs_resume(10, merge=True)`` must equal the ``gibbs(30)`` run
    exactly) and a profiler window (busy share, device ms per
    iteration); then the alternating A/B segments (8 rounds); then the
-   MAP search's witness (the search with the fused objective and with
-   the composed one on the same design, and the two objectives
-   compared) and the two objectives' times;
+   MAP search's witness (the search with the fused objective, on
+   ``ne_oneread[logit]``, and with the composed one on the same design,
+   and the two objectives compared) and the two objectives' times in
+   turns;
 6. the bitpack slice: the same X with ``backend='bitpack'`` (bitmaps of
    5,632 x 106,496 and 12,512 x 49,152 bytes plus a 100,000 x 5,000 f32
    block); bitlut against its plain version on the design's bitmaps,
    timed beside its bound and beside cuSPARSE (``torch.sparse_csr_tensor
-   @ v``) on the binary columns' CSR; then a 15-iteration chain on the
-   composed CG path, and its MAP search against the hybrid's;
+   @ v``) on the binary columns' CSR, and every mode of its source in
+   turns (``baselines/bitlut_ablation.py``: the design's nibble tables,
+   the first design's byte tables, nibble tables from L2, no lookups);
+   the f32 side block's GEMV pair timed beside its bound; then a
+   15-iteration chain on the composed CG path, and its MAP search against
+   the hybrid's;
 7. the winell slice: a 131,072 x 16,384 design with 164 standard-normal
    entries per row (``backend='auto'`` picks winell, which stores a
    windowed CSR on the card); wincsr against its plain version on the
@@ -75,7 +89,8 @@ Phases, each of which raises on failure (exit code != 0):
 
 The line before the last is ``nvidia-smi``'s name and power limit, the
 one before it a JSON summary of the kernels (each with the ``path``
-its launches were counted on), and the last line
+its launches were counted on, ``check-only`` where no path of the
+package runs it), and the last line
 ``{"ok": true, "device": {...}}``. With no CUDA device it exits 1 and
 prints no result.
 """
@@ -191,8 +206,8 @@ def sweep_args(blocks_shape, n, gen, scalar_c):
 
 
 def kernel_checks():
-    """Phase 3 for the sweeps: every mode, dtype and block count against
-    the plain version at a ragged small shape."""
+    """Phase 3 for the sweeps: every mode of the two-pass route, dtype and
+    block count against the plain version at a ragged small shape."""
     import torch
     from bayesbridge_tpu_torch.kernels import layout
     from bayesbridge_tpu_torch.kernels.ne_sweep import (
@@ -216,7 +231,7 @@ def kernel_checks():
                 vs, c, a, b = sweep_args(ps, n, gen, scalar_c=i % 2 == 0)
                 blocks = list(zip(Xs, vs))
                 a_ = None if mid == 'ne' else a
-                got = ne_sweep(blocks, c, a_, b, mid, lp)
+                got = ne_sweep(blocks, c, a_, b, mid, lp, route='twopass')
                 ref = ne_sweep_plain(blocks, c, a_, b, mid, lp)
                 torch.cuda.synchronize()
                 check(f"ne_sweep[{mid}{',logp' if lp else ''}] {tag} outs",
@@ -306,18 +321,21 @@ def composed_and_onepass_checks():
 
 
 def oneread_checks(n, pe, pf, gen):
-    """The one-read CG operator against the sweep's plain version on
+    """The one-read kernel in every mode (the CG operator; logit and
+    linear with and without logp) against the sweep's plain version on
     every block pair the hybrid design builds (exact int8 / bf16 beside
     f32, either alone, f32 alone), NaN in the float padding; two runs
-    give the same bits, and ``ne_sweep(.., 'ne')`` routes to it."""
+    give the same bits, and ``ne_sweep`` routes each mode to it."""
     import torch
     from bayesbridge_tpu_torch.kernels import (
         launch_counts, layout, reset_launch_counts)
-    from bayesbridge_tpu_torch.kernels.ne_oneread import ne_oneread
+    from bayesbridge_tpu_torch.kernels.ne_oneread import (
+        ne_oneread, ne_oneread_link)
     from bayesbridge_tpu_torch.kernels.ne_sweep import (
         ne_sweep, ne_sweep_plain)
     log(f"ne_oneread vs plain, ragged n={n} p_e={pe} p_f={pf} (the last "
-        f"panel partial, NaN in the float padding), every block pair")
+        f"panel partial, NaN in the float padding), every block pair and "
+        f"mode")
     for pair in ('int8+f32', 'bf16+f32', 'int8', 'bf16', 'f32'):
         kinds = pair.split('+')
         Xs = [random_block(k, n, p, layout.padded_width(p), gen)
@@ -338,6 +356,29 @@ def oneread_checks(n, pe, pf, gen):
         assert launch_counts()['ne_oneread'] == 1, launch_counts()
         check(f"ne_sweep[ne] {pair} through the one-read route", routed[0],
               ref[0])
+        for mid, lp in (('logit', True), ('logit', False), ('linear', True),
+                        ('linear', False)):
+            vs, c, a, b = sweep_args([pe, pf][:len(kinds)], n, gen,
+                                     scalar_c=mid == 'logit')
+            blocks = list(zip(Xs, vs))
+            tag = f"ne_oneread[{mid}{',logp' if lp else ''}] {pair}"
+            ref = ne_sweep_plain(blocks, c, a, b, mid, lp)
+            got = ne_oneread_link(blocks, c, a, b, mid, lp)
+            again = ne_oneread_link(blocks, c, a, b, mid, lp)
+            check(f"{tag} outs", got[0], ref[0])
+            check(f"{tag} u", [got[1]], [ref[1]])
+            if lp:
+                check(f"{tag} logp", [got[2]], [ref[2]])
+            bits = got[0] + [got[1]] + ([got[2]] if lp else [])
+            bits2 = again[0] + [again[1]] + ([again[2]] if lp else [])
+            assert all(torch.equal(x, y) for x, y in zip(bits, bits2)), \
+                f"{tag} is not deterministic"
+            reset_launch_counts()
+            routed = ne_sweep(blocks, c, a, b, mid, lp)
+            counts = launch_counts()
+            assert counts[f'ne_oneread[{mid}]'] == 1 \
+                and counts[f'ne_sweep[{mid}]'] == 0, counts
+            assert all(torch.equal(x, y) for x, y in zip(routed[0], got[0]))
 
 
 def packed_kernel_checks():
@@ -349,22 +390,30 @@ def packed_kernel_checks():
     import torch
     from bayesbridge_tpu_torch.design import SparseDesignMatrix
     from bayesbridge_tpu_torch.design.winell import pack_winell, plan_windows
-    from bayesbridge_tpu_torch.kernels.bitlut import bitlut, bitlut_plain
+    from bayesbridge_tpu_torch.kernels.bitlut import (
+        bitlut, bitlut_plain, bitlut_variant, byte_lut_plain)
     from bayesbridge_tpu_torch.kernels.winell import winell, winell_plain
     gen = torch.Generator(device='cuda').manual_seed(3)
     log("bitlut vs plain, ragged bitmaps (byte-groups not a multiple of "
-        "32, outputs not of 128)")
+        "32, outputs not of 128; 23,000 groups: 5 table chunks per block, "
+        "more than the stage ring's 4), and its byte-table and L2 modes")
     for g_pad, m_pad, n_out in ((8, 128, 1), (40, 384, 300),
-                                (200, 8320, 8200)):
+                                (200, 8320, 8200), (23_000, 8320, 8200)):
         bits = torch.randint(0, 256, (g_pad, m_pad), generator=gen,
                              device='cuda', dtype=torch.uint8)
         v = torch.randn(8 * g_pad, generator=gen, device='cuda')
+        ref = bitlut_plain(bits, v, n_out)
         for tag in ('dot', 'tdot'):
             got = bitlut(bits, v, n_out, tag)
             again = bitlut(bits, v, n_out, tag)
             check(f"bitlut[{tag}] G={g_pad} M={m_pad} n_out={n_out}",
-                  [got], [bitlut_plain(bits, v, n_out)])
+                  [got], [ref])
             assert torch.equal(got, again), "bitlut is not deterministic"
+        check(f"bitlut byte-table mode G={g_pad}",
+              [bitlut_variant(bits, v, n_out, 'byte')],
+              [bitlut_plain(bits, v, n_out, byte_lut_plain)])
+        check(f"bitlut L2 mode G={g_pad}",
+              [bitlut_variant(bits, v, n_out, 'nibble_l2')], [ref])
 
     rng = np.random.default_rng(4)
     n, p = 1037, 613
@@ -447,12 +496,16 @@ def flagship_blocks():
 def flagship_kernel_checks():
     """Phase 4: the sweeps at the flagship block shapes, agreement,
     timings and bound. No single PyTorch call multiplies int8 by f32, so
-    the sweeps have no library time."""
+    the sweeps have no library time. Returns (results, the launch counts
+    of the link sweeps' in-turns timings)."""
     import torch
+    import torch.nn.functional as F
+    from bayesbridge_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts)
     from bayesbridge_tpu_torch.kernels.ne_onepass import (
         A_MODES, B_MODES, ne_onepass, ne_onepass_plain)
     from bayesbridge_tpu_torch.kernels.ne_oneread import (
-        CLUSTER, block_plan, fit_clusters, ne_oneread)
+        CLUSTER, block_plan, fit_clusters, ne_oneread, ne_oneread_link)
     from bayesbridge_tpu_torch.kernels.ne_sweep import (
         colpass, colpass_plain, ne_rows, ne_rows_plain, ne_sweep,
         ne_sweep_plain)
@@ -468,6 +521,7 @@ def flagship_kernel_checks():
     u1, u2, u3, u4 = (torch.randn(N_OBS, generator=gen, device='cuda')
                       for _ in range(4))
     c_vec = torch.randn(N_OBS, generator=gen, device='cuda') * 0.1
+    c_link = c * 0.01
     def flat(blks):
         return [[o for blk in blks for o in blk]]
     results = {}
@@ -482,12 +536,18 @@ def flagship_kernel_checks():
                        lambda: ne_sweep_plain(blocks, c, None, b, 'ne')[:2],
                        lambda r: [r[0], [r[1]]]),
         'ne_sweep[logit]': (
-            lambda: ne_sweep(blocks, c * 0.01, a, b, 'logit', True),
-            lambda: ne_sweep_plain(blocks, c * 0.01, a, b, 'logit', True),
+            lambda: ne_sweep(blocks, c_link, a, b, 'logit', True,
+                             route='twopass'),
+            lambda: ne_sweep_plain(blocks, c_link, a, b, 'logit', True),
+            lambda r: [r[0], [r[1]], [r[2]]]),
+        'ne_oneread[logit]': (
+            lambda: ne_oneread_link(blocks, c_link, a, b, 'logit', True),
+            lambda: ne_sweep_plain(blocks, c_link, a, b, 'logit', True),
             lambda r: [r[0], [r[1]], [r[2]]]),
         'ne_sweep[linear]': (
-            lambda: ne_sweep(blocks, c * 0.01, a, b, 'linear', True),
-            lambda: ne_sweep_plain(blocks, c * 0.01, a, b, 'linear', True),
+            lambda: ne_sweep(blocks, c_link, a, b, 'linear', True,
+                             route='twopass'),
+            lambda: ne_sweep_plain(blocks, c_link, a, b, 'linear', True),
             lambda r: [r[0], [r[1]], [r[2]]]),
         'tdots_sweep': (
             lambda: tdots_sweep([Xe, Xf], [pe, pf], u1, u2, u3),
@@ -517,6 +577,7 @@ def flagship_kernel_checks():
     work = {'ne_sweep[ne]': (X_b + 2 * vec + 2 * row, 4 * n_elem),
             'ne_oneread': (X_b + 2 * vec + 2 * row, 4 * n_elem),
             'ne_sweep[logit]': (X_b + 2 * vec + 3 * row, 4 * n_elem),
+            'ne_oneread[logit]': (X_b + 2 * vec + 3 * row, 4 * n_elem),
             'ne_sweep[linear]': (X_b + 2 * vec + 3 * row, 4 * n_elem),
             'tdots_sweep': (X_b + 4 * vec + 3 * row, 9 * n_elem),
             'ne_sweep[rows]': (X_b + vec + row, 2 * n_elem),
@@ -524,7 +585,7 @@ def flagship_kernel_checks():
             'tdots_sweep[u4]': (X_b + 5 * vec + 4 * row, 11 * n_elem),
             'ne_onepass': (X_b + 2 * vec + 3 * row, 4 * n_elem)}
     reads = {'ne_sweep[ne]': 2, 'ne_sweep[logit]': 2, 'ne_sweep[linear]': 2}
-    # ne_sweep[ne] is timed on its two-pass route; the fused CG operator
+    # ne_sweep's modes are timed on their two-pass route; the fused sweep
     # takes the one-read route (ne_oneread) wherever its plan fits.
     for name, (kern, plain, outs) in cases.items():
         got, ref = kern(), plain()
@@ -564,6 +625,46 @@ def flagship_kernel_checks():
         f"{(turns[0] + turns[3]) / 2:.3f} ms (target: at most "
         f"{2 * results['ne_oneread']['bound_ms']:.3f}, twice the bound)")
 
+    # The MAP search's objective (logit score, its loglik sum and X' u):
+    # the one-read kernel's rerun bits, then in turns against the
+    # two-pass link sweep and against the composed objective (the row
+    # pass, the loglik rows, the column pass), the launches of these
+    # turns counted.
+    got = ne_oneread_link(blocks, c_link, a, b, 'logit', True)
+    again = ne_oneread_link(blocks, c_link, a, b, 'logit', True)
+    assert all(torch.equal(x, y) for x, y in zip(
+        got[0] + [got[1], got[2]], again[0] + [again[1], again[2]])), \
+        "ne_oneread[logit] is not deterministic"
+    del got, again
+
+    def oneread_link():
+        return ne_oneread_link(blocks, c_link, a, b, 'logit', True)
+
+    def twopass_link():
+        return ne_sweep(blocks, c_link, a, b, 'logit', True,
+                        route='twopass')
+
+    def composed_link():
+        t = ne_rows(blocks, c_link)
+        lp = torch.sum(a * t - b * F.softplus(t))
+        return colpass([Xe, Xf], [pe, pf], a - b * torch.sigmoid(t)), lp
+    reset_launch_counts()
+    link_turns = {}
+    for other, fn in (('two-pass', twopass_link),
+                      ('composed', composed_link)):
+        ts = [time_ms(f) for f in (fn, oneread_link, oneread_link, fn)]
+        link_turns[other] = ((ts[1] + ts[2]) / 2, (ts[0] + ts[3]) / 2)
+        log(f"  {other} link vs ne_oneread[logit] in turns ({other}, "
+            f"one-read, one-read, {other}): {[round(t, 3) for t in ts]} ms;"
+            f" one-read {link_turns[other][0]:.3f} against "
+            f"{link_turns[other][1]:.3f} ms (target: at most "
+            f"{2 * results['ne_oneread[logit]']['bound_ms']:.3f}, twice "
+            f"the bound)")
+    torch.cuda.synchronize()
+    turn_counts = launch_counts()
+    log(f"  launch counts of the link turns: {turn_counts}")
+    results['ne_oneread[logit]']['turns_ms'] = link_turns
+
     log("ne_onepass at the flagship blocks, every variant (one read of X; "
         "v, c, w as the harness's)")
     ve, vf = vs[0] / pe ** .5, vs[1] / pf ** .5
@@ -598,7 +699,7 @@ def flagship_kernel_checks():
                                  library_ms=None)
     del Xe, Xf, blocks
     torch.cuda.empty_cache()
-    return results
+    return results, turn_counts
 
 
 def probe_timings():
@@ -721,9 +822,10 @@ def packed_kernel_timings(design, X, kind):
     """bitlut, or wincsr and winell, at the design's stored shapes:
     agreement with the plain version (and a rerun's bits), CUDA-event
     timings of kernel, plain version and the cuSPARSE product (checked
-    against the design's own product), and the bound. Returns ({kernel
-    name: result dict}, the winell kernel's launch counts on this phase
-    or None)."""
+    against the design's own product), and the bound; on bitpack also
+    every mode of bitlut's source in turns (its ablation) and the f32
+    side block's GEMV pair. Returns ({kernel name: result dict}, the
+    winell kernel's launch counts on this phase or None)."""
     import numpy as np
     import torch
     from bayesbridge_tpu_torch.kernels.bitlut import bitlut, bitlut_plain
@@ -736,7 +838,7 @@ def packed_kernel_timings(design, X, kind):
         col_map = np.full(p, -1, dtype=np.int64)
         col_map[design.bin_cols.cpu().numpy()] = np.arange(p_bin)
         A, At = device_csr_pair(X, col_map)
-        cases = {}
+        cases, ablate = {}, {}
         for tag, bits, g_pad, n_in, n_out, mat, own in (
                 ('dot', design.bits_col, gcol_pad, p_bin, n, A,
                  design._bitpack_dot_bin),
@@ -747,11 +849,12 @@ def packed_kernel_timings(design, X, kind):
             # The function's bytes: the live byte-groups' rows of the
             # live output columns, v's n_in floats, the n_out outputs.
             g_live = -(-n_in // 8)
+            ablate[tag] = (bits, v, n_out)
             cases[f'bitlut[{tag}]'] = dict(
                 kern=lambda b=bits, v=v, m=n_out, t=tag: bitlut(b, v, m, t),
                 plain=lambda b=bits, v=v, m=n_out: bitlut_plain(b, v, m),
                 lib=lambda a=mat, v=v[:n_in]: torch.mv(a, v),
-                own=lambda f=own, v=v[:n_in]: f(v),
+                own=lambda f=own, v=v[:n_in]: f(v), rerun=True, inner=20,
                 work=(g_live * n_out + 4 * n_in + 4 * n_out,
                       g_live * n_out + 256 * 8 * g_live),
                 desc=f"{tuple(bits.shape)} uint8 bitmap, n_out {n_out}")
@@ -786,8 +889,47 @@ def packed_kernel_timings(design, X, kind):
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                              bound_ms=bound, bound_by=by, library_ms=lib_ms)
     del cases
+    if kind == 'bitpack':
+        bitpack_extras(design, ablate, results)
     torch.cuda.empty_cache()
     return results, counts
+
+
+def bitpack_extras(design, ablate, results):
+    """On the bitpack design: bitlut's byte-table mode (the first
+    design's kernel) against its plain version, then every mode of ``csrc/bitlut.cu`` in
+    turns (``baselines/bitlut_ablation.py``), added to the bitlut entries
+    as ``ablation_ms``; then the f32 side block's GEMV pair
+    (``layout.matvec`` / ``rmatvec``, as the design runs them) timed
+    beside its bound."""
+    import torch
+    from bayesbridge_tpu_torch.baselines import bitlut_ablation
+    from bayesbridge_tpu_torch.kernels import layout
+    from bayesbridge_tpu_torch.kernels.bitlut import (
+        bitlut_plain, bitlut_variant, byte_lut_plain)
+    for tag, (bits, v, n_out) in ablate.items():
+        check(f"bitlut[{tag}] byte-table mode on the design's bitmap",
+              [bitlut_variant(bits, v, n_out, 'byte')],
+              [bitlut_plain(bits, v, n_out, byte_lut_plain)])
+        ms = bitlut_ablation.run(bits, v, n_out, label=f"[{tag}]", log=log)
+        entry = results[f'bitlut[{tag}]']
+        entry['ablation_ms'] = ms
+        log(f"  bitlut[{tag}]: nibble tables {ms['nibble']:.4f} ms against "
+            f"the byte table's {ms['byte']:.4f} in turns "
+            f"({ms['nibble'] / ms['byte']:.2f} of its time); "
+            f"{entry['bound_ms'] / entry['ms']:.0%} of the bound "
+            f"{entry['bound_ms']:.4f} ms; cuSPARSE {entry['library_ms']:.4f}")
+    X, p = design.X_float, design.n_float
+    gen = torch.Generator(device='cuda').manual_seed(7)
+    v = torch.randn(p, generator=gen, device='cuda')
+    u = torch.randn(X.shape[0], generator=gen, device='cuda')
+    bound, by = bound_ms(nbytes(X) + 4 * (p + X.shape[0]), 2 * X.numel())
+    for name, fn in (('X_float v', lambda: layout.matvec(X, p, v)),
+                     ("X_float' u", lambda: layout.rmatvec(X, p, u))):
+        ms = time_ms(fn)
+        log(f"  bitpack f32 side block {tuple(X.shape)} (row stride "
+            f"{X.stride(0) * 4} B) {name}: {ms:.4f} ms, bound {bound:.4f} "
+            f"ms ({by}), {nbytes(X) / 1e9 / (ms / 1e3):.1f} GB/s of 3350")
 
 
 def winell_cases(design, X, gen):
@@ -1072,14 +1214,20 @@ def run_hybrid(X, outcome):
     assert design.X_exact.dtype == torch.int8
     assert 6.0 < gb < 7.0, gb
     # The fused slice, the composed one on the same stored blocks, and
-    # 'auto' where it resolves to neither.
-    policies = {'hybrid_fused': '1', 'hybrid_composed': '0'}
+    # 'auto' where it resolves to neither. Where 'auto' composes the CG
+    # operator and the pre-solve, the composed slice runs 'auto' (the
+    # default path): its steady state is the composed one whichever way
+    # 'auto' takes the MAP search's objective.
     auto = {kind: fusedne.dispatch_mode(kind, 'auto') is not None
             for kind in fusedne.KINDS}
+    steady = auto['quad'] or auto['presolve']
+    policies = {'hybrid_fused': '1',
+                'hybrid_composed': '0' if steady else 'auto'}
+    own = steady and not all(auto.values())
     log(f"[hybrid] 'auto' resolves to {auto} (True = fused)"
-        + ("" if any(auto.values()) and not all(auto.values()) else
+        + ("" if own else
            f": the {'fused' if all(auto.values()) else 'composed'} slice"))
-    if any(auto.values()) and not all(auto.values()):
+    if own:
         policies['hybrid_auto'] = 'auto'
     counts, stats, witness = {}, {}, None
     for label, policy in policies.items():
@@ -1112,11 +1260,14 @@ def run_hybrid(X, outcome):
             assert c['tdots_sweep'] == 30 and c['tdots_sweep[u4]'] == 0, c
         else:
             assert c['tdots_sweep[u4]'] == 30 and c['tdots_sweep'] == 0, c
+        # The MAP search: one objective evaluation per link sweep, on the
+        # one-read kernel (never the two-pass one), or composed.
+        n_map = info['_init_optim_info']['n_design_matvec'] // 2
+        assert c['ne_sweep[logit]'] == 0, c
         if fused['link']:
-            assert c['ne_sweep[logit]'] >= 1, c
+            assert c['ne_oneread[logit]'] == n_map, (n_map, c)
         else:
-            n_map = info['_init_optim_info']['n_design_matvec'] // 2
-            assert c['ne_sweep[logit]'] == 0, c
+            assert c['ne_oneread[logit]'] == 0, c
             assert c['ne_sweep[cols]'] >= n_map + (
                 0 if fused['quad'] else n_cg_sum), c
         if label == 'hybrid_fused':
@@ -1134,11 +1285,15 @@ def run_hybrid(X, outcome):
     beta = torch.as_tensor(witness['coef'], dtype=torch.float32,
                            device='cuda')
     composed = with_policy(model, '0')
-    link = {name: time_ms(lambda m=m: m.compute_loglik_and_gradient(beta))
-            for name, m in (('fused', model), ('composed', composed))}
-    log(f"[hybrid] MAP objective (loglik + gradient) at the MAP: fused "
-        f"sweep {link['fused']:.3f} ms, composed (row pass, loglik rows, "
-        f"column pass) {link['composed']:.3f} ms")
+    fns = {name: (lambda m=m: m.compute_loglik_and_gradient(beta))
+           for name, m in (('fused', model), ('composed', composed))}
+    ts = [time_ms(fns[k]) for k in ('composed', 'fused', 'fused',
+                                    'composed')]
+    log(f"[hybrid] MAP objective (loglik + gradient) at the MAP in turns "
+        f"(composed, fused, fused, composed): {[round(t, 3) for t in ts]} "
+        f"ms; fused (one-read link sweep) {(ts[1] + ts[2]) / 2:.3f} ms, "
+        f"composed (row pass, loglik rows, column pass) "
+        f"{(ts[0] + ts[3]) / 2:.3f} ms")
     del model, design, composed
     torch.cuda.empty_cache()
     return counts, witness
@@ -1306,11 +1461,12 @@ def main():
     composed_and_onepass_checks()
     packed_kernel_checks()
     t0 = phase('ragged kernel checks', t0)
-    results = flagship_kernel_checks()
+    results, link_turns = flagship_kernel_checks()
     results.update(probe_timings())
     t0 = phase('flagship kernel checks', t0)
     X, outcome = build_data()
     counts, witness = run_hybrid(X, outcome)
+    counts['link_turns'] = link_turns
     t0 = phase('hybrid slices', t0)
     res, counts['bitpack'], _ = run_packed(X, outcome, 'bitpack', witness)
     results.update(res)
@@ -1328,14 +1484,17 @@ def main():
     # The path whose run each kernel's launch count is read from. The
     # sweep's 'linear' mode serves the linear model, which no path here
     # runs: its timing is logged above and left out of the line. The
-    # fused CG operator takes the one-read route on the hybrid slice, so
-    # the sweep's two-pass 'ne' route is counted in the harness, which
-    # times it beside the composed pair; the winell slice runs wincsr, so
-    # the windowed-ELL kernel is counted on the winell timing phase, whose
-    # packings' products it computes once before its checks.
+    # fused sweep takes the one-read route on the hybrid slice in every
+    # mode, so the sweep's two-pass 'ne' route is counted in the harness,
+    # which times it beside the composed pair, and its two-pass 'logit'
+    # route on the flagship phase's link turns (check-only); the winell
+    # slice runs wincsr, so the windowed-ELL kernel is counted on the
+    # winell timing phase, whose packings' products it computes once
+    # before its checks (check-only).
     path_of = {'ne_sweep[ne]': 'harness',
                'ne_oneread': 'hybrid_fused',
-               'ne_sweep[logit]': 'hybrid_fused',
+               'ne_oneread[logit]': 'hybrid_fused',
+               'ne_sweep[logit]': 'link_turns',
                'tdots_sweep': 'hybrid_fused',
                'ne_sweep[rows]': 'hybrid_composed',
                'ne_sweep[cols]': 'hybrid_composed',
@@ -1354,7 +1513,8 @@ def main():
         kernels.append(dict(
             name=name, route='cuda', source=REGISTRY[base]['source'],
             replaces=REGISTRY[base]['replaces'], launches=launches, **res,
-            path='check-only' if path == 'winell_packing' else path))
+            path='check-only' if path in ('winell_packing', 'link_turns')
+            else path))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({'kernels': kernels}))
     print(card_line())

@@ -8,8 +8,12 @@ port's ``bitlut`` as its plain version on the CPU. Checked:
 * the host layout is identical: ``plan_blocks``, ``pack_bits``,
   ``pad_packed`` and the design's two bitmaps, column sets and float
   block, byte for byte;
-* the plain ``bitlut`` equals ``bitpacked_matvec`` on the same packed
-  arrays, both orientations: rtol 1e-5 (float32 sums in another order);
+* the plain ``bitlut`` (the kernel's order: two nibble tables per
+  byte-group, a byte's entry lo + hi) equals ``bitpacked_matvec`` on the
+  same packed arrays, both orientations of the design's bitmaps and raw
+  ragged bitmaps: rtol 1e-5 (float32 sums in another order);
+* the nibble tables give the byte-table kernel's tables exactly on
+  small-integer inputs (every partial sum exact);
 * dot, Tdot, ``quad_matvec(return_t=True)`` and the Fisher diagonal
   match the JAX design, with centering and intercept on and off, for a
   fresh build and for the JAX arrays carried over by
@@ -29,7 +33,9 @@ from bayesbridge_tpu_torch.design import SparseDesignMatrix
 from bayesbridge_tpu_torch.design import bitlut as port_bitlut
 from bayesbridge_tpu_torch.design.sparse import PACKED_ARRAYS
 from bayesbridge_tpu_torch.kernels import launch_counts
-from bayesbridge_tpu_torch.kernels.bitlut import bitlut, bitlut_plain
+from bayesbridge_tpu_torch.kernels.bitlut import (
+    bitlut, bitlut_plain, byte_lut_plain, lut_plain, nibble_plain,
+)
 
 # One intra-op thread: the suite runs in several worker processes, and a
 # torch thread pool in each would oversubscribe the cores.
@@ -132,6 +138,47 @@ def test_plain_bitlut_matches_jax_kernel(orient):
     np.testing.assert_array_equal(
         got.numpy(), bitlut_plain(torch.from_numpy(np.asarray(bits).copy()),
                                   torch.from_numpy(v), n_out).numpy())
+
+
+@pytest.mark.parametrize('n_in,n_out', [(1, 1), (37, 300), (300, 1000),
+                                        (2000, 130)])
+def test_plain_bitlut_matches_jax_kernel_ragged(n_in, n_out):
+    """Raw bitmaps whose byte-groups and outputs fill no block: random
+    bytes over the live groups and outputs, zeros in the padding."""
+    g_pad, m_pad, n_chunk = jax_bitlut.plan_blocks(n_in, n_out)
+    rng = np.random.default_rng(n_in + n_out)
+    bits = np.zeros((g_pad, m_pad), np.uint8)
+    g_live = -(-n_in // 8)
+    bits[:g_live, :n_out] = rng.integers(0, 256, size=(g_live, n_out))
+    v = np.zeros(8 * g_pad, np.float32)
+    v[:n_in] = rng.standard_normal(n_in)
+    ref = np.asarray(jax_bitlut.bitpacked_matvec(
+        jnp.asarray(bits), jnp.asarray(v), n_out, n_chunk, interpret=True),
+        np.float64)
+    got = bitlut(torch.from_numpy(bits), torch.from_numpy(v), n_out)
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5,
+                               atol=1e-5 * max(np.abs(ref).max(), 1.0))
+
+
+def test_nibble_tables_are_the_byte_tables():
+    """On small integers every partial sum is exact, so a byte's entry
+    lo[B & 15] + hi[B >> 4] equals the byte-table kernel's 8-bit entry;
+    the nibble tables hold the sums of their half's set bits."""
+    rng = np.random.default_rng(6)
+    v = torch.from_numpy(rng.integers(-9, 10, size=8 * 13).astype(
+        np.float32))
+    assert torch.equal(lut_plain(v), byte_lut_plain(v))
+    nib = nibble_plain(v).numpy()
+    vg = v.numpy().reshape(13, 2, 4)
+    for i in range(16):
+        bitset = [(i >> b) & 1 for b in range(4)]
+        np.testing.assert_array_equal(nib[:, i], vg[:, 0] @ bitset)
+        np.testing.assert_array_equal(nib[:, 16 + i], vg[:, 1] @ bitset)
+    # Random floats: the two orders agree to rounding.
+    v = torch.from_numpy(rng.standard_normal(8 * 13).astype(np.float32))
+    np.testing.assert_allclose(lut_plain(v).numpy(),
+                               byte_lut_plain(v).numpy(), rtol=1e-6,
+                               atol=1e-6)
 
 
 @pytest.mark.parametrize('source', ['build', 'convert'])

@@ -18,13 +18,17 @@ import torch
 
 from bayesbridge_tpu_torch.kernels import layout, launch_counts, \
     reset_launch_counts
-from bayesbridge_tpu_torch.kernels.bitlut import bitlut, bitlut_plain
+from bayesbridge_tpu_torch.kernels.bitlut import (
+    bitlut, bitlut_plain, bitlut_variant, byte_lut_plain,
+)
 from bayesbridge_tpu_torch.kernels.wincsr import wincsr, wincsr_plain
 from bayesbridge_tpu_torch.kernels.winell import winell, winell_plain
 from bayesbridge_tpu_torch.kernels.ne_onepass import (
     A_MODES, B_MODES, ne_onepass, ne_onepass_plain,
 )
-from bayesbridge_tpu_torch.kernels.ne_oneread import block_plan, ne_oneread
+from bayesbridge_tpu_torch.kernels.ne_oneread import (
+    block_plan, ne_oneread, ne_oneread_link,
+)
 from bayesbridge_tpu_torch.kernels.ne_sweep import (
     colpass, colpass_plain, ne_rows, ne_rows_plain, ne_sweep, ne_sweep_plain,
 )
@@ -195,11 +199,13 @@ def test_stream_probe_matches_plain(dev, kind):
 
 
 @pytest.mark.parametrize('g_pad,m_pad,n_out', [(8, 128, 1), (40, 384, 300),
-                                                (200, 8320, 8200)])
+                                                (200, 8320, 8200),
+                                                (23_000, 8320, 8200)])
 @pytest.mark.parametrize('tag', ['dot', 'tdot'])
 def test_bitlut_kernel_matches_plain(dev, g_pad, m_pad, n_out, tag):
     """Ragged shapes: byte-groups not a multiple of 32, outputs not a
-    multiple of 128; two launches give the same bits."""
+    multiple of 128, and (23,000 groups) more table chunks per block than
+    the stage ring holds; two launches give the same bits."""
     g = torch.Generator(device=dev).manual_seed(2)
     bits = torch.randint(0, 256, (g_pad, m_pad), generator=g, device=dev,
                          dtype=torch.uint8)
@@ -210,6 +216,25 @@ def test_bitlut_kernel_matches_plain(dev, g_pad, m_pad, n_out, tag):
     assert launch_counts()[f'bitlut[{tag}]'] == 2
     _assert_close([got], [bitlut_plain(bits, v, n_out)])
     assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize('mode', ['byte', 'nibble_l2'])
+def test_bitlut_modes_match_plain(dev, mode):
+    """The source's other modes compute the same function: the first
+    design's byte tables (in their own order) and the nibble tables read
+    from L2; no launch is counted."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    g_pad, m_pad, n_out = 2000, 8320, 8200
+    bits = torch.randint(0, 256, (g_pad, m_pad), generator=g, device=dev,
+                         dtype=torch.uint8)
+    v = torch.randn(8 * g_pad, generator=g, device=dev)
+    reset_launch_counts()
+    got = bitlut_variant(bits, v, n_out, mode)
+    assert launch_counts()['bitlut[dot]'] == 0
+    tables = byte_lut_plain if mode == 'byte' else None
+    ref = bitlut_plain(bits, v, n_out, *([tables] if tables else []))
+    _assert_close([got], [ref])
+    assert torch.equal(got, bitlut_variant(bits, v, n_out, mode))
 
 
 @pytest.mark.parametrize('square', [False, True])
@@ -299,6 +324,70 @@ def test_ne_oneread_matches_plain(dev, pair):
     two = ne_sweep(blocks, c, None, w, 'ne', route='twopass')
     assert launch_counts()['ne_sweep[ne]'] == 1
     _assert_close(two[0], ref[0])
+
+
+@pytest.mark.parametrize('logp', [False, True])
+@pytest.mark.parametrize('mid', ['logit', 'linear'])
+@pytest.mark.parametrize('pair', ['int8+f32', 'bf16+f32', 'int8', 'f32'])
+def test_ne_oneread_link_matches_plain(dev, pair, mid, logp):
+    """The link modes of the one-read kernel on every block pair, ragged
+    rows and columns, NaN in the float padding; two runs give the same
+    bits, and ne_sweep routes the mode here."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    n, pe, pf = 1037, 4097, 513
+    kinds = pair.split('+')
+    dtypes = {'int8': torch.int8, 'bf16': torch.bfloat16,
+              'f32': torch.float32}
+    blocks = []
+    for kind, p in zip(kinds, (pe, pf)):
+        X = (torch.randn((n, layout.padded_width(p)), generator=g,
+                         device=dev) * 2).round()
+        if kind != 'int8':
+            X[:, p:] = float('nan')
+        blocks.append((X.to(dtypes[kind]),
+                       0.03 * torch.randn(p, generator=g, device=dev)))
+    c = torch.randn(n, generator=g, device=dev)
+    a = (torch.rand(n, generator=g, device=dev) < .5).float()
+    b = torch.rand(n, generator=g, device=dev) + .5
+    reset_launch_counts()
+    got = ne_oneread_link(blocks, c, a, b, mid, logp)
+    again = ne_oneread_link(blocks, c, a, b, mid, logp)
+    routed = ne_sweep(blocks, c, a, b, mid, logp)
+    counts = launch_counts()
+    assert counts[f'ne_oneread[{mid}]'] == 3
+    assert counts[f'ne_sweep[{mid}]'] == 0 and counts['ne_oneread'] == 0
+    ref = ne_sweep_plain(blocks, c, a, b, mid, logp)
+    _assert_close(got[0], ref[0])
+    _assert_close([got[1]], [ref[1]])
+    if logp:
+        _assert_close([got[2]], [ref[2]])
+        assert torch.equal(got[2], again[2])
+    else:
+        assert got[2] is None
+    assert all(torch.equal(x, y) for x, y in zip(got[0], again[0]))
+    assert torch.equal(got[1], again[1])
+    assert all(torch.equal(x, y) for x, y in zip(got[0], routed[0]))
+
+
+def test_map_search_launches_oneread_link(dev):
+    """The fused hybrid design's MAP search runs one one-read link sweep
+    per objective evaluation and no two-pass one; composed, neither."""
+    from bayesbridge_tpu_torch import (
+        BayesBridge, RegressionCoefPrior, RegressionModel,
+    )
+    X, outcome = _chain_problem()
+    for fused in ('1', '0'):
+        bridge = BayesBridge(RegressionModel(outcome, X, family='logit',
+                                             fused=fused),
+                             RegressionCoefPrior(bridge_exponent=.5))
+        bridge.rg.set_seed(0)
+        reset_launch_counts()
+        info = bridge.initialize_chain({'global_scale': 0.1}, 0.5)[5]
+        counts = launch_counts()
+        n_eval = info['n_design_matvec'] // 2
+        assert n_eval > 0 and counts['ne_sweep[logit]'] == 0
+        assert counts['ne_oneread[logit]'] == (n_eval if fused == '1'
+                                               else 0)
 
 
 def _chain_problem():

@@ -14,12 +14,16 @@ it against its plain version there). Here:
   ``fused_ne_matvec`` in interpret mode, for every block pair the
   hybrid design builds: int8 or bf16 exact block beside f32, either
   alone, and an f32 block alone;
+* the link modes on the one-read route (``ne_oneread_link`` and
+  ``ne_sweep(..., 'logit' | 'linear', route='oneread')``, plain on the
+  CPU) against the JAX ``fused_link_matvec`` in interpret mode, on one
+  and two blocks, with and without the log-likelihood;
 * the design's fused ``quad_matvec`` against the JAX design's, on int8,
   bf16-exact and no-exact-column designs.
 
-Tolerances as in tests/test_torch_kernels.py: u rtol 2e-5 / atol 2e-4,
-the column reductions rtol 2e-4 / atol 2e-4 * max|out| (sums in another
-order).
+Tolerances as in tests/test_torch_kernels.py: u and logp rtol 2e-5 /
+atol 2e-4, the column reductions rtol 2e-4 / atol 2e-4 * max|out| (sums
+in another order).
 """
 
 import jax.numpy as jnp
@@ -159,11 +163,48 @@ def test_plain_matches_pallas(pair):
         assert lp is None and torch.equal(u2, u_t)
 
 
+@pytest.mark.parametrize('mid', ['logit', 'linear'])
+@pytest.mark.parametrize('pair', ['int8+f32', 'bf16'])
+def test_link_route_matches_pallas(pair, mid):
+    rng = np.random.default_rng(300 + 2 * PAIRS.index(pair) + (mid == 'logit'))
+    n, widths = 53, (40, 17)
+    kinds = pair.split('+')
+    Xs = [_block(rng, k, n, p) for k, p in zip(kinds, widths)]
+    vs = [0.3 * rng.standard_normal(p).astype(np.float32) for p in widths]
+    c = rng.standard_normal(n).astype(np.float32)
+    a = rng.integers(0, 3, size=n).astype(np.float32)
+    b = (rng.exponential(size=n) + 1.0).astype(np.float32)
+    ref_outs, u, lp = fusedne.fused_link_matvec(
+        tuple(jnp.asarray(X) for X, _ in Xs), vs[:len(kinds)], c, a, b, mid,
+        with_logp=True, interpret=True)
+    blocks = [(S, torch.from_numpy(v)) for (_, S), v in zip(Xs, vs)]
+    args = (torch.from_numpy(c), torch.from_numpy(a), torch.from_numpy(b))
+    outs, u_t, lp_t = oneread.ne_oneread_link(blocks, *args, mid,
+                                              with_logp=True)
+    np.testing.assert_allclose(u_t.numpy(), np.asarray(u), **U_TOL)
+    np.testing.assert_allclose(float(lp_t), float(lp), **U_TOL)
+    assert len(outs) == len(ref_outs)
+    for got, ref in zip(outs, ref_outs):
+        _close_reduction(got.numpy(), ref)
+    # ne_sweep's link mode gives the same on the CPU, on either route,
+    # and without the log-likelihood.
+    for route in (None, 'oneread', 'twopass'):
+        outs2, u2, lp2 = ne_sweep(blocks, *args, mid, with_logp=True,
+                                  route=route)
+        assert torch.equal(u2, u_t) and torch.equal(lp2, lp_t)
+    outs3, u3, lp3 = oneread.ne_oneread_link(blocks, *args, mid)
+    assert lp3 is None and torch.equal(u3, u_t)
+    assert all(torch.equal(x, y) for x, y in zip(outs3, outs))
+
+
 def test_routes_are_checked():
     blocks = [(torch.zeros((3, 16), dtype=torch.int8), torch.zeros(5))]
     c, w = torch.zeros(3), torch.ones(3)
+    # Every mode takes the one-read route.
+    outs, u, lp = ne_sweep(blocks, c, w, w, 'logit', route='oneread')
+    assert lp is None and torch.allclose(u, 1 - 0.5 * w)
     with pytest.raises(ValueError):
-        ne_sweep(blocks, c, w, w, 'logit', route='oneread')
+        oneread.ne_oneread_link(blocks, c, w, w, 'ne')
     with pytest.raises(ValueError):
         ne_sweep(blocks, c, None, w, 'ne', route='fast')
     with pytest.raises(ValueError):
