@@ -7,12 +7,14 @@ The public API mirrors the reference library and the JAX package:
         BayesBridge, RegressionModel, RegressionCoefPrior, SamplerOptions
     )
 
-This package serves the flagship path: a logistic model on a sparse
-design stored as int8/bf16 + f32 blocks, coefficients drawn by the
-prior-preconditioned CG sampler, with the design sweeps in hand-written
-CUDA kernels for Hopper (``csrc/``). Devices are explicit: models live on
-``device='cuda'`` by default, and ``device='cpu'`` runs every kernel's
-plain PyTorch version. It imports torch and never jax.
+This package serves the linear and logistic models on dense designs
+(one block) and sparse ones (int8/bf16 + f32 blocks, bitmaps or a
+windowed CSR), float32 or float64, the coefficients drawn by the
+Cholesky sampler or the CG sampler (Jacobi or prior preconditioner),
+with the float32 design sweeps in hand-written CUDA kernels for Hopper
+(``csrc/``). Devices are explicit: models live on ``device='cuda'`` by
+default, and ``device='cpu'`` runs every kernel's plain PyTorch version.
+It imports torch and never jax.
 """
 
 from .prior import RegressionCoefPrior

@@ -1,8 +1,8 @@
 """BayesBridge: the Gibbs sampler orchestrator.
 
-Port of ``bayesbridge_tpu/bridge.py`` for the slice the torch package
-serves (logit model, CG sampler, sparse designs), API-compatible with the
-reference sampler (reference: bayesbridge/bayesbridge.py:13-511):
+Port of ``bayesbridge_tpu/bridge.py`` for the linear and logit models
+with the Cholesky and CG samplers, float32 or float64, API-compatible
+with the reference sampler (reference: bayesbridge/bayesbridge.py:13-511):
 ``gibbs()`` returns (samples, mcmc_info) with samples' last axis indexing
 iterations, and ``gibbs_resume()`` restores the full sampler state (chain
 state, generator state, summarizer) to continue, so that a resumed and
@@ -20,6 +20,7 @@ from .models.logistic import LogisticModel
 from .prior import RegressionCoefPrior
 from .random.basic import BasicRandom
 from .ops import reg_coef as reg_coef_ops
+from .utils.dtypes import working_dtype
 from . import step as step_mod
 
 _SAVABLE_PARAMS = step_mod.SAMPLE_KEYS
@@ -42,12 +43,18 @@ def resolve_params_to_save(params_to_save):
 class BayesBridge:
     """Gibbs sampler for Bayesian bridge sparse regression."""
 
-    def __init__(self, model, prior=None):
+    def __init__(self, model, prior=None, dtype=None):
+        """
+        Parameters
+        ----------
+        model : a RegressionModel (LinearModel / LogisticModel)
+        prior : RegressionCoefPrior
+        dtype : the chain state's float dtype, float32 or float64;
+            defaults to the model's working dtype (the JAX package
+            defaults to its session's float)
+        """
         if prior is None:
             prior = RegressionCoefPrior()
-        if model.name != 'logit':
-            raise NotImplementedError(
-                f"model {model.name!r}: only 'logit' is ported")
         self.model = model
         self.prior = prior
         self.device = model.design.device
@@ -60,7 +67,9 @@ class BayesBridge:
             self.n_unshrunk += 1
             self.prior_sd_for_unshrunk = np.concatenate((
                 [prior.sd_for_intercept], self.prior_sd_for_unshrunk))
-        self.rg = BasicRandom(self.device)
+        self.dtype = model.design.dtype if dtype is None \
+            else working_dtype(dtype)
+        self.rg = BasicRandom(self.device, dtype=self.dtype)
         self.manager = MarkovChainManager(
             self.n_obs, self.n_pred, self.n_unshrunk, model.name)
         self._sampler_state = None  # summarizer state between runs
@@ -80,13 +89,11 @@ class BayesBridge:
             options = SamplerOptions.pick_default_and_create(
                 coef_sampler_type, options, self.model.name,
                 self.model.design)
-        if options.coef_sampler_type != 'cg' \
-                or options.cg_preconditioner != 'diag':
+        if options.coef_sampler_type in ('hmc', 'nuts'):
             raise NotImplementedError(
-                "coef_sampler_type={!r}, cg_preconditioner={!r}: only 'cg' "
-                "with the 'diag' (Jacobi) preconditioner is ported "
-                "(ROADMAP.md Queue 1 items 7, 10 and 13)".format(
-                    options.coef_sampler_type, options.cg_preconditioner))
+                "coef_sampler_type={!r}: the HMC and NUTS samplers are not "
+                "ported (ROADMAP.md Queue 1 item 13)".format(
+                    options.coef_sampler_type))
         if init is None:
             init = {'global_scale': 0.1}
         if not _add_iter_mode:
@@ -97,7 +104,7 @@ class BayesBridge:
         self.manager.stamp_time(start_time)
         cfg = step_mod.GibbsStepConfig(
             self.model, self.prior, options, self.n_unshrunk,
-            self.prior_sd_for_unshrunk)
+            self.prior_sd_for_unshrunk, dtype=self.dtype)
 
         coef, obs_prec, lscale, gscale, init, initial_optim_info = \
             self.initialize_chain(init, self.prior.bridge_exp,
@@ -106,7 +113,7 @@ class BayesBridge:
         if _add_iter_mode and self._sampler_state is not None:
             summ = self._sampler_state['summ']
         carry = step_mod.init_carry(self.device, coef, obs_prec, gscale,
-                                    lscale, summ)
+                                    lscale, summ, dtype=self.dtype)
 
         n_sample = (n_iter - n_burnin) // thin
         n_remainder = (n_iter - n_burnin) - n_sample * thin
@@ -274,19 +281,28 @@ class BayesBridge:
         return coef, obs_prec, lscale, gscale, init, optim_info
 
     def _initialize_obs_precision(self, init, coef):
-        """bayesbridge.py:355-370."""
+        """bayesbridge.py:355-370: the linear model's inverse mean squared
+        residual, the logit model's Polya-Gamma means."""
         if 'obs_prec' in init and init['obs_prec'] is not None:
             obs_prec = np.asarray(init['obs_prec'], dtype=np.float64)
-            if len(obs_prec) != self.n_obs:
+            if self.model.name == 'logit' and len(obs_prec) != self.n_obs:
                 raise ValueError('An invalid initial state.')
             return obs_prec
+        lin_pred = self.model.design.dot(coef)
+        if self.model.name == 'linear':
+            resid = (self.model.y - lin_pred).double().cpu().numpy()
+            return np.mean(resid ** 2) ** -1
         return LogisticModel.compute_polya_gamma_mean(
-            self.model.n_trial, self.model.design.dot(coef)
-        ).double().cpu().numpy()
+            self.model.n_trial, lin_pred).double().cpu().numpy()
 
     def _draw_obs_precision(self, coef):
-        return self.rg.polya_gamma(self.model.n_trial_np,
-                                   self.model.design.dot(coef))
+        """Eager one-time draw at initialization (bayesbridge.py:397-410),
+        from the chain's generator."""
+        lin_pred = self.model.design.dot(coef)
+        if self.model.name == 'linear':
+            resid = (self.model.y - lin_pred).double().cpu().numpy()
+            return self.rg.gamma(self.n_obs / 2) / (np.sum(resid ** 2) / 2)
+        return self.rg.polya_gamma(self.model.n_trial_np, lin_pred)
 
     def _update_global_scale_mc_em(self, coef_shrunk, bridge_exp):
         """MC-EM 'optimize' update with the lower-bound guard

@@ -3,12 +3,15 @@
 The JAX package's arrays, taken as numpy (``np.asarray`` of a jax
 array), become this package's tensors on an explicit device. This module
 imports neither jax nor ``bayesbridge_tpu``: the caller hands over plain
-numpy arrays and flags.
+numpy arrays and flags. A model's outcome arrays go straight to the
+port's model classes (``LinearModel(np.asarray(jax_model.y), design)``,
+``LogisticModel(n_success, n_trial, design)``).
 """
 
 import numpy as np
 import torch
 
+from .design.dense import DenseDesignMatrix, stored_width
 from .design.sparse import PACKED_ARRAYS, SparseDesignMatrix
 from .kernels import layout
 from .step import init_carry
@@ -41,7 +44,9 @@ def design_from_numpy(X_exact, X_float, exact_cols, float_cols,
     Parameters
     ----------
     X_exact, X_float : the stored blocks (int8 / bfloat16 / float32 and
-        float32), possibly wider than their column sets (mesh padding)
+        float32; or both float64, which make one float64 block of every
+        column in the port), possibly wider than their column sets (mesh
+        padding)
     exact_cols, float_cols : original column index of each block column
     column_offset : (p,) centering offsets (zeros when not centered)
     shape : (n, p) of the main design, intercept excluded
@@ -49,6 +54,20 @@ def design_from_numpy(X_exact, X_float, exact_cols, float_cols,
     n, p = shape
     exact_cols = np.asarray(exact_cols)
     float_cols = np.asarray(float_cols)
+    if np.asarray(X_float).dtype == np.float64:
+        X = np.zeros((n, layout.padded_width(p)))
+        for block, cols in ((X_exact, exact_cols), (X_float, float_cols)):
+            X[:, cols] = np.asarray(block)[:n, :len(cols)]
+        parts = dict(
+            backend='hybrid', X_exact=torch.zeros((n, 0), dtype=torch.float64),
+            X_float=torch.from_numpy(X), exact_cols=exact_cols[:0],
+            float_cols=np.arange(p),
+            column_offset=np.asarray(column_offset, np.float64),
+            shape_main=(n, p), nnz=None, exact_is_binary=exact_is_binary)
+        return SparseDesignMatrix(None, center_predictor=center_predictor,
+                                  add_intercept=add_intercept,
+                                  dtype=torch.float64, fused=fused,
+                                  device=device, _parts=parts)
     parts = dict(
         backend='hybrid',
         X_exact=_block_tensor(np.asarray(X_exact)[:n], len(exact_cols)),
@@ -61,6 +80,23 @@ def design_from_numpy(X_exact, X_float, exact_cols, float_cols,
     return SparseDesignMatrix(None, center_predictor=center_predictor,
                               add_intercept=add_intercept, fused=fused,
                               device=device, _parts=parts)
+
+
+def dense_design_from_numpy(X, n_rows=None, add_intercept=True,
+                            center_predictor=False, device='cuda',
+                            fused=None):
+    """A DenseDesignMatrix from the JAX dense design's stored X (numpy:
+    the intercept column and the centering already in it, float32 or
+    float64), its first `n_rows` rows (the JAX design's ``_n_rows``; the
+    rest are zero padding)."""
+    X = np.asarray(X)
+    n, p = X.shape
+    n = n if n_rows is None else n_rows
+    stored = np.zeros((n, stored_width(p, X.itemsize)), X.dtype)
+    stored[:, :p] = X[:n]
+    return DenseDesignMatrix(
+        None, center_predictor=center_predictor, add_intercept=add_intercept,
+        fused=fused, device=device, _stored=(torch.from_numpy(stored), p))
 
 
 def packed_design_from_numpy(backend, arrays, meta, column_offset, shape,
@@ -93,17 +129,20 @@ def packed_design_from_numpy(backend, arrays, meta, column_offset, shape,
 
 
 def carry_from_numpy(coef, obs_prec, gscale, lscale, summ=None,
-                     device='cuda'):
-    """The port's chain state from the JAX chain's: coef, obs_prec,
-    gscale (raw parametrization), lscale and the summarizer state (the
-    JAX dict of the same keys; None starts a fresh one)."""
+                     device='cuda', dtype=torch.float32):
+    """The port's chain state in `dtype` from the JAX chain's: coef,
+    obs_prec, gscale (raw parametrization), lscale and the summarizer
+    state (the JAX dict of the same keys; None starts a fresh one)."""
     device = torch.device(device)
     summ_t = None
     if summ is not None:
         summ_t = {}
         for key, val in summ.items():
             val = np.asarray(val)
-            summ_t[key] = torch.as_tensor(
-                val.astype(np.int32) if np.issubdtype(val.dtype, np.integer)
-                else val.astype(np.float32), device=device)
-    return init_carry(device, coef, obs_prec, gscale, lscale, summ_t)
+            if np.issubdtype(val.dtype, np.integer):
+                summ_t[key] = torch.as_tensor(val.astype(np.int32),
+                                              device=device)
+            else:
+                summ_t[key] = torch.tensor(val, dtype=dtype, device=device)
+    return init_carry(device, coef, obs_prec, gscale, lscale, summ_t,
+                      dtype=dtype)

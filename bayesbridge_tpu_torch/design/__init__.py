@@ -1,4 +1,5 @@
 from .abstract import AbstractDesignMatrix
+from .dense import DenseDesignMatrix
 from .sparse import SparseDesignMatrix
 
-__all__ = ['AbstractDesignMatrix', 'SparseDesignMatrix']
+__all__ = ['AbstractDesignMatrix', 'DenseDesignMatrix', 'SparseDesignMatrix']

@@ -2,10 +2,10 @@
 
 Mirrors ``bayesbridge_tpu/design/abstract.py`` (itself after the
 reference's abstract_matrix.py:14-107): `dot`, `Tdot`, the composed CG
-operator, the Fisher diagonal, matvec counters and
-constant-column scrubbing. The concrete designs live in :mod:`.sparse`;
-their tensors stay on the design's device and every product is a plain
-function of them.
+operator, the Fisher information, matvec counters and constant-column
+scrubbing. The concrete designs live in :mod:`.sparse` and
+:mod:`.dense`; their tensors stay on the design's device and every
+product is a plain function of them.
 """
 
 import abc
@@ -42,15 +42,14 @@ class AbstractDesignMatrix(abc.ABC):
     def compute_fisher_diag(self, weight):
         """diag(X' diag(weight) X)."""
 
+    @abc.abstractmethod
     def compute_fisher_info(self, weight, diag_only=False):
-        """X' diag(weight) X, or its diagonal. Only the diagonal (the
-        Jacobi preconditioner's) is ported; the dense matrix belongs to
-        the Cholesky path."""
-        if not diag_only:
-            raise NotImplementedError(
-                "the dense Fisher information (Cholesky path) is not "
-                "ported; see ROADMAP.md Queue 1 item 10")
-        return self.compute_fisher_diag(weight)
+        """X' diag(weight) X (the Cholesky path's p x p matrix), or its
+        diagonal (the Jacobi preconditioner's)."""
+
+    @abc.abstractmethod
+    def compute_transposed_fisher_info(self, weight, include_intrcpt=False):
+        """X diag(weight) X' over predictors."""
 
     def quad_matvec(self, v, weight, return_t=False):
         """X' (weight * (X v)), the design part of the CG operator,

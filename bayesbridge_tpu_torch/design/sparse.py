@@ -1,6 +1,7 @@
 """Sparse design matrix: the hybrid, bitpack and winell backends.
 
-Port of ``bayesbridge_tpu/design/sparse.py`` (unsharded, float32).
+Port of ``bayesbridge_tpu/design/sparse.py`` (unsharded; float32, and
+float64 on the hybrid backend).
 
 ``hybrid``
     Dense blocks split by column representability: the exactly
@@ -17,7 +18,9 @@ Port of ``bayesbridge_tpu/design/sparse.py`` (unsharded, float32).
     fused CG operator reads X once on the card
     (:mod:`..kernels.ne_oneread`, through ``ne_sweep``'s 'ne' mode).
     Blocks are stored with their column count padded to a multiple of
-    16 zero columns (``kernels.layout``).
+    16 zero columns (``kernels.layout``). Under float64 every column stays
+    in one float64 block (no narrow tier; ``sparse.py:424-440``), whose
+    products are ``torch.matmul``: the kernels are float32 only.
 ``bitpack``
     Beyond the hybrid budget, for mostly 0/1 designs: the binary columns
     as a dual bitmap, one bit per element in each orientation
@@ -44,9 +47,14 @@ Shared semantics with the JAX package (and the reference): centering is
 a rank-1 ``column_offset`` correction, never materialized; the
 intercept column is implicit.
 
-Not ported (each raises NotImplementedError): the ell backend, the int4
-tier (no int4 MMA on Hopper), a float64 working dtype and the dense
-Fisher information (Cholesky path).
+The dense Fisher information of the Cholesky path (``compute_fisher_info``
+with ``diag_only=False``) streams the hybrid blocks through row-chunked
+float32 (or float64) Gram products (:func:`.gram.chunked_gram`), and
+densifies the packed backends' small designs.
+
+Not ported (each raises NotImplementedError): the ell backend and the
+int4 tier (no int4 MMA on Hopper). bitpack and winell refuse float64 on
+every build path.
 """
 
 import copy
@@ -67,7 +75,8 @@ from ..kernels.bitlut import bitlut
 from ..kernels.ne_sweep import colpass, ne_rows, ne_sweep
 from ..kernels.tdots_sweep import tdots_sweep
 from ..kernels.wincsr import wincsr
-from ..utils.dtypes import check_float32, resolve_device
+from ..utils.dtypes import full_float32, resolve_device, working_dtype
+from .gram import chunked_gram, squared_col_moment
 
 # Budgets of the JAX package's auto rule (sized for a 16 GB-HBM chip;
 # re-deriving them for 80 GB is ROADMAP work). Hybrid blocks, and then
@@ -78,6 +87,9 @@ _BITPACK_MAX_BYTES = float(os.environ.get('BB_BITPACK_MAX_BYTES', 8e9))
 _BITPACK_MIN_BINARY_FRAC = 0.5
 # Stored entries handled per vectorized densify step.
 _DENSIFY_CHUNK = 2 ** 25
+# Largest dense Fisher information (p x p) or densified design (n x p)
+# the Cholesky path builds (sparse.py:74).
+_DENSE_FISHER_MAX_ELEMS = 5e7
 
 # The arrays each packed backend stores, by the JAX design's names
 # (``convert.packed_design_from_numpy`` takes them so).
@@ -108,13 +120,17 @@ def _int8_exact(data):
     return (data == np.round(data)) & (np.abs(data) <= 127)
 
 
-def choose_backend(X_csr, int8_mask, bf16_mask, binary_mask):
-    """The JAX package's ``backend='auto'`` rule for float32
-    (sparse.py:327-386, without the int4 tier): hybrid while its blocks
-    fit the budget, then bitpack for mostly-binary designs, then winell
-    while its slots fill sanely, then the least bad of hybrid and ell."""
+def choose_backend(X_csr, int8_mask, bf16_mask, binary_mask,
+                   dtype=torch.float32):
+    """The JAX package's ``backend='auto'`` rule (sparse.py:327-386,
+    without the int4 tier): hybrid while its blocks fit the budget, then
+    (float32 only) bitpack for mostly-binary designs, then winell while
+    its slots fill sanely, then the least bad of hybrid and ell. Under
+    float64 every hybrid column is 8 bytes."""
     n, p = X_csr.shape
     nnz = X_csr.nnz
+    f32 = dtype == torch.float32
+    itemsize = 4 if f32 else 8
 
     def frac(mask):
         return float(np.mean(mask)) if p else 1.0
@@ -122,20 +138,20 @@ def choose_backend(X_csr, int8_mask, bf16_mask, binary_mask):
     int8_frac, exact_frac = frac(int8_mask), frac(bf16_mask)
     binary_frac = frac(binary_mask)
     per_elem = min(int8_frac * 1 + (1 - int8_frac) * 4,
-                   exact_frac * 2 + (1 - exact_frac) * 4)
+                   exact_frac * 2 + (1 - exact_frac) * 4) if f32 else 8
     hybrid_bytes = n * p * per_elem
-    ell_bytes = 2 * nnz * (4 + 4)
+    ell_bytes = 2 * nnz * (4 + itemsize)
     bitpack_bytes = n * p * binary_frac / 4.0 \
-        + n * p * (1 - binary_frac) * 4
+        + n * p * (1 - binary_frac) * itemsize
     winell_bytes = winell_mod.estimate_bytes(X_csr.shape, nnz)
     w_est, k_est = winell_mod.plan_windows(p, n, nnz)
     winell_ok = w_est * nnz <= 0.75 * k_est * max(1, n * p)
     if hybrid_bytes <= _HYBRID_MAX_BYTES:
         return 'hybrid'
     if binary_frac >= _BITPACK_MIN_BINARY_FRAC \
-            and bitpack_bytes <= _BITPACK_MAX_BYTES:
+            and bitpack_bytes <= _BITPACK_MAX_BYTES and f32:
         return 'bitpack'
-    if winell_bytes <= _BITPACK_MAX_BYTES and winell_ok:
+    if winell_bytes <= _BITPACK_MAX_BYTES and winell_ok and f32:
         return 'winell'
     return 'hybrid' if hybrid_bytes <= ell_bytes else 'ell'
 
@@ -179,7 +195,7 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         self.device = resolve_device(device)
         # Host seconds of the build's main steps, for the record.
         self.build_seconds = {}
-        check_float32(dtype)
+        self._dtype = working_dtype(dtype)
         if fused not in POLICIES:
             raise ValueError(f"unknown fused policy {fused!r}")
         # The hybrid backend's fused-sweep policy (.fusedne); the packed
@@ -191,9 +207,9 @@ class SparseDesignMatrix(AbstractDesignMatrix):
             getattr(self, '_set_' + self.backend)(**parts)
             return
         if not sps.issparse(X):
-            raise NotImplementedError(
-                "dense X: the dense design is not ported; pass a scipy "
-                "sparse matrix")
+            raise ValueError(
+                "dense X: store it in a DenseDesignMatrix (RegressionModel "
+                "does); SparseDesignMatrix takes a scipy sparse matrix")
         X = self.remove_intercept_indicator(X.tocsr()).tocsr()
         n, p = X.shape
         data = np.asarray(X.data, dtype=np.float64)
@@ -209,7 +225,7 @@ class SparseDesignMatrix(AbstractDesignMatrix):
             masks['binary'] = _exact_column_mask(X, data != 1.0)
         if backend == 'auto':
             backend = choose_backend(X, masks['int8'], masks['bf16'],
-                                     masks['binary'])
+                                     masks['binary'], self._dtype)
         self._set_backend(backend)
         if backend == 'hybrid':
             self._build_hybrid(X, data, offsets, masks['int8'],
@@ -237,14 +253,30 @@ class SparseDesignMatrix(AbstractDesignMatrix):
                 "(ROADMAP.md Queue 1 item 12)")
         if backend not in ('hybrid', 'bitpack', 'winell'):
             raise ValueError(f"Unknown backend '{backend}'")
+        if backend != 'hybrid' and self._dtype != torch.float32:
+            # Both build paths (sparse.py:266-292 gates only the fresh
+            # one): the bitmap and windowed-CSR kernels are float32.
+            raise NotImplementedError(
+                f"backend={backend!r} runs float32 only (its kernels are "
+                f"32-bit); got {self._dtype}. float64 runs on the hybrid "
+                "backend.")
         self.backend = backend
 
     # -- construction ---------------------------------------------------- #
 
     def _build_hybrid(self, X, data, offsets, int8_mask, bf16_mask):
         """Narrow-tier pick by stored bytes (sparse.py _build_hybrid,
-        without the int4 tier): ties go to int8."""
+        without the int4 tier): ties go to int8. Under float64, one
+        float64 block of every column."""
         n, p = X.shape
+        binary = bool(np.all((data == 0.0) | (data == 1.0)))
+        if self._dtype == torch.float64:
+            cols = np.arange(p)
+            Xf = torch.from_numpy(_densify(X, cols, np.float64,
+                                           layout.padded_width(p)))
+            self._set_hybrid(torch.zeros((n, 0), dtype=torch.float64), Xf,
+                             cols[:0], cols, offsets, (n, p), X.nnz, binary)
+            return
         n_int8, n_bf16 = int(int8_mask.sum()), int(bf16_mask.sum())
         costs = {'int8': 1 * n_int8 + 4 * (p - n_int8),
                  'bf16': 2 * n_bf16 + 4 * (p - n_bf16)}
@@ -252,7 +284,6 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         exact_mask = int8_mask if pick == 'int8' else bf16_mask
         exact_cols = np.where(exact_mask)[0]
         float_cols = np.where(~exact_mask)[0]
-        binary = bool(np.all((data == 0.0) | (data == 1.0)))
         if pick == 'int8':
             Xe = torch.from_numpy(_densify(
                 X, exact_cols, np.int8, layout.padded_width(len(exact_cols))))
@@ -320,7 +351,7 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         self._shape_main = tuple(shape_main)
         self._nnz = nnz
         self.column_offset = torch.as_tensor(
-            np.array(column_offset, dtype=np.float64), dtype=torch.float32,
+            np.array(column_offset, dtype=np.float64), dtype=self._dtype,
             device=self.device)
 
     def _dev(self, a, dtype=None):
@@ -410,9 +441,9 @@ class SparseDesignMatrix(AbstractDesignMatrix):
 
     @property
     def dtype(self):
-        """The working dtype: float32 on every backend (the port's only
-        one; sparse.py:829-844 reads it off the stored arrays)."""
-        return torch.float32
+        """The working dtype: float32, or float64 on the hybrid backend
+        (sparse.py:829-844 reads it off the stored arrays)."""
+        return self._dtype
 
     def _stored_tensors(self):
         if self.backend == 'hybrid':
@@ -433,7 +464,7 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         int8/bf16/f32 exact block (sparse.py:1039-1070 without the
         sharding cases); else None, the composed path."""
         if (dispatch_mode(kind, self.fused_policy) is None
-                or self.backend != 'hybrid' or self.dtype != torch.float32
+                or self.backend != 'hybrid' or not self._kernels()
                 or self.X_exact.dtype not in layout.DTYPE_CODE
                 or self.n_exact == 0):
             return None
@@ -443,13 +474,19 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         """The hybrid backend serves the batched pre-solve (one
         `tdots_sweep` read, with the warm-start column on the composed
         path) wherever it has an exact column (sparse.py:1319-1323); the
-        other backends compose per reduction."""
+        other backends, and the float64 hybrid, compose per reduction."""
         return self.backend == 'hybrid' and self.n_exact > 0
+
+    def _kernels(self):
+        """Whether the products run on the hand-written kernels: the
+        float32 designs. A float64 design, which has one hybrid block,
+        runs them as torch.matmul, the one place that decides it."""
+        return self._dtype == torch.float32
 
     # -- helpers --------------------------------------------------------- #
 
     def _as_tensor(self, x):
-        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        return torch.as_tensor(x, dtype=self._dtype, device=self.device)
 
     def _split(self, v):
         """(v0, v_main) with v0 the intercept coefficient (0 without)."""
@@ -480,7 +517,7 @@ class SparseDesignMatrix(AbstractDesignMatrix):
 
     def _assemble(self, parts):
         """Scatter per-block column results back to original order."""
-        res = torch.zeros(self._shape_main[1], dtype=torch.float32,
+        res = torch.zeros(self._shape_main[1], dtype=self._dtype,
                           device=self.device)
         for cols, part in zip(self._block_cols(), parts):
             res[cols] = part
@@ -524,6 +561,9 @@ class SparseDesignMatrix(AbstractDesignMatrix):
     def main_dot(self, v_main):
         """(X_main - 1 column_offset') @ v_main. Hybrid: the row pass
         (``ne_rows``), the centering folded into its row offset."""
+        if self.backend == 'hybrid' and not self._kernels():
+            return self.X_float[:, :self.n_float] @ v_main \
+                - self.column_offset @ v_main
         if self.backend == 'hybrid':
             return ne_rows(self._blocks(v_main),
                            -(self.column_offset @ v_main))
@@ -539,7 +579,9 @@ class SparseDesignMatrix(AbstractDesignMatrix):
     def main_Tdot(self, u):
         """(X_main - 1 column_offset')' @ u. Hybrid: the column pass
         (``colpass``)."""
-        if self.backend == 'hybrid':
+        if self.backend == 'hybrid' and not self._kernels():
+            raw = self.X_float[:, :self.n_float].T @ u
+        elif self.backend == 'hybrid':
             raw = self._assemble(colpass(*self._hybrid_Xs(), u))
         else:
             raw = self._weighted_col_moments(u, 1)
@@ -589,7 +631,7 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         `quad_matvec_blockorder` splits them by slices. `perm` maps block
         order to original positions, `unperm` inverts it, `offset_bo` is
         the centering offset in block order."""
-        if self.backend != 'hybrid' \
+        if self.backend != 'hybrid' or not self._kernels() \
                 or self.fused_ne_mode('quad') is not None:
             return None
         return self._blockorder_perm()
@@ -717,7 +759,10 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         (sparse.py:1539-1550). Hybrid: both column moments from one
         ``tdots_sweep`` read."""
         weight = self._as_tensor(weight)
-        if self.backend == 'hybrid':
+        if self.backend == 'hybrid' and not self._kernels():
+            X = self.X_float[:, :self.n_float]
+            diag, col_sum = squared_col_moment(X, weight), X.T @ weight
+        elif self.backend == 'hybrid':
             outs = tdots_sweep(*self._hybrid_Xs(), weight, weight, weight)
             diag = self._assemble([blk[3] for blk in outs])
             col_sum = self._assemble([blk[2] for blk in outs])
@@ -730,16 +775,98 @@ class SparseDesignMatrix(AbstractDesignMatrix):
             diag = diag + weight.sum() * self.column_offset ** 2
         return self._with_intercept(weight.sum(), diag)
 
+    def compute_fisher_info(self, weight, diag_only=False):
+        """X' W X over the full (intercept + centered) design, or its
+        diagonal (sparse.py:1552-1596): a p x p Gram built without
+        densifying the n x p design on the hybrid backend, the centering
+        and intercept as rank-one corrections. The guard sits on the
+        p x p output."""
+        if diag_only:
+            return self.compute_fisher_diag(weight)
+        n, p_main = self._shape_main
+        p_total = p_main + int(self.intercept_added)
+        if p_total * p_total > _DENSE_FISHER_MAX_ELEMS:
+            raise MemoryError(
+                "Refusing to build a {:d} x {:d} dense Fisher information "
+                "matrix; use the CG sampler.".format(p_total, p_total))
+        weight = self._as_tensor(weight)
+        if self.backend == 'hybrid':
+            G, s1 = self._gram_main(weight)
+        else:
+            # The packed backends serve designs far past the Cholesky
+            # size, so the guarded densify only meets small ones.
+            X = self._materialize_main()
+            with full_float32():
+                G = X.T @ (weight[:, None] * X)
+            s1 = X.T @ weight
+        s0 = weight.sum()
+        if self.centered:
+            c = self.column_offset
+            G = G - torch.outer(c, s1) - torch.outer(s1, c) \
+                + s0 * torch.outer(c, c)
+            s1 = s1 - s0 * c
+        if self.intercept_added:
+            top = torch.cat((s0.reshape(1), s1))
+            G = torch.cat((top[None, :], torch.cat((s1[:, None], G), 1)), 0)
+        return G
+
+    def _gram_main(self, weight):
+        """(X' W X, X' w) over the uncentered main columns (sparse.py
+        :1598-1648): row chunks of the stored blocks, up-converted to the
+        working dtype side by side, through :func:`.gram.chunked_gram`,
+        then put in column order."""
+        stored = self._stored()
+        n, p_main = self._shape_main
+        if not stored:
+            return (torch.zeros((p_main, p_main), dtype=self._dtype,
+                                device=self.device),
+                    torch.zeros(p_main, dtype=self._dtype,
+                                device=self.device))
+
+        def chunk(start, size):
+            return torch.cat([X[start:start + size, :k].to(self._dtype)
+                              for X, k in stored], 1)
+
+        G, s1 = chunked_gram(chunk, n, p_main, weight, self._dtype)
+        inv = torch.argsort(torch.cat(self._block_cols()))
+        return G[inv][:, inv], s1[inv]
+
+    def compute_transposed_fisher_info(self, weight, include_intrcpt=False):
+        """X diag(weight) X' over predictors, the intercept's weight first
+        with `include_intrcpt` (sparse.py:1650-1661): n x n, small designs
+        only."""
+        weight = self._as_tensor(weight)
+        weight_main = weight[1:] if include_intrcpt else weight
+        X = self._materialize_main()
+        if self.centered:
+            X = X - self.column_offset[None, :]
+        with full_float32():
+            result = (X * weight_main[None, :]) @ X.T
+        if include_intrcpt:
+            result = result + weight[0]
+        return result
+
     # -- densification (small designs: tests, diagnostics) ---------------- #
 
+    def _materialize_main(self):
+        """The uncentered main design on the device, for the packed
+        backends' and the transposed Fisher products; guarded."""
+        n, p_main = self._shape_main
+        if n * p_main > _DENSE_FISHER_MAX_ELEMS:
+            raise MemoryError(
+                "Refusing to densify a {:d} x {:d} sparse design for the "
+                "dense Fisher-information path; use the CG sampler."
+                .format(n, p_main))
+        return self._densify_main().to(self.device)
+
     def _densify_main(self):
-        """(n, p) float32 CPU tensor of the stored main design, uncentered
-        (sparse.py:1691-1752)."""
+        """(n, p) CPU tensor of the stored main design in the working
+        dtype, uncentered (sparse.py:1691-1752)."""
         n, p = self._shape_main
-        X = torch.zeros((n, p), dtype=torch.float32)
+        X = torch.zeros((n, p), dtype=self._dtype)
         if self.backend == 'hybrid':
             for (blk, k), cols in zip(self._stored(), self._block_cols()):
-                X[:, cols.cpu()] = blk[:, :k].float().cpu()
+                X[:, cols.cpu()] = blk[:, :k].to(self._dtype).cpu()
             return X
         if self.backend == 'bitpack':
             p_bin = self._bitpack_meta[0]
@@ -762,5 +889,5 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         if self.centered:
             X = X - self.column_offset.cpu().numpy()[None, :]
         if self.intercept_added:
-            X = np.hstack((np.ones((X.shape[0], 1), np.float32), X))
+            X = np.hstack((np.ones((X.shape[0], 1), X.dtype), X))
         return X

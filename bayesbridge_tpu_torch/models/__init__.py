@@ -1,4 +1,5 @@
 from .factory import RegressionModel
+from .linear import LinearModel
 from .logistic import LogisticModel
 
-__all__ = ['RegressionModel', 'LogisticModel']
+__all__ = ['RegressionModel', 'LinearModel', 'LogisticModel']

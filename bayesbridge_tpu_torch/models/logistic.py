@@ -30,9 +30,9 @@ class LogisticModel(AbstractModel):
         self.n_trial_np = np.asarray(n_trial, dtype=np.int64)
         dev = design.device
         self.n_trial = torch.as_tensor(np.asarray(n_trial, np.float64),
-                                       dtype=torch.float32, device=dev)
+                                       dtype=design.dtype, device=dev)
         self.n_success = torch.as_tensor(
-            np.asarray(n_success, np.float64), dtype=torch.float32,
+            np.asarray(n_success, np.float64), dtype=design.dtype,
             device=dev)
         self.design = design
 

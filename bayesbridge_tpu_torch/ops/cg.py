@@ -27,6 +27,18 @@ inputs.
 import torch
 
 
+def choose_preconditioner(prior_prec_sqrt, n_unshrunk, coef_scaled_sd,
+                          target_sd_scale=2.0):
+    """The prior preconditioner (cg_sampler.py:123-138): shrunk
+    coordinates scaled by their prior sd, unshrunk ones by an inflated
+    estimate of their posterior sd (erring toward larger precision)."""
+    shrunk_scale = 1.0 / prior_prec_sqrt
+    if n_unshrunk == 0:
+        return shrunk_scale
+    return torch.cat((target_sd_scale * coef_scaled_sd[:n_unshrunk],
+                      shrunk_scale[n_unshrunk:]))
+
+
 def choose_diag_preconditioner(design, obs_prec, prior_prec_sqrt):
     """Jacobi preconditioner from the full conditional-precision
     diagonal (cg_sampler.py:140-143): 1/sqrt(prior_prec^2 + diag(X'WX))."""

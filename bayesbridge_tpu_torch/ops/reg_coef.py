@@ -2,65 +2,80 @@
 
 Port of ``bayesbridge_tpu/ops/reg_coef.py`` (reference:
 bayesbridge/reg_coef_sampler/reg_coef_sampler.py:20-429): the collapsed
-Gaussian update by CG inside the Gibbs step, and the MAP search (scipy
-L-BFGS-B over a torch objective) for chain initialization.
-The Cholesky, HMC and NUTS samplers are not ported.
+Gaussian update (Cholesky or CG, with the Jacobi or the prior
+preconditioner) inside the Gibbs step, and the MAP search (scipy
+L-BFGS-B over a torch objective) for chain initialization. The HMC and
+NUTS samplers and the Newton-CG search are not ported.
 """
 
 import numpy as np
 import scipy.optimize
 import torch
 
-from .cg import choose_diag_preconditioner, sample_gaussian_cg
+from .cg import (
+    choose_diag_preconditioner, choose_preconditioner, sample_gaussian_cg,
+)
+from .cholesky import sample_gaussian_cholesky
 from .summarizer import (
-    compute_prior_shrunk_scale, extrapolate_coef_condmean,
-    summarizer_update,
+    compute_prior_shrunk_scale, estimate_coef_precond_scale_sd,
+    extrapolate_coef_condmean, summarizer_update,
 )
 
 
 def sample_gaussian_posterior(
         gen, design, y_gauss, obs_prec, gscale, lscale,
-        prior_sd_for_unshrunk, slab_size, summ_state, cg_maxiter=500,
-        cg_atol_multiplier=1.0):
-    """One draw of coef | obs_prec, gscale, lscale by CG with the Jacobi
-    ('diag') preconditioner (reg_coef.py:25-133, the 'cg' branch).
-    Returns (coef, summ_state, info).
+        prior_sd_for_unshrunk, slab_size, summ_state, method='cg',
+        cg_maxiter=500, cg_precond_by='diag', cg_atol_multiplier=1.0):
+    """One draw of coef | obs_prec, gscale, lscale (reg_coef.py:25-133).
+    Returns (coef, summ_state, info), coef in y_gauss's dtype (the
+    chain's; the products compute in the design's).
 
-    Hybrid designs with an exact column: the pre-solve is one
-    `tdots_sweep` read. Where the CG operator composes (the default
-    policy), the CG loop accumulates the draw's linear predictor, returned
-    as ``info['lin_pred']`` (reg_coef.py:79-80, 125-127); where the
+    'cholesky': the direct draw from the design's Fisher information.
+
+    'cg', Jacobi ('diag') preconditioner, hybrid or dense designs with a
+    one-read pre-solve: the pre-solve is one `presolve_reductions` call.
+    Where the CG operator composes (the default policy), the CG loop
+    accumulates the draw's linear predictor, returned as
+    ``info['lin_pred']`` (reg_coef.py:79-80, 125-127); where the
     pre-solve composes too, the warm start's residual reduction
     X'(obs_prec * X coef_init) rides the pre-solve read as a fifth
-    reduction, after one `dot` for X coef_init (reg_coef.py:90-96). Under
-    a fused policy every operator application, the initial residual's
-    included, is one `ne_sweep`. Other designs (bitpack, winell, a hybrid
-    without an exact column): the pre-solve reductions are separate
-    `Tdot`s and the Fisher diagonal (reg_coef.py:103-115).
+    reduction, after one `dot` for X coef_init (reg_coef.py:90-96).
+    Other designs, and the prior preconditioner: the pre-solve
+    reductions are separate `Tdot`s, and the Fisher diagonal or the
+    summarizer's sd estimate gives the preconditioner
+    (reg_coef.py:103-115).
     """
     n_unshrunk = len(prior_sd_for_unshrunk)
-    dev = y_gauss.device
+    dtype, dev = y_gauss.dtype, y_gauss.device
     prior_shrunk_scale = compute_prior_shrunk_scale(gscale, lscale,
                                                     slab_size)
     prior_sd = torch.cat((torch.as_tensor(prior_sd_for_unshrunk,
-                                          dtype=torch.float32, device=dev),
+                                          dtype=dtype, device=dev),
                           prior_shrunk_scale))
     prior_prec_sqrt = 1.0 / prior_sd
+    if method == 'cholesky':
+        v = design.Tdot(obs_prec * y_gauss)
+        coef = sample_gaussian_cholesky(gen, design, obs_prec,
+                                        prior_prec_sqrt, v)
+        return coef.to(dtype), summ_state, {}
+    if method != 'cg':
+        raise NotImplementedError(method)
     coef_init = extrapolate_coef_condmean(summ_state, gscale, lscale,
                                           n_unshrunk, slab_size)
     n_obs, n_pred = design.shape
     want_lin_pred = design.fused_ne_mode('quad') is None
 
-    # The b-vector noise is drawn here, eps_obs then eps_prior, on both
-    # branches, so that the pre-solve reductions can share one call.
+    # The b-vector noise is drawn here, eps_obs then eps_prior, in the
+    # design's dtype on both branches, so that the pre-solve reductions
+    # can share one call.
     def draw_eps():
-        return (torch.randn(n_obs, generator=gen, dtype=torch.float32,
+        return (torch.randn(n_obs, generator=gen, dtype=design.dtype,
                             device=dev),
-                torch.randn(n_pred, generator=gen, dtype=torch.float32,
+                torch.randn(n_pred, generator=gen, dtype=design.dtype,
                             device=dev))
 
     lin_pred0 = warm_tdot = None
-    if design.has_presolve_reductions():
+    if cg_precond_by == 'diag' and design.has_presolve_reductions():
         eps_obs, eps_prior = draw_eps()
         if design.fused_ne_mode('presolve') is None:  # fold the warm start
             lin_pred0 = design.dot(coef_init)
@@ -76,8 +91,13 @@ def sample_gaussian_posterior(
         v = design.Tdot(obs_prec * y_gauss)
         eps_obs, eps_prior = draw_eps()
         pert = design.Tdot(torch.sqrt(obs_prec) * eps_obs)
-        precond_scale = choose_diag_preconditioner(design, obs_prec,
-                                                   prior_prec_sqrt)
+        if cg_precond_by == 'diag':
+            precond_scale = choose_diag_preconditioner(design, obs_prec,
+                                                       prior_prec_sqrt)
+        else:
+            precond_scale = choose_preconditioner(
+                prior_prec_sqrt, n_unshrunk,
+                estimate_coef_precond_scale_sd(summ_state))
     res = sample_gaussian_cg(
         gen, design, obs_prec, prior_prec_sqrt, v,
         coef_cg_init=coef_init, precond_scale=precond_scale,
@@ -91,6 +111,7 @@ def sample_gaussian_posterior(
         info = {**info, 'lin_pred': lin_pred}
     else:
         coef, info = res
+    coef = coef.to(dtype)  # the design's dtype -> the chain's
     summ_state = summarizer_update(summ_state, coef, gscale, lscale,
                                    n_unshrunk, slab_size)
     return coef, summ_state, info
@@ -103,13 +124,13 @@ def compute_preconditioning_scale(gscale, lscale, coef_precond_post_sd,
     posterior-sd estimate (reg_coef_sampler.py:174-192). Returns
     (precond_scale, precond_prior_prec)."""
     n_unshrunk = len(prior_sd_for_unshrunk)
-    dev = lscale.device
+    dtype, dev = lscale.dtype, lscale.device
     shrunk_scale = compute_prior_shrunk_scale(gscale, lscale, slab_size)
-    ones = torch.ones(len(lscale), dtype=torch.float32, device=dev)
+    ones = torch.ones(len(lscale), dtype=dtype, device=dev)
     if n_unshrunk == 0:
         return shrunk_scale, ones
     unshrunk_scale = coef_precond_post_sd[:n_unshrunk]
-    prior_sd = torch.as_tensor(prior_sd_for_unshrunk, dtype=torch.float32,
+    prior_sd = torch.as_tensor(prior_sd_for_unshrunk, dtype=dtype,
                                device=dev)
     return (torch.cat((unshrunk_scale, shrunk_scale)),
             torch.cat(((prior_sd / unshrunk_scale) ** -2, ones)))
@@ -118,24 +139,27 @@ def compute_preconditioning_scale(gscale, lscale, coef_precond_post_sd,
 def search_mode(coef, lscale, gscale, obs_prec, model,
                 prior_sd_for_unshrunk, slab_size, optim_maxiter=250):
     """Conditional MAP of coef | scales by scipy L-BFGS-B over a torch
-    objective (reg_coef.py:216-273; reg_coef_sampler.py:281-391). Each
-    objective evaluation is one fused GLM sweep (loglik and gradient
-    together) on the hybrid backend, `dot` then `Tdot` elsewhere, counted
-    as two design matvecs as in the reference."""
-    dev = model.design.device
-    lscale = torch.as_tensor(np.asarray(lscale, np.float64),
-                             dtype=torch.float32, device=dev)
+    objective in the design's dtype (reg_coef.py:216-273;
+    reg_coef_sampler.py:281-391); the linear model's objective at the
+    given observation precision (reg_coef.py:167-190). Each objective
+    evaluation is one fused GLM sweep (loglik and gradient together)
+    where the design's policy fuses it, `dot` then `Tdot` elsewhere,
+    counted as two design matvecs as in the reference."""
+    dev, dtype = model.design.device, model.design.dtype
+    lscale = torch.as_tensor(np.asarray(lscale, np.float64), dtype=dtype,
+                             device=dev)
     precond_scale, precond_prior_prec = compute_preconditioning_scale(
         float(gscale), lscale,
-        torch.ones(len(coef), dtype=torch.float32, device=dev),
+        torch.ones(len(coef), dtype=dtype, device=dev),
         prior_sd_for_unshrunk, slab_size)
     n_eval = [0]
+    extra = (float(obs_prec),) if model.name == 'linear' else ()
 
     def objective(x):
         n_eval[0] += 1
-        x_t = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        x_t = torch.as_tensor(x, dtype=dtype, device=dev)
         logp, grad_coef = model.compute_loglik_and_gradient(
-            x_t * precond_scale)
+            x_t * precond_scale, *extra)
         logp = logp - 0.5 * torch.sum(precond_prior_prec * x_t ** 2)
         grad = precond_scale * grad_coef - precond_prior_prec * x_t
         return -float(logp), -grad.double().cpu().numpy()

@@ -3,7 +3,8 @@
 Port of ``bayesbridge_tpu/ops/summarizer.py`` (reference:
 bayesbridge/reg_coef_sampler/reg_coef_posterior_summarizer.py:3-123): a
 dict of tensors holding the running mean / second moment of the
-prior-scaled coefficients, which feed the CG warm start. The keys match
+prior-scaled coefficients, which feed the CG warm start and the prior
+preconditioner's estimate of the unshrunk coefficients' sd. The keys match
 the JAX package's, so a chain state can be carried across
 (``convert.carry_from_numpy``).
 """
@@ -18,16 +19,17 @@ def compute_prior_shrunk_scale(gscale, lscale, slab_size):
     return scale / torch.sqrt(1.0 + (scale / slab_size) ** 2)
 
 
-def summarizer_init(n_coef, device, sd_prior_samplesize=5):
-    f32 = dict(dtype=torch.float32, device=device)
+def summarizer_init(n_coef, device, sd_prior_samplesize=5,
+                    dtype=torch.float32):
+    fl = dict(dtype=dtype, device=device)
     return {
-        'mean': torch.zeros(n_coef, **f32),
-        'square': torch.ones(n_coef, **f32),
+        'mean': torch.zeros(n_coef, **fl),
+        'square': torch.ones(n_coef, **fl),
         'n_averaged': torch.zeros((), dtype=torch.int32, device=device),
-        'sd_prior_guess': torch.ones(n_coef, **f32),
+        'sd_prior_guess': torch.ones(n_coef, **fl),
         'sd_prior_samplesize': torch.tensor(float(sd_prior_samplesize),
-                                            **f32),
-        'pc': torch.zeros(n_coef, **f32),
+                                            **fl),
+        'pc': torch.zeros(n_coef, **fl),
         'pc_n_averaged': torch.zeros((), dtype=torch.int32, device=device),
     }
 
@@ -60,3 +62,19 @@ def extrapolate_coef_condmean(state, gscale, lscale, n_unshrunk, slab_size):
     mean = state['mean']
     return mean * _scaling(mean.dtype, mean.device, gscale, lscale,
                            n_unshrunk, slab_size)
+
+
+def estimate_coef_precond_scale_sd(state):
+    """Shrunk estimator of the posterior sd of the scaled coefficients
+    (reg_coef_posterior_summarizer.py:105-123): the sample variance
+    blended with the prior guess, weighted as if the guess were an
+    average of `sd_prior_samplesize` earlier draws."""
+    mean, sec_moment = state['mean'], state['square']
+    n = state['n_averaged'].to(mean.dtype)
+    prior_m = state['sd_prior_samplesize']
+    zero = torch.zeros((), dtype=mean.dtype, device=mean.device)
+    var_est = torch.where(n > 1, n / torch.clamp_min(n - 1, 1)
+                          * (sec_moment - mean ** 2), zero)
+    est_weight = torch.where(n > 1, (n - 1) / (n - 1 + prior_m), zero)
+    return torch.sqrt(est_weight * torch.clamp_min(var_est, 0.0)
+                      + (1 - est_weight) * state['sd_prior_guess'] ** 2)

@@ -15,10 +15,12 @@ from .tilted_stable import sample_tilted_stable
 
 
 class BasicRandom:
-    """Owns the generator and exposes the sampler kernels."""
+    """Owns the generator and exposes the sampler kernels; draws come in
+    `dtype` (the chain's)."""
 
-    def __init__(self, device, seed=None):
+    def __init__(self, device, seed=None, dtype=torch.float32):
         self.device = torch.device(device)
+        self.dtype = dtype
         self.gen = torch.Generator(device=self.device)
         self.set_seed(seed)
 
@@ -37,7 +39,7 @@ class BasicRandom:
 
     def _tensor(self, x):
         return torch.as_tensor(np.asarray(x, np.float64),
-                               dtype=torch.float32, device=self.device)
+                               dtype=self.dtype, device=self.device)
 
     # Eager convenience wrappers for chain initialization (host out); the
     # Gibbs step calls the functional samplers directly with `gen`.
@@ -49,3 +51,9 @@ class BasicRandom:
     def tilted_stable(self, char_exponent, tilt):
         return sample_tilted_stable(self.gen, char_exponent,
                                     self._tensor(tilt)).cpu().numpy()
+
+    def gamma(self, shape):
+        """One Gamma(shape, 1) draw from the generator, as a float."""
+        return float(torch._standard_gamma(
+            torch.full((1,), float(shape), dtype=self.dtype,
+                       device=self.device), generator=self.gen)[0])

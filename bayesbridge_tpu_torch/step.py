@@ -7,7 +7,10 @@ scale, then the local scale. The JAX package traces the step once and
 scans it on the device; here the step runs eagerly, a Python loop drives
 it, and the carry is a dict of device tensors. All randomness comes from
 one ``torch.Generator``, so the carry plus the generator state is the
-checkpoint.
+checkpoint. The chain's state is in the chain's dtype (``cfg.dtype``); the
+design's products compute in the design's, and their results are cast
+back where they enter the carry (a float32 chain over a float64 model
+stays float32).
 """
 
 import math
@@ -27,7 +30,11 @@ class GibbsStepConfig:
     """Static configuration of the step."""
 
     def __init__(self, model, prior, options, n_unshrunk,
-                 prior_sd_for_unshrunk):
+                 prior_sd_for_unshrunk, dtype=None):
+        self.n_obs = model.n_obs
+        self.dtype = model.design.dtype if dtype is None else dtype
+        self.coef_sampler_type = options.coef_sampler_type
+        self.cg_preconditioner = options.cg_preconditioner
         self.bridge_exp = float(prior.bridge_exp)
         self.slab_size = float(prior.slab_size)
         self.gscale_prior_shape = float(
@@ -53,9 +60,18 @@ class GibbsStepConfig:
 
 
 def update_obs_precision(cfg, model, gen, lin_pred):
-    """obs_prec | coef for logit: Polya-Gamma draws tilted by the linear
-    predictor (bayesbridge.py:397-410)."""
-    return sample_polya_gamma(gen, model.n_trial_np, lin_pred)
+    """obs_prec | coef (bayesbridge.py:397-410): for the linear model one
+    Gamma(n/2) draw over the residual rate (step.py:94-103), from the
+    chain's generator; for logit, Polya-Gamma draws tilted by the linear
+    predictor."""
+    if model.name == 'linear':
+        rate = torch.sum((model.y - lin_pred) ** 2) / 2.0
+        draw = torch._standard_gamma(
+            torch.full((1,), cfg.n_obs / 2.0, dtype=cfg.dtype,
+                       device=lin_pred.device), generator=gen)[0]
+        return (draw / rate).to(cfg.dtype)
+    return sample_polya_gamma(gen, model.n_trial_np,
+                              lin_pred).to(cfg.dtype)
 
 
 def update_global_scale(cfg, gen, gscale, coef_shrunk):
@@ -77,7 +93,7 @@ def update_global_scale(cfg, gen, gscale, coef_shrunk):
         shape = cfg.gscale_prior_shape + cfg.n_shrunk / alpha
         rate = cfg.gscale_prior_rate + abs_power_sum
         draw = torch._standard_gamma(
-            torch.tensor([shape], dtype=torch.float32, device=dev),
+            torch.tensor([shape], dtype=cfg.dtype, device=dev),
             generator=gen)[0]
         new_gscale = (draw / rate) ** (-1.0 / alpha)
         all_zero = torch.count_nonzero(coef_shrunk) == 0
@@ -98,7 +114,8 @@ def update_local_scale(cfg, gen, gscale, coef_shrunk):
     dev = coef_shrunk.device
     if cfg.bridge_exp == 2:
         zero = torch.zeros((), dtype=torch.int32, device=dev)
-        return 0.5 * torch.ones(cfg.n_shrunk, device=dev), zero, zero
+        return 0.5 * torch.ones(cfg.n_shrunk, dtype=cfg.dtype,
+                                device=dev), zero, zero
     ts = sample_tilted_stable(gen, cfg.bridge_exp / 2.0,
                               (coef_shrunk / gscale) ** 2)
     lscale = torch.sqrt(0.5 / ts)
@@ -110,16 +127,19 @@ def update_local_scale(cfg, gen, gscale, coef_shrunk):
         overflow.sum().to(torch.int32)
 
 
-def compute_posterior_logprob(cfg, model, coef, gscale, lin_pred):
+def compute_posterior_logprob(cfg, model, coef, gscale, obs_prec, lin_pred):
     """Joint log density of (coef, gscale | rest), matching the
     reference's bookkeeping (bayesbridge.py:480-511)."""
-    loglik = model.loglik_from_lin_pred(lin_pred)
+    if model.name == 'linear':
+        loglik = model.loglik_from_lin_pred(lin_pred, obs_prec)
+    else:
+        loglik = model.loglik_from_lin_pred(lin_pred)
     if np.isfinite(cfg.slab_size):
         loglik = loglik - 0.5 * torch.sum((coef / cfg.slab_size) ** 2)
     coef_shrunk = coef[cfg.n_unshrunk:]
     coef_unshrunk = coef[:cfg.n_unshrunk]
     prior_sd = torch.as_tensor(cfg.prior_sd_for_unshrunk,
-                               dtype=torch.float32, device=coef.device)
+                               dtype=cfg.dtype, device=coef.device)
     prior_logp = -cfg.n_shrunk * torch.log(gscale) \
         - torch.sum((coef_shrunk / gscale).abs() ** cfg.bridge_exp)
     finite_sd = torch.isfinite(prior_sd)
@@ -135,15 +155,22 @@ def compute_posterior_logprob(cfg, model, coef, gscale, lin_pred):
 
 def gibbs_step(cfg, model, gen, carry):
     """One Gibbs iteration: returns (carry, outputs)."""
-    obs_prec = carry['obs_prec']
-    # Polya-Gamma collapse to a Gaussian observation.
-    y_gauss = (model.n_success - model.n_trial / 2.0) / obs_prec
+    if model.name == 'linear':
+        y_gauss = model.y.to(cfg.dtype)
+        obs_prec = carry['obs_prec'] * torch.ones(
+            cfg.n_obs, dtype=cfg.dtype, device=y_gauss.device)
+    else:  # logit: Polya-Gamma collapse to a Gaussian observation
+        obs_prec = carry['obs_prec']
+        y_gauss = (model.n_success - model.n_trial / 2.0).to(
+            cfg.dtype) / obs_prec
     coef, summ, info = sample_gaussian_posterior(
         gen, model.design, y_gauss, obs_prec, carry['gscale'],
         carry['lscale'], cfg.prior_sd_for_unshrunk, cfg.slab_size,
-        carry['summ'], cg_atol_multiplier=cfg.cg_atol_multiplier)
+        carry['summ'], method=cfg.coef_sampler_type,
+        cg_precond_by=cfg.cg_preconditioner,
+        cg_atol_multiplier=cfg.cg_atol_multiplier)
     n_unconverged = carry['n_cg_unconverged'] + int(
-        not info.pop('cg_converged'))
+        not info.pop('cg_converged', True))
     # ONE linear predictor per iteration, shared by the observation
     # precision draw and the log density (step.py:261-270): on the
     # composed path the CG loop accumulated it, otherwise one dot.
@@ -155,7 +182,8 @@ def gibbs_step(cfg, model, gen, carry):
                                           coef[cfg.n_unshrunk:])
     lscale, n_under, n_over = update_local_scale(
         cfg, gen, gscale, coef[cfg.n_unshrunk:])
-    logp = compute_posterior_logprob(cfg, model, coef, gscale, lin_pred)
+    logp = compute_posterior_logprob(cfg, model, coef, gscale, obs_prec,
+                                     lin_pred)
     carry = {
         **carry, 'summ': summ,
         'coef': coef, 'obs_prec': obs_prec,
@@ -171,20 +199,21 @@ def gibbs_step(cfg, model, gen, carry):
     return carry, outputs
 
 
-def init_carry(device, coef, obs_prec, gscale, lscale, summ=None):
-    """Chain state on `device` from host values; `summ` None starts a
-    fresh summarizer."""
-    def f32(x):
-        return torch.as_tensor(np.asarray(x, np.float64),
-                               dtype=torch.float32, device=device)
+def init_carry(device, coef, obs_prec, gscale, lscale, summ=None,
+               dtype=torch.float32):
+    """Chain state in `dtype` on `device` from host values; `summ` None
+    starts a fresh summarizer."""
+    def fl(x):
+        return torch.as_tensor(np.asarray(x, np.float64), dtype=dtype,
+                               device=device)
 
-    coef = f32(coef)
+    coef = fl(coef)
     zero = torch.zeros((), dtype=torch.int32, device=device)
     return {
-        'coef': coef, 'obs_prec': f32(obs_prec),
-        'gscale': f32(gscale), 'lscale': f32(lscale),
+        'coef': coef, 'obs_prec': fl(obs_prec),
+        'gscale': fl(gscale), 'lscale': fl(lscale),
         'summ': summ if summ is not None
-        else summarizer_init(coef.shape[0], device),
+        else summarizer_init(coef.shape[0], device, dtype=dtype),
         'n_gscale_clamped': zero, 'n_lscale_underflow': zero,
         'n_lscale_overflow': zero, 'n_cg_unconverged': 0,
     }

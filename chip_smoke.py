@@ -35,7 +35,8 @@ Phases, each of which raises on failure (exit code != 0):
 4. the sweeps (``ne_sweep[ne]``, ``[logit]`` and ``[linear]`` on their
    two-pass route), their row and column passes, the five-reduction
    tdots_sweep, ``ne_oneread`` (also against the composed pair in
-   turns), ``ne_oneread[logit]`` with logp (the MAP search's objective;
+   turns), ``ne_oneread[linear]`` with logp, ``ne_oneread[logit]`` with
+   logp (the MAP search's objective;
    also in turns against the two-pass link sweep and against the
    composed objective: row pass, loglik rows, column pass, the
    launches of these turns counted) and every ne_onepass variant at the
@@ -61,7 +62,26 @@ Phases, each of which raises on failure (exit code != 0):
    ``ne_oneread[logit]``, and with the composed one on the same design,
    and the two objectives compared) and the two objectives' times in
    turns;
-6. the bitpack slice: the same X with ``backend='bitpack'`` (bitmaps of
+6. the dense and linear slices: (a) the linear model over the hybrid
+   slices' stored blocks (y = X beta + N(0, 1) noise), under 'auto' (its
+   MAP search on ``ne_oneread[linear]``, the CG operator and the
+   pre-solve composed): ``gibbs(20)`` with the Jacobi preconditioner,
+   launch counters read right after it, 10 resumed iterations timed,
+   the resume check and a profiler window, then ``gibbs(10)`` with the
+   prior preconditioner, and the one-read linear objective in turns
+   against the two-pass sweep and the composed one; (b) a dense logit
+   design, X standard normal, 100,000 x 4,000, made on the card and
+   stored as 4,004 float32 columns: ``ne_oneread``, its logit mode and
+   ``tdots_sweep`` on the lone block against their plain versions, the
+   CG operator also in turns against the cuBLAS pair
+   ``X' (w * (X v))``; the Cholesky sampler (the default) in float32
+   (``gibbs(20)``, its MAP search on ``ne_oneread[logit]``, 10 resumed
+   iterations, the resume check, a profiler window), the Gram and the
+   Cholesky factor timed in float32 and float64 beside their bounds,
+   ``gibbs(10)`` in float64 (no kernel launched), and the CG sampler
+   under ``fused='1'`` (the kernels on the lone block) and ``'auto'``
+   (the cuBLAS pair), ``gibbs(20)`` each;
+7. the bitpack slice: the same X with ``backend='bitpack'`` (bitmaps of
    5,632 x 106,496 and 12,512 x 49,152 bytes plus a 100,000 x 5,000 f32
    block); bitlut against its plain version on the design's bitmaps,
    timed beside its bound and beside cuSPARSE (``torch.sparse_csr_tensor
@@ -71,7 +91,7 @@ Phases, each of which raises on failure (exit code != 0):
    the f32 side block's GEMV pair timed beside its bound; then a
    15-iteration chain on the composed CG path, and its MAP search against
    the hybrid's;
-7. the winell slice: a 131,072 x 16,384 design with 164 standard-normal
+8. the winell slice: a 131,072 x 16,384 design with 164 standard-normal
    entries per row (``backend='auto'`` picks winell, which stores a
    windowed CSR on the card); wincsr against its plain version on the
    design's layouts, timed beside its bound and beside cuSPARSE on the
@@ -81,7 +101,7 @@ Phases, each of which raises on failure (exit code != 0):
    counters are zeroed (the launches the kernels line reports, marked
    ``"path": "check-only"``), then checked and timed the same way; then
    the same chain, on wincsr;
-8. the sweep A/B harness (``bayesbridge_tpu_torch.baselines.
+9. the sweep A/B harness (``bayesbridge_tpu_torch.baselines.
    dev_ne_variants``) at the flagship block shape: the composed pair,
    ne_sweep's two-pass route, ne_oneread and the default one-read
    variants of ne_onepass, then ``--probe`` and ``--presolve``, its
@@ -102,6 +122,7 @@ import sys
 import time
 
 N_OBS, N_PRED = 100_000, 50_000
+DENSE_N, DENSE_P = 100_000, 4_000
 BINARY_FRAC = 0.9
 WINELL_N, WINELL_P, WINELL_PER_ROW = 131_072, 16_384, 164
 RTOL = 1e-4  # relative to max|plain|: the two sum in different orders
@@ -109,6 +130,9 @@ RTOL = 1e-4  # relative to max|plain|: the two sum in different orders
 # float32 operations/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+# The FP64 tensor-core peak of the same data sheet (cuBLAS's DGEMM runs
+# there): the float64 Gram's bound.
+FP64_TC_OPS_PER_S = 67e12
 
 
 def log(*args):
@@ -549,6 +573,10 @@ def flagship_kernel_checks():
                              route='twopass'),
             lambda: ne_sweep_plain(blocks, c_link, a, b, 'linear', True),
             lambda r: [r[0], [r[1]], [r[2]]]),
+        'ne_oneread[linear]': (
+            lambda: ne_oneread_link(blocks, c_link, a, b, 'linear', True),
+            lambda: ne_sweep_plain(blocks, c_link, a, b, 'linear', True),
+            lambda r: [r[0], [r[1]], [r[2]]]),
         'tdots_sweep': (
             lambda: tdots_sweep([Xe, Xf], [pe, pf], u1, u2, u3),
             lambda: tdots_sweep_plain([Xe, Xf], [pe, pf], u1, u2, u3), flat),
@@ -579,6 +607,7 @@ def flagship_kernel_checks():
             'ne_sweep[logit]': (X_b + 2 * vec + 3 * row, 4 * n_elem),
             'ne_oneread[logit]': (X_b + 2 * vec + 3 * row, 4 * n_elem),
             'ne_sweep[linear]': (X_b + 2 * vec + 3 * row, 4 * n_elem),
+            'ne_oneread[linear]': (X_b + 2 * vec + 3 * row, 4 * n_elem),
             'tdots_sweep': (X_b + 4 * vec + 3 * row, 9 * n_elem),
             'ne_sweep[rows]': (X_b + vec + row, 2 * n_elem),
             'ne_sweep[cols]': (X_b + vec + row, 2 * n_elem),
@@ -1012,14 +1041,17 @@ def winell_cases(design, X, gen):
     return cases, counts
 
 
-def run_chain(model, label, step_bytes, n_first=30, n_more=20):
+def run_chain(model, label, step_bytes, n_first=30, n_more=20,
+              sampler='cg', options=None):
     """``gibbs(n_first)`` with the launch counts read right after it, then
     ``gibbs_resume(n_more)`` timed, then the exact-resume check and a
-    profiler window. Returns (counts, n_cg of the first run, its mcmc
-    info, {'ips', 'mean_cg', 'busy', 'signal', 'chain'}): steady-state
-    iter/s, mean CG iterations of the timed iterations, the device's busy
-    share, the mean of coef[1:11] over the first run, and (bridge, mcmc
-    info after the timed iterations) to continue the chain from."""
+    profiler window; `sampler` None takes the package's default (Cholesky
+    for a dense design). Returns (counts, n_cg of the first run (zeros
+    off CG), its mcmc info, {'ips', 'mean_cg', 'busy', 'signal',
+    'chain'}): steady-state iter/s, mean CG iterations of the timed
+    iterations, the device's busy share, the mean of coef[1:11] over the
+    first run, and (bridge, mcmc info after the timed iterations) to
+    continue the chain from."""
     import numpy as np
     import torch
     from bayesbridge_tpu_torch import BayesBridge, RegressionCoefPrior
@@ -1030,14 +1062,18 @@ def run_chain(model, label, step_bytes, n_first=30, n_more=20):
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
     t0 = time.perf_counter()
-    samples, info = bridge.gibbs(n_iter=n_first, coef_sampler_type='cg',
-                                 seed=0, params_to_save='all')
+    kw = dict(coef_sampler_type=sampler, options=options, seed=0,
+              params_to_save='all')
+    samples, info = bridge.gibbs(n_iter=n_first, **kw)
     torch.cuda.synchronize()
     counts = launch_counts()
     wall = time.perf_counter() - t0
-    n_cg = info['_reg_coef_sampling_info']['n_cg_iter']
-    log(f"[{label}] gibbs({n_first}) incl. MAP search: {wall:.1f} s; MAP "
-        f"{info['_init_optim_info']}; n_cg_iter {n_cg.astype(int).tolist()}")
+    n_cg = info['_reg_coef_sampling_info'].get('n_cg_iter',
+                                               np.zeros(n_first))
+    log(f"[{label}] gibbs({n_first}) incl. MAP search: {wall:.1f} s; "
+        f"sampler {info['coef_sampler_type']}, dtype "
+        f"{samples['coef'].dtype}; MAP {info['_init_optim_info']}; "
+        f"n_cg_iter {n_cg.astype(int).tolist()}")
     log(f"[{label}] launch counts of this path: {counts}")
     assert np.all(np.isfinite(samples['logp'])), samples['logp']
     assert samples['coef'].shape == (n_pred, n_first)
@@ -1055,7 +1091,8 @@ def run_chain(model, label, step_bytes, n_first=30, n_more=20):
     s_more, i_more = bridge.gibbs_resume(info, n_more)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    cg_more = i_more['_reg_coef_sampling_info']['n_cg_iter']
+    cg_more = i_more['_reg_coef_sampling_info'].get('n_cg_iter',
+                                                    np.zeros(n_more))
     ips = n_more / secs
     gb_iter = float(np.mean([step_bytes(k) for k in cg_more])) / 1e9
     log(f"[{label}] steady state, {n_more} iterations via gibbs_resume: "
@@ -1067,8 +1104,7 @@ def run_chain(model, label, step_bytes, n_first=30, n_more=20):
     assert np.all(np.isfinite(s_more['logp']))
 
     n_a = n_first * 2 // 3
-    s_a, i_a = bridge.gibbs(n_iter=n_a, coef_sampler_type='cg', seed=0,
-                            params_to_save='all')
+    s_a, i_a = bridge.gibbs(n_iter=n_a, **kw)
     s_b, _ = bridge.gibbs_resume(i_a, n_first - n_a, merge=True,
                                  prev_samples=s_a)
     for key in samples:
@@ -1195,7 +1231,7 @@ def run_hybrid(X, outcome):
     """Phase 5: the fused slice, the composed slice on the same blocks,
     'auto' where it resolves to neither, the MAP witness and the link
     objective both ways. Returns ({slice: launch counts}, the MAP
-    witness)."""
+    witness, the stored design for the linear slice)."""
     import numpy as np
     import torch
     from bayesbridge_tpu_torch import RegressionModel
@@ -1294,9 +1330,9 @@ def run_hybrid(X, outcome):
         f"ms; fused (one-read link sweep) {(ts[1] + ts[2]) / 2:.3f} ms, "
         f"composed (row pass, loglik rows, column pass) "
         f"{(ts[0] + ts[3]) / 2:.3f} ms")
-    del model, design, composed
+    del model, composed
     torch.cuda.empty_cache()
-    return counts, witness
+    return counts, witness, design
 
 
 def ab_segments(chains, n_iter=10, rounds=8):
@@ -1330,7 +1366,7 @@ def ab_segments(chains, n_iter=10, rounds=8):
 
 
 def run_packed(X, outcome, backend, map_ref=None, n_first=15, n_more=10):
-    """Phases 6 and 7: build, kernel timings at the design's shapes, the
+    """Phases 7 and 8: build, kernel timings at the design's shapes, the
     chain on the composed path; with `map_ref` (the hybrid's MAP witness
     on the same X), the MAP witness. Returns (kernel results, the chain's
     launch counts, the winell kernel's launch counts on the timing phase
@@ -1397,8 +1433,293 @@ def run_packed(X, outcome, backend, map_ref=None, n_first=15, n_more=10):
     return results, counts, pack_counts
 
 
+def run_linear_hybrid(design, X):
+    """Phase 6 (a): the linear model over the hybrid slices' stored
+    blocks (no second densify), y = X beta + N(0, 1) noise with beta as
+    bench.py draws it: under 'auto' (the MAP search on
+    ``ne_oneread[linear]``, the CG operator and the pre-solve composed)
+    gibbs(20), 10 resumed iterations, the resume check and a profiler
+    window with the Jacobi preconditioner, then gibbs(10) with the prior
+    preconditioner; then the one-read linear objective in turns against
+    the two-pass link sweep and against the composed objective at the
+    design's blocks. Returns the launch counts of the first run."""
+    import numpy as np
+    import torch
+    from bayesbridge_tpu_torch import BayesBridge, RegressionCoefPrior
+    from bayesbridge_tpu_torch.kernels.ne_oneread import ne_oneread_link
+    from bayesbridge_tpu_torch.kernels.ne_sweep import (
+        colpass, ne_rows, ne_sweep)
+    from bayesbridge_tpu_torch.models import LinearModel
+    beta = np.zeros(N_PRED)
+    beta[:10] = 1.0
+    y = LinearModel.simulate_outcome(X, beta, 1.0, seed=2)
+    model = LinearModel(y, design.with_policy('auto'))
+    gb = design.storage_bytes() / 1e9
+    label = 'linear_hybrid'
+    counts, n_cg, info, st = run_chain(
+        model, label, lambda k: (2 * k + 2) * gb * 1e9, n_first=20,
+        n_more=10)
+    n_map = info['_init_optim_info']['n_design_matvec'] // 2
+    n_cg_sum = int(np.sum(n_cg))
+    assert n_map > 0 and counts['ne_oneread[linear]'] == n_map, (n_map,
+                                                                 counts)
+    assert counts['ne_sweep[linear]'] == 0 and counts['ne_oneread'] == 0, \
+        counts
+    assert counts['ne_sweep[rows]'] >= n_cg_sum, counts
+    assert counts['tdots_sweep[u4]'] == 20, counts
+    log(f"[{label}] steady state {st['ips']:.4f} iter/s, mean CG "
+        f"iterations {st['mean_cg']:.2f} ('diag'), signal mean coef[1:11] "
+        f"{st['signal']:.4f}, device busy "
+        + ('not measured' if st['busy'] is None else
+           f"{100 * st['busy']:.1f}%, {st['dev_ms']:.2f} ms per iteration"))
+    assert abs(st['signal'] - 1.0) < 0.2, st['signal']
+
+    bridge = BayesBridge(model, RegressionCoefPrior(bridge_exponent=0.5))
+    t0 = time.perf_counter()
+    samples, info_p = bridge.gibbs(10, seed=0, coef_sampler_type='cg',
+                                   options={'cg_preconditioner': 'prior'},
+                                   params_to_save=('coef', 'logp'))
+    torch.cuda.synchronize()
+    cg_p = info_p['_reg_coef_sampling_info']['n_cg_iter']
+    assert np.all(np.isfinite(samples['logp']))
+    log(f"[{label}] gibbs(10) with the prior preconditioner: "
+        f"{time.perf_counter() - t0:.1f} s, n_cg_iter "
+        f"{cg_p.astype(int).tolist()}, mean {cg_p.mean():.2f} against "
+        f"{np.mean(n_cg[:10]):.2f} over the first 10 with 'diag'")
+
+    # The MAP objective at the design's blocks: the one-read linear
+    # sweep with its logp in turns against the two-pass sweep and against
+    # the composed objective (row pass, loglik rows, column pass).
+    gen = torch.Generator(device='cuda').manual_seed(6)
+    (Xe, pe), (Xf, pf) = design._stored()
+    vs = [torch.randn(p, generator=gen, device='cuda') * 0.02
+          for p in (pe, pf)]
+    blocks = [(Xe, vs[0]), (Xf, vs[1])]
+    c = torch.zeros((), device='cuda')
+    a = model.y
+    b = torch.full_like(a, float(info['_markov_chain_state']['obs_prec']))
+
+    def oneread():
+        return ne_oneread_link(blocks, c, a, b, 'linear', True)
+
+    def twopass():
+        return ne_sweep(blocks, c, a, b, 'linear', True, route='twopass')
+
+    def composed():
+        r = a - ne_rows(blocks, c)
+        return colpass([Xe, Xf], [pe, pf], b * r), \
+            torch.sum(-0.5 * b * r * r)
+    for other, fn in (('two-pass', twopass), ('composed', composed)):
+        ts = [time_ms(f) for f in (fn, oneread, oneread, fn)]
+        log(f"[{label}] {other} linear objective vs ne_oneread[linear] in "
+            f"turns ({other}, one-read, one-read, {other}): "
+            f"{[round(t, 3) for t in ts]} ms; one-read "
+            f"{(ts[1] + ts[2]) / 2:.3f} against {(ts[0] + ts[3]) / 2:.3f} ms")
+    del model, bridge
+    return counts
+
+
+def dense_block_checks(design, label):
+    """The kernels on the dense design's lone float32 block (zero row
+    offset, p + 1 columns in whole 16-byte rows): each against its plain
+    version at RTOL, a rerun's bits, CUDA-event times beside the bound and
+    the plain version, the CG operator also beside the cuBLAS pair
+    ``X' (w * (X v))`` (its library time) in turns. Returns {name:
+    result}."""
+    import torch
+    from bayesbridge_tpu_torch.kernels import layout, load_library
+    from bayesbridge_tpu_torch.kernels.ne_oneread import (
+        CLUSTER, block_plan, fit_clusters, ne_oneread, ne_oneread_link)
+    from bayesbridge_tpu_torch.kernels.ne_sweep import ne_sweep_plain
+    from bayesbridge_tpu_torch.kernels.tdots_sweep import (
+        tdots_sweep, tdots_sweep_plain)
+    X, p = design.X, design.shape[1]
+    n = X.shape[0]
+    Xm = design.X_main
+    gen = torch.Generator(device='cuda').manual_seed(7)
+    v = torch.randn(p, generator=gen, device='cuda') / p ** .5
+    blocks = [(X, v)]
+    c = torch.zeros((), device='cuda')
+    w = torch.rand(n, generator=gen, device='cuda') + 0.1
+    a = (torch.rand(n, generator=gen, device='cuda') < 0.5).float()
+    us = [torch.randn(n, generator=gen, device='cuda') for _ in range(3)]
+    plan = block_plan(blocks)
+    fit = fit_clusters(load_library(), (layout.DTYPE_CODE[X.dtype], -1),
+                       plan)
+    log(f"[{label}] kernels on the lone f32 block: {n} x {p} stored as "
+        f"{tuple(X.shape)} ({X.shape[1] * 4} B rows), one-read plan "
+        f"{plan}, {fit} clusters of {CLUSTER} at once")
+    x_bytes = n * p * 4
+    vec, row = 4 * p, 4 * n
+    cases = {
+        'ne_oneread@dense': (
+            lambda: ne_oneread(blocks, c, w),
+            lambda: ne_sweep_plain(blocks, c, None, w, 'ne')[:2],
+            lambda r: [r[0], [r[1]]],
+            (x_bytes + 2 * vec + 2 * row, 4 * n * p)),
+        'ne_oneread[logit]@dense': (
+            lambda: ne_oneread_link(blocks, c, a, w, 'logit', True),
+            lambda: ne_sweep_plain(blocks, c, a, w, 'logit', True),
+            lambda r: [r[0], [r[1]], [r[2]]],
+            (x_bytes + 2 * vec + 3 * row, 4 * n * p)),
+        'tdots_sweep@dense': (
+            lambda: tdots_sweep([X], [p], *us),
+            lambda: tdots_sweep_plain([X], [p], *us),
+            lambda r: [list(r[0])],
+            (x_bytes + 4 * vec + 3 * row, 9 * n * p)),
+    }
+    results = {}
+    for name, (kern, plain, outs, work) in cases.items():
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        err = max(check(f"{name} [{i}]", g, r)
+                  for i, (g, r) in enumerate(zip(outs(got), outs(ref))))
+        again = kern()
+        assert all(torch.equal(x, y) for x, y in zip(
+            [t for grp in outs(got) for t in grp],
+            [t for grp in outs(again) for t in grp])), \
+            f"{name} is not deterministic"
+        del got, ref, again
+        ms, plain_ms = time_ms(kern), time_ms(plain)
+        bound, by = bound_ms(*work)
+        log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bound:.4f} ms ({by}), {x_bytes / 1e9 / (ms / 1e3):.1f} GB/s "
+            f"of 3350")
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound, bound_by=by, library_ms=None)
+
+    def pair():
+        return Xm.T @ (w * (Xm @ v))
+    check("cuBLAS pair vs ne_oneread@dense", [pair()],
+          [ne_oneread(blocks, c, w)[0][0]])
+    ts = [time_ms(f) for f in (pair, cases['ne_oneread@dense'][0],
+                               cases['ne_oneread@dense'][0], pair)]
+    lib = (ts[0] + ts[3]) / 2
+    log(f"  cuBLAS pair X' (w * (X v)) vs ne_oneread@dense in turns (pair, "
+        f"one-read, one-read, pair): {[round(t, 4) for t in ts]} ms; "
+        f"one-read {(ts[1] + ts[2]) / 2:.4f} against the pair {lib:.4f} ms, "
+        f"bound {results['ne_oneread@dense']['bound_ms']:.4f} ms")
+    results['ne_oneread@dense']['library_ms'] = lib
+    return results
+
+
+def run_dense():
+    """Phase 6 (b): dense logit, X standard normal, n = 100,000 and
+    p = 4,000 (BASELINE.json configs 0-1's family at the flagship's n),
+    made on the card, on one stored X: the Cholesky sampler in float32
+    (the default; gibbs(20), 10 resumed iterations timed, the resume
+    check, a profiler window), the Gram and the factor timed beside their
+    bounds; the Cholesky sampler in float64 (gibbs(10), the float64 Gram
+    beside the FP64 tensor-core peak); the CG sampler in float32 under
+    fused='1' (the one-read kernel and tdots_sweep on the lone block) and
+    under 'auto' (the cuBLAS pair), gibbs(20) each; each kernel on the
+    block against its plain version. Returns ({path: launch counts},
+    {kernel: result})."""
+    import numpy as np
+    import torch
+    from bayesbridge_tpu_torch import (
+        BayesBridge, RegressionCoefPrior, RegressionModel)
+    from bayesbridge_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts)
+    from bayesbridge_tpu_torch.models import LogisticModel
+    t0 = time.perf_counter()
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    X = torch.randn((DENSE_N, DENSE_P), generator=gen, device='cuda')
+    beta = torch.zeros(DENSE_P, device='cuda')
+    beta[:10] = 1.0
+    prob = torch.sigmoid(X @ beta)
+    n_success = torch.bernoulli(prob, generator=gen).cpu().numpy()
+    model = RegressionModel((n_success, np.ones(DENSE_N)), X,
+                            family='logit', device='cuda')
+    del X, prob
+    torch.cuda.synchronize()
+    design = model.design
+    gb = design.storage_bytes() / 1e9
+    log(f"[dense] X made on the card and stored: "
+        f"{time.perf_counter() - t0:.1f} s; {tuple(design.X.shape)} "
+        f"{design.dtype}, {gb:.4f} GB ({design.shape[1]} columns)")
+    results = dense_block_checks(design, 'dense')
+    counts = {}
+
+    # The Cholesky path: per iteration the design is read by the score's
+    # Tdot, the Fisher diagonal, the Gram and the linear predictor's dot.
+    def reads(k):
+        return 4 * gb * 1e9
+    counts['dense_cholesky'], _, info, st = run_chain(
+        model, 'dense_cholesky', reads, n_first=20, n_more=10, sampler=None)
+    c = counts['dense_cholesky']
+    n_map = info['_init_optim_info']['n_design_matvec'] // 2
+    assert info['coef_sampler_type'] == 'cholesky'
+    assert c['ne_oneread[logit]'] == n_map > 0, (n_map, c)
+    assert c['ne_oneread'] == c['tdots_sweep'] == 0, c
+    log(f"[dense_cholesky] steady state {st['ips']:.4f} iter/s, signal "
+        f"mean coef[1:11] {st['signal']:.4f}, device busy "
+        + ('not measured' if st['busy'] is None else
+           f"{100 * st['busy']:.1f}%, {st['dev_ms']:.2f} ms per iteration"))
+    n, p = design.shape
+    w = torch.rand(n, generator=gen, device='cuda') * 0.25 + 0.01
+    gram_ops = 2.0 * n * p * p
+    for dt, peak, what in ((torch.float32, F32_OPS_PER_S,
+                            'float32 67 TFLOP/s (no tensor cores)'),
+                           (torch.float64, FP64_TC_OPS_PER_S,
+                            'FP64 tensor cores 67 TFLOP/s')):
+        d = design if dt == torch.float32 else design.to_dtype(dt)
+        wd = w.to(dt)
+        ms = time_ms(lambda: d.compute_fisher_info(wd), reps=5)
+        prec = d.compute_fisher_info(wd) + torch.eye(p, dtype=dt,
+                                                     device='cuda')
+        chol_ms = time_ms(lambda: torch.linalg.cholesky_ex(prec), reps=5)
+        log(f"[dense] {dt} Gram X'WX ({n} x {p}): {ms:.2f} ms against "
+            f"{gram_ops / peak * 1e3:.2f} ms ({gram_ops / 1e12:.3f} TFLOP "
+            f"over the data sheet's {what}), "
+            f"{gram_ops / (ms / 1e3) / 1e12:.1f} TFLOP/s; Cholesky factor "
+            f"{chol_ms:.2f} ms "
+            f"({p ** 3 / 3 / 1e9:.1f} GFLOP)")
+        del prec
+    model64 = LogisticModel(n_success, np.ones(DENSE_N), d)
+    bridge = BayesBridge(model64, RegressionCoefPrior(bridge_exponent=0.5))
+    t1 = time.perf_counter()
+    reset_launch_counts()
+    s64, _ = bridge.gibbs(10, seed=0, params_to_save=('coef', 'logp'))
+    torch.cuda.synchronize()
+    c64 = launch_counts()
+    assert s64['coef'].dtype == np.float64 and np.all(
+        np.isfinite(s64['logp'])), s64['logp']
+    assert not any(c64.values()), c64  # float64 reaches no kernel
+    log(f"[dense_cholesky_f64] gibbs(10) incl. MAP search: "
+        f"{time.perf_counter() - t1:.1f} s; mean coef[1:11] "
+        f"{s64['coef'][1:11].mean():.4f}; no kernel launched")
+    del bridge, model64, d
+    torch.cuda.empty_cache()
+
+    for label, policy in (('dense_cg_fused', '1'), ('dense_cg_auto', 'auto')):
+        m = with_policy(model, policy)
+        bridge = BayesBridge(m, RegressionCoefPrior(bridge_exponent=0.5))
+        reset_launch_counts()
+        t1 = time.perf_counter()
+        s, i = bridge.gibbs(20, seed=0, coef_sampler_type='cg',
+                            params_to_save=('coef', 'logp'))
+        torch.cuda.synchronize()
+        counts[label] = c = launch_counts()
+        n_cg = i['_reg_coef_sampling_info']['n_cg_iter']
+        assert np.all(np.isfinite(s['logp'])), s['logp']
+        if policy == '1':
+            assert c['ne_oneread'] >= int(n_cg.sum()) + 20, c
+            assert c['tdots_sweep'] == 20 and c['ne_sweep[ne]'] == 0, c
+        else:
+            assert c['ne_oneread'] == c['tdots_sweep'] == 0, c
+        log(f"[{label}] gibbs(20) incl. MAP search: "
+            f"{time.perf_counter() - t1:.1f} s; mean CG iterations "
+            f"{n_cg.mean():.2f}; mean coef[1:11] "
+            f"{s['coef'][1:11].mean():.4f}; launch counts {c}")
+        del bridge, m
+    del model, design
+    torch.cuda.empty_cache()
+    return counts, results
+
+
 def run_harness():
-    """Phase 8: the sweep A/B harness at the flagship block shape, with the
+    """Phase 9: the sweep A/B harness at the flagship block shape, with the
     launch counts of its run. Returns the counts."""
     import torch
     from bayesbridge_tpu_torch.baselines import dev_ne_variants as harness
@@ -1465,9 +1786,16 @@ def main():
     results.update(probe_timings())
     t0 = phase('flagship kernel checks', t0)
     X, outcome = build_data()
-    counts, witness = run_hybrid(X, outcome)
+    counts, witness, design = run_hybrid(X, outcome)
     counts['link_turns'] = link_turns
     t0 = phase('hybrid slices', t0)
+    counts['linear_hybrid'] = run_linear_hybrid(design, X)
+    del design
+    torch.cuda.empty_cache()
+    dense_counts, res = run_dense()
+    counts.update(dense_counts)
+    results.update(res)
+    t0 = phase('dense and linear slices', t0)
     res, counts['bitpack'], _ = run_packed(X, outcome, 'bitpack', witness)
     results.update(res)
     del X, outcome
@@ -1482,8 +1810,13 @@ def main():
     phase('harness', t0)
 
     # The path whose run each kernel's launch count is read from. The
-    # sweep's 'linear' mode serves the linear model, which no path here
-    # runs: its timing is logged above and left out of the line. The
+    # linear model's MAP search runs the one-read kernel's 'linear' mode
+    # on the flagship blocks; the dense design's lone block takes the
+    # one-read kernel and tdots_sweep on the fused CG slice and the logit
+    # link on the Cholesky slice's MAP search ('@dense' entries: the same
+    # counters, timed at the dense block). The two-pass route's 'linear'
+    # mode runs on no path: its timing is logged above and left out of
+    # the line. The
     # fused sweep takes the one-read route on the hybrid slice in every
     # mode, so the sweep's two-pass 'ne' route is counted in the harness,
     # which times it beside the composed pair, and its two-pass 'logit'
@@ -1499,16 +1832,21 @@ def main():
                'ne_sweep[rows]': 'hybrid_composed',
                'ne_sweep[cols]': 'hybrid_composed',
                'tdots_sweep[u4]': 'hybrid_composed',
-               'ne_onepass': 'harness'}
+               'ne_onepass': 'harness',
+               'ne_oneread[linear]': 'linear_hybrid',
+               'ne_oneread@dense': 'dense_cg_fused',
+               'ne_oneread[logit]@dense': 'dense_cholesky',
+               'tdots_sweep@dense': 'dense_cg_fused'}
     kernels = []
     for name, res in results.items():
-        base = name.split('[')[0]
+        counter = name.split('@')[0]
+        base = counter.split('[')[0]
         path = path_of.get(name, {'bitlut': 'bitpack', 'wincsr': 'winell',
                                   'winell': 'winell_packing',
                                   'stream_probe': 'harness'}.get(base))
         if path is None:
             continue
-        launches = counts[path][name]
+        launches = counts[path][counter]
         assert launches > 0, (name, path, counts[path])
         kernels.append(dict(
             name=name, route='cuda', source=REGISTRY[base]['source'],

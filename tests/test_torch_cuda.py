@@ -8,8 +8,10 @@ machine with the card:
 Each kernel is held against its plain PyTorch version on the same
 tensors: rtol 1e-4 of max|plain| (the two sum in different orders), and
 a small chain on the card must resume exactly, on the hybrid backend
-(composed, its default, and fused) and on the bitpack and winell
-backends' composed path.
+(composed, its default, and fused), on the bitpack and winell backends'
+composed path and on the dense design (Cholesky and CG, float32 and
+float64). A float64 tensor at a kernel wrapper raises, and the float32
+Gram stays full float32 with TF32 allowed.
 """
 
 import numpy as np
@@ -432,5 +434,127 @@ def test_chain_resumes_exactly_on_card(dev, backend):
     part, info = bridge.gibbs(7, seed=0, coef_sampler_type='cg',
                               params_to_save='all')
     merged, _ = bridge.gibbs_resume(info, 5, merge=True, prev_samples=part)
+    for key in full:
+        np.testing.assert_array_equal(merged[key], full[key])
+
+
+@pytest.mark.parametrize('p_main', [100, 4000])
+def test_dense_design_launches_kernels_and_matches_plain(dev, p_main):
+    """The float32 dense design under fused='1' on the card: the CG
+    operator and the MAP objective on the one-read kernel, the pre-solve
+    on tdots_sweep (lone block, zero row offset; p + 1 columns stored in
+    whole 16-byte rows), each against the same design's products on the
+    CPU (the plain versions)."""
+    from bayesbridge_tpu_torch.design import DenseDesignMatrix
+    rng = np.random.default_rng(p_main)
+    X = rng.standard_normal((700, p_main)).astype(np.float32)
+    gpu = DenseDesignMatrix(X, center_predictor=True, fused='1')
+    cpu = DenseDesignMatrix(X, center_predictor=True, fused='1',
+                            device='cpu')
+    assert gpu.X.shape[1] % 4 == 0 and gpu.X.shape[1] >= p_main + 1
+    v = torch.from_numpy(rng.standard_normal(p_main + 1).astype(np.float32))
+    w, a = (torch.from_numpy(x.astype(np.float32)) for x in (
+        rng.exponential(size=700) + .1, rng.uniform(size=700) < .4))
+    us = [torch.from_numpy(rng.standard_normal(700).astype(np.float32))
+          for _ in range(3)]
+    reset_launch_counts()
+    got = [gpu.quad_matvec(v.to(dev), w.to(dev))]
+    ref = [cpu.quad_matvec(v, w)]
+    lp, grad = gpu.fused_link_grad(v.to(dev), a.to(dev), w.to(dev), 'logit')
+    lp_c, grad_c = cpu.fused_link_grad(v, a, w, 'logit')
+    got += list(gpu.presolve_reductions(*(u.to(dev) for u in us)))
+    ref += list(cpu.presolve_reductions(*us))
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert counts['ne_oneread'] == 1 and counts['ne_oneread[logit]'] == 1
+    assert counts['tdots_sweep'] == 1 and counts['ne_sweep[ne]'] == 0
+    for g, r in zip(got + [grad], ref + [grad_c]):
+        _assert_close([g.cpu()], [r])
+    assert abs(float(lp) - float(lp_c)) <= 1e-4 * abs(float(lp_c))
+
+
+def test_kernel_wrappers_refuse_float64(dev):
+    """A float64 tensor at a kernel wrapper raises: no wrapper converts
+    it to float32 (float64 designs run torch.matmul instead)."""
+    n, p = 64, 12
+    X64 = torch.randn((n, 16), dtype=torch.float64, device=dev)
+    X32 = X64.float()
+    v64 = torch.randn(p, dtype=torch.float64, device=dev)
+    w64 = torch.rand(n, dtype=torch.float64, device=dev)
+    zero = torch.zeros((), device=dev)
+    with pytest.raises((TypeError, ValueError)):
+        ne_oneread([(X64, v64.float())], zero, w64.float())
+    with pytest.raises((TypeError, ValueError)):
+        ne_oneread([(X32, v64)], zero, w64.float())
+    with pytest.raises((TypeError, ValueError)):
+        ne_sweep([(X32, v64.float())], zero, None, w64, 'ne')
+    with pytest.raises((TypeError, ValueError)):
+        ne_oneread_link([(X32, v64.float())], zero, w64, w64.float(),
+                        'linear')
+    with pytest.raises((TypeError, ValueError)):
+        tdots_sweep([X64], [p], w64.float(), w64.float(), w64.float())
+    with pytest.raises((TypeError, ValueError)):
+        tdots_sweep([X32], [p], w64, w64, w64)
+
+
+def test_float32_gram_ignores_tf32(dev):
+    """With TF32 allowed for the whole process, the dense and the hybrid
+    design's float32 Fisher information stays within 1e-5 (relative to
+    its largest entry) of the float64 one: the Gram runs in full
+    float32 whatever the global setting, which it restores."""
+    from bayesbridge_tpu_torch.design import (
+        DenseDesignMatrix, SparseDesignMatrix,
+    )
+    from bayesbridge_tpu_torch.utils.simulate_data import simulate_design
+    rng = np.random.default_rng(0)
+    Xd = rng.standard_normal((3000, 300))
+    Xs = simulate_design(3000, 300, binary_frac=.8, seed=1)
+    w = rng.exponential(size=3000) + .1
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision('high')
+    try:
+        for cls, X in ((DenseDesignMatrix, Xd), (SparseDesignMatrix, Xs)):
+            g32 = cls(X, center_predictor=True).compute_fisher_info(
+                torch.as_tensor(w, dtype=torch.float32, device=dev))
+            g64 = cls(X, center_predictor=True, dtype=np.float64) \
+                .compute_fisher_info(torch.as_tensor(w, device=dev))
+            assert torch.get_float32_matmul_precision() == 'high'
+            err = float((g32.double() - g64).abs().max())
+            assert err <= 1e-5 * float(g64.abs().max()), (cls, err)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+@pytest.mark.parametrize('family,sampler,dtype', [
+    ('linear', 'cholesky', np.float32), ('linear', 'cholesky', np.float64),
+    ('logit', 'cholesky', np.float32), ('linear', 'cg', np.float32),
+    ('linear', 'cg', np.float64)])
+def test_dense_and_linear_chains_resume_on_card(dev, family, sampler,
+                                                dtype):
+    """The dense design's chains on the card, float32 and float64: resume
+    is exact; the float32 CG chain under fused='1' runs the one-read
+    kernel and tdots_sweep on the lone block, the float64 one neither."""
+    from bayesbridge_tpu_torch import (
+        BayesBridge, RegressionCoefPrior, RegressionModel,
+    )
+    from bayesbridge_tpu_torch.utils.simulate_data import simulate_outcome
+    rng = np.random.default_rng(4)
+    X = rng.standard_normal((400, 40))
+    beta = np.r_[np.ones(3), np.zeros(37)]
+    outcome = simulate_outcome(X, beta, family, seed=5)
+    bridge = BayesBridge(RegressionModel(outcome, X, family=family,
+                                         dtype=dtype, fused='1'),
+                         RegressionCoefPrior(bridge_exponent=.5))
+    reset_launch_counts()
+    full, _ = bridge.gibbs(10, seed=0, coef_sampler_type=sampler,
+                           params_to_save='all')
+    counts = launch_counts()
+    f32_cg = sampler == 'cg' and dtype == np.float32
+    assert (counts['ne_oneread'] > 10) == f32_cg
+    assert (counts['tdots_sweep'] == 10) == f32_cg
+    assert full['coef'].dtype == dtype
+    part, info = bridge.gibbs(6, seed=0, coef_sampler_type=sampler,
+                              params_to_save='all')
+    merged, _ = bridge.gibbs_resume(info, 4, merge=True, prev_samples=part)
     for key in full:
         np.testing.assert_array_equal(merged[key], full[key])

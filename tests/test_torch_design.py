@@ -167,8 +167,9 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match='ell'):
         SparseDesignMatrix(X, backend='ell', device='cpu')
     with pytest.raises(NotImplementedError, match='float32'):
-        SparseDesignMatrix(X, dtype=np.float64, device='cpu')
-    with pytest.raises(NotImplementedError, match='dense'):
+        SparseDesignMatrix(X, backend='bitpack', dtype=np.float64,
+                           device='cpu')
+    with pytest.raises(ValueError, match='dense'):
         SparseDesignMatrix(X.toarray(), device='cpu')
     for fused in ('full', '1'):
         assert SparseDesignMatrix(X, fused=fused, device='cpu') \

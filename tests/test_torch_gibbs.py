@@ -90,15 +90,19 @@ def test_resume_drops_unknown_option_keys():
 
 
 def test_unported_paths_raise():
+    """What the port still refuses: the HMC and NUTS samplers, the Cox
+    family and the ell backend (each citing its ROADMAP item)."""
     bridge = _canonical()
-    with pytest.raises(NotImplementedError, match='cholesky'):
-        bridge.gibbs(2, seed=0, coef_sampler_type='cholesky')
-    with pytest.raises(NotImplementedError, match="'prior'"):
-        bridge.gibbs(2, seed=0, options=SamplerOptions(
-            'cg', cg_preconditioner='prior'))
+    for sampler in ('hmc', 'nuts'):
+        with pytest.raises(NotImplementedError, match=f"'{sampler}'"):
+            bridge.gibbs(2, seed=0, coef_sampler_type=sampler)
     X = simulate_design(20, 5, binary_frac=.6, seed=1)
-    with pytest.raises(NotImplementedError, match='linear'):
-        RegressionModel(np.zeros(20), X, family='linear', device='cpu')
+    with pytest.raises(NotImplementedError, match="'cox'"):
+        RegressionModel((np.ones(20), np.ones(20)), X, family='cox',
+                        device='cpu')
+    with pytest.raises(NotImplementedError, match='ell'):
+        RegressionModel(np.zeros(20), X, family='logit', backend='ell',
+                        device='cpu')
 
 
 def _parity_problem():
