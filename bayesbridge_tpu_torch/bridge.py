@@ -85,15 +85,7 @@ class BayesBridge:
         """Generate posterior samples (bayesbridge.py:109-277): `n_iter`
         iterations, the first `n_burnin` discarded and every `thin`-th of
         the rest kept; `samples[...][:, k]` is the k-th kept draw."""
-        if not isinstance(options, SamplerOptions):
-            options = SamplerOptions.pick_default_and_create(
-                coef_sampler_type, options, self.model.name,
-                self.model.design)
-        if options.coef_sampler_type in ('hmc', 'nuts'):
-            raise NotImplementedError(
-                "coef_sampler_type={!r}: the HMC and NUTS samplers are not "
-                "ported (ROADMAP.md Queue 1 item 13)".format(
-                    options.coef_sampler_type))
+        options = self._resolve_options(coef_sampler_type, options)
         if init is None:
             init = {'global_scale': 0.1}
         if not _add_iter_mode:
@@ -102,9 +94,7 @@ class BayesBridge:
         params_to_save = resolve_params_to_save(params_to_save)
         start_time = time.time()
         self.manager.stamp_time(start_time)
-        cfg = step_mod.GibbsStepConfig(
-            self.model, self.prior, options, self.n_unshrunk,
-            self.prior_sd_for_unshrunk, dtype=self.dtype)
+        cfg = self._step_config(options)
 
         coef, obs_prec, lscale, gscale, init, initial_optim_info = \
             self.initialize_chain(init, self.prior.bridge_exp,
@@ -206,6 +196,25 @@ class BayesBridge:
             new_samples, new_mcmc_info = self.manager.merge_outputs(
                 prev_samples, prev_mcmc_info, new_samples, new_mcmc_info)
         return new_samples, new_mcmc_info
+
+    def _resolve_options(self, coef_sampler_type, options):
+        """SamplerOptions from a sampler name and an options dict (or
+        passed through); the unported samplers raise."""
+        if not isinstance(options, SamplerOptions):
+            options = SamplerOptions.pick_default_and_create(
+                coef_sampler_type, options, self.model.name,
+                self.model.design)
+        if options.coef_sampler_type in ('hmc', 'nuts'):
+            raise NotImplementedError(
+                "coef_sampler_type={!r}: the HMC and NUTS samplers are not "
+                "ported (ROADMAP.md Queue 1 item 13)".format(
+                    options.coef_sampler_type))
+        return options
+
+    def _step_config(self, options):
+        return step_mod.GibbsStepConfig(
+            self.model, self.prior, options, self.n_unshrunk,
+            self.prior_sd_for_unshrunk, dtype=self.dtype)
 
     # ------------------------------------------------------------------ #
     # Initialization (host-side, one-time; bayesbridge.py:279-370)       #

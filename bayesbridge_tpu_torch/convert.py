@@ -14,7 +14,7 @@ import torch
 from .design.dense import DenseDesignMatrix, stored_width
 from .design.sparse import PACKED_ARRAYS, SparseDesignMatrix
 from .kernels import layout
-from .step import init_carry
+from .step import init_carry, stack_carries
 
 
 def _pad_cols(block, width):
@@ -146,3 +146,20 @@ def carry_from_numpy(coef, obs_prec, gscale, lscale, summ=None,
                 summ_t[key] = torch.tensor(val, dtype=dtype, device=device)
     return init_carry(device, coef, obs_prec, gscale, lscale, summ_t,
                       dtype=dtype)
+
+
+def chain_carry_from_numpy(chain_carry, device='cuda', dtype=torch.float32):
+    """The port's chain-batched carry in `dtype` from the ``_chain_carry``
+    of a JAX ``gibbs_chains`` info (numpy arrays with a leading chain
+    axis): each chain's coef, obs_prec, gscale (raw parametrization),
+    lscale and summarizer state. The guard-rail counters start at zero.
+    The JAX chains' keys do not carry over: a continuation draws from
+    fresh generators (``BasicRandom.spawn``)."""
+    summ = chain_carry.get('summ')
+    return stack_carries([carry_from_numpy(
+        chain_carry['coef'][c], chain_carry['obs_prec'][c],
+        chain_carry['gscale'][c], chain_carry['lscale'][c],
+        None if summ is None else {key: np.asarray(val)[c]
+                                   for key, val in summ.items()},
+        device=device, dtype=dtype)
+        for c in range(len(chain_carry['coef']))])

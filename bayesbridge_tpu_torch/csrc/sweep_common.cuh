@@ -251,6 +251,262 @@ void launch_colpass(const void* X0, int64_t ld0, int p0, const void* X1,
                                                          width, out);
 }
 
+// ---- Chain-batched forms: several Markov chains' vectors per read ----
+//
+// The batched column pass computes, for each of C chains, the R
+// reductions of col_tile (R = 1: X'u; R = 4 or 5: those of
+// `accumulate`), from one read of X for all C chains. Each (chain,
+// reduction, column) sum runs in one register, row by row, with the
+// fmaf of the single-vector pass, over the row segments of the
+// single-vector launch (the caller passes them), and the ordered second
+// pass sums the segments: so each chain's column equals its
+// single-vector launch bit for bit, whatever the batch. A thread owns
+// UNIT bytes of a row (16, 8 or 4: the column ownership does not enter a
+// column's sum), chosen so that its C * R * UNIT / sizeof(T)
+// accumulators fit in registers: kAccBudget floats, the five-reduction
+// int8 pass's 80 that the single-vector kernel holds without spills.
+// Chains beyond C run in further launches (one more read of X each).
+
+constexpr int kAccBudget = 80;
+constexpr int kMaxChains = 8;
+// Bytes of the next rows each column-pass thread keeps in flight: 64 for
+// one or four reductions, 128 for the five-reduction pre-solve, whose
+// threads hold so many accumulators that a block of them fills an SM
+// (baselines/batched_variants.py times the alternatives).
+constexpr int kColBytesInFlight = 64;
+constexpr int kColBytesInFlight5 = 128;
+
+__host__ __device__ constexpr int floor_pow2(int x) {
+  return x >= 8 ? 8 : x >= 4 ? 4 : x >= 2 ? 2 : 1;
+}
+
+// The widest load unit that keeps kMaxChains chains' accumulators in
+// the budget, else 4 bytes; and the chains that then fit.
+template <typename T, int R> struct ColPlan {
+  static constexpr int acc_at(int unit) {
+    return R * kMaxChains * unit / (int)sizeof(T);
+  }
+  static constexpr int unit = acc_at(16) <= kAccBudget ? 16
+                              : acc_at(8) <= kAccBudget ? 8 : 4;
+  static constexpr int chains =
+      floor_pow2(kAccBudget / (R * unit / (int)sizeof(T)));
+};
+
+// A load of UNIT bytes as 32-bit words.
+template <int UNIT>
+__device__ __forceinline__ void load_words(const void* p,
+                                           uint32_t (&w)[UNIT / 4]) {
+  if constexpr (UNIT == 16) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(p));
+    w[0] = q.x; w[1] = q.y; w[2] = q.z; w[3] = q.w;
+  } else if constexpr (UNIT == 8) {
+    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
+    w[0] = q.x; w[1] = q.y;
+  } else {
+    w[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+  }
+}
+
+// Up-convert W words of stored elements, as Vec<T>::cvt does per word.
+template <typename T, int W>
+__device__ __forceinline__ void cvt_words(const uint32_t (&w)[W],
+                                          float (&o)[W * 4 / sizeof(T)]) {
+#pragma unroll
+  for (int j = 0; j < W; ++j) {
+    if constexpr (sizeof(T) == 4) {
+      o[j] = __uint_as_float(w[j]);
+    } else if constexpr (sizeof(T) == 2) {
+      o[2 * j] = __uint_as_float(w[j] << 16);
+      o[2 * j + 1] = __uint_as_float(w[j] & 0xFFFF0000u);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        o[4 * j + k] = (float)((int32_t)(w[j] << (24 - 8 * k)) >> 24);
+    }
+  }
+}
+
+// `accumulate` for C chains: staged u j of chain c at su[(j * C + c) *
+// kUrows + i].
+template <int R, int C, int N>
+__device__ __forceinline__ void accumulate_k(float (&acc)[C][R][N],
+                                             const float (&xs)[N],
+                                             const float* su, int i) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const float w0 = su[c * kUrows + i];
+    if constexpr (R == 1) {
+#pragma unroll
+      for (int e = 0; e < N; ++e) acc[c][0][e] = fmaf(xs[e], w0, acc[c][0][e]);
+    } else {
+      const float w1 = su[(C + c) * kUrows + i];
+      const float w2 = su[(2 * C + c) * kUrows + i];
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        acc[c][0][e] = fmaf(xs[e], w0, acc[c][0][e]);
+        acc[c][1][e] = fmaf(xs[e], w1, acc[c][1][e]);
+        acc[c][2][e] = fmaf(xs[e], w2, acc[c][2][e]);
+        acc[c][3][e] = fmaf(xs[e] * xs[e], w2, acc[c][3][e]);
+      }
+      if constexpr (R == 5) {
+        const float w3 = su[(3 * C + c) * kUrows + i];
+#pragma unroll
+        for (int e = 0; e < N; ++e)
+          acc[c][4][e] = fmaf(xs[e], w3, acc[c][4][e]);
+      }
+    }
+  }
+}
+
+// col_tile for nc <= C chains: u j of chain c is uj[c * n + row]; the
+// partial row of (chain c, reduction r) is part[(c * R + r) * p_total].
+// `su` holds kUrows * NumU<R> * C floats.
+template <typename T, int R, int C>
+__device__ __forceinline__ void col_tile_k(
+    const T* __restrict__ X, int64_t ld, int p, int tile, int64_t r0,
+    int64_t r1, int nc, int64_t n, const float* __restrict__ u0,
+    const float* __restrict__ u1, const float* __restrict__ u2,
+    const float* __restrict__ u3, float* su, float* __restrict__ part,
+    int64_t p_total, int col_off) {
+  constexpr int UNIT = ColPlan<T, R>::unit;
+  constexpr int W = UNIT / 4;                  // words per load
+  constexpr int N = UNIT / (int)sizeof(T);     // columns per thread
+  constexpr int NU = NumU<R>::value;
+  constexpr int ROWS =  // rows' loads in flight
+      (R == 5 ? kColBytesInFlight5 : kColBytesInFlight) / UNIT;
+  const int c0 = tile * (kThreads * N) + threadIdx.x * N;
+  float acc[C][R][N];
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int e = 0; e < N; ++e) acc[c][r][e] = 0.f;
+
+  for (int64_t rb = r0; rb < r1; rb += kUrows) {
+    const int cnt = (int)min64(kUrows, r1 - rb);
+    __syncthreads();
+    if ((int)threadIdx.x < cnt) {  // kThreads >= kUrows
+      const int64_t row = rb + threadIdx.x;
+#pragma unroll
+      for (int j = 0; j < NU; ++j) {
+        const float* uj = j == 0 ? u0 : j == 1 ? u1 : j == 2 ? u2 : u3;
+#pragma unroll
+        for (int c = 0; c < C; ++c)
+          su[(j * C + c) * kUrows + threadIdx.x] =
+              c < nc ? uj[c * n + row] : 0.f;
+      }
+    }
+    __syncthreads();
+    if (c0 < p) {
+      const T* xp = X + rb * ld + c0;
+      int i = 0;
+      for (; i + ROWS <= cnt; i += ROWS, xp += ROWS * ld) {
+        uint32_t q[ROWS][W];
+#pragma unroll
+        for (int j = 0; j < ROWS; ++j) load_words<UNIT>(xp + j * ld, q[j]);
+#pragma unroll
+        for (int j = 0; j < ROWS; ++j) {
+          float xs[N];
+          cvt_words<T, W>(q[j], xs);
+          accumulate_k<R, C, N>(acc, xs, su, i + j);
+        }
+      }
+      for (; i < cnt; ++i, xp += ld) {
+        uint32_t q[W];
+        load_words<UNIT>(xp, q);
+        float xs[N];
+        cvt_words<T, W>(q, xs);
+        accumulate_k<R, C, N>(acc, xs, su, i);
+      }
+    }
+  }
+  if (c0 < p) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if (c >= nc) break;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+#pragma unroll
+        for (int e = 0; e < N; ++e)
+          if (c0 + e < p)
+            part[(int64_t)(c * R + r) * p_total + col_off + c0 + e] =
+                acc[c][r][e];
+    }
+  }
+}
+
+// The batched column pass over a block of T0 and an optional f32 block.
+// Grid: x = column tiles of block 0 then of block 1 (at each block's
+// unit), y = the row segments. partial: (n_seg, nc * R, p0 + p1).
+template <typename T0, int R, int C>
+__global__ void __launch_bounds__(kThreads) colpass_k_kernel(
+    const T0* __restrict__ X0, int64_t ld0, int p0, int tiles0,
+    const float* __restrict__ X1, int64_t ld1, int p1, int64_t n,
+    int64_t rows_per_seg, int nc, const float* __restrict__ u0,
+    const float* __restrict__ u1, const float* __restrict__ u2,
+    const float* __restrict__ u3, float* __restrict__ partial) {
+  __shared__ float su[kUrows * NumU<R>::value * C];
+  const int64_t p_total = (int64_t)p0 + p1;
+  const int64_t r0 = (int64_t)blockIdx.y * rows_per_seg;
+  const int64_t r1 = min64(n, r0 + rows_per_seg);
+  float* part = partial + (int64_t)blockIdx.y * nc * R * p_total;
+  if ((int)blockIdx.x < tiles0)
+    col_tile_k<T0, R, C>(X0, ld0, p0, blockIdx.x, r0, r1, nc, n, u0, u1,
+                         u2, u3, su, part, p_total, 0);
+  else
+    col_tile_k<float, R, C>(X1, ld1, p1, blockIdx.x - tiles0, r0, r1, nc,
+                            n, u0, u1, u2, u3, su, part, p_total, p0);
+}
+
+template <typename T0, int R, int C>
+void launch_colpass_k(const void* X0, int64_t ld0, int p0, const float* X1,
+                      int64_t ld1, int p1, int64_t n, int nc, int n_seg,
+                      int64_t rows_per_seg, const float* u0, const float* u1,
+                      const float* u2, const float* u3, float* partial,
+                      float* out, cudaStream_t stream) {
+  const int tiles0 =
+      tiles_of(p0, ColPlan<T0, R>::unit / (int)sizeof(T0));
+  const int tiles1 = p1 > 0 ? tiles_of(p1, ColPlan<float, R>::unit / 4) : 0;
+  dim3 grid(tiles0 + tiles1, n_seg);
+  colpass_k_kernel<T0, R, C><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T0*>(X0), ld0, p0, tiles0, X1, ld1, p1, n,
+      rows_per_seg, nc, u0, u1, u2, u3, partial);
+  const int64_t width = (int64_t)nc * R * ((int64_t)p0 + p1);
+  const int rgrid = (int)min64((width + kThreads - 1) / kThreads, 4096);
+  reduce_segments_kernel<<<rgrid, kThreads, 0, stream>>>(partial, n_seg,
+                                                         width, out);
+}
+
+// The batched column pass for nc chains (1 <= nc <= the plan's chains):
+// out (nc, R, p0 + p1). C is nc rounded up to 1, 2, 4 or 8; the chains
+// past nc compute on zeros and are not written.
+template <typename T0, int R>
+cudaError_t colpass_k(const void* X0, int64_t ld0, int p0, const float* X1,
+                      int64_t ld1, int p1, int64_t n, int nc, int n_seg,
+                      int64_t rows_per_seg, const float* u0, const float* u1,
+                      const float* u2, const float* u3, float* partial,
+                      float* out, cudaStream_t stream) {
+  constexpr int cmax = ColPlan<T0, R>::chains;
+  static_assert(ColPlan<float, R>::chains >= cmax, "f32 block plan");
+  if (nc < 1 || nc > cmax) return cudaErrorInvalidValue;
+#define BB_COLPASS_K(C)                                                     \
+  launch_colpass_k<T0, R, C>(X0, ld0, p0, X1, ld1, p1, n, nc, n_seg,       \
+                             rows_per_seg, u0, u1, u2, u3, partial, out,   \
+                             stream)
+  if (nc == 1) {
+    BB_COLPASS_K(1);
+  } else if (nc == 2) {
+    BB_COLPASS_K(2);
+  } else if (nc <= 4) {
+    if constexpr (cmax >= 4) BB_COLPASS_K(4);
+  } else {
+    if constexpr (cmax >= 8) BB_COLPASS_K(8);
+  }
+#undef BB_COLPASS_K
+  return cudaGetLastError();
+}
+
 // BB_DISPATCH(dt, T, stmt): run `stmt` with T bound to the storage type
 // named by the DType code `dt`; an unknown code returns an error.
 #define BB_DISPATCH(dt, T, ...)                       \

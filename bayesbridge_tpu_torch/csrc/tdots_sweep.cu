@@ -25,6 +25,14 @@
 // never did). With u4, an int8 thread holds 5 x 16 float accumulators
 // (80 registers against 64 for four reductions); -Xptxas -v reports the
 // build's registers and spills.
+//
+// bb_tdots_sweep_k runs the same reductions for up to 8 Markov chains per
+// read of X (the JAX package's vmap of fused_tdots over its chains): the
+// column pass of sweep_common.cuh with R = 4 or 5 reductions for each of
+// C chains, each chain's columns equal to its single-vector launch bit
+// for bit. Its threads own narrower units of a row (8 bytes of f32, 4 of
+// bf16 or int8) so that C * R accumulators per column fit; an int8 block
+// takes 4 chains per read, bf16 and f32 blocks 8 (ColPlan).
 
 #include "sweep_common.cuh"
 
@@ -54,4 +62,31 @@ extern "C" int bb_tdots_sweep(int dt0, const void* X0, long long ld0,
                                 rows_per_seg, u1, u2, u3, u4, partial, out,
                                 s);
       return (int)cudaGetLastError()));
+}
+
+// The chain-batched pre-solve reductions for nc chains: u1..u4 (nc, n)
+// each (u4 NULL: four reductions, R = 4, else R = 5); out (nc, R, p0 +
+// p1), out[c, r] holding reduction r of chain c for block 0's columns
+// then block 1's; partial n_seg * nc * R * (p0 + p1) floats, the segments
+// those of the single-vector launch. X1 is f32 (or p1 == 0). nc at most
+// bb_max_chains(R, dt0).
+extern "C" int bb_tdots_sweep_k(int dt0, const void* X0, long long ld0,
+                                int p0, const float* X1, long long ld1,
+                                int p1, long long n, int nc, const float* u1,
+                                const float* u2, const float* u3,
+                                const float* u4, int n_seg,
+                                long long rows_per_seg, float* partial,
+                                float* out, void* stream) {
+  using namespace bbsweep;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (u4 == nullptr) {
+    BB_DISPATCH(dt0, T0,
+        return (int)colpass_k<T0, 4>(X0, ld0, p0, X1, ld1, p1, n, nc, n_seg,
+                                     rows_per_seg, u1, u2, u3, nullptr,
+                                     partial, out, s));
+  }
+  BB_DISPATCH(dt0, T0,
+      return (int)colpass_k<T0, 5>(X0, ld0, p0, X1, ld1, p1, n, nc, n_seg,
+                                   rows_per_seg, u1, u2, u3, u4, partial,
+                                   out, s));
 }

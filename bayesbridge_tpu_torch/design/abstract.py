@@ -6,6 +6,10 @@ operator, the Fisher information, matvec counters and constant-column
 scrubbing. The concrete designs live in :mod:`.sparse` and
 :mod:`.dense`; their tensors stay on the design's device and every
 product is a plain function of them.
+
+The products take one vector, or k Markov chains' vectors as the rows of
+a (k, m) tensor (``multichain``), and return the same layout: chain c's
+row is the product of its vector alone.
 """
 
 import abc
@@ -27,11 +31,11 @@ class AbstractDesignMatrix(abc.ABC):
 
     @abc.abstractmethod
     def dot(self, v):
-        """X @ v."""
+        """X @ v; (k, n) for v (k, p)."""
 
     @abc.abstractmethod
     def Tdot(self, v):
-        """X.T @ v."""
+        """X.T @ v; (k, p) for v (k, n)."""
 
     @property
     @abc.abstractmethod
@@ -40,12 +44,13 @@ class AbstractDesignMatrix(abc.ABC):
 
     @abc.abstractmethod
     def compute_fisher_diag(self, weight):
-        """diag(X' diag(weight) X)."""
+        """diag(X' diag(weight) X); (k, p) for weight (k, n)."""
 
     @abc.abstractmethod
     def compute_fisher_info(self, weight, diag_only=False):
         """X' diag(weight) X (the Cholesky path's p x p matrix), or its
-        diagonal (the Jacobi preconditioner's)."""
+        diagonal (the Jacobi preconditioner's); per chain for weight (k,
+        n)."""
 
     @abc.abstractmethod
     def compute_transposed_fisher_info(self, weight, include_intrcpt=False):

@@ -26,6 +26,13 @@ float32 (``dense.py:103-112``):
 Storage: X is kept row-major as (n, ld), its p columns followed by zero
 columns up to a whole number of 16-byte vectors per row (the kernels
 stream 16-byte units); every product reads the ``[:, :p]`` view.
+
+Products take one vector or k Markov chains' vectors along a leading
+axis: a float64 design multiplies the k columns at once; a float32 one
+runs its single-vector product per chain (cuBLAS's k-column product does
+not give each column the bits of its one-column product, and a chain
+must equal itself run alone), except the fused pre-solve, whose
+``tdots_sweep_k`` reads the block once for the chains.
 """
 
 import copy
@@ -38,7 +45,8 @@ from .abstract import AbstractDesignMatrix
 from .fusedne import POLICIES, dispatch_mode
 from .gram import chunked_gram, squared_col_moment
 from ..kernels.ne_sweep import ne_sweep
-from ..kernels.tdots_sweep import tdots_sweep
+from ..kernels.tdots_sweep import tdots_sweep, tdots_sweep_k
+from ..utils.chains import per_chain
 from ..utils.dtypes import full_float32, resolve_device, working_dtype
 
 _ROW_ALIGN_BYTES = 16
@@ -148,13 +156,32 @@ class DenseDesignMatrix(AbstractDesignMatrix):
 
     # -- products -------------------------------------------------------- #
 
+    def _chains_at_once(self, x):
+        """True for k chains' rows (k, m) of a float64 design: one k-column
+        product; a float32 design's chains run one at a time."""
+        return x.dim() == 2 and self.dtype == torch.float64
+
     def dot(self, v):
+        """X v, or X v_c for each row of v (k, p): (k, n)."""
+        v = self._as_tensor(v)
+        if self._chains_at_once(v):
+            self.dot_count += v.shape[0]
+            return v @ self.X_main.T
+        if v.dim() == 2:
+            return per_chain(self.dot, v)
         self.dot_count += 1
-        return self.X_main @ self._as_tensor(v)
+        return self.X_main @ v
 
     def Tdot(self, u):
+        """X' u, or X' u_c for each row of u (k, n): (k, p)."""
+        u = self._as_tensor(u)
+        if self._chains_at_once(u):
+            self.Tdot_count += u.shape[0]
+            return u @ self.X_main
+        if u.dim() == 2:
+            return per_chain(self.Tdot, u)
         self.Tdot_count += 1
-        return self.X_main.T @ self._as_tensor(u)
+        return self.X_main.T @ u
 
     def fused_ne_mode(self, kind='quad'):
         """True where the policy fuses the `kind` call site and the design
@@ -170,10 +197,14 @@ class DenseDesignMatrix(AbstractDesignMatrix):
     def quad_matvec(self, v, weight, return_t=False):
         """X' (weight * (X v)). Fused: one ``ne_sweep`` of the stored
         block with a zero row offset (the intercept and centering are in
-        X). With `return_t`, or composed: `dot` then `Tdot`."""
+        X), once per chain for k chains' rows. With `return_t`, or
+        composed: `dot` then `Tdot`."""
         if return_t or self.fused_ne_mode('quad') is None:
             return super().quad_matvec(v, weight, return_t)
-        outs, _, _ = ne_sweep([(self.X, self._as_tensor(v))], self._zero(),
+        v = self._as_tensor(v)
+        if v.dim() == 2:
+            return per_chain(self.quad_matvec, v, self._as_tensor(weight))
+        outs, _, _ = ne_sweep([(self.X, v)], self._zero(),
                               None, self._as_tensor(weight), 'ne')
         self.dot_count += 1
         self.Tdot_count += 1
@@ -199,9 +230,17 @@ class DenseDesignMatrix(AbstractDesignMatrix):
         (dense.py:153-192). Fused: one ``tdots_sweep`` read, `u4` as a
         separate `Tdot`. Composed: one multi-RHS product
         ``X' [u1 u2 u3 (u4)]`` in full float32 and the squared-column
-        moment."""
+        moment. For k chains' rows: fused, one ``tdots_sweep_k`` read;
+        composed, per chain."""
         us = [self._as_tensor(u) for u in (u1, u2, u3)
               + ((u4,) if u4 is not None else ())]
+        if us[0].dim() == 2:
+            if self.fused_ne_mode('presolve') is None:
+                return per_chain(self.presolve_reductions, *us)
+            self.Tdot_count += 2 * us[0].shape[0]
+            (o1, o2, _, sq), = tdots_sweep_k([self.X], [self._p], *us[:3])
+            return (o1, o2, sq) if u4 is None \
+                else (o1, o2, sq, self.Tdot(us[3]))
         self.Tdot_count += 2
         if self.fused_ne_mode('presolve') is not None:
             (o1, o2, _, sq), = tdots_sweep([self.X], [self._p], *us[:3])
@@ -217,7 +256,10 @@ class DenseDesignMatrix(AbstractDesignMatrix):
         return R[:, 0], R[:, 1], sq, R[:, 3]
 
     def compute_fisher_diag(self, weight):
-        return squared_col_moment(self.X_main, self._as_tensor(weight))
+        weight = self._as_tensor(weight)
+        if weight.dim() == 2:
+            return per_chain(self.compute_fisher_diag, weight)
+        return squared_col_moment(self.X_main, weight)
 
     def compute_fisher_info(self, weight, diag_only=False):
         """X' W X (dense.py:194-202), or its diagonal: the Gram over row
@@ -225,6 +267,8 @@ class DenseDesignMatrix(AbstractDesignMatrix):
         weight = self._as_tensor(weight)
         if diag_only:
             return self.compute_fisher_diag(weight)
+        if weight.dim() == 2:
+            return per_chain(self.compute_fisher_info, weight)
         X = self.X_main
         return chunked_gram(lambda start, size: X[start:start + size],
                             X.shape[0], self._p, weight, self.dtype)[0]

@@ -52,6 +52,14 @@ with ``diag_only=False``) streams the hybrid blocks through row-chunked
 float32 (or float64) Gram products (:func:`.gram.chunked_gram`), and
 densifies the packed backends' small designs.
 
+Products take one vector or k Markov chains' vectors along a leading
+axis (what the JAX package's ``vmap`` over chains makes of its products,
+``multichain.py``): on the hybrid backend's composed path the chains
+share one read of the blocks per launch (``ne_rows_k``, ``colpass_k``,
+``tdots_sweep_k``); the fused CG operator, bitlut and wincsr run once per
+chain; a float64 design multiplies k columns at once. Each chain's
+result is its single-vector product, bit for bit in float32.
+
 Not ported (each raises NotImplementedError): the ell backend and the
 int4 tier (no int4 MMA on Hopper). bitpack and winell refuse float64 on
 every build path.
@@ -72,9 +80,10 @@ from .abstract import AbstractDesignMatrix
 from .fusedne import POLICIES, dispatch_mode
 from ..kernels import layout
 from ..kernels.bitlut import bitlut
-from ..kernels.ne_sweep import colpass, ne_rows, ne_sweep
-from ..kernels.tdots_sweep import tdots_sweep
+from ..kernels.ne_sweep import colpass_k, ne_rows_k, ne_sweep
+from ..kernels.tdots_sweep import tdots_sweep_k
 from ..kernels.wincsr import wincsr
+from ..utils.chains import per_chain, rdot, rsum
 from ..utils.dtypes import full_float32, resolve_device, working_dtype
 from .gram import chunked_gram, squared_col_moment
 
@@ -489,10 +498,11 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         return torch.as_tensor(x, dtype=self._dtype, device=self.device)
 
     def _split(self, v):
-        """(v0, v_main) with v0 the intercept coefficient (0 without)."""
+        """(v0, v_main) with v0 the intercept coefficient (0 without), over
+        the last axis."""
         if self.intercept_added:
-            return v[0], v[1:]
-        return torch.zeros((), dtype=v.dtype, device=v.device), v
+            return v[..., 0], v[..., 1:]
+        return torch.zeros(v.shape[:-1], dtype=v.dtype, device=v.device), v
 
     def _block_cols(self):
         """Original column indices of each non-empty block, in block
@@ -504,8 +514,9 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         return first + ([self.float_cols] if self.n_float else [])
 
     def _blocks(self, v_main):
-        """[(X_b, v_b)] of the non-empty hybrid blocks, exact first."""
-        return [(X, v_main[cols]) for (X, _), cols
+        """[(X_b, v_b)] of the non-empty hybrid blocks, exact first (v_b
+        over the last axis of v_main)."""
+        return [(X, v_main[..., cols]) for (X, _), cols
                 in zip(self._stored(), self._block_cols())]
 
     def _stored(self):
@@ -516,16 +527,17 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         return out
 
     def _assemble(self, parts):
-        """Scatter per-block column results back to original order."""
-        res = torch.zeros(self._shape_main[1], dtype=self._dtype,
-                          device=self.device)
+        """Scatter per-block column results (over the last axis) back to
+        original order."""
+        res = torch.zeros(parts[0].shape[:-1] + (self._shape_main[1],),
+                          dtype=self._dtype, device=self.device)
         for cols, part in zip(self._block_cols(), parts):
-            res[cols] = part
+            res[..., cols] = part
         return res
 
     def _with_intercept(self, s, main):
         if self.intercept_added:
-            return torch.cat((s.reshape(1), main))
+            return torch.cat((s[..., None], main), -1)
         return main
 
     # -- the packed backends' products ------------------------------------ #
@@ -558,56 +570,72 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         stored = self._stored()
         return [X for X, _ in stored], [p for _, p in stored]
 
-    def main_dot(self, v_main):
-        """(X_main - 1 column_offset') @ v_main. Hybrid: the row pass
-        (``ne_rows``), the centering folded into its row offset."""
+    def main_dot(self, V):
+        """(X_main - 1 column_offset') V' for k chains' V (k, p_main): (k,
+        n), or of one vector. Hybrid: the row pass (``ne_rows_k``), the
+        centering folded into its row offset."""
+        if V.dim() == 1:
+            return self.main_dot(V[None])[0]
+        offset = rdot(V, self.column_offset)
         if self.backend == 'hybrid' and not self._kernels():
-            return self.X_float[:, :self.n_float] @ v_main \
-                - self.column_offset @ v_main
+            return V @ self.X_float[:, :self.n_float].T - offset[:, None]
         if self.backend == 'hybrid':
-            return ne_rows(self._blocks(v_main),
-                           -(self.column_offset @ v_main))
+            return ne_rows_k(self._blocks(V), -offset)
         if self.backend == 'bitpack':
-            result = self._bitpack_dot_bin(v_main[self.bin_cols])
+            result = torch.stack([self._bitpack_dot_bin(v[self.bin_cols])
+                                  for v in V])
             if self.n_float:
-                result = result + layout.matvec(
-                    self.X_float, self.n_float, v_main[self.float_cols])
+                result = result + torch.stack([layout.matvec(
+                    self.X_float, self.n_float, v[self.float_cols])
+                    for v in V])
         else:
-            result = self._winell_dot_main(v_main)
-        return result - self.column_offset @ v_main
+            result = torch.stack([self._winell_dot_main(v) for v in V])
+        return result - offset[:, None]
 
-    def main_Tdot(self, u):
-        """(X_main - 1 column_offset')' @ u. Hybrid: the column pass
-        (``colpass``)."""
+    def main_Tdot(self, U):
+        """(X_main - 1 column_offset')' u for k chains' U (k, n): (k,
+        p_main), or of one vector. Hybrid: the column pass
+        (``colpass_k``)."""
+        if U.dim() == 1:
+            return self.main_Tdot(U[None])[0]
         if self.backend == 'hybrid' and not self._kernels():
-            raw = self.X_float[:, :self.n_float].T @ u
+            raw = U @ self.X_float[:, :self.n_float]
         elif self.backend == 'hybrid':
-            raw = self._assemble(colpass(*self._hybrid_Xs(), u))
+            raw = self._assemble(colpass_k(*self._hybrid_Xs(), U))
         else:
-            raw = self._weighted_col_moments(u, 1)
-        return raw - u.sum() * self.column_offset
+            raw = self._weighted_col_moments(U, 1)
+        return raw - rsum(U)[:, None] * self.column_offset
 
     def dot(self, v):
-        v0, v_main = self._split(self._as_tensor(v))
-        self.dot_count += 1
-        return self.main_dot(v_main) + v0
+        """X v, or X v_c for each row of v (k, p): (k, n)."""
+        v = self._as_tensor(v)
+        if v.dim() == 1:
+            return self.dot(v[None])[0]
+        v0, v_main = self._split(v)
+        self.dot_count += v.shape[0]
+        return self.main_dot(v_main) + v0[:, None]
 
     def Tdot(self, u):
+        """X' u, or X' u_c for each row of u (k, n): (k, p)."""
         u = self._as_tensor(u)
-        result = self._with_intercept(u.sum(), self.main_Tdot(u))
-        self.Tdot_count += 1
-        return result
+        if u.dim() == 1:
+            return self.Tdot(u[None])[0]
+        self.Tdot_count += u.shape[0]
+        return self._with_intercept(rsum(u), self.main_Tdot(u))
 
     def quad_matvec(self, v, weight, return_t=False):
-        """X' (weight * (X v)): the CG operator's design part. Where the
-        policy fuses 'quad', one ``ne_sweep`` of the hybrid blocks
-        (sparse.py:1108-1174; the intercept and centering fold into the
-        sweep's row offset c = v0 - offset . v_main and into u = weight *
-        (X v)); elsewhere, or with `return_t`, `dot` then `Tdot`."""
+        """X' (weight * (X v)): the CG operator's design part, for one
+        vector or k chains' rows. Where the policy fuses 'quad', one
+        ``ne_sweep`` of the hybrid blocks per chain (sparse.py:1108-1174;
+        the intercept and centering fold into the sweep's row offset c =
+        v0 - offset . v_main and into u = weight * (X v)); elsewhere, or
+        with `return_t`, `dot` then `Tdot`."""
         weight = self._as_tensor(weight)
+        v = self._as_tensor(v)
         if return_t or self.fused_ne_mode('quad') is None:
             return super().quad_matvec(v, weight, return_t)
-        v = self._as_tensor(v)
+        if v.dim() == 2:
+            return per_chain(self.quad_matvec, v, weight)
         v0, v_main = self._split(v)
         c = v0 - self.column_offset @ v_main
         outs, u, _ = ne_sweep(self._blocks(v_main), c, None, weight, 'ne')
@@ -654,25 +682,32 @@ class SparseDesignMatrix(AbstractDesignMatrix):
                                return_t=False):
         """`quad_matvec` on a block-ordered operand: out_bo with
         out_bo[unperm] == quad_matvec(v_bo[unperm], weight), as the row
-        pass and then the column pass over slices of the operand. With
-        `return_t` also the row pass's ``t = X v`` (observation order),
-        from which the CG loop accumulates the draw's linear
-        predictor."""
+        pass and then the column pass over slices of the operand, for one
+        vector or k chains' rows (one read of the blocks per pass for up
+        to ``bb_max_chains`` chains). With `return_t` also the row pass's
+        ``t = X v`` (observation order), from which the CG loop
+        accumulates the draw's linear predictor."""
         v_bo = self._as_tensor(v_bo)
         weight = self._as_tensor(weight)
+        if v_bo.dim() == 1:
+            res = self.quad_matvec_blockorder(v_bo[None], weight[None],
+                                              offset_bo, return_t)
+            return (res[0][0], res[1][0]) if return_t else res[0]
         v0, v_main_bo = self._split(v_bo)
         pe = self.n_exact
-        parts = (v_main_bo[:pe], v_main_bo[pe:])
+        parts = (v_main_bo[:, :pe].contiguous(),
+                 v_main_bo[:, pe:].contiguous())
         blocks = [(X, vb) for (X, _), vb
                   in zip(self._stored(), parts[0 if pe else 1:])]
-        t = ne_rows(blocks, v0 - offset_bo @ v_main_bo)
+        t = ne_rows_k(blocks, v0 - rdot(v_main_bo, offset_bo))
         u = weight * t
-        sum_u = u.sum()
-        main = torch.cat(colpass([X for X, _ in blocks],
-                                 [vb.shape[0] for _, vb in blocks], u))
-        main = main - sum_u * offset_bo
-        self.dot_count += 1
-        self.Tdot_count += 1
+        sum_u = rsum(u)
+        main = torch.cat(colpass_k([X for X, _ in blocks],
+                                   [vb.shape[1] for _, vb in blocks], u),
+                         -1)
+        main = main - sum_u[:, None] * offset_bo
+        self.dot_count += v_bo.shape[0]
+        self.Tdot_count += v_bo.shape[0]
         out = self._with_intercept(sum_u, main)
         return (out, t) if return_t else out
 
@@ -704,76 +739,90 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         reduction. Fused: `u4` composes as a separate Tdot, the fused
         sweep's reduction set being fixed at four. The squared moment is
         computed from the loaded values, for 0/1 blocks too (where it
-        equals X'u3)."""
-        u1, u2, u3 = (self._as_tensor(u) for u in (u1, u2, u3))
+        equals X'u3). One vector each, or k chains' rows (one read for up
+        to ``bb_max_chains`` chains)."""
+        us = [self._as_tensor(u) for u in (u1, u2, u3)]
+        if u4 is not None:
+            us.append(self._as_tensor(u4))
+        if us[0].dim() == 1:
+            return tuple(r[0] for r in self.presolve_reductions(
+                *(u[None] for u in us)))
+        k = us[0].shape[0]
         fused = self.fused_ne_mode('presolve') is not None
         fold = u4 is not None and not fused
-        if u4 is not None:
-            u4 = self._as_tensor(u4)
-        outs = tdots_sweep(*self._hybrid_Xs(), u1, u2, u3,
-                           u4 if fold else None)
-        sums = [u.sum() for u in (u1, u2, u3)]
+        outs = tdots_sweep_k(*self._hybrid_Xs(), *us[:3],
+                             us[3] if fold else None)
+        sums = [rsum(u)[:, None] for u in us]
+        offset = self.column_offset
 
         def assemble(idx):
             return self._assemble([blk[idx] for blk in outs])
 
-        v = assemble(0) - sums[0] * self.column_offset
-        pert = assemble(1) - sums[1] * self.column_offset
+        v = assemble(0) - sums[0] * offset
+        pert = assemble(1) - sums[1] * offset
         diag = assemble(3)
         if self.centered:
             wcol = assemble(2)  # raw X' u3 per main column (no offset)
-            diag = diag - 2.0 * self.column_offset * wcol
-            diag = diag + sums[2] * self.column_offset ** 2
-        v = self._with_intercept(sums[0], v)
-        pert = self._with_intercept(sums[1], pert)
-        diag = self._with_intercept(sums[2], diag)
-        self.Tdot_count += 2
+            diag = diag - 2.0 * offset * wcol
+            diag = diag + sums[2] * offset ** 2
+        v = self._with_intercept(sums[0][:, 0], v)
+        pert = self._with_intercept(sums[1][:, 0], pert)
+        diag = self._with_intercept(sums[2][:, 0], diag)
+        self.Tdot_count += 2 * k
         if u4 is None:
             return v, pert, diag
         if not fold:
-            return v, pert, diag, self.Tdot(u4)
-        sum4 = u4.sum()
+            return v, pert, diag, self.Tdot(us[3])
         tdot4 = self._with_intercept(
-            sum4, assemble(4) - sum4 * self.column_offset)
-        self.Tdot_count += 1
+            sums[3][:, 0], assemble(4) - sums[3] * offset)
+        self.Tdot_count += k
         return v, pert, diag, tdot4
 
     # -- Fisher information ---------------------------------------------- #
 
-    def _weighted_col_moments(self, weight, power):
-        """sum_i weight_i * X_ij^power per main column j, uncentered, on
-        the packed backends (sparse.py:1490-1508). 0/1 bits are
-        idempotent under powers, so the bitmaps serve both moments as
-        X' w; the float side block squares in row chunks, never as a
-        whole-block transient."""
+    def _weighted_col_moments(self, W, power):
+        """sum_i w_i * X_ij^power per main column j, uncentered, on the
+        packed backends (sparse.py:1490-1508), for each chain's row of W
+        (k, n): the kernels run once per chain. 0/1 bits are idempotent
+        under powers, so the bitmaps serve both moments as X' w; the float
+        side block squares in row chunks, never as a whole-block
+        transient."""
         if self.backend == 'winell':
-            return self._winell_tdot_main(weight, power=power)
-        parts = [self._bitpack_tdot_bin(weight)]
-        if self.n_float:
-            parts.append(layout.rmatvec(self.X_float, self.n_float, weight,
-                                        square=power == 2))
-        return self._assemble(parts)
+            return torch.stack([self._winell_tdot_main(w, power=power)
+                                for w in W])
+
+        def one(w):
+            parts = [self._bitpack_tdot_bin(w)]
+            if self.n_float:
+                parts.append(layout.rmatvec(self.X_float, self.n_float, w,
+                                            square=power == 2))
+            return self._assemble(parts)
+        return torch.stack([one(w) for w in W])
 
     def compute_fisher_diag(self, weight):
         """diag(X' W X) with centering/intercept corrections
-        (sparse.py:1539-1550). Hybrid: both column moments from one
-        ``tdots_sweep`` read."""
+        (sparse.py:1539-1550), for one weight vector or k chains' rows.
+        Hybrid: both column moments from one ``tdots_sweep_k`` read."""
         weight = self._as_tensor(weight)
+        if weight.dim() == 1:
+            return self.compute_fisher_diag(weight[None])[0]
         if self.backend == 'hybrid' and not self._kernels():
             X = self.X_float[:, :self.n_float]
-            diag, col_sum = squared_col_moment(X, weight), X.T @ weight
+            diag = per_chain(lambda w: squared_col_moment(X, w), weight)
+            col_sum = weight @ X
         elif self.backend == 'hybrid':
-            outs = tdots_sweep(*self._hybrid_Xs(), weight, weight, weight)
+            outs = tdots_sweep_k(*self._hybrid_Xs(), weight, weight, weight)
             diag = self._assemble([blk[3] for blk in outs])
             col_sum = self._assemble([blk[2] for blk in outs])
         else:
             diag = self._weighted_col_moments(weight, 2)
             col_sum = self._weighted_col_moments(weight, 1) \
                 if self.centered else None
+        w_sum = rsum(weight)
         if self.centered:
             diag = diag - 2.0 * self.column_offset * col_sum
-            diag = diag + weight.sum() * self.column_offset ** 2
-        return self._with_intercept(weight.sum(), diag)
+            diag = diag + w_sum[:, None] * self.column_offset ** 2
+        return self._with_intercept(w_sum, diag)
 
     def compute_fisher_info(self, weight, diag_only=False):
         """X' W X over the full (intercept + centered) design, or its
@@ -783,6 +832,9 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         p x p output."""
         if diag_only:
             return self.compute_fisher_diag(weight)
+        weight = self._as_tensor(weight)
+        if weight.dim() == 2:
+            return per_chain(self.compute_fisher_info, weight)
         n, p_main = self._shape_main
         p_total = p_main + int(self.intercept_added)
         if p_total * p_total > _DENSE_FISHER_MAX_ELEMS:

@@ -171,6 +171,8 @@ class MarkovChainManager:
         return samples
 
     def assemble_sampling_info(self, scan_outputs, sampling_method):
+        """The sampler diagnostics as float64 arrays: (n_kept,) for one
+        chain, (n_chains, n_kept) for chains (multichain.py:107-112)."""
         info = {}
         for key in self.get_sampling_info_keys(sampling_method):
             if key in scan_outputs:

@@ -24,6 +24,14 @@ REGISTRY = {
                      replaces='bayesbridge_tpu/design/fusedne.py:136'),
     'tdots_sweep': dict(source='bayesbridge_tpu_torch/csrc/tdots_sweep.cu',
                         replaces='bayesbridge_tpu/design/fusedne.py:312'),
+    # The chain-batched forms (jax.vmap of the same Pallas kernels over
+    # the chains of bayesbridge_tpu/multichain.py).
+    'ne_rows_k': dict(source='bayesbridge_tpu_torch/csrc/ne_sweep.cu',
+                      replaces='bayesbridge_tpu/design/fusedne.py:136'),
+    'colpass_k': dict(source='bayesbridge_tpu_torch/csrc/sweep_common.cuh',
+                      replaces='bayesbridge_tpu/design/fusedne.py:136'),
+    'tdots_sweep_k': dict(source='bayesbridge_tpu_torch/csrc/tdots_sweep.cu',
+                          replaces='bayesbridge_tpu/design/fusedne.py:312'),
     'bitlut': dict(source='bayesbridge_tpu_torch/csrc/bitlut.cu',
                    replaces='bayesbridge_tpu/design/bitlut.py:83'),
     'winell': dict(source='bayesbridge_tpu_torch/csrc/winell.cu',
@@ -41,13 +49,21 @@ REGISTRY = {
 
 def launch_counts():
     """{'ne_sweep[ne]': k, ..., 'ne_sweep[rows]': ..., 'ne_sweep[cols]':
-    ..., 'tdots_sweep': ..., 'tdots_sweep[u4]': ..., 'bitlut[dot]': ...,
+    ..., 'tdots_sweep': ..., 'tdots_sweep[u4]': ..., the chain-batched
+    'ne_rows_k', 'colpass_k', 'tdots_sweep_k' and 'tdots_sweep_k[u4]'
+    (launches of k >= 2 chains; k = 1 counts as the single-vector
+    kernel), 'bitlut[dot]': ...,
     'winell[tdot]': ..., 'wincsr[dot]': ..., 'ne_onepass': ...,
     'ne_oneread': ... (the CG operator), 'ne_oneread[logit]': ...,
     'ne_oneread[linear]': ..., 'stream_probe[i32]': ...}."""
-    counts = {f'ne_sweep[{key}]': k for key, k in _ne.launches.items()}
+    counts = {f'ne_sweep[{key}]': k for key, k in _ne.launches.items()
+              if not key.endswith('_k')}
+    counts['ne_rows_k'] = _ne.launches['rows_k']
+    counts['colpass_k'] = _ne.launches['cols_k']
     counts['tdots_sweep'] = _td.launches['tdots']
     counts['tdots_sweep[u4]'] = _td.launches['u4']
+    counts['tdots_sweep_k'] = _td.launches['tdots_k']
+    counts['tdots_sweep_k[u4]'] = _td.launches['u4_k']
     for name, mod in (('bitlut', _bl), ('winell', _we), ('wincsr', _wc),
                       ('stream_probe', _sp)):
         counts.update({f'{name}[{tag}]': k

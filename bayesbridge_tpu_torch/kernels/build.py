@@ -51,6 +51,13 @@ _SIGNATURES = {
     'bb_ne_onepass': [_P, _L, _I, _P, _L, _I, _P, _P, _P, _P, _L, _I, _I,
                       _I, _I, _I, _I, _I, _P, _P, _P, _P],
     'bb_stream_probe': [_P, _L, _L, _I, _P, _P, _P, _P, _I, _P],
+    'bb_ne_rows_k': [_I, _P, _L, _I, _P, _P, _L, _I, _P, _L, _I, _P, _L,
+                     _I, _P, _P],
+    'bb_colpass_k': [_I, _P, _L, _I, _P, _L, _I, _L, _I, _P, _I, _L, _P,
+                     _P, _P],
+    'bb_tdots_sweep_k': [_I, _P, _L, _I, _P, _L, _I, _L, _I, _P, _P, _P,
+                         _P, _I, _L, _P, _P, _P],
+    'bb_max_chains': [_I, _I],
     'bb_rows_per_block': [],
 }
 

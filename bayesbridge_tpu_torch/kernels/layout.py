@@ -61,6 +61,35 @@ def check_vector(x, n, name, device):
                          f"{tuple(x.shape)} on {x.device}")
 
 
+def check_chains(name, device, k, *mats):
+    """Raise unless each of `mats` is a contiguous float32 (k, m) tensor
+    on `device` (k chains' vectors)."""
+    for m in mats:
+        if m.dtype != torch.float32 or m.dim() != 2 or m.shape[0] != k \
+                or m.device != device or not m.is_contiguous():
+            raise ValueError(f"{name}: chain-batched operands must be "
+                             f"contiguous float32 (k, m) on {device}, k = "
+                             f"{k}; got {m.dtype} {tuple(m.shape)} on "
+                             f"{m.device}")
+
+
+def check_second_block(Xs):
+    """The chain-batched kernels take an f32 second block (or none)."""
+    if len(Xs) == 2 and Xs[1].dtype != torch.float32:
+        raise TypeError("chain-batched kernels: the second block must be "
+                        "float32 (the hybrid design's float block)")
+
+
+def chain_groups(k, cmax):
+    """(first chain, count) of each launch for k chains, cmax a launch."""
+    return [(c0, min(cmax, k - c0)) for c0 in range(0, k, cmax)]
+
+
+def elem_ptr(t, offset_elems):
+    """The address of element `offset_elems` of a contiguous tensor."""
+    return t.data_ptr() + offset_elems * t.element_size()
+
+
 def segments(n, tiles, device):
     """(n_seg, rows_per_seg) for the column pass: enough row segments that
     `tiles` column tiles times the segments fill the card about four

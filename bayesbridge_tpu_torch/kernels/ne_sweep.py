@@ -25,6 +25,16 @@ products (the JAX package's XLA dots ``Xe @ v`` and ``Xe.T @ u``,
 ``sparse.py:984-1037``): :func:`ne_rows` returns ``t = sum_b X_b v_b + c``
 (the row pass, ``launches['rows']``) and :func:`colpass` returns
 ``[X_b' u]`` (the column pass, ``launches['cols']``).
+
+Their chain-batched forms serve k Markov chains from one read of the
+blocks per launch (the JAX package's ``vmap`` over chains turns its dots
+into k-column ones, ``multichain.py:34-53``): :func:`ne_rows_k` returns
+``T = sum_b X_b V_b' + c`` as (k, n), :func:`colpass_k` ``[U X_b]`` as
+(k, p_b). A launch serves up to ``bb_max_chains`` chains (what fits in
+the threads' registers; ``launches['rows_k']`` / ``['cols_k']`` count
+launches, each one read of X); chain c's row equals its single-vector
+launch bit for bit, and k = 1 is the single-vector launch itself. Their
+plain versions run the single plain versions chain by chain.
 """
 
 import torch
@@ -34,7 +44,7 @@ from . import ne_oneread as _oneread
 from .build import load_library
 
 MIDS = {'ne': 0, 'logit': 1, 'linear': 2}
-launches = {key: 0 for key in (*MIDS, 'rows', 'cols')}
+launches = {key: 0 for key in (*MIDS, 'rows', 'cols', 'rows_k', 'cols_k')}
 
 
 def _row_map(t, a, b, mid, with_logp):
@@ -259,3 +269,130 @@ def _ne_sweep_cuda(blocks, c, a, b, mid, with_logp):
     launches[mid] += 1
     outs = list(torch.split(out, widths))
     return outs, u, (lp[0] if with_logp else None)
+
+
+# -- chain-batched forms ------------------------------------------------- #
+
+def ne_rows_k_plain(blocks, c):
+    """ne_rows_k chain by chain with the single plain version."""
+    return torch.stack([ne_rows_plain([(X, V[i]) for X, V in blocks], c[i])
+                        for i in range(c.shape[0])])
+
+
+def ne_rows_k(blocks, c):
+    """The row pass for k chains: ``T[i] = sum_b X_b V_b[i] + c[i]``, (k,
+    n) float32.
+
+    Parameters
+    ----------
+    blocks : one or two (X_b, V_b): X_b as for :func:`ne_sweep` (a second
+        block float32), V_b (k, p_b) float32
+    c : (k,) per-chain row offset, or (k, n)
+    """
+    device, n = _check_blocks([X for X, _ in blocks],
+                              [V.shape[1] for _, V in blocks])
+    layout.check_second_block([X for X, _ in blocks])
+    k = c.shape[0]
+    layout.check_chains('ne_rows_k', device, k, *(V for _, V in blocks))
+    if c.dim() != 1:
+        layout.check_chains('ne_rows_k', device, k, c)
+        if c.shape[1] != n:
+            raise ValueError(f"c must be (k,) or (k, {n})")
+    elif c.dtype != torch.float32 or c.device != device:
+        raise ValueError("c must be float32 on the blocks' device")
+    if not _on_cuda(device, 'ne_rows_k'):
+        return ne_rows_k_plain(blocks, c)
+    if k == 1:
+        return ne_rows([(X, V[0]) for X, V in blocks], c[0])[None]
+    kl = load_library()
+    args = []
+    for i, (X, V) in enumerate(blocks):
+        layout.check_cuda_layout(X, f"X{i}")
+        V_pad = torch.zeros((k, X.shape[1]), dtype=torch.float32,
+                            device=device)
+        V_pad[:, :V.shape[1]] = V
+        args.append((X, V_pad, V.shape[1]))
+    if len(args) == 1:
+        args.append((None, None, 0))
+    c = c.contiguous()
+    c_chain, c_stride = (1, 0) if c.dim() == 1 else (n, 1)
+    T = torch.empty((k, n), dtype=torch.float32, device=device)
+    (X0, V0, p0), (X1, V1, p1) = args
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for c0, nc in layout.chain_groups(k, kl.lib.bb_max_chains(
+            0, layout.DTYPE_CODE[X0.dtype])):
+        with torch.cuda.device(device):
+            rc = kl.lib.bb_ne_rows_k(
+                layout.DTYPE_CODE[X0.dtype], X0.data_ptr(), X0.shape[1], p0,
+                layout.elem_ptr(V0, c0 * X0.shape[1]),
+                None if X1 is None else X1.data_ptr(),
+                0 if X1 is None else X1.shape[1], p1,
+                None if V1 is None
+                else layout.elem_ptr(V1, c0 * X1.shape[1]), n, nc,
+                layout.elem_ptr(c, c0 * c_chain), c_chain, c_stride,
+                layout.elem_ptr(T, c0 * n), stream)
+        kl.check(rc, 'ne_rows_k')
+        launches['rows_k'] += 1
+    return T
+
+
+def colpass_k_plain(Xs, ps, U):
+    """colpass_k chain by chain with the single plain version."""
+    per = [colpass_plain(Xs, ps, u) for u in U]
+    return [torch.stack([outs[b] for outs in per]) for b in range(len(Xs))]
+
+
+def colpass_k(Xs, ps, U):
+    """The column pass for k chains: ``[U X_b[:, :p_b]]``, each (k, p_b)
+    float32, for one or two stored blocks (a second block float32) and U
+    (k, n) float32."""
+    device, n = _check_blocks(Xs, ps)
+    layout.check_second_block(Xs)
+    k = U.shape[0]
+    layout.check_chains('colpass_k', device, k, U)
+    if U.shape[1] != n:
+        raise ValueError(f"U must be (k, {n})")
+    if not _on_cuda(device, 'colpass_k'):
+        return colpass_k_plain(Xs, ps, U)
+    if k == 1:
+        return [o[None] for o in colpass(Xs, ps, U[0])]
+    out, n_launch = batched_colpass('colpass_k', Xs, ps, n, [U], 1)
+    launches['cols_k'] += n_launch
+    return list(torch.split(out[:, 0], list(ps), dim=1))
+
+
+def batched_colpass(name, Xs, ps, n, Us, R):
+    """((k, R, sum(ps)), launches) of the chain-batched column pass with R
+    reductions (1: X'u of one (k, n) vector in `Us`; 4 or 5: the
+    pre-solve's of three or four), in launches of at most
+    ``bb_max_chains(R)`` chains, each over the single-vector launch's
+    row segments."""
+    kl = load_library()
+    device = Xs[0].device
+    k = Us[0].shape[0]
+    for i, X in enumerate(Xs):
+        layout.check_cuda_layout(X, f"X{i}")
+    tiles = sum(layout.col_tiles(p, X) for X, p in zip(Xs, ps))
+    n_seg, rows_per_seg = layout.segments(n, tiles, device)
+    dt0 = layout.DTYPE_CODE[Xs[0].dtype]
+    cmax = kl.lib.bb_max_chains(R, dt0)
+    p_total = sum(ps)
+    out = torch.empty((k, R, p_total), dtype=torch.float32, device=device)
+    partial = torch.empty(n_seg * min(cmax, k) * R * p_total,
+                          dtype=torch.float32, device=device)
+    X1 = Xs[1] if len(Xs) == 2 else None
+    fn = kl.lib.bb_colpass_k if R == 1 else kl.lib.bb_tdots_sweep_k
+    stream = torch.cuda.current_stream(device).cuda_stream
+    for c0, nc in layout.chain_groups(k, cmax):
+        us = [layout.elem_ptr(U, c0 * n) for U in Us]
+        if R != 1:
+            us += [None] * (4 - len(us))
+        with torch.cuda.device(device):
+            rc = fn(dt0, Xs[0].data_ptr(), Xs[0].shape[1], ps[0],
+                    None if X1 is None else X1.data_ptr(),
+                    0 if X1 is None else X1.shape[1],
+                    0 if X1 is None else ps[1], n, nc, *us, n_seg,
+                    rows_per_seg, partial.data_ptr(),
+                    layout.elem_ptr(out, c0 * R * p_total), stream)
+        kl.check(rc, name)
+    return out, -(-k // cmax)

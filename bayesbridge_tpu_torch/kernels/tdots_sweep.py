@@ -14,14 +14,22 @@ multi-RHS dot with the warm start's column). On a CUDA tensor
 ``csrc/tdots_sweep.cu`` (or raises); on a CPU tensor it runs
 :func:`tdots_sweep_plain`. ``launches['tdots']`` and ``launches['u4']``
 count the kernel's launches with four and with five reductions.
+
+:func:`tdots_sweep_k` runs the reductions for k Markov chains, up to
+``bb_max_chains`` of them per read of the blocks (4 beside an int8
+block, 8 beside bf16 or f32; ``launches['tdots_k']`` / ``['u4_k']``
+count the launches), each chain's columns equal to its single-vector
+launch bit for bit; k = 1 is the single-vector launch. The JAX package
+gets this form from ``vmap`` of ``fused_tdots`` over its chains.
 """
 
 import torch
 
 from . import layout
 from .build import load_library
+from .ne_sweep import batched_colpass
 
-launches = {'tdots': 0, 'u4': 0}
+launches = {'tdots': 0, 'u4': 0, 'tdots_k': 0, 'u4_k': 0}
 
 
 def tdots_sweep_plain(Xs, ps, u1, u2, u3, u4=None):
@@ -94,5 +102,49 @@ def _tdots_sweep_cuda(Xs, ps, u1, u2, u3, u4):
     for p in ps:
         blk = out[:, off:off + p]
         outs.append(tuple(blk[k] for k in range(k_red)))
+        off += p
+    return outs
+
+
+def tdots_sweep_k_plain(Xs, ps, U1, U2, U3, U4=None):
+    """tdots_sweep_k chain by chain with the single plain version."""
+    per = [tdots_sweep_plain(Xs, ps, U1[i], U2[i], U3[i],
+                             None if U4 is None else U4[i])
+           for i in range(U1.shape[0])]
+    return [tuple(torch.stack([outs[b][r] for outs in per])
+                  for r in range(len(per[0][b])))
+            for b in range(len(Xs))]
+
+
+def tdots_sweep_k(Xs, ps, U1, U2, U3, U4=None):
+    """Per block the reductions of :func:`tdots_sweep` for k chains, each
+    (k, p_b): U1..U3 (and U4) (k, n) float32; a second block float32."""
+    if not 1 <= len(Xs) == len(ps) <= 2:
+        raise ValueError("one or two blocks, each with its width")
+    device, n = Xs[0].device, Xs[0].shape[0]
+    for i, (X, p) in enumerate(zip(Xs, ps)):
+        if X.device != device or X.shape[0] != n:
+            raise ValueError("blocks must share the device and row count")
+        layout.check_block(X, p, f"X{i}")
+    layout.check_second_block(Xs)
+    Us = [U1, U2, U3] + ([U4] if U4 is not None else [])
+    k = U1.shape[0]
+    layout.check_chains('tdots_sweep_k', device, k, *Us)
+    if any(U.shape[1] != n for U in Us):
+        raise ValueError(f"the U's must be (k, {n})")
+    if device.type == 'cpu':
+        return tdots_sweep_k_plain(Xs, ps, U1, U2, U3, U4)
+    if device.type != 'cuda':
+        raise ValueError(f"no tdots_sweep_k for device {device}")
+    if k == 1:
+        outs = tdots_sweep(Xs, ps, *(U[0] for U in Us[:3]),
+                           U4[0] if U4 is not None else None)
+        return [tuple(o[None] for o in blk) for blk in outs]
+    R = len(Us) + 1
+    out, n_launch = batched_colpass('tdots_sweep_k', Xs, ps, n, Us, R)
+    launches['tdots_k' if U4 is None else 'u4_k'] += n_launch
+    outs, off = [], 0
+    for p in ps:
+        outs.append(tuple(out[:, r, off:off + p] for r in range(R)))
         off += p
     return outs

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .abstract import AbstractModel
+from ..utils.chains import rsum
 
 
 class LinearModel(AbstractModel):
@@ -52,11 +53,12 @@ class LinearModel(AbstractModel):
     def loglik_from_lin_pred(self, lin_pred, obs_prec):
         """The log-likelihood from a precomputed linear predictor X beta:
         ``compute_loglik_and_gradient(..., loglik_only=True)[0]`` without
-        its design pass."""
+        its design pass; per chain for lin_pred (k, n) and obs_prec
+        (k,)."""
         obs_prec = self._prec(obs_prec)
         resid = self.y - lin_pred
         return 0.5 * self.y.shape[0] * torch.log(obs_prec) \
-            - 0.5 * obs_prec * torch.sum(resid ** 2)
+            - 0.5 * obs_prec * rsum(resid * resid)
 
     def calc_intercept_mle(self):
         return float(self.y.double().mean())

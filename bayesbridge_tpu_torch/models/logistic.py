@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .abstract import AbstractModel
+from ..utils.chains import rsum, softplus
 
 
 class LogisticModel(AbstractModel):
@@ -70,10 +71,10 @@ class LogisticModel(AbstractModel):
         return loglik, grad
 
     def loglik_from_lin_pred(self, lin_pred):
-        """Log-likelihood from a precomputed linear predictor X beta."""
-        return torch.sum(self.n_success * lin_pred
-                         - self.n_trial * torch.nn.functional.softplus(
-                             lin_pred))
+        """Log-likelihood from a precomputed linear predictor X beta; per
+        chain for lin_pred (k, n)."""
+        return rsum(self.n_success * lin_pred
+                    - self.n_trial * softplus(lin_pred))
 
     def calc_intercept_mle(self):
         p_mle = float(self.n_success.double().mean()

@@ -13,7 +13,8 @@ import scipy.optimize
 import torch
 
 from .cg import (
-    choose_diag_preconditioner, choose_preconditioner, sample_gaussian_cg,
+    choose_diag_preconditioner, choose_preconditioner,
+    sample_gaussian_cg_chains,
 )
 from .cholesky import sample_gaussian_cholesky
 from .summarizer import (
@@ -23,14 +24,19 @@ from .summarizer import (
 
 
 def sample_gaussian_posterior(
-        gen, design, y_gauss, obs_prec, gscale, lscale,
+        gens, design, y_gauss, obs_prec, gscale, lscale,
         prior_sd_for_unshrunk, slab_size, summ_state, method='cg',
         cg_maxiter=500, cg_precond_by='diag', cg_atol_multiplier=1.0):
-    """One draw of coef | obs_prec, gscale, lscale (reg_coef.py:25-133).
-    Returns (coef, summ_state, info), coef in y_gauss's dtype (the
-    chain's; the products compute in the design's).
+    """One draw of coef | obs_prec, gscale, lscale (reg_coef.py:25-133)
+    for each of k chains: `gens` one generator per chain, y_gauss and
+    obs_prec (k, n), gscale (k,), lscale (k, p_shrunk), `summ_state` the
+    chains' summarizer states (leading chain axis). Returns (coef (k, p),
+    summ_state, info), coef in y_gauss's dtype (the chain's; the
+    products compute in the design's), info's 'n_cg_iter' and
+    'cg_converged' (k,) numpy arrays on the CG path.
 
-    'cholesky': the direct draw from the design's Fisher information.
+    'cholesky': the direct draw from the design's Fisher information,
+    chain by chain (each chain has its own weights).
 
     'cg', Jacobi ('diag') preconditioner, hybrid or dense designs with a
     one-read pre-solve: the pre-solve is one `presolve_reductions` call.
@@ -43,20 +49,24 @@ def sample_gaussian_posterior(
     Other designs, and the prior preconditioner: the pre-solve
     reductions are separate `Tdot`s, and the Fisher diagonal or the
     summarizer's sd estimate gives the preconditioner
-    (reg_coef.py:103-115).
+    (reg_coef.py:103-115). The design reads X once for all chains per
+    product where its kernels serve chains together (the hybrid
+    backend's composed path), else once per chain.
     """
     n_unshrunk = len(prior_sd_for_unshrunk)
     dtype, dev = y_gauss.dtype, y_gauss.device
+    k = y_gauss.shape[0]
     prior_shrunk_scale = compute_prior_shrunk_scale(gscale, lscale,
                                                     slab_size)
-    prior_sd = torch.cat((torch.as_tensor(prior_sd_for_unshrunk,
-                                          dtype=dtype, device=dev),
-                          prior_shrunk_scale))
+    prior_sd = torch.cat((torch.as_tensor(
+        prior_sd_for_unshrunk, dtype=dtype, device=dev).expand(
+            k, n_unshrunk), prior_shrunk_scale), -1)
     prior_prec_sqrt = 1.0 / prior_sd
     if method == 'cholesky':
         v = design.Tdot(obs_prec * y_gauss)
-        coef = sample_gaussian_cholesky(gen, design, obs_prec,
-                                        prior_prec_sqrt, v)
+        coef = torch.stack([
+            sample_gaussian_cholesky(g, design, w, pps, z) for g, w, pps, z
+            in zip(gens, obs_prec, prior_prec_sqrt, v)])
         return coef.to(dtype), summ_state, {}
     if method != 'cg':
         raise NotImplementedError(method)
@@ -65,14 +75,16 @@ def sample_gaussian_posterior(
     n_obs, n_pred = design.shape
     want_lin_pred = design.fused_ne_mode('quad') is None
 
-    # The b-vector noise is drawn here, eps_obs then eps_prior, in the
-    # design's dtype on both branches, so that the pre-solve reductions
-    # can share one call.
+    # The b-vector noise is drawn here, each chain's eps_obs then its
+    # eps_prior, in the design's dtype on both branches, so that the
+    # pre-solve reductions can share one call.
     def draw_eps():
-        return (torch.randn(n_obs, generator=gen, dtype=design.dtype,
+        eps = [(torch.randn(n_obs, generator=g, dtype=design.dtype,
                             device=dev),
-                torch.randn(n_pred, generator=gen, dtype=design.dtype,
-                            device=dev))
+                torch.randn(n_pred, generator=g, dtype=design.dtype,
+                            device=dev)) for g in gens]
+        return (torch.stack([e for e, _ in eps]),
+                torch.stack([e for _, e in eps]))
 
     lin_pred0 = warm_tdot = None
     if cg_precond_by == 'diag' and design.has_presolve_reductions():
@@ -98,8 +110,8 @@ def sample_gaussian_posterior(
             precond_scale = choose_preconditioner(
                 prior_prec_sqrt, n_unshrunk,
                 estimate_coef_precond_scale_sd(summ_state))
-    res = sample_gaussian_cg(
-        gen, design, obs_prec, prior_prec_sqrt, v,
+    res = sample_gaussian_cg_chains(
+        gens, design, obs_prec, prior_prec_sqrt, v,
         coef_cg_init=coef_init, precond_scale=precond_scale,
         maxiter=cg_maxiter,
         atol=cg_atol_multiplier * 1e-5 * np.sqrt(n_pred),

@@ -7,15 +7,27 @@ prior-scaled coefficients, which feed the CG warm start and the prior
 preconditioner's estimate of the unshrunk coefficients' sd. The keys match
 the JAX package's, so a chain state can be carried across
 (``convert.carry_from_numpy``).
+
+Every function takes one chain's state, or k chains' with a leading
+chain axis (vectors (k, p), counters and scalars (k,)), as the JAX
+functions do under ``vmap``; a per-chain scalar meets a vector through
+``[..., None]``.
 """
 
 import torch
 
 
+def _col(x, like):
+    """A per-chain scalar (0-d, (k,) or a float) as a column against the
+    vectors of `like`."""
+    x = torch.as_tensor(x, dtype=like.dtype, device=like.device)
+    return x[..., None]
+
+
 def compute_prior_shrunk_scale(gscale, lscale, slab_size):
     """Slab-regularized prior scale, numerically stable
     (reg_coef_sampler.py:194-201)."""
-    scale = gscale * lscale
+    scale = _col(gscale, lscale) * lscale
     return scale / torch.sqrt(1.0 + (scale / slab_size) ** 2)
 
 
@@ -36,8 +48,9 @@ def summarizer_init(n_coef, device, sd_prior_samplesize=5,
 
 def _scaling(state_dtype, device, gscale, lscale, n_unshrunk, slab_size):
     prior_scale = compute_prior_shrunk_scale(gscale, lscale, slab_size)
-    return torch.cat((torch.ones(n_unshrunk, dtype=state_dtype,
-                                 device=device), prior_scale))
+    return torch.cat((torch.ones(prior_scale.shape[:-1] + (n_unshrunk,),
+                                 dtype=state_dtype, device=device),
+                      prior_scale), -1)
 
 
 def summarizer_update(state, coef, gscale, lscale, n_unshrunk, slab_size):
@@ -46,7 +59,7 @@ def summarizer_update(state, coef, gscale, lscale, n_unshrunk, slab_size):
     coef_scaled = coef / _scaling(coef.dtype, coef.device, gscale, lscale,
                                   n_unshrunk, slab_size)
     n = state['n_averaged']
-    weight = 1.0 / (1.0 + n.to(coef.dtype))
+    weight = _col(1.0 / (1.0 + n.to(coef.dtype)), coef)
     return {
         **state,
         'mean': weight * coef_scaled + (1 - weight) * state['mean'],
@@ -70,8 +83,8 @@ def estimate_coef_precond_scale_sd(state):
     blended with the prior guess, weighted as if the guess were an
     average of `sd_prior_samplesize` earlier draws."""
     mean, sec_moment = state['mean'], state['square']
-    n = state['n_averaged'].to(mean.dtype)
-    prior_m = state['sd_prior_samplesize']
+    n = _col(state['n_averaged'].to(mean.dtype), mean)
+    prior_m = _col(state['sd_prior_samplesize'], mean)
     zero = torch.zeros((), dtype=mean.dtype, device=mean.device)
     var_est = torch.where(n > 1, n / torch.clamp_min(n - 1, 1)
                           * (sec_moment - mean ** 2), zero)

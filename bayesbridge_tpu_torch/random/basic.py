@@ -5,6 +5,7 @@ one ``torch.Generator`` on the model's device (Philox on CUDA). Its
 state is the checkpoint, so a resumed chain equals an uninterrupted one.
 JAX's threefry keys and torch's generators give different numbers from
 the same seed; the two packages agree in distribution, not in bits.
+Several chains take one generator each (:meth:`BasicRandom.spawn`).
 """
 
 import numpy as np
@@ -12,6 +13,18 @@ import torch
 
 from .polya_gamma import sample_polya_gamma
 from .tilted_stable import sample_tilted_stable
+
+
+def generator_state(gen):
+    """A generator's state as a host uint8 array (the checkpoint)."""
+    return gen.get_state().cpu().numpy().copy()
+
+
+def generator_from_state(state, device):
+    """A generator on `device` restored from :func:`generator_state`."""
+    gen = torch.Generator(device=torch.device(device))
+    gen.set_state(torch.from_numpy(np.asarray(state, np.uint8).copy()))
+    return gen
 
 
 class BasicRandom:
@@ -30,12 +43,22 @@ class BasicRandom:
         self.gen.manual_seed(int(seed))
 
     def get_state(self):
-        return {'torch_generator_state':
-                self.gen.get_state().cpu().numpy().copy()}
+        return {'torch_generator_state': generator_state(self.gen)}
 
     def set_state(self, state):
         self.gen.set_state(torch.from_numpy(
             np.asarray(state['torch_generator_state'], np.uint8).copy()))
+
+    def spawn(self, n):
+        """`n` generators, one per Markov chain, seeded from the next
+        n + 1 draws of this one, which is then reseeded with the last:
+        later draws never repeat a chain's stream (the JAX package splits
+        n + 1 keys and keeps the last, multichain.py:211-216)."""
+        seeds = torch.randint(0, 2 ** 62, (n + 1,), generator=self.gen,
+                              device=self.device).tolist()
+        self.gen.manual_seed(seeds[n])
+        return [torch.Generator(device=self.device).manual_seed(s)
+                for s in seeds[:n]]
 
     def _tensor(self, x):
         return torch.as_tensor(np.asarray(x, np.float64),

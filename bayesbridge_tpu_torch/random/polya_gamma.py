@@ -12,7 +12,9 @@ The scalar nested loops are flattened into one lane-parallel state
 machine run by :func:`.rejection.run_rejection` on a ``torch.Generator``:
 each round advances every unfinished lane by one attempt of whatever
 stage it is in. Integer shapes > 1 expand each lane into ``shape``
-unit-shape lanes and sum back.
+unit-shape lanes and sum back. :func:`sample_polya_gamma_chains` draws
+for several Markov chains at once, each chain's lanes from its own
+generator, and equals the chains drawn one at a time.
 """
 
 import math
@@ -112,7 +114,7 @@ def _invgauss_attempt(gen, rate):
                                                          ok_b)
 
 
-def _rand_tilted_jacobi(gen, tilt, max_rounds):
+def _rand_tilted_jacobi(gens, counts, tilt, max_rounds):
     """Tilted Jacobi J*(tilt) draws (polya_gamma.pyx:103-129). Lane
     stages: acquiring a proposal (the inverse-Gaussian piece may take
     several rounds), then the series test; a failed series test restarts
@@ -141,40 +143,59 @@ def _rand_tilted_jacobi(gen, tilt, max_rounds):
         return dict(ig_pending=ig_pending), x, ok
 
     return run_rejection(
-        gen, params=dict(exp_rate=exp_rate, p_right=p_right, rate=rate),
+        gens, params=dict(exp_rate=exp_rate, p_right=p_right, rate=rate),
         state=dict(ig_pending=torch.zeros(tilt.shape, dtype=torch.bool,
                                           device=tilt.device)),
         attempt=attempt, value_init=torch.zeros_like(tilt),
-        max_rounds=max_rounds)
+        max_rounds=max_rounds, counts=counts)
+
+
+def _unit_shape_chains(gens, tilt, max_rounds):
+    """PG(1, tilt) draws for tilt (k, m), row c from gens[c]."""
+    k, m = tilt.shape
+    draws = _rand_tilted_jacobi(gens, [m] * k, 0.5 * tilt.abs().reshape(-1),
+                                max_rounds)
+    return 0.25 * draws.reshape(tilt.shape)
 
 
 def sample_unit_shape_polya_gamma(gen, tilt,
                                   max_rounds=_MAX_REJECTION_ROUNDS):
     """PG(1, tilt) draws, one per element of `tilt`
     (polya_gamma.pyx:97-101)."""
-    draws = _rand_tilted_jacobi(gen, 0.5 * tilt.abs().reshape(-1),
-                                max_rounds)
-    return 0.25 * draws.reshape(tilt.shape)
+    return _unit_shape_chains([gen], tilt.reshape(1, -1),
+                              max_rounds).reshape(tilt.shape)
+
+
+def sample_polya_gamma_chains(gens, shape, tilt,
+                              max_rounds=_MAX_REJECTION_ROUNDS):
+    """PG(shape, tilt) draws for k Markov chains: tilt (k, n), `shape`
+    the (n,) integer shapes (host data) shared by the chains, row c drawn
+    from gens[c] as :func:`sample_polya_gamma` would draw it alone."""
+    shape = np.asarray(shape)
+    if not np.issubdtype(shape.dtype, np.integer):
+        raise ValueError('Shape parameter must be integers.')
+    if tilt.dim() != 2 or shape.size != tilt.shape[1] \
+            or len(gens) != tilt.shape[0]:
+        raise ValueError('Input arrays must be of the same length.')
+    if np.all(shape == 1):
+        return _unit_shape_chains(gens, tilt, max_rounds)
+    seg = torch.as_tensor(np.repeat(np.arange(shape.size), shape),
+                          device=tilt.device)
+    draws = _unit_shape_chains(gens, tilt[:, seg], max_rounds)
+    # Segment sums by differences of a float64 prefix sum along each
+    # chain's row: deterministic (no scatter-add atomics on the GPU).
+    csum = torch.cat((torch.zeros((tilt.shape[0], 1), dtype=torch.float64,
+                                  device=tilt.device),
+                      torch.cumsum(draws.double(), 1)), 1)
+    ends = torch.as_tensor(np.cumsum(shape), device=tilt.device)
+    return (csum[:, ends] - csum[:, ends - torch.as_tensor(
+        shape, device=tilt.device)]).to(tilt.dtype)
 
 
 def sample_polya_gamma(gen, shape, tilt, max_rounds=_MAX_REJECTION_ROUNDS):
     """PG(shape, tilt) draws for integer `shape` (host data), as the sum
     of `shape[i]` unit-shape draws per lane (polya_gamma.pyx:61-74)."""
-    shape = np.asarray(shape)
-    if not np.issubdtype(shape.dtype, np.integer):
-        raise ValueError('Shape parameter must be integers.')
-    if shape.size != tilt.numel():
+    if np.asarray(shape).size != tilt.numel():
         raise ValueError('Input arrays must be of the same length.')
-    if np.all(shape == 1):
-        return sample_unit_shape_polya_gamma(gen, tilt, max_rounds)
-    seg = torch.as_tensor(np.repeat(np.arange(shape.size), shape),
-                          device=tilt.device)
-    draws = sample_unit_shape_polya_gamma(gen, tilt[seg], max_rounds)
-    # Segment sums by differences of a float64 prefix sum: deterministic
-    # (no scatter-add atomics on the GPU).
-    csum = torch.cat((torch.zeros(1, dtype=torch.float64,
-                                  device=tilt.device),
-                      torch.cumsum(draws.double(), 0)))
-    ends = torch.as_tensor(np.cumsum(shape), device=tilt.device)
-    return (csum[ends] - csum[ends - torch.as_tensor(
-        shape, device=tilt.device)]).to(tilt.dtype)
+    return sample_polya_gamma_chains(
+        [gen], shape, tilt.reshape(1, -1), max_rounds).reshape(tilt.shape)

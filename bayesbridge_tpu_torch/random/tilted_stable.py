@@ -18,6 +18,7 @@ import math
 import numpy as np
 import torch
 
+from ..utils.chains import pow_pos
 from .rejection import normal, run_rejection, uniform_open
 
 TILT_POWER_THRESHOLD = 2.0  # same crossover as tilted_stable.pyx:52
@@ -44,16 +45,16 @@ def _sinc(x):
 
 def _zolotarev_function(x, alpha):
     """Zolotarev's A(x, alpha) (tilted_stable.pyx:326-332)."""
-    val = ((1.0 - alpha) * _sinc((1.0 - alpha) * x)) ** (1.0 - alpha) \
-        * (alpha * _sinc(alpha * x)) ** alpha / _sinc(x)
-    return val ** (1.0 / (1.0 - alpha))
+    val = pow_pos((1.0 - alpha) * _sinc((1.0 - alpha) * x), 1.0 - alpha) \
+        * pow_pos(alpha * _sinc(alpha * x), alpha) / _sinc(x)
+    return pow_pos(val, 1.0 / (1.0 - alpha))
 
 
 def _zolotarev_pdf_exponentiated(x, alpha):
     """Function proportional to a power of the Zolotarev density
     (tilted_stable.pyx:316-324)."""
-    denom = _sinc(alpha * x) ** alpha \
-        * _sinc((1.0 - alpha) * x) ** (1.0 - alpha)
+    denom = pow_pos(_sinc(alpha * x), alpha) \
+        * pow_pos(_sinc((1.0 - alpha) * x), 1.0 - alpha)
     return _sinc(x) / denom
 
 
@@ -63,18 +64,19 @@ def _sample_non_tilted(gen, alpha):
     u = uniform_open(gen, alpha.shape, alpha)
     v = uniform_open(gen, alpha.shape, alpha)
     ratio = -_zolotarev_function(math.pi * u, alpha) / torch.log(v)
-    return ratio ** ((1.0 - alpha) / alpha)
+    return pow_pos(ratio, (1.0 - alpha) / alpha)
 
 
-def _sample_divide_conquer(gen, alpha, tilt, max_partition, max_rounds):
+def _sample_divide_conquer(gens, counts, alpha, tilt, max_partition,
+                           max_rounds):
     """X = sum over `m = max(1, floor(tilt^alpha))` partitions of scaled
     stable draws, each accepted with probability exp(-tilt * S)
     (tilted_stable.pyx:137-155); a lane finishes once it has `m`
     accepted partition draws."""
     # Clamp in float before the integer cast.
     m = torch.clamp_min(torch.floor(torch.clamp_max(
-        tilt ** alpha, float(max_partition))).to(torch.int32), 1)
-    c = (1.0 / m.to(tilt.dtype)) ** (1.0 / alpha)
+        pow_pos(tilt, alpha), float(max_partition))).to(torch.int32), 1)
+    c = pow_pos(1.0 / m.to(tilt.dtype), 1.0 / alpha)
 
     if bool((m == 1).all()):
         # The auto-selected regime (tilt^alpha < 2): one accepted draw
@@ -86,9 +88,9 @@ def _sample_divide_conquer(gen, alpha, tilt, max_partition, max_rounds):
             return s, draw, u < _safe_exp(-p['tilt'] * draw)
 
         return run_rejection(
-            gen, params=dict(alpha=alpha, tilt=tilt), state={},
+            gens, params=dict(alpha=alpha, tilt=tilt), state={},
             attempt=attempt_one, value_init=torch.zeros_like(tilt),
-            max_rounds=max_rounds, widen_to=_WIDEN_TO)
+            max_rounds=max_rounds, widen_to=_WIDEN_TO, counts=counts)
 
     def attempt(g, p, s):
         draw = p['c'] * _sample_non_tilted(g, p['alpha'])
@@ -100,12 +102,12 @@ def _sample_divide_conquer(gen, alpha, tilt, max_partition, max_rounds):
         return dict(n_done=n_done, total=total), total, n_done >= p['m']
 
     return run_rejection(
-        gen, params=dict(alpha=alpha, tilt=tilt, m=m, c=c),
+        gens, params=dict(alpha=alpha, tilt=tilt, m=m, c=c),
         state=dict(n_done=torch.zeros_like(m), total=torch.zeros_like(tilt)),
         attempt=attempt, value_init=torch.zeros_like(tilt),
         max_rounds=max_rounds,
         # Partial sums accumulate: a capped lane keeps its progress.
-        latch='every_round')
+        latch='every_round', counts=counts)
 
 
 def _aux2_candidate(gen, alpha, gamma, xi, psi):
@@ -148,7 +150,7 @@ def _reference_rv(gen, u, alpha, tilt_power, z):
     shape = u.shape
     a = _zolotarev_function(u, alpha)
     odds = (1.0 - alpha) / alpha
-    left = ((1.0 - alpha) / alpha / a) ** alpha * tilt_power
+    left = pow_pos((1.0 - alpha) / alpha / a, alpha) * tilt_power
     right = left + torch.sqrt(left * alpha / a)
     expo_scale = z / a
     width = right - left
@@ -169,7 +171,7 @@ def _reference_rv(gen, u, alpha, tilt_power, z):
     log_prob = -(a * (x_pos - left)
                  + _safe_exp(torch.log(tilt_power) / alpha
                              - odds * torch.log(left))
-                 * ((left / x_pos) ** odds - 1.0))
+                 * (pow_pos(left / x_pos, odds) - 1.0))
     log_prob = log_prob + torch.where(in_left & (x < left), n * n / 2.0,
                                       torch.zeros_like(x))
     log_prob = log_prob + torch.where(x > right, e, torch.zeros_like(x))
@@ -177,12 +179,12 @@ def _reference_rv(gen, u, alpha, tilt_power, z):
     return x, log_prob
 
 
-def _sample_double_rejection(gen, alpha, tilt, max_rounds):
+def _sample_double_rejection(gens, counts, alpha, tilt, max_rounds):
     """Devroye's double-rejection sampler: each round makes one auxiliary
     proposal and, given it, one final proposal; a lane accepts iff both
     accept (tilted_stable.pyx:166-208). Memoryless iid attempts, so the
     straggler tail may run several per round."""
-    tilt_power = tilt ** alpha
+    tilt_power = pow_pos(tilt, alpha)
     gamma = tilt_power * alpha * (1.0 - alpha)
     sqrt_half_pi = math.sqrt(0.5 * math.pi)
     xi = (1.0 + torch.sqrt(2.0 * gamma) * (2.0 + sqrt_half_pi)) / math.pi
@@ -196,21 +198,21 @@ def _sample_double_rejection(gen, alpha, tilt, max_rounds):
         u_ok = u_cand < math.pi
         u_safe = torch.clamp(u_cand, 1e-10, math.pi * (1 - 1e-7))
         zeta = torch.sqrt(_zolotarev_pdf_exponentiated(u_safe, alpha))
-        z_cand = 1.0 / (1.0 - (1.0 + alpha * zeta / torch.sqrt(gamma))
-                        ** (-1.0 / alpha))
+        z_cand = 1.0 / (1.0 - pow_pos(1.0 + alpha * zeta / torch.sqrt(gamma),
+                                   -1.0 / alpha))
         accept_prob = _aux2_accept_prob(u_safe, alpha, xi, psi, zeta,
                                         z_cand, tp, gamma)
         v_cand = uniform_open(g, gamma.shape, gamma) / accept_prob
         aux_ok = u_ok & (accept_prob > 0.0) & (v_cand <= 1.0)
         x, log_prob = _reference_rv(g, u_safe, alpha, tp, z_cand)
         ok = aux_ok & (log_prob > torch.log(v_cand))
-        return s, x ** (-(1.0 - alpha) / alpha), ok
+        return s, pow_pos(x, -(1.0 - alpha) / alpha), ok
 
     return run_rejection(
-        gen, params=dict(alpha=alpha, gamma=gamma, xi=xi, psi=psi,
-                         tilt_power=tilt_power),
+        gens, params=dict(alpha=alpha, gamma=gamma, xi=xi, psi=psi,
+                          tilt_power=tilt_power),
         state={}, attempt=attempt, value_init=torch.zeros_like(tilt),
-        max_rounds=max_rounds, widen_to=_WIDEN_TO)
+        max_rounds=max_rounds, widen_to=_WIDEN_TO, counts=counts)
 
 
 def sample_tilted_stable(gen, char_exponent, tilt, method=None,
@@ -230,6 +232,18 @@ def sample_tilted_stable(gen, char_exponent, tilt, method=None,
     Exact zeros in `tilt` are clamped to a tiny positive value (the
     reference raises).
     """
+    return sample_tilted_stable_chains(
+        [gen], char_exponent, tilt.reshape(1, -1), method, max_rounds,
+        max_partition).reshape(tilt.shape)
+
+
+def sample_tilted_stable_chains(gens, char_exponent, tilt, method=None,
+                                max_rounds=_MAX_REJECTION_ROUNDS,
+                                max_partition=4096):
+    """:func:`sample_tilted_stable` for k Markov chains: tilt (k, m), row
+    c drawn from gens[c] as it would be drawn alone. (The forced
+    divide-and-conquer method takes its one-partition shortcut only when
+    every chain's lanes allow it; the automatic choice always does.)"""
     if not 0.0 < char_exponent < 1.0:
         raise ValueError(
             "char_exponent must lie in (0, 1); got "
@@ -237,12 +251,13 @@ def sample_tilted_stable(gen, char_exponent, tilt, method=None,
             "alpha > 1 is not a positive stable.)")
     if not tilt.is_floating_point():
         tilt = tilt.to(torch.float32)
-    out_shape = tilt.shape
-    tilt = torch.clamp_min(tilt.reshape(-1),
-                           float(np.finfo(np.float32).tiny))
+    if tilt.dim() != 2 or tilt.shape[0] != len(gens):
+        raise ValueError("tilt must be (n_chains, m), one row per "
+                         "generator")
+    tilt = torch.clamp_min(tilt, float(np.finfo(np.float32).tiny))
     alpha = torch.full_like(tilt, char_exponent)
     if method is None:
-        use_dc = tilt ** alpha < TILT_POWER_THRESHOLD
+        use_dc = pow_pos(tilt, alpha) < TILT_POWER_THRESHOLD
     elif method == 'divide-conquer':
         use_dc = torch.ones_like(tilt, dtype=torch.bool)
     elif method == 'double-rejection':
@@ -252,9 +267,13 @@ def sample_tilted_stable(gen, char_exponent, tilt, method=None,
     # Forced divide-conquer can need ~e*m accepted rounds for m partitions.
     dc_rounds = max_rounds if method is None \
         else max(max_rounds, 3 * max_partition + 64)
+    n_dc = use_dc.sum(1).tolist()
+    n_dr = [tilt.shape[1] - c for c in n_dc]
     out = torch.empty_like(tilt)
-    out[use_dc] = _sample_divide_conquer(gen, alpha[use_dc], tilt[use_dc],
-                                         max_partition, dc_rounds)
+    out[use_dc] = _sample_divide_conquer(gens, n_dc, alpha[use_dc],
+                                         tilt[use_dc], max_partition,
+                                         dc_rounds)
     dr = ~use_dc
-    out[dr] = _sample_double_rejection(gen, alpha[dr], tilt[dr], max_rounds)
-    return out.reshape(out_shape)
+    out[dr] = _sample_double_rejection(gens, n_dr, alpha[dr], tilt[dr],
+                                       max_rounds)
+    return out

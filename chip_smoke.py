@@ -69,7 +69,20 @@ Phases, each of which raises on failure (exit code != 0):
    launch counters read right after it, 10 resumed iterations timed,
    the resume check and a profiler window, then ``gibbs(10)`` with the
    prior preconditioner, and the one-read linear objective in turns
-   against the two-pass sweep and the composed one; (b) a dense logit
+   against the two-pass sweep and the composed one; then the multichain
+   phase on the same stored blocks: the chain-batched kernels
+   (``ne_rows_k``, ``colpass_k``, ``tdots_sweep_k`` with five and four
+   reductions) for 1, 2, 4 and 8 chains against their plain versions
+   and, bit for bit, against the chains' single-vector launches, timed
+   beside k x the single launch and the bound; ``gibbs_chains`` with 4
+   overdispersed chains under 'auto' (the launch counts of the first
+   call, ``gibbs_chains_resume`` timed against the single-chain 'auto'
+   slice's iter/s, the exact-resume check, a profiler window, split
+   R-hat and pooled ESS on coef[1:201], ESS/s); 2 chains against the
+   chains run alone from their generators (equal CG iteration counts,
+   coef within rtol 1e-6); a 2-chain fused ('1') run, whose launch
+   counts show ``ne_oneread`` once per chain per application; (b) a
+   dense logit
    design, X standard normal, 100,000 x 4,000, made on the card and
    stored as 4,004 float32 columns: ``ne_oneread``, its logit mode and
    ``tdots_sweep`` on the lone block against their plain versions, the
@@ -1119,8 +1132,9 @@ def run_chain(model, label, step_bytes, n_first=30, n_more=20,
     return counts, n_cg, info, stats
 
 
-def profile_window(bridge, info, label, n_iter=3):
-    """torch.profiler over `n_iter` more iterations: (the device's busy
+def profile_window(bridge, info, label, n_iter=3, resume=None):
+    """torch.profiler over `n_iter` more iterations (``resume(n_iter)``,
+    by default ``bridge.gibbs_resume(info, n_iter)``): (the device's busy
     share of the window's wall clock, profiler overhead included; device
     ms per iteration), both None where the profiler saw no device events,
     logged with the kernels that took the most device time."""
@@ -1131,7 +1145,10 @@ def profile_window(bridge, info, label, n_iter=3):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        bridge.gibbs_resume(info, n_iter)
+        if resume is None:
+            bridge.gibbs_resume(info, n_iter)
+        else:
+            resume(n_iter)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -1332,7 +1349,7 @@ def run_hybrid(X, outcome):
         f"{(ts[0] + ts[3]) / 2:.3f} ms")
     del model, composed
     torch.cuda.empty_cache()
-    return counts, witness, design
+    return counts, witness, design, stats['hybrid_composed']['ips']
 
 
 def ab_segments(chains, n_iter=10, rounds=8):
@@ -1517,6 +1534,264 @@ def run_linear_hybrid(design, X):
             f"{(ts[1] + ts[2]) / 2:.3f} against {(ts[0] + ts[3]) / 2:.3f} ms")
     del model, bridge
     return counts
+
+
+MC_CHAINS = 4
+MC_KS = (1, 2, 4, 8)  # chains per batched kernel call in the checks
+# The coefficients the multichain phase's split R-hat and pooled ESS read:
+# 1..200, the ten signal coefficients and 190 null ones.
+MC_SUBSET = slice(1, 201)
+
+
+def batched_kernel_checks(design):
+    """The multichain phase, part 1: the chain-batched kernels at the
+    hybrid phase's stored flagship blocks for k = 1, 2, 4, 8 chains, each
+    against its plain version (RTOL of max|plain|) and against k
+    single-vector launches (torch.equal), timed (CUDA events, median of
+    10) beside k x the single launch and the bound (X's bytes once plus
+    the k chains' vectors, or 2 n p k R operations at the float32 peak,
+    the larger). Returns the kernels line's entries at k = 4, the
+    chains of the phase's path."""
+    import torch
+    from bayesbridge_tpu_torch.kernels.ne_sweep import (
+        colpass, colpass_k, colpass_k_plain, ne_rows, ne_rows_k,
+        ne_rows_k_plain)
+    from bayesbridge_tpu_torch.kernels.tdots_sweep import (
+        tdots_sweep, tdots_sweep_k, tdots_sweep_k_plain)
+    gen = torch.Generator(device='cuda').manual_seed(7)
+    Xs = [design.X_exact, design.X_float]
+    ps = [design.n_exact, design.n_float]
+    n, p = Xs[0].shape[0], sum(ps)
+    x_bytes = nbytes(*Xs)
+
+    def flat(blks):
+        return [o for blk in blks for o in blk]
+
+    results, single_ms = {}, {}
+    log(f"[multichain] batched kernels at the stored flagship blocks "
+        f"({n} x {ps[0]} {Xs[0].dtype} + {n} x {ps[1]} {Xs[1].dtype}, "
+        f"{x_bytes / 1e9:.3f} GB)")
+    for k in MC_KS:
+        Vs = [torch.randn((k, q), generator=gen, device='cuda')
+              for q in ps]
+        c = torch.randn(k, generator=gen, device='cuda') * 0.1
+        Us = [torch.randn((k, n), generator=gen, device='cuda')
+              for _ in range(4)]
+        blocks = list(zip(Xs, Vs))
+        # name: (kernel, plain, chain i's single launches, vector floats
+        # in and out, operations)
+        cases = {
+            'ne_rows_k': (
+                lambda: [ne_rows_k(blocks, c)],
+                lambda: [ne_rows_k_plain(blocks, c)],
+                lambda i: [ne_rows([(X, V[i]) for X, V in blocks], c[i])],
+                k * (p + n), 2 * n * p * k),
+            'colpass_k': (
+                lambda: colpass_k(Xs, ps, Us[0]),
+                lambda: colpass_k_plain(Xs, ps, Us[0]),
+                lambda i: colpass(Xs, ps, Us[0][i]),
+                k * (n + p), 2 * n * p * k),
+            'tdots_sweep_k[u4]': (
+                lambda: flat(tdots_sweep_k(Xs, ps, *Us)),
+                lambda: flat(tdots_sweep_k_plain(Xs, ps, *Us)),
+                lambda i: flat(tdots_sweep(Xs, ps, *(u[i] for u in Us))),
+                k * (4 * n + 5 * p), 2 * n * p * k * 5),
+            'tdots_sweep_k': (
+                lambda: flat(tdots_sweep_k(Xs, ps, *Us[:3])),
+                lambda: flat(tdots_sweep_k_plain(Xs, ps, *Us[:3])),
+                lambda i: flat(tdots_sweep(Xs, ps,
+                                           *(u[i] for u in Us[:3]))),
+                k * (3 * n + 4 * p), 2 * n * p * k * 4),
+        }
+        for name, (kern, plain, single, floats, ops) in cases.items():
+            got = kern()
+            err = check(f"[multichain] {name} k={k}", got, plain())
+            for i in range(k):
+                if not all(torch.equal(g[i], s)
+                           for g, s in zip(got, single(i))):
+                    raise AssertionError(
+                        f"{name}: chain {i} of k={k} differs from its "
+                        f"single-vector launch")
+            del got
+            ms = time_ms(kern)
+            if k == 1:
+                single_ms[name] = ms
+            bound, by = bound_ms(x_bytes + 4 * floats, ops)
+            log(f"  {name} k={k}: {ms:.3f} ms; k x single "
+                f"{k * single_ms[name]:.3f} ms; bound {bound:.3f} ms "
+                f"({by}); {100 * bound / ms:.0f}% of the bound; the "
+                f"k single launches' bits")
+            if k == MC_CHAINS:
+                results[name] = dict(
+                    max_abs_err=err, ms=ms,
+                    plain_ms=time_ms(lambda: plain(), reps=3),
+                    bound_ms=bound, bound_by=by, library_ms=None)
+        del Vs, Us, blocks
+    torch.cuda.empty_cache()
+    return results
+
+
+def overdispersed_inits(model, n_chains):
+    """Per-chain starts: the intercept at its MLE, the other coefficients
+    N(0, (0.05 (c + 1))^2) and the global scale 0.05 * 2^c for chain c,
+    local scales one (no MAP search)."""
+    import numpy as np
+    p = model.n_pred
+    inits = []
+    for c in range(n_chains):
+        coef = np.random.default_rng(100 + c).standard_normal(p) \
+            * 0.05 * (c + 1)
+        coef[0] = model.calc_intercept_mle()
+        inits.append({'coef': coef, 'global_scale': 0.05 * 2 ** c,
+                      'local_scale': np.ones(p - 1)})
+    return inits
+
+
+def run_multichain(design, outcome, single_ips):
+    """The multichain phase on the hybrid phase's stored flagship blocks
+    (no second densify): the batched kernels' checks and timings, then
+    gibbs_chains with MC_CHAINS overdispersed chains under 'auto' (the
+    launch counts read right after the first call, gibbs_chains_resume
+    timed, the exact-resume check, a profiler window, split R-hat and
+    pooled ESS), then chain c against the chain run alone, then a short
+    fused ('1') run. Returns (kernel results, {path: launch counts})."""
+    import numpy as np
+    import torch
+    from bayesbridge_tpu_torch import (
+        BayesBridge, RegressionCoefPrior, gibbs_chains)
+    from bayesbridge_tpu_torch import step as step_mod
+    from bayesbridge_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts)
+    from bayesbridge_tpu_torch.models import LogisticModel
+    from bayesbridge_tpu_torch.multichain import (
+        _stack_chain_inits, gibbs_chains_resume)
+    from bayesbridge_tpu_torch.utils.mcmc_summarizer import (
+        compute_multichain_ess, compute_split_rhat)
+    results = batched_kernel_checks(design)
+    model = LogisticModel(*outcome, design.with_policy('auto'))
+    bridge = BayesBridge(model, RegressionCoefPrior(bridge_exponent=0.5))
+    inits = overdispersed_inits(model, MC_CHAINS)
+    label, k = 'multichain', MC_CHAINS
+    n_first, n_more = 12, 8
+    kw = dict(seed=0, init=inits, coef_sampler_type='cg',
+              params_to_save=('coef', 'logp'))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    samples, info = gibbs_chains(bridge, n_first, k, **kw)
+    torch.cuda.synchronize()
+    counts = {label: launch_counts()}
+    n_cg = info['_reg_coef_sampling_info']['n_cg_iter']
+    log(f"[{label}] gibbs_chains({n_first}, {k} chains): "
+        f"{time.perf_counter() - t0:.1f} s; n_cg_iter per chain "
+        f"{n_cg.astype(int).tolist()}")
+    log(f"[{label}] launch counts of this path: {counts[label]}")
+    c = counts[label]
+    assert samples['coef'].shape == (k, model.n_pred, n_first)
+    assert np.all(np.isfinite(samples['coef']))
+    assert np.all(np.isfinite(samples['logp'])), samples['logp']
+    # One row and one column pass per CG iteration in which a chain runs,
+    # for all its running chains (up to 4 per launch beside an int8
+    # block; a lone running chain takes the single-vector launch); one
+    # batched row pass per draw for the warm start, one per chain for
+    # the inits' linear predictors; one five-reduction pre-solve per
+    # draw.
+    apps = int(n_cg.max(0).sum())
+    assert c['ne_rows_k'] > 0 and c['colpass_k'] > 0, c
+    assert c['colpass_k'] + c['ne_sweep[cols]'] == apps, (apps, c)
+    assert c['ne_rows_k'] + c['ne_sweep[rows]'] == apps + n_first + k, \
+        (apps, c)
+    assert c['tdots_sweep_k[u4]'] == n_first, c
+    assert c['tdots_sweep[u4]'] == c['ne_oneread'] == 0, c
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_more, i_more = gibbs_chains_resume(bridge, info, n_more)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ips = n_more / secs
+    cg_more = i_more['_reg_coef_sampling_info']['n_cg_iter']
+    log(f"[{label}] steady state, {n_more} iterations via "
+        f"gibbs_chains_resume: {ips:.4f} iter/s of {k} chains = "
+        f"{k * ips:.4f} chain-iterations/s against the single-chain "
+        f"'auto' slice's {single_ips:.4f} iter/s in this run "
+        f"({k * ips / single_ips:.2f}x); mean CG iterations per chain "
+        f"{np.round(cg_more.mean(1), 2).tolist()}")
+
+    n_a = n_first * 2 // 3
+    s_a, i_a = gibbs_chains(bridge, n_a, k, **kw)
+    s_b, _ = gibbs_chains_resume(bridge, i_a, n_first - n_a, merge=True,
+                                 prev_samples=s_a)
+    for key in samples:
+        if not np.array_equal(s_b[key], samples[key]):
+            raise AssertionError(f"[{label}] resume != uninterrupted for "
+                                 f"{key}")
+    log(f"[{label}] resume check: gibbs_chains({n_a}) + "
+        f"gibbs_chains_resume({n_first - n_a}, merge=True) == "
+        f"gibbs_chains({n_first}) exactly")
+    busy, dev_ms = profile_window(
+        bridge, i_more, label,
+        resume=lambda n: gibbs_chains_resume(bridge, i_more, n))
+
+    draws = np.concatenate((samples['coef'], s_more['coef']), -1)[
+        :, MC_SUBSET]
+    rhat = compute_split_rhat(draws)
+    ess = compute_multichain_ess(draws)
+    n_draws = draws.shape[-1]
+    log(f"[{label}] coef[1:201] over {n_draws} iterations of {k} chains "
+        f"(overdispersed starts, no burn-in): split R-hat median "
+        f"{np.median(rhat):.3f}, max {rhat.max():.3f}; pooled ESS median "
+        f"{np.median(ess):.2f}, min {ess.min():.2f}; ESS/s "
+        f"{np.median(ess) * ips / n_draws:.4f} (median pooled ESS per "
+        f"iteration x the steady iter/s)")
+    assert np.all(np.isfinite(rhat)) and np.all(ess > 0)
+    mc = dict(ips=ips, chain_ips=k * ips, single_ips=single_ips,
+              mean_cg=float(cg_more.mean()), busy=busy, dev_ms=dev_ms,
+              rhat_median=float(np.median(rhat)),
+              ess_median=float(np.median(ess)))
+
+    # Chain c of a 2-chain run against the chain run alone from its
+    # generator.
+    n_x = 3
+    s2, i2 = gibbs_chains(bridge, n_x, 2, seed=3, init=inits[:2],
+                          coef_sampler_type='cg', params_to_save=('coef',))
+    cfg = bridge._step_config(bridge._resolve_options('cg', None))
+    bridge.rg.set_seed(3)
+    starts = _stack_chain_inits(bridge, inits[:2], 2)
+    gens = bridge.rg.spawn(2)
+    for i in range(2):
+        coef, obs_prec, lscale, gscale = (s[i] for s in starts)
+        carry = step_mod.init_carry('cuda', coef, obs_prec, gscale, lscale)
+        _, out = step_mod.run_chain(cfg, model, gens[i], carry, 0, n_x, 1,
+                                    0, save_keys=('coef',))
+        alone = np.stack([v.cpu().numpy() for v in out['coef']], -1)
+        diff = float(np.abs(alone - s2['coef'][i]).max())
+        np.testing.assert_array_equal(
+            i2['_reg_coef_sampling_info']['n_cg_iter'][i], out['n_cg_iter'])
+        np.testing.assert_allclose(s2['coef'][i], alone, rtol=1e-6,
+                                   atol=1e-7)
+        log(f"[{label}] chain {i} of 2 against the chain alone: n_cg_iter "
+            f"{out['n_cg_iter']} equal, max |coef diff| {diff:.3g}")
+
+    # The fused policy: the one-read CG operator once per chain per
+    # application, the four-reduction pre-solve batched.
+    fused = BayesBridge(LogisticModel(*outcome, design.with_policy('1')),
+                        RegressionCoefPrior(bridge_exponent=0.5))
+    reset_launch_counts()
+    s_f, i_f = gibbs_chains(fused, n_x, 2, seed=4, init=inits[:2],
+                            coef_sampler_type='cg', params_to_save=('coef',))
+    torch.cuda.synchronize()
+    counts['multichain_fused'] = cf = launch_counts()
+    n_cg_f = i_f['_reg_coef_sampling_info']['n_cg_iter']
+    log(f"[{label}_fused] gibbs_chains({n_x}, 2 chains, fused='1'): "
+        f"n_cg_iter {n_cg_f.astype(int).tolist()}; launch counts {cf}")
+    assert np.all(np.isfinite(s_f['coef']))
+    # Each chain: its CG iterations plus the initial residual's
+    # application per draw.
+    assert cf['ne_oneread'] == int(n_cg_f.sum()) + 2 * n_x, cf
+    assert cf['tdots_sweep_k'] == n_x and cf['ne_rows_k'] == n_x, cf
+    del model, bridge, fused
+    torch.cuda.empty_cache()
+    return results, counts, mc
 
 
 def dense_block_checks(design, label):
@@ -1786,16 +2061,22 @@ def main():
     results.update(probe_timings())
     t0 = phase('flagship kernel checks', t0)
     X, outcome = build_data()
-    counts, witness, design = run_hybrid(X, outcome)
+    counts, witness, design, composed_ips = run_hybrid(X, outcome)
     counts['link_turns'] = link_turns
     t0 = phase('hybrid slices', t0)
     counts['linear_hybrid'] = run_linear_hybrid(design, X)
+    t0 = phase('linear slice', t0)
+    res, mc_counts, mc = run_multichain(design, outcome, composed_ips)
+    results.update(res)
+    counts.update(mc_counts)
+    log(f"[multichain] summary: {json.dumps(mc)}")
+    t0 = phase('multichain', t0)
     del design
     torch.cuda.empty_cache()
     dense_counts, res = run_dense()
     counts.update(dense_counts)
     results.update(res)
-    t0 = phase('dense and linear slices', t0)
+    t0 = phase('dense slice', t0)
     res, counts['bitpack'], _ = run_packed(X, outcome, 'bitpack', witness)
     results.update(res)
     del X, outcome
@@ -1836,7 +2117,11 @@ def main():
                'ne_oneread[linear]': 'linear_hybrid',
                'ne_oneread@dense': 'dense_cg_fused',
                'ne_oneread[logit]@dense': 'dense_cholesky',
-               'tdots_sweep@dense': 'dense_cg_fused'}
+               'tdots_sweep@dense': 'dense_cg_fused',
+               'ne_rows_k': 'multichain',
+               'colpass_k': 'multichain',
+               'tdots_sweep_k[u4]': 'multichain',
+               'tdots_sweep_k': 'multichain_fused'}
     kernels = []
     for name, res in results.items():
         counter = name.split('@')[0]

@@ -11,7 +11,11 @@ a small chain on the card must resume exactly, on the hybrid backend
 (composed, its default, and fused), on the bitpack and winell backends'
 composed path and on the dense design (Cholesky and CG, float32 and
 float64). A float64 tensor at a kernel wrapper raises, and the float32
-Gram stays full float32 with TF32 allowed.
+Gram stays full float32 with TF32 allowed. The chain-batched kernels
+(``ne_rows_k``, ``colpass_k``, ``tdots_sweep_k``) must equal k
+single-vector launches bit for bit (``torch.equal``) and their plain
+versions to the same tolerance, and chain c of ``gibbs_chains`` on the
+card must equal the chain run alone.
 """
 
 import numpy as np
@@ -32,13 +36,14 @@ from bayesbridge_tpu_torch.kernels.ne_oneread import (
     block_plan, ne_oneread, ne_oneread_link,
 )
 from bayesbridge_tpu_torch.kernels.ne_sweep import (
-    colpass, colpass_plain, ne_rows, ne_rows_plain, ne_sweep, ne_sweep_plain,
+    colpass, colpass_k, colpass_k_plain, colpass_plain, ne_rows, ne_rows_k,
+    ne_rows_k_plain, ne_rows_plain, ne_sweep, ne_sweep_plain,
 )
 from bayesbridge_tpu_torch.kernels.stream_probe import (
     stream_probe, stream_probe_plain,
 )
 from bayesbridge_tpu_torch.kernels.tdots_sweep import (
-    tdots_sweep, tdots_sweep_plain,
+    tdots_sweep, tdots_sweep_k, tdots_sweep_k_plain, tdots_sweep_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -126,6 +131,103 @@ def test_row_and_column_pass_entries_match_plain(dev, dtype, two):
     _assert_close([t], [ne_rows_plain(blocks, c)])
     _assert_close(outs, colpass_plain(Xs, ps, u))
     assert torch.equal(torch.cat(outs), torch.cat(colpass(Xs, ps, u)))
+
+
+@pytest.mark.parametrize('k', [2, 3, 5, 8])
+@pytest.mark.parametrize('pair', ['int8+f32', 'bf16+f32', 'f32'])
+def test_batched_kernels_equal_single_launches(dev, pair, k):
+    """ne_rows_k, colpass_k and tdots_sweep_k (four and five reductions)
+    for k chains (ragged k included: launches of up to bb_max_chains
+    chains) against k single-vector launches, bit for bit, and against
+    their plain versions."""
+    g = torch.Generator(device=dev).manual_seed(10 + k)
+    n, widths = 1037, (4097, 513)
+    Xs = []
+    for kind, p in zip(pair.split('+'), widths):
+        X = torch.randn((n, layout.padded_width(p)), generator=g,
+                        device=dev)
+        if kind == 'int8':
+            X = (X * 2).round().to(torch.int8)
+            X[:, p:] = 7
+        else:
+            X = X.to(torch.bfloat16 if kind == 'bf16' else torch.float32)
+            X[:, p:] = float('nan')
+        Xs.append(X)
+    ps = list(widths[:len(Xs)])
+    Vs = [torch.randn((k, p), generator=g, device=dev) for p in ps]
+    Us = [torch.randn((k, n), generator=g, device=dev) for _ in range(4)]
+    c = torch.randn(k, generator=g, device=dev)
+    blocks = list(zip(Xs, Vs))
+    reset_launch_counts()
+    T = ne_rows_k(blocks, c)
+    cols = colpass_k(Xs, ps, Us[0])
+    four = tdots_sweep_k(Xs, ps, *Us[:3])
+    five = tdots_sweep_k(Xs, ps, *Us)
+    counts = launch_counts()
+    assert counts['ne_rows_k'] >= 1 and counts['colpass_k'] >= 1
+    assert counts['tdots_sweep_k'] >= 1 and counts['tdots_sweep_k[u4]'] >= 1
+    assert counts['ne_sweep[rows]'] == counts['tdots_sweep'] == 0
+    for i in range(k):
+        assert torch.equal(T[i], ne_rows([(X, V[i]) for X, V in blocks],
+                                         c[i]))
+        for got, one in zip(cols, colpass(Xs, ps, Us[0][i])):
+            assert torch.equal(got[i], one)
+        for b4, b5, one in zip(four, five, tdots_sweep(
+                Xs, ps, *(u[i] for u in Us))):
+            for r in range(5):
+                assert torch.equal(b5[r][i], one[r])
+            for r in range(4):
+                assert torch.equal(b4[r][i], one[r])
+    _assert_close([T], [ne_rows_k_plain(blocks, c)])
+    _assert_close(cols, colpass_k_plain(Xs, ps, Us[0]))
+    _assert_close([o for blk in five for o in blk],
+                  [o for blk in tdots_sweep_k_plain(Xs, ps, *Us)
+                   for o in blk])
+
+
+def test_chains_on_card_equal_single_chains(dev):
+    """gibbs_chains on the hybrid composed path (the batched kernels):
+    chain c equals the one-chain run from its generator, and a resumed
+    run equals the uninterrupted one."""
+    from bayesbridge_tpu_torch import (
+        BayesBridge, RegressionCoefPrior, RegressionModel, gibbs_chains,
+    )
+    from bayesbridge_tpu_torch import step as step_mod
+    from bayesbridge_tpu_torch.multichain import (
+        _stack_chain_inits, gibbs_chains_resume,
+    )
+    X, outcome = _chain_problem()
+    bridge = BayesBridge(RegressionModel(outcome, X, family='logit'),
+                         RegressionCoefPrior(bridge_exponent=.5))
+    init = {'coef': np.zeros(bridge.n_pred), 'global_scale': 0.1,
+            'local_scale': np.ones(bridge.n_pred - 1)}
+    reset_launch_counts()
+    full, info = gibbs_chains(bridge, 6, 3, seed=5, init=dict(init),
+                              coef_sampler_type='cg')
+    counts = launch_counts()
+    assert counts['ne_rows_k'] > 6 and counts['colpass_k'] > 6
+    assert counts['tdots_sweep_k[u4]'] == 6
+    cfg = bridge._step_config(bridge._resolve_options('cg', None))
+    bridge.rg.set_seed(5)
+    starts = _stack_chain_inits(bridge, dict(init), 3)
+    gens = bridge.rg.spawn(3)
+    for c in range(3):
+        carry = step_mod.init_carry('cuda', *(s[c] for s in (
+            starts[0], starts[1], starts[3], starts[2])))
+        _, out = step_mod.run_chain(cfg, bridge.model, gens[c], carry, 0,
+                                    6, 1, 0, save_keys=('coef',))
+        alone = np.stack([v.cpu().numpy() for v in out['coef']], -1)
+        np.testing.assert_allclose(full['coef'][c], alone, rtol=1e-6,
+                                   atol=1e-7)
+        np.testing.assert_array_equal(
+            info['_reg_coef_sampling_info']['n_cg_iter'][c],
+            out['n_cg_iter'])
+    part, p_info = gibbs_chains(bridge, 4, 3, seed=5, init=dict(init),
+                                coef_sampler_type='cg')
+    merged, _ = gibbs_chains_resume(bridge, p_info, 2, merge=True,
+                                    prev_samples=part)
+    for key in full:
+        np.testing.assert_array_equal(merged[key], full[key])
 
 
 def test_tdots_fifth_reduction_matches_plain(dev):
