@@ -1,12 +1,14 @@
 """BayesBridge: the Gibbs sampler orchestrator.
 
-Port of ``bayesbridge_tpu/bridge.py`` for the linear and logit models
-with the Cholesky and CG samplers, float32 or float64, API-compatible
-with the reference sampler (reference: bayesbridge/bayesbridge.py:13-511):
-``gibbs()`` returns (samples, mcmc_info) with samples' last axis indexing
-iterations, and ``gibbs_resume()`` restores the full sampler state (chain
-state, generator state, summarizer) to continue, so that a resumed and
-merged run equals an uninterrupted one exactly.
+Port of ``bayesbridge_tpu/bridge.py``: the linear, logit and Cox models,
+the Cholesky, CG, HMC and NUTS samplers, float32 or float64,
+API-compatible with the reference sampler (reference:
+bayesbridge/bayesbridge.py:13-511): ``gibbs()`` returns (samples,
+mcmc_info) with samples' last axis indexing iterations, and
+``gibbs_resume()`` restores the full sampler state (chain state,
+generator state, summarizer, and the HMC stepsize adapter and stabilizer
+ring) to continue, so that a resumed and merged run equals an
+uninterrupted one exactly.
 """
 
 import time
@@ -26,11 +28,12 @@ from . import step as step_mod
 _SAVABLE_PARAMS = step_mod.SAMPLE_KEYS
 
 
-def resolve_params_to_save(params_to_save):
-    """Expand 'all' and validate parameter names."""
+def resolve_params_to_save(model_name, params_to_save):
+    """Expand 'all' (no obs_prec for Cox) and validate parameter names."""
     if params_to_save == 'all':
-        params_to_save = ('coef', 'local_scale', 'global_scale', 'logp',
-                          'obs_prec')
+        params_to_save = ('coef', 'local_scale', 'global_scale', 'logp')
+        if model_name != 'cox':
+            params_to_save += ('obs_prec',)
     unknown = [key for key in params_to_save
                if key not in _SAVABLE_PARAMS]
     if unknown:
@@ -40,6 +43,11 @@ def resolve_params_to_save(params_to_save):
     return tuple(params_to_save)
 
 
+def _to_numpy(tree):
+    return {k: _to_numpy(v) if isinstance(v, dict) else v.cpu().numpy()
+            for k, v in tree.items()}
+
+
 class BayesBridge:
     """Gibbs sampler for Bayesian bridge sparse regression."""
 
@@ -47,7 +55,7 @@ class BayesBridge:
         """
         Parameters
         ----------
-        model : a RegressionModel (LinearModel / LogisticModel)
+        model : a RegressionModel (LinearModel / LogisticModel / CoxModel)
         prior : RegressionCoefPrior
         dtype : the chain state's float dtype, float32 or float64;
             defaults to the model's working dtype (the JAX package
@@ -72,7 +80,7 @@ class BayesBridge:
         self.rg = BasicRandom(self.device, dtype=self.dtype)
         self.manager = MarkovChainManager(
             self.n_obs, self.n_pred, self.n_unshrunk, model.name)
-        self._sampler_state = None  # summarizer state between runs
+        self._sampler_state = None  # summarizer (+ HMC adapter) state
 
     # ------------------------------------------------------------------ #
     # Public API                                                         #
@@ -91,7 +99,8 @@ class BayesBridge:
         if not _add_iter_mode:
             self.rg.set_seed(seed)
             self._sampler_state = None
-        params_to_save = resolve_params_to_save(params_to_save)
+        params_to_save = resolve_params_to_save(self.model.name,
+                                                params_to_save)
         start_time = time.time()
         self.manager.stamp_time(start_time)
         cfg = self._step_config(options)
@@ -99,11 +108,10 @@ class BayesBridge:
         coef, obs_prec, lscale, gscale, init, initial_optim_info = \
             self.initialize_chain(init, self.prior.bridge_exp,
                                   _init_is_raw=_init_is_raw)
-        summ = None
-        if _add_iter_mode and self._sampler_state is not None:
-            summ = self._sampler_state['summ']
         carry = step_mod.init_carry(self.device, coef, obs_prec, gscale,
-                                    lscale, summ, dtype=self.dtype)
+                                    lscale, dtype=self.dtype, cfg=cfg)
+        if _add_iter_mode and self._sampler_state is not None:
+            carry = self._restore_sampler_state(carry, self._sampler_state)
 
         n_sample = (n_iter - n_burnin) // thin
         n_remainder = (n_iter - n_burnin) - n_sample * thin
@@ -118,10 +126,11 @@ class BayesBridge:
                                 else np.asarray(v) for v in vals])
                    for k, vals in outputs.items()}
         carry_host = {k: (v.cpu().numpy() if torch.is_tensor(v) else v)
-                      for k, v in carry.items() if k != 'summ'}
+                      for k, v in carry.items()
+                      if k not in ('summ', 'hmc_adapter')}
         runtime = time.time() - start_time
 
-        self._sampler_state = {'summ': carry['summ']}
+        self._sampler_state = self._extract_sampler_state(carry)
         self._warn_guard_rails(carry_host)
         samples = self.manager.assemble_samples(outputs, params_to_save)
         sampling_info = self.manager.assemble_sampling_info(
@@ -163,8 +172,7 @@ class BayesBridge:
             '_markov_chain_state': _markov_chain_state,
             '_markov_chain_state_raw': _markov_chain_state_raw,
             '_random_gen_state': self.rg.get_state(),
-            '_reg_coef_sampler_state': {'summ': {
-                k: v.cpu().numpy() for k, v in carry['summ'].items()}},
+            '_reg_coef_sampler_state': _to_numpy(self._sampler_state),
         }
         return samples, mcmc_info
 
@@ -177,10 +185,8 @@ class BayesBridge:
                 "To merge the outputs from previous and new MCMC runs, "
                 "supply the optional argument `prev_samples`.")
         self.rg.set_state(prev_mcmc_info['_random_gen_state'])
-        summ = prev_mcmc_info['_reg_coef_sampler_state']['summ']
-        self._sampler_state = {'summ': {
-            k: torch.as_tensor(v, device=self.device)
-            for k, v in summ.items()}}
+        self._sampler_state = self._to_device(
+            prev_mcmc_info['_reg_coef_sampler_state'])
         raw_state = prev_mcmc_info.get('_markov_chain_state_raw')
         init = dict(raw_state if raw_state is not None
                     else prev_mcmc_info['_markov_chain_state'])
@@ -199,17 +205,36 @@ class BayesBridge:
 
     def _resolve_options(self, coef_sampler_type, options):
         """SamplerOptions from a sampler name and an options dict (or
-        passed through); the unported samplers raise."""
+        passed through)."""
         if not isinstance(options, SamplerOptions):
             options = SamplerOptions.pick_default_and_create(
                 coef_sampler_type, options, self.model.name,
                 self.model.design)
-        if options.coef_sampler_type in ('hmc', 'nuts'):
-            raise NotImplementedError(
-                "coef_sampler_type={!r}: the HMC and NUTS samplers are not "
-                "ported (ROADMAP.md Queue 1 item 13)".format(
-                    options.coef_sampler_type))
         return options
+
+    # The sampler state carried across gibbs_resume besides the chain's
+    # parameters (bridge.py:541-553): the summarizer, and for HMC and
+    # NUTS the stepsize adapter and the stabilizer's ring buffer.
+    _SAMPLER_STATE_KEYS = ('hmc_adapter', 'stab_buffer', 'stab_n')
+
+    def _extract_sampler_state(self, carry):
+        state = {'summ': carry['summ']}
+        for key in self._SAMPLER_STATE_KEYS:
+            if key in carry:
+                state[key] = carry[key]
+        return state
+
+    def _restore_sampler_state(self, carry, state):
+        carry = {**carry, 'summ': state['summ']}
+        for key in self._SAMPLER_STATE_KEYS:
+            if key in state and key in carry:
+                carry[key] = state[key]
+        return carry
+
+    def _to_device(self, tree):
+        return {k: self._to_device(v) if isinstance(v, dict)
+                else torch.as_tensor(np.asarray(v), device=self.device)
+                for k, v in tree.items()}
 
     def _step_config(self, options):
         return step_mod.GibbsStepConfig(
@@ -239,7 +264,8 @@ class BayesBridge:
                     'Invalid initial length of regression coefficient.')
         else:
             coef = np.zeros(self.n_pred)
-            coef[0] = self.model.calc_intercept_mle()
+            if self.model.name in ('linear', 'logit'):
+                coef[0] = self.model.calc_intercept_mle()
         obs_prec = self._initialize_obs_precision(init, coef)
 
         if coef_only_specified:
@@ -283,7 +309,7 @@ class BayesBridge:
             optim_info = None
         init = {
             'coef': np.asarray(coef),
-            'obs_prec': np.asarray(obs_prec),
+            'obs_prec': None if obs_prec is None else np.asarray(obs_prec),
             'local_scale': np.asarray(lscale),
             'global_scale': gscale,
         }
@@ -291,7 +317,9 @@ class BayesBridge:
 
     def _initialize_obs_precision(self, init, coef):
         """bayesbridge.py:355-370: the linear model's inverse mean squared
-        residual, the logit model's Polya-Gamma means."""
+        residual, the logit model's Polya-Gamma means, none for Cox."""
+        if self.model.name == 'cox':
+            return None
         if 'obs_prec' in init and init['obs_prec'] is not None:
             obs_prec = np.asarray(init['obs_prec'], dtype=np.float64)
             if self.model.name == 'logit' and len(obs_prec) != self.n_obs:
@@ -306,7 +334,9 @@ class BayesBridge:
 
     def _draw_obs_precision(self, coef):
         """Eager one-time draw at initialization (bayesbridge.py:397-410),
-        from the chain's generator."""
+        from the chain's generator; none for Cox."""
+        if self.model.name == 'cox':
+            return None
         lin_pred = self.model.design.dot(coef)
         if self.model.name == 'linear':
             resid = (self.model.y - lin_pred).double().cpu().numpy()
@@ -362,3 +392,10 @@ class BayesBridge:
                  "requested tolerance in {:d} iteration(s). You may "
                  "increase the maxiter or use the dense linear algebra "
                  "instead.".format(int(carry['n_cg_unconverged'])))
+        n_invalid = int(carry.get('n_curvature_invalid', 0))
+        if n_invalid:
+            warn("The preconditioned-Hessian curvature estimate was "
+                 "non-positive in {:d} iteration(s) (the reference "
+                 "raises here); it was clamped, but the chain may have "
+                 "diverged — check the posterior for separability or "
+                 "a too-flat prior.".format(n_invalid))

@@ -5,7 +5,8 @@ array), become this package's tensors on an explicit device. This module
 imports neither jax nor ``bayesbridge_tpu``: the caller hands over plain
 numpy arrays and flags. A model's outcome arrays go straight to the
 port's model classes (``LinearModel(np.asarray(jax_model.y), design)``,
-``LogisticModel(n_success, n_trial, design)``).
+``LogisticModel(n_success, n_trial, design)``); a Cox model's sorted
+times and risk sets go through :func:`cox_model_from_numpy`.
 """
 
 import numpy as np
@@ -14,7 +15,12 @@ import torch
 from .design.dense import DenseDesignMatrix, stored_width
 from .design.sparse import PACKED_ARRAYS, SparseDesignMatrix
 from .kernels import layout
+from .models.cox import CoxModel
 from .step import init_carry, stack_carries
+
+# The HMC and NUTS entries of a chain's carry (step.py:310-311).
+HMC_CARRY_KEYS = ('hmc_adapter', 'stab_buffer', 'stab_n',
+                  'n_curvature_invalid')
 
 
 def _pad_cols(block, width):
@@ -128,38 +134,77 @@ def packed_design_from_numpy(backend, arrays, meta, column_offset, shape,
                               device=device, _parts=parts)
 
 
+def cox_model_from_numpy(event_time, censoring_time, design,
+                         risk_set_start_index=None, risk_set_end_index=None,
+                         n_appearance_in_risk_set=None):
+    """The port's CoxModel over `design` from the JAX CoxModel's sorted
+    event and censoring times. Its risk sets are computed again; the JAX
+    model's (``risk_set_start_index``, ``risk_set_end_index``,
+    ``n_appearance_in_risk_set``), where given, must equal them."""
+    model = CoxModel(event_time, censoring_time, design)
+    for name, theirs in (
+            ('risk_set_start_index', risk_set_start_index),
+            ('risk_set_end_index', risk_set_end_index),
+            ('n_appearance_in_risk_set', n_appearance_in_risk_set)):
+        ours = getattr(model, name).cpu().numpy()
+        if theirs is not None and not np.array_equal(ours,
+                                                     np.asarray(theirs)):
+            raise ValueError(f"{name} differs from the port's")
+    return model
+
+
+def _tensors(tree, device, dtype):
+    """Numpy arrays (nested dicts of them) as tensors: floats in `dtype`,
+    integers as int32."""
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out[key] = _tensors(val, device, dtype)
+            continue
+        val = np.asarray(val)
+        if np.issubdtype(val.dtype, np.integer):
+            out[key] = torch.as_tensor(val.astype(np.int32), device=device)
+        else:
+            out[key] = torch.tensor(val, dtype=dtype, device=device)
+    return out
+
+
 def carry_from_numpy(coef, obs_prec, gscale, lscale, summ=None,
-                     device='cuda', dtype=torch.float32):
+                     device='cuda', dtype=torch.float32, hmc=None):
     """The port's chain state in `dtype` from the JAX chain's: coef,
-    obs_prec, gscale (raw parametrization), lscale and the summarizer
-    state (the JAX dict of the same keys; None starts a fresh one)."""
+    obs_prec (None or empty for Cox), gscale (raw parametrization),
+    lscale, the summarizer state (the JAX dict of the same keys; None
+    starts a fresh one) and, for HMC and NUTS, `hmc`: the JAX carry's
+    entries of ``HMC_CARRY_KEYS`` (the stepsize adapter, the stabilizer
+    ring where the run has one, the curvature counter)."""
     device = torch.device(device)
-    summ_t = None
-    if summ is not None:
-        summ_t = {}
-        for key, val in summ.items():
-            val = np.asarray(val)
-            if np.issubdtype(val.dtype, np.integer):
-                summ_t[key] = torch.as_tensor(val.astype(np.int32),
-                                              device=device)
-            else:
-                summ_t[key] = torch.tensor(val, dtype=dtype, device=device)
-    return init_carry(device, coef, obs_prec, gscale, lscale, summ_t,
-                      dtype=dtype)
+    summ_t = None if summ is None else _tensors(summ, device, dtype)
+    carry = init_carry(device, coef, obs_prec, gscale, lscale, summ_t,
+                       dtype=dtype)
+    if hmc is not None:
+        carry.update(_tensors({key: hmc[key] for key in HMC_CARRY_KEYS
+                               if key in hmc}, device, dtype))
+    return carry
 
 
 def chain_carry_from_numpy(chain_carry, device='cuda', dtype=torch.float32):
     """The port's chain-batched carry in `dtype` from the ``_chain_carry``
     of a JAX ``gibbs_chains`` info (numpy arrays with a leading chain
     axis): each chain's coef, obs_prec, gscale (raw parametrization),
-    lscale and summarizer state. The guard-rail counters start at zero.
-    The JAX chains' keys do not carry over: a continuation draws from
-    fresh generators (``BasicRandom.spawn``)."""
+    lscale, summarizer state and, under HMC and NUTS, the sampler's
+    entries (``HMC_CARRY_KEYS``). The other guard-rail counters start at
+    zero. The JAX chains' keys do not carry over: a continuation draws
+    from fresh generators (``BasicRandom.spawn``)."""
+    def chain(tree, c):
+        return {key: chain(val, c) if isinstance(val, dict)
+                else np.asarray(val)[c] for key, val in tree.items()}
+
     summ = chain_carry.get('summ')
+    hmc = {key: chain_carry[key] for key in HMC_CARRY_KEYS
+           if key in chain_carry} or None
     return stack_carries([carry_from_numpy(
         chain_carry['coef'][c], chain_carry['obs_prec'][c],
         chain_carry['gscale'][c], chain_carry['lscale'][c],
-        None if summ is None else {key: np.asarray(val)[c]
-                                   for key, val in summ.items()},
-        device=device, dtype=dtype)
+        None if summ is None else chain(summ, c), device=device,
+        dtype=dtype, hmc=None if hmc is None else chain(hmc, c))
         for c in range(len(chain_carry['coef']))])

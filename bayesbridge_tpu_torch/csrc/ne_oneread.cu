@@ -94,6 +94,12 @@ constexpr int kMaxStages = 8;
 // k+4 only after this CTA has finished panel k, so 4 slots suffice.
 constexpr int kSlots = 4;
 constexpr int kFixedSmem = 4096;    // barriers and row partials
+// A pair of blocks takes at least this much shared memory, more than half
+// of an SM's 228 KB, so that no two CTAs share an SM: where a small plan
+// let two share one, runs on the same inputs gave different results
+// (baselines/oneread_reruns.py; the cause is not found). A lone block's
+// plans share SMs and resumed exactly in every smoke.
+constexpr size_t kPairMinSmem = 116 * 1024;
 
 struct Args {
   const char* X0; int64_t ldb0; int p0; const float* v0;  // ldb: bytes
@@ -462,8 +468,8 @@ template <typename T0, typename T1>
 cudaError_t config(const Args& a, int clusters, cudaLaunchConfig_t* cfg,
                    cudaLaunchAttribute* attr) {
   auto kern = oneread_kernel<T0, T1>;
-  const size_t smem =
-      kFixedSmem + (size_t)a.stages * kRows * (a.ue + a.uf) * 16;
+  size_t smem = kFixedSmem + (size_t)a.stages * kRows * (a.ue + a.uf) * 16;
+  if (a.uf > 0 && smem < kPairMinSmem) smem = kPairMinSmem;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

@@ -139,7 +139,8 @@ def _sweep(blocks, c, a, b, mid, with_logp):
 
 
 def fit_clusters(kl, codes, p):
-    """Clusters of the plan that fit on the card at once (cached)."""
+    """Clusters of the plan that fit on the card at once (cached; a pair
+    of blocks at one CTA an SM, ``csrc/ne_oneread.cu`` kPairMinSmem)."""
     key = (codes, p)
     if key not in _FIT:
         fit = kl.lib.bb_ne_oneread_fit(codes[0], codes[1], p.ue, p.uf,
@@ -150,7 +151,9 @@ def fit_clusters(kl, codes, p):
     return _FIT[key]
 
 
-def _ne_oneread_cuda(blocks, c, a, w, mid, with_logp, p):
+def _ne_oneread_cuda(blocks, c, a, w, mid, with_logp, p, clusters=None):
+    """The launch; `clusters` None launches :func:`fit_clusters`' count
+    (``baselines/oneread_reruns.py`` passes others)."""
     from .ne_sweep import MIDS
     kl = load_library()
     X0 = blocks[0][0]
@@ -168,7 +171,8 @@ def _ne_oneread_cuda(blocks, c, a, w, mid, with_logp, p):
         args += [layout.DTYPE_CODE[X.dtype], X.data_ptr(), X.shape[1],
                  v.shape[0], v_pad.data_ptr()]
     codes = (args[0], args[5])
-    clusters = fit_clusters(kl, codes, p)
+    if clusters is None:
+        clusters = fit_clusters(kl, codes, p)
     widths = [v.shape[0] for _, v in blocks]
     width = sum(widths) + int(with_logp)  # logp after the columns
     u = torch.empty(n, dtype=torch.float32, device=device)

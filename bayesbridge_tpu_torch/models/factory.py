@@ -1,15 +1,17 @@
 """User-facing constructor that turns raw data into a likelihood model.
 
-Port of ``bayesbridge_tpu/models/factory.py`` for the linear and logit
-families: dense X (a numpy array or a torch tensor) is stored as one
-block (:class:`..design.DenseDesignMatrix`), sparse X on the hybrid,
-bitpack or winell backend, on an explicit device.
+Port of ``bayesbridge_tpu/models/factory.py``: dense X (a numpy array or
+a torch tensor) is stored as one block (:class:`..design.DenseDesignMatrix`),
+sparse X on the hybrid, bitpack or winell backend, on an explicit device.
+The Cox family never gets an intercept, and its observations are sorted
+by risk set up front (reference: bayesbridge/model/factory.py:10-68).
 """
 
 from warnings import warn
 
 import scipy.sparse as sps
 
+from .cox import CoxModel
 from .linear import LinearModel
 from .logistic import LogisticModel
 from ..design import DenseDesignMatrix, SparseDesignMatrix
@@ -36,11 +38,13 @@ def RegressionModel(outcome, X, family='linear', add_intercept=None,
     Parameters
     ----------
     outcome : 'linear': the response vector; 'logit': (success count,
-        trial count) pair, or a binary vector
+        trial count) pair, or a binary vector; 'cox': (event time,
+        censoring time) pair, infinity where the other happened
     X : numpy array or torch tensor (dense, stored as one block), or a
         scipy sparse matrix
-    family : 'linear' | 'logit' ('cox' is not ported)
-    add_intercept : bool, default True
+    family : 'linear' | 'logit' | 'cox'
+    add_intercept : bool, default True (never for 'cox', which warns
+        when asked: the partial likelihood cannot identify it)
     center_predictor : bool
         Column-center X (implicitly, never materialized, for sparse X).
     dtype : float32 (None) or float64, the design's working dtype; the
@@ -57,24 +61,34 @@ def RegressionModel(outcome, X, family='linear', add_intercept=None,
         raises. Ignored for dense X.
     device : 'cuda' (default) or 'cpu'; 'cuda' without a GPU raises.
     """
+    if family == 'cox':
+        if add_intercept:
+            warn("Intercept is not identifiable in the Cox model and "
+                 "won't be added.")
+        event_time, censoring_time, X = CoxModel.preprocess_data(
+            outcome[0], outcome[1], X)
+        design = _make_design(X, False, center_predictor, dtype, fused,
+                              backend, device)
+        return CoxModel(event_time, censoring_time, design)
     builder = _BUILDERS.get(family)
     if builder is None:
-        raise NotImplementedError(
-            f"family={family!r}: 'linear' and 'logit' are ported; the Cox "
-            "model waits for the HMC/NUTS path (ROADMAP.md Queue 1 item 13)")
+        raise NotImplementedError(family)
     add_intercept = True if add_intercept is None else add_intercept
+    return builder(outcome, _make_design(X, add_intercept, center_predictor,
+                                         dtype, fused, backend, device))
+
+
+def _make_design(X, add_intercept, center_predictor, dtype, fused, backend,
+                 device):
     if sps.issparse(X):
-        design = SparseDesignMatrix(
+        return SparseDesignMatrix(
             X, add_intercept=add_intercept,
             center_predictor=center_predictor, dtype=dtype, fused=fused,
             backend=backend if backend is not None else 'auto',
             device=device)
-    else:
-        if backend not in (None, 'auto'):
-            warn("backend='{}' is a sparse-storage option; dense X is "
-                 "stored as one block.".format(backend))
-        design = DenseDesignMatrix(
-            X, add_intercept=add_intercept,
-            center_predictor=center_predictor, dtype=dtype, fused=fused,
-            device=device)
-    return builder(outcome, design)
+    if backend not in (None, 'auto'):
+        warn("backend='{}' is a sparse-storage option; dense X is stored "
+             "as one block.".format(backend))
+    return DenseDesignMatrix(
+        X, add_intercept=add_intercept, center_predictor=center_predictor,
+        dtype=dtype, fused=fused, device=device)

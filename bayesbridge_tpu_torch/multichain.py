@@ -8,8 +8,10 @@ the design's products take the k chains' vectors together. On the hybrid
 backend's composed path (the default policy) a launch of the row pass,
 the column pass or the pre-solve reductions serves up to 8 chains from
 one read of X, and the k chains share the CG loop's and the rejection
-samplers' host syncs. Chain c of a batch is the chain run alone from its
-generator, draw for draw.
+samplers' host syncs. Under HMC and NUTS each chain runs its own
+trajectory or tree; the chains still running evaluate the target
+together (``utils.chains.run_lockstep``). Chain c of a batch is the
+chain run alone from its generator, draw for draw.
 
 Chains can share one deterministic initialization (the reference's
 semantics for a fixed ``init``) or take per-chain inits: pass a sequence
@@ -28,7 +30,7 @@ from .random.basic import generator_from_state, generator_state
 from . import step as step_mod
 
 _COUNTERS = ('n_gscale_clamped', 'n_lscale_underflow', 'n_lscale_overflow',
-             'n_cg_unconverged')
+             'n_cg_unconverged', 'n_curvature_invalid')
 
 
 def _refuse_mesh(mesh):
@@ -61,8 +63,9 @@ def _stack_chain_inits(bridge, init, n_chains):
             dict(one), bridge.prior.bridge_exp)[:4] for one in init]
 
     def stack(i):
-        return np.stack([np.asarray(s[i], dtype=np.float64)
-                         for s in starts])
+        return np.stack([np.asarray(
+            s[i] if s[i] is not None else np.zeros(0), dtype=np.float64)
+            for s in starts])
 
     return stack(0), stack(1), stack(2), stack(3)
 
@@ -140,9 +143,10 @@ def _assemble(bridge, options, params_to_save, carry, outputs, gens,
                                              for g in gens]),
     }
     for counter in _COUNTERS:
-        info[counter] = int(np.sum(carry_host[counter]))
+        if counter in carry_host:
+            info[counter] = int(np.sum(carry_host[counter]))
     # The single-chain path's guard-rail warnings, summed over chains.
-    bridge._warn_guard_rails({c: info[c] for c in _COUNTERS})
+    bridge._warn_guard_rails({c: info[c] for c in _COUNTERS if c in info})
     return samples, info
 
 
@@ -184,7 +188,8 @@ def gibbs_chains(bridge, n_iter, n_chains, n_burnin=0, thin=1, seed=None,
     """
     _refuse_mesh(mesh)
     options = bridge._resolve_options(coef_sampler_type, options)
-    params_to_save = resolve_params_to_save(params_to_save)
+    params_to_save = resolve_params_to_save(bridge.model.name,
+                                            params_to_save)
 
     bridge.rg.set_seed(seed)
     cfg = bridge._step_config(options)
@@ -192,7 +197,8 @@ def gibbs_chains(bridge, n_iter, n_chains, n_burnin=0, thin=1, seed=None,
                                                         n_chains)
     gens = bridge.rg.spawn(n_chains)
     carry = step_mod.stack_carries([
-        step_mod.init_carry(bridge.device, *start, dtype=bridge.dtype)
+        step_mod.init_carry(bridge.device, *start, dtype=bridge.dtype,
+                            cfg=cfg)
         for start in zip(coef, obs_prec, gscale, lscale)])
     carry, outputs = _execute(bridge, cfg, gens, carry, n_iter, n_burnin,
                               thin, params_to_save)

@@ -3,9 +3,11 @@
 Port of ``bayesbridge_tpu/ops/reg_coef.py`` (reference:
 bayesbridge/reg_coef_sampler/reg_coef_sampler.py:20-429): the collapsed
 Gaussian update (Cholesky or CG, with the Jacobi or the prior
-preconditioner) inside the Gibbs step, and the MAP search (scipy
-L-BFGS-B over a torch objective) for chain initialization. The HMC and
-NUTS samplers and the Newton-CG search are not ported.
+preconditioner) inside the Gibbs step; the preconditioned log density,
+gradient and Hessian matvec that the HMC and NUTS update
+(:mod:`.hmc_update`) and the MAP search share; and the MAP search (scipy
+L-BFGS-B, Newton-CG or trust-ncg over a torch objective) for chain
+initialization.
 """
 
 import numpy as np
@@ -21,6 +23,7 @@ from .summarizer import (
     compute_prior_shrunk_scale, estimate_coef_precond_scale_sd,
     extrapolate_coef_condmean, summarizer_update,
 )
+from ..utils.chains import rsum, take
 
 
 def sample_gaussian_posterior(
@@ -130,33 +133,83 @@ def sample_gaussian_posterior(
 
 
 def compute_preconditioning_scale(gscale, lscale, coef_precond_post_sd,
-                                  prior_sd_for_unshrunk, slab_size):
-    """Per-coordinate change of variables for the MAP search: shrunk
-    coordinates by their conditional prior scale, unshrunk ones by a
-    posterior-sd estimate (reg_coef_sampler.py:174-192). Returns
-    (precond_scale, precond_prior_prec)."""
+                                  prior_sd_for_unshrunk, slab_size,
+                                  unshrunk_target_sd_scale=1.0):
+    """Per-coordinate change of variables: shrunk coordinates by their
+    conditional prior scale, unshrunk ones by a posterior-sd estimate
+    (reg_coef_sampler.py:174-192), for one chain or k chains' rows
+    (gscale (k,), lscale and the sd (k, ...)). Returns (precond_scale,
+    precond_prior_prec)."""
     n_unshrunk = len(prior_sd_for_unshrunk)
-    dtype, dev = lscale.dtype, lscale.device
     shrunk_scale = compute_prior_shrunk_scale(gscale, lscale, slab_size)
-    ones = torch.ones(len(lscale), dtype=dtype, device=dev)
+    ones = torch.ones_like(lscale)
     if n_unshrunk == 0:
         return shrunk_scale, ones
-    unshrunk_scale = coef_precond_post_sd[:n_unshrunk]
-    prior_sd = torch.as_tensor(prior_sd_for_unshrunk, dtype=dtype,
-                               device=dev)
-    return (torch.cat((unshrunk_scale, shrunk_scale)),
-            torch.cat(((prior_sd / unshrunk_scale) ** -2, ones)))
+    unshrunk_scale = unshrunk_target_sd_scale \
+        * coef_precond_post_sd[..., :n_unshrunk]
+    prior_sd = torch.as_tensor(prior_sd_for_unshrunk, dtype=lscale.dtype,
+                               device=lscale.device)
+    ratio = prior_sd / unshrunk_scale
+    return (torch.cat((unshrunk_scale, shrunk_scale), -1),
+            torch.cat((1.0 / (ratio * ratio), ones), -1))
+
+
+def make_precond_logp_and_grad(model, precond_scale, precond_prior_prec,
+                               obs_prec=None):
+    """The log conditional posterior (up to a constant) and its gradient
+    in the preconditioned parametrization (reg_coef_sampler.py:259-279;
+    reg_coef.py:167-189): f(coef_precond, loglik_only=False, rows=None)
+    for one vector, or for the (m, p) rows of the chains `rows` (a
+    LongTensor into the chains of precond_scale (k, p); None: all). The
+    model computes in the design's dtype; logp and the gradient come back
+    in coef_precond's (the chain's)."""
+    def f(q, loglik_only=False, rows=None):
+        scale = take(precond_scale, rows)
+        prior_prec = take(precond_prior_prec, rows)
+        coef = q * scale
+        if model.name == 'linear':
+            logp, grad_coef = model.compute_loglik_and_gradient(
+                coef, take(obs_prec, rows), loglik_only=loglik_only)
+        else:
+            logp, grad_coef = model.compute_loglik_and_gradient(
+                coef, loglik_only=loglik_only)
+        logp = (logp - 0.5 * rsum(prior_prec * (q * q))).to(q.dtype)
+        if loglik_only:
+            return logp, None
+        grad = scale * grad_coef - prior_prec * q
+        return logp, grad.to(q.dtype)
+    return f
+
+
+def make_precond_hessian_matvec(model, coef_location, precond_scale,
+                                precond_prior_prec, obs_prec=None):
+    """The negative Hessian's matvec of the preconditioned log posterior
+    (reg_coef_sampler.py:242-257; reg_coef.py:192-208): matvec(v,
+    rows=None) as for :func:`make_precond_logp_and_grad`, cast back to
+    v's dtype (the model's Hessian computes in the design's)."""
+    if model.name == 'linear':
+        loglik_hess = model.get_hessian_matvec_operator(coef_location,
+                                                        obs_prec)
+    else:
+        loglik_hess = model.get_hessian_matvec_operator(coef_location)
+
+    def matvec(v, rows=None):
+        scale = take(precond_scale, rows)
+        return (take(precond_prior_prec, rows) * v
+                - scale * loglik_hess(scale * v, rows)).to(v.dtype)
+    return matvec
 
 
 def search_mode(coef, lscale, gscale, obs_prec, model,
-                prior_sd_for_unshrunk, slab_size, optim_maxiter=250):
-    """Conditional MAP of coef | scales by scipy L-BFGS-B over a torch
-    objective in the design's dtype (reg_coef.py:216-273;
-    reg_coef_sampler.py:281-391); the linear model's objective at the
-    given observation precision (reg_coef.py:167-190). Each objective
-    evaluation is one fused GLM sweep (loglik and gradient together)
-    where the design's policy fuses it, `dot` then `Tdot` elsewhere,
-    counted as two design matvecs as in the reference."""
+                prior_sd_for_unshrunk, slab_size, optim_maxiter=None,
+                use_newton_method=False, require_trust_region=False):
+    """Conditional MAP of coef | scales by scipy L-BFGS-B, or Newton-CG /
+    trust-ncg with the Hessian's matvec (reg_coef.py:216-273;
+    reg_coef_sampler.py:281-391), over a torch objective in the design's
+    dtype; the linear model's at the given observation precision. Each
+    objective evaluation is one fused GLM sweep (loglik and gradient
+    together) where the design's policy fuses it, `dot` then `Tdot`
+    elsewhere, counted as two design matvecs as in the reference."""
     dev, dtype = model.design.device, model.design.dtype
     lscale = torch.as_tensor(np.asarray(lscale, np.float64), dtype=dtype,
                              device=dev)
@@ -164,32 +217,66 @@ def search_mode(coef, lscale, gscale, obs_prec, model,
         float(gscale), lscale,
         torch.ones(len(coef), dtype=dtype, device=dev),
         prior_sd_for_unshrunk, slab_size)
+    if model.name != 'linear':
+        obs_prec = None
+    f = make_precond_logp_and_grad(model, precond_scale, precond_prior_prec,
+                                   obs_prec)
     n_eval = [0]
-    extra = (float(obs_prec),) if model.name == 'linear' else ()
+
+    def tensor(x):
+        return torch.as_tensor(x, dtype=dtype, device=dev)
 
     def objective(x):
         n_eval[0] += 1
-        x_t = torch.as_tensor(x, dtype=dtype, device=dev)
-        logp, grad_coef = model.compute_loglik_and_gradient(
-            x_t * precond_scale, *extra)
-        logp = logp - 0.5 * torch.sum(precond_prior_prec * x_t ** 2)
-        grad = precond_scale * grad_coef - precond_prior_prec * x_t
+        logp, grad = f(tensor(x))
         return -float(logp), -grad.double().cpu().numpy()
 
-    tol = 1e-6 / np.sqrt(len(coef))  # in analogy with the CG tolerance
+    hessp = None
+    if use_newton_method:
+        def hessp(x, v):
+            matvec = make_precond_hessian_matvec(
+                model, precond_scale * tensor(x), precond_scale,
+                precond_prior_prec, obs_prec)
+            return matvec(tensor(v)).double().cpu().numpy()
+
+    method, options = _choose_optim_method_and_options(
+        optim_maxiter, use_newton_method, require_trust_region, len(coef))
     x0 = np.asarray(coef, np.float64) \
         / precond_scale.double().cpu().numpy()
-    result = scipy.optimize.minimize(
-        objective, x0, method='L-BFGS-B', jac=True,
-        options={'maxiter': optim_maxiter, 'gtol': tol, 'maxcor': 200})
+    result = scipy.optimize.minimize(objective, x0, method=method,
+                                     jac=True, hessp=hessp, options=options)
     coef = precond_scale.double().cpu().numpy() * result.x
     info = {
         'is_success': bool(result.success),
-        'method': 'L-BFGS-B',
+        'method': method,
         'n_iter': int(result.nit),
         'n_logp_eval': int(result.nfev),
         'n_grad_eval': int(result.nfev),
-        'n_hess_eval': 0,
+        'n_hess_eval': int(result.get('nhev', 0)),
         'n_design_matvec': 2 * n_eval[0],
     }
     return coef, info
+
+
+def _choose_optim_method_and_options(optim_maxiter, use_newton_method,
+                                     require_trust_region, n_param):
+    """The reference's heuristics (reg_coef_sampler.py:360-391)."""
+    if optim_maxiter is None:
+        optim_maxiter = 15 if use_newton_method else 250
+    options = {'maxiter': optim_maxiter}
+    tol = 1e-6 / np.sqrt(n_param)  # in analogy with the CG tolerance
+    if not use_newton_method:
+        method = 'L-BFGS-B'
+        options.update({'gtol': tol, 'maxcor': 200})
+    elif require_trust_region:
+        method = 'trust-ncg'
+        init_radius = 1.96 * np.sqrt(n_param)
+        options.update({
+            'gtol': tol,
+            'initial_trust_radius': init_radius,
+            'max_trust_radius': 4.0 * init_radius,
+        })
+    else:
+        method = 'Newton-CG'
+        options['xtol'] = tol
+    return method, options

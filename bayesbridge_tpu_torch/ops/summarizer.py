@@ -3,8 +3,11 @@
 Port of ``bayesbridge_tpu/ops/summarizer.py`` (reference:
 bayesbridge/reg_coef_sampler/reg_coef_posterior_summarizer.py:3-123): a
 dict of tensors holding the running mean / second moment of the
-prior-scaled coefficients, which feed the CG warm start and the prior
-preconditioner's estimate of the unshrunk coefficients' sd. The keys match
+prior-scaled coefficients, which feed the CG warm start, the prior
+preconditioner's estimate of the unshrunk coefficients' sd and the HMC
+preconditioner, and the sign-aligned running mean of the preconditioned
+Hessian's principal component, which warm-starts the HMC curvature
+estimate. The keys match
 the JAX package's, so a chain state can be carried across
 (``convert.carry_from_numpy``).
 
@@ -15,6 +18,8 @@ functions do under ``vmap``; a per-chain scalar meets a vector through
 """
 
 import torch
+
+from ..utils.chains import rdot
 
 
 def _col(x, like):
@@ -91,3 +96,23 @@ def estimate_coef_precond_scale_sd(state):
     est_weight = torch.where(n > 1, (n - 1) / (n - 1 + prior_m), zero)
     return torch.sqrt(est_weight * torch.clamp_min(var_est, 0.0)
                       + (1 - est_weight) * state['sd_prior_guess'] ** 2)
+
+
+def update_precond_hessian_pc(state, pc):
+    """Sign-aligned running average of the principal component
+    (reg_coef_posterior_summarizer.py:43-62, 'average' method)."""
+    n = state['pc_n_averaged']
+    flip = rdot(state['pc'], pc) < 0
+    aligned = pc * _col(torch.where(flip, -1.0, 1.0), pc)
+    weight = _col(1.0 / (1.0 + n.to(pc.dtype)), pc)
+    new_pc = torch.where((n == 0)[..., None], pc,
+                         weight * aligned + (1 - weight) * state['pc'])
+    return {**state, 'pc': new_pc, 'pc_n_averaged': n + 1}
+
+
+def estimate_precond_hessian_pc(state, fallback):
+    """The principal-component estimate, or `fallback` (a random
+    direction) while no update has been recorded
+    (reg_coef_posterior_summarizer.py:64-70)."""
+    return torch.where((state['pc_n_averaged'] > 0)[..., None],
+                       state['pc'], fallback)

@@ -2,8 +2,10 @@
 
 Port of ``bayesbridge_tpu/step.py`` (reference:
 bayesbridge/bayesbridge.py:210-240). One step draws, in the reference's
-order, the coefficients, then the observation precision, then the global
-scale, then the local scale. The JAX package traces the step once and
+order, the coefficients (the collapsed Gaussian draw by Cholesky or CG
+for the linear and logit models, or an HMC / NUTS transition for any
+model, the Cox model's only sampler), then the observation precision
+(none for Cox), then the global scale, then the local scale. The JAX package traces the step once and
 scans it on the device; here the step runs eagerly, a Python loop drives
 it, and the carry is a dict of device tensors. The chain's state is in
 the chain's dtype (``cfg.dtype``); the design's products compute in the
@@ -25,7 +27,9 @@ import math
 import numpy as np
 import torch
 
+from .ops import hmc_update
 from .ops.reg_coef import sample_gaussian_posterior
+from .ops.stepsize import target_log10_hamiltonian_error
 from .ops.summarizer import summarizer_init
 from .random.polya_gamma import sample_polya_gamma_chains
 from .random.tilted_stable import sample_tilted_stable_chains
@@ -43,6 +47,7 @@ class GibbsStepConfig:
         self.n_obs = model.n_obs
         self.dtype = model.design.dtype if dtype is None else dtype
         self.coef_sampler_type = options.coef_sampler_type
+        self.curvature_est_stabilized = options.curvature_est_stabilized
         self.cg_preconditioner = options.cg_preconditioner
         self.bridge_exp = float(prior.bridge_exp)
         self.slab_size = float(prior.slab_size)
@@ -66,6 +71,12 @@ class GibbsStepConfig:
             np.isfinite(self.prior_sd_for_unshrunk)]
         self.neg_log_prior_sd_sum = -float(np.sum(np.log(finite_sd))) \
             if len(finite_sd) else 0.0
+        # The HMC stepsize adapter's target (reg_coef_sampler.py:38-39).
+        self.hmc_target_log10_error = target_log10_hamiltonian_error(0.95)
+
+    @property
+    def hmc(self):
+        return self.coef_sampler_type in ('hmc', 'nuts')
 
 
 def _gamma(gens, shape, dtype, device):
@@ -78,7 +89,10 @@ def update_obs_precision_chains(cfg, model, gens, lin_pred):
     """obs_prec | coef (bayesbridge.py:397-410) for each chain's row of
     lin_pred (k, n): for the linear model one Gamma(n/2) draw over the
     residual rate per chain (step.py:94-103); for logit, Polya-Gamma
-    draws tilted by the linear predictor."""
+    draws tilted by the linear predictor; for Cox, none (k, 0)."""
+    if model.name == 'cox':
+        return torch.zeros((len(gens), 0), dtype=cfg.dtype,
+                           device=model.design.device)
     if model.name == 'linear':
         resid = model.y - lin_pred
         rate = rsum(resid * resid) / 2.0
@@ -149,11 +163,15 @@ def update_local_scale(cfg, gens, gscale, coef_shrunk):
 
 def compute_posterior_logprob(cfg, model, coef, gscale, obs_prec, lin_pred):
     """Joint log density of (coef, gscale | rest) per chain, matching the
-    reference's bookkeeping (bayesbridge.py:480-511)."""
+    reference's bookkeeping (bayesbridge.py:480-511); the Cox model's
+    log-likelihood from its own pass (lin_pred None)."""
     if model.name == 'linear':
         loglik = model.loglik_from_lin_pred(lin_pred, obs_prec)
-    else:
+    elif model.name == 'logit':
         loglik = model.loglik_from_lin_pred(lin_pred)
+    else:
+        loglik = model.compute_loglik_and_gradient(
+            coef, loglik_only=True)[0].to(cfg.dtype)
     if np.isfinite(cfg.slab_size):
         scaled = coef / cfg.slab_size
         loglik = loglik - 0.5 * rsum(scaled * scaled)
@@ -174,11 +192,9 @@ def compute_posterior_logprob(cfg, model, coef, gscale, obs_prec, lin_pred):
     return loglik + prior_logp
 
 
-def gibbs_step_chains(cfg, model, gens, carry):
-    """One Gibbs iteration of k chains (carry entries with a leading
-    chain axis, gens one generator per chain): returns (carry, outputs),
-    outputs with the same leading axis ('n_cg_iter' a (k,) numpy
-    array)."""
+def _collapsed_draw(cfg, model, gens, carry):
+    """coef | obs_prec, gscale, lscale by the Gaussian collapse (Cholesky
+    or CG) of the linear and logit models (step.py:200-224)."""
     k = carry['coef'].shape[0]
     if model.name == 'linear':
         y_gauss = model.y.to(cfg.dtype).expand(k, -1)
@@ -196,11 +212,32 @@ def gibbs_step_chains(cfg, model, gens, carry):
         cg_atol_multiplier=cfg.cg_atol_multiplier)
     n_unconverged = carry['n_cg_unconverged'] + (
         ~info.pop('cg_converged', np.ones(k, dtype=bool))).astype(np.int64)
+    return coef, {**carry, 'summ': summ,
+                  'n_cg_unconverged': n_unconverged}, info
+
+
+def gibbs_step_chains(cfg, model, gens, carry):
+    """One Gibbs iteration of k chains (carry entries with a leading
+    chain axis, gens one generator per chain): returns (carry, outputs),
+    outputs with the same leading axis (the sampler's host counts, such
+    as 'n_cg_iter', (k,) numpy arrays)."""
+    if cfg.hmc:
+        coef, carry, info = hmc_update.sample_coef_by_hmc(cfg, model, gens,
+                                                          carry)
+        # The reference raises on a non-positive curvature estimate
+        # (reg_coef_sampler.py:233-239); the step counts it, and the run
+        # warns at its end (step.py:252-260).
+        carry['n_curvature_invalid'] = carry['n_curvature_invalid'] \
+            + info.pop('curvature_estimate_invalid').to(torch.int32)
+    else:
+        coef, carry, info = _collapsed_draw(cfg, model, gens, carry)
+    coef = coef.to(cfg.dtype)
     # ONE linear predictor per iteration, shared by the observation
     # precision draw and the log density (step.py:261-270): on the
-    # composed path the CG loop accumulated it, otherwise one dot.
+    # composed CG path the CG loop accumulated it, otherwise one dot;
+    # none for Cox, whose log density takes its own pass.
     lin_pred = info.pop('lin_pred', None)
-    if lin_pred is None:
+    if lin_pred is None and model.name != 'cox':
         lin_pred = model.design.dot(coef)
     obs_prec = update_obs_precision_chains(cfg, model, gens, lin_pred)
     gscale, clamped = update_global_scale(cfg, gens, carry['gscale'],
@@ -210,14 +247,13 @@ def gibbs_step_chains(cfg, model, gens, carry):
     logp = compute_posterior_logprob(cfg, model, coef, gscale, obs_prec,
                                      lin_pred)
     carry = {
-        **carry, 'summ': summ,
+        **carry,
         'coef': coef, 'obs_prec': obs_prec,
         'gscale': gscale, 'lscale': lscale,
         'n_gscale_clamped': carry['n_gscale_clamped'] + clamped.to(
             torch.int32),
         'n_lscale_underflow': carry['n_lscale_underflow'] + n_under,
         'n_lscale_overflow': carry['n_lscale_overflow'] + n_over,
-        'n_cg_unconverged': n_unconverged,
     }
     outputs = {'coef': coef, 'local_scale': lscale, 'global_scale': gscale,
                'obs_prec': obs_prec, 'logp': logp, **info}
@@ -225,23 +261,29 @@ def gibbs_step_chains(cfg, model, gens, carry):
 
 
 def init_carry(device, coef, obs_prec, gscale, lscale, summ=None,
-               dtype=torch.float32):
+               dtype=torch.float32, cfg=None):
     """One chain's state in `dtype` on `device` from host values; `summ`
-    None starts a fresh summarizer."""
+    None starts a fresh summarizer, obs_prec None is the Cox model's
+    (none), and an HMC or NUTS `cfg` adds the sampler's entries
+    (``hmc_update.init_hmc_carry``)."""
     def fl(x):
         return torch.as_tensor(np.asarray(x, np.float64), dtype=dtype,
                                device=device)
 
     coef = fl(coef)
     zero = torch.zeros((), dtype=torch.int32, device=device)
-    return {
-        'coef': coef, 'obs_prec': fl(obs_prec),
+    carry = {
+        'coef': coef,
+        'obs_prec': fl(np.zeros(0) if obs_prec is None else obs_prec),
         'gscale': fl(gscale), 'lscale': fl(lscale),
         'summ': summ if summ is not None
         else summarizer_init(coef.shape[0], device, dtype=dtype),
         'n_gscale_clamped': zero, 'n_lscale_underflow': zero,
         'n_lscale_overflow': zero, 'n_cg_unconverged': 0,
     }
+    if cfg is not None and cfg.hmc:
+        carry.update(hmc_update.init_hmc_carry(cfg, device))
+    return carry
 
 
 def stack_carries(carries):

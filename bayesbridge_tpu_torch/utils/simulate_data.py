@@ -2,8 +2,7 @@
 
 Host-side NumPy/SciPy utilities mirroring the reference's generators
 (reference: simulate_data.py:8-143): mixed dense / sparse-binary /
-categorical designs and outcome simulation for the linear and logit
-families. A NumPy copy of ``bayesbridge_tpu.utils.simulate_data``: for
+categorical designs and outcome simulation for each model family. A NumPy copy of ``bayesbridge_tpu.utils.simulate_data``: for
 a seed both give identical arrays, so data built for one package can
 be fed to the other.
 """
@@ -26,6 +25,9 @@ def simulate_outcome(X, beta, model, intercept=0., n_trial=None, seed=None):
         prob = 1.0 / (1.0 + np.exp(-linear_pred))
         n_success = np.random.binomial(n_trial.astype(np.int64), prob)
         return n_success, n_trial
+    if model == 'cox':
+        from ..models.cox import CoxModel
+        return CoxModel.simulate_outcome(X, beta, censoring_frac=.5)
     raise NotImplementedError(model)
 
 

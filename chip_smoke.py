@@ -52,12 +52,12 @@ Phases, each of which raises on failure (exit code != 0):
    it composes the CG operator and the pre-solve (whichever way it takes
    the MAP search's objective), else under ``fused='0'`` and 'auto' in
    a slice of its own. The fused sweeps run on ``ne_oneread``. Each:
-   ``gibbs(30)`` with the CG sampler and bridge exponent 0.5 (MAP search
-   included), launch counters read right after it, 20 more iterations
-   through ``gibbs_resume`` timed, resume on the card (``gibbs(20)`` +
-   ``gibbs_resume(10, merge=True)`` must equal the ``gibbs(30)`` run
+   ``gibbs(20)`` with the CG sampler and bridge exponent 0.5 (MAP search
+   included), launch counters read right after it, 10 more iterations
+   through ``gibbs_resume`` timed, resume on the card (``gibbs(13)`` +
+   ``gibbs_resume(7, merge=True)`` must equal the ``gibbs(20)`` run
    exactly) and a profiler window (busy share, device ms per
-   iteration); then the alternating A/B segments (8 rounds); then the
+   iteration); then the alternating A/B segments (4 rounds); then the
    MAP search's witness (the search with the fused objective, on
    ``ne_oneread[logit]``, and with the composed one on the same design,
    and the two objectives compared) and the two objectives' times in
@@ -81,8 +81,28 @@ Phases, each of which raises on failure (exit code != 0):
    R-hat and pooled ESS on coef[1:201], ESS/s); 2 chains against the
    chains run alone from their generators (equal CG iteration counts,
    coef within rtol 1e-6); a 2-chain fused ('1') run, whose launch
-   counts show ``ne_oneread`` once per chain per application; (b) a
-   dense logit
+   counts show ``ne_oneread`` once per chain per application; then the
+   Cox phase: Cox outcomes on the same X (beta ten ones, the censoring
+   scale set for a censored fraction of 0.9), the model built through
+   ``RegressionModel((event_time, censoring_time), X, family='cox')``
+   (the factory sorts the rows and builds a hybrid of the same stored
+   bytes; its build time printed), the row and column passes and their
+   4-chain forms on its blocks against their plain versions, timed; HMC
+   ``gibbs(6)`` (MAP search included; the launch counts must show one row
+   and one column pass per gradient, Hessian matvec and MAP objective,
+   and a row pass per iteration for the Hessian's weights and one for
+   the log density), ``gibbs_resume(4)`` timed, the exact-resume check
+   (``gibbs(4)`` + ``gibbs_resume(2, merge=True)`` equals the first
+   ``gibbs(6)``), a 2-iteration profiler window; NUTS
+   ``gibbs(4)``; logit HMC ``gibbs(4)`` on the hybrid slices' stored
+   blocks under 'auto' (every gradient on ``ne_oneread[logit]``, which
+   is checked and timed on those blocks); ``gibbs_chains`` with 4 Cox
+   chains under HMC (``ne_rows_k`` / ``colpass_k``) and a 1-iteration
+   profiler window; 2 Cox chains against the chains run alone for an
+   iteration (equal bits); per iteration the gradient evaluations, step counts or tree
+   heights, stepsizes, acceptance, Hessian matvecs and host syncs, and
+   one gradient's time beside its bound (two reads for Cox, one for
+   logit); (b) a dense logit
    design, X standard normal, 100,000 x 4,000, made on the card and
    stored as 4,004 float32 columns: ``ne_oneread``, its logit mode and
    ``tdots_sweep`` on the lone block against their plain versions, the
@@ -1283,6 +1303,7 @@ def run_hybrid(X, outcome):
     if own:
         policies['hybrid_auto'] = 'auto'
     counts, stats, witness = {}, {}, None
+    n_first = 20
     for label, policy in policies.items():
         m = with_policy(model, policy)
         fused = {kind: fusedne.dispatch_mode(kind, policy) is not None
@@ -1298,21 +1319,23 @@ def run_hybrid(X, outcome):
         extra = 1 + int(not fused['presolve']) + int(fused['quad'])
         counts[label], n_cg, info, stats[label] = run_chain(
             m, label, lambda k, a=apps, r=per_app, e=extra:
-                ((k + a) * r + e) * gb * 1e9)
+                ((k + a) * r + e) * gb * 1e9, n_first=n_first, n_more=10)
         c = counts[label]
         n_cg_sum = int(np.sum(n_cg))
         assert c['ne_sweep[ne]'] == 0, c  # no two-pass CG operator
         if fused['quad']:
-            assert c['ne_oneread'] >= n_cg_sum + 30 * apps, c
-            assert c['ne_sweep[rows]'] >= 30, c
+            assert c['ne_oneread'] >= n_cg_sum + n_first * apps, c
+            assert c['ne_sweep[rows]'] >= n_first, c
         else:
             assert c['ne_oneread'] == 0, c
             assert c['ne_sweep[rows]'] >= n_cg_sum, c
             assert c['ne_sweep[cols]'] >= n_cg_sum, c
         if fused['presolve']:
-            assert c['tdots_sweep'] == 30 and c['tdots_sweep[u4]'] == 0, c
+            assert c['tdots_sweep'] == n_first, c
+            assert c['tdots_sweep[u4]'] == 0, c
         else:
-            assert c['tdots_sweep[u4]'] == 30 and c['tdots_sweep'] == 0, c
+            assert c['tdots_sweep[u4]'] == n_first, c
+            assert c['tdots_sweep'] == 0, c
         # The MAP search: one objective evaluation per link sweep, on the
         # one-read kernel (never the two-pass one), or composed.
         n_map = info['_init_optim_info']['n_design_matvec'] // 2
@@ -1352,7 +1375,7 @@ def run_hybrid(X, outcome):
     return counts, witness, design, stats['hybrid_composed']['ips']
 
 
-def ab_segments(chains, n_iter=10, rounds=8):
+def ab_segments(chains, n_iter=10, rounds=4):
     """Steady-state A/B of the hybrid policies in one call: `rounds`
     rounds of `n_iter` iterations per chain through ``gibbs_resume``, each
     chain continuing from its last state, the order reversed every other
@@ -1794,6 +1817,351 @@ def run_multichain(design, outcome, single_ips):
     return results, counts, mc
 
 
+COX_CHAINS = 4
+# The least time of one Cox gradient (or Hessian matvec) and of one logit
+# gradient at the flagship blocks: X read twice (the row pass, then the
+# column pass: the risk-set sums need all of X beta before X' u starts)
+# and once (ne_oneread's link mode), 6.504 GB over 3,350 GB/s a read.
+READ_MS = 6.504e9 / HBM_BYTES_PER_S * 1e3  # at N_OBS x N_PRED
+
+
+def cox_kernel_checks(design):
+    """The Cox phase's kernels at its own stored blocks (the factory's
+    sorted hybrid): the row pass and the column pass for one chain, and
+    their chain-batched forms for COX_CHAINS chains, each against its
+    plain version (RTOL of max|plain|), the batched ones bit for bit
+    against single launches, timed (CUDA events, median of 10) beside
+    the bound. Returns the kernels line's entries."""
+    import torch
+    from bayesbridge_tpu_torch.kernels.ne_sweep import (
+        colpass, colpass_k, colpass_k_plain, colpass_plain, ne_rows,
+        ne_rows_k, ne_rows_k_plain, ne_rows_plain)
+    gen = torch.Generator(device='cuda').manual_seed(11)
+    Xs = [design.X_exact, design.X_float]
+    ps = [design.n_exact, design.n_float]
+    n, p = Xs[0].shape[0], sum(ps)
+    x_bytes = nbytes(*Xs)
+    k = COX_CHAINS
+    Vs = [torch.randn((k, q), generator=gen, device='cuda') for q in ps]
+    c = torch.randn(k, generator=gen, device='cuda') * 0.1
+    U = torch.randn((k, n), generator=gen, device='cuda')
+    blocks = list(zip(Xs, Vs))
+    one = [(X, V[0].contiguous()) for X, V in blocks]
+    # name: (kernel, plain, chain i's single launches or None, vector
+    # floats in and out, operations)
+    cases = {
+        'ne_sweep[rows]@cox': (
+            lambda: [ne_rows(one, c[0])],
+            lambda: [ne_rows_plain(one, c[0])], None, p + n, 2 * n * p),
+        'ne_sweep[cols]@cox': (
+            lambda: colpass(Xs, ps, U[0]),
+            lambda: colpass_plain(Xs, ps, U[0]), None, n + p, 2 * n * p),
+        'ne_rows_k@cox': (
+            lambda: [ne_rows_k(blocks, c)],
+            lambda: [ne_rows_k_plain(blocks, c)],
+            lambda i: [ne_rows([(X, V[i]) for X, V in blocks], c[i])],
+            k * (p + n), 2 * n * p * k),
+        'colpass_k@cox': (
+            lambda: colpass_k(Xs, ps, U),
+            lambda: colpass_k_plain(Xs, ps, U),
+            lambda i: colpass(Xs, ps, U[i]), k * (n + p), 2 * n * p * k),
+    }
+    results = {}
+    log(f"[cox] kernels at the Cox design's stored blocks ({n} x {ps[0]} "
+        f"{Xs[0].dtype} + {n} x {ps[1]} {Xs[1].dtype}, "
+        f"{x_bytes / 1e9:.3f} GB)")
+    for name, (kern, plain, single, floats, ops) in cases.items():
+        got = kern()
+        err = check(name, got, plain())
+        if single is not None:
+            for i in range(k):
+                if not all(torch.equal(g[i], s)
+                           for g, s in zip(got, single(i))):
+                    raise AssertionError(f"{name}: chain {i} differs from "
+                                         f"its single-vector launch")
+        ms = time_ms(kern)
+        bound, by = bound_ms(x_bytes + 4 * floats, ops)
+        log(f"  {name}: {ms:.3f} ms; bound {bound:.3f} ms ({by}); "
+            f"{100 * bound / ms:.0f}% of the bound"
+            + ("" if single is None else "; the single launches' bits"))
+        results[name] = dict(max_abs_err=err, ms=ms,
+                             plain_ms=time_ms(lambda: plain(), reps=3),
+                             bound_ms=bound, bound_by=by, library_ms=None)
+    del Vs, U, blocks, one
+    torch.cuda.empty_cache()
+    return results
+
+
+def hmc_iteration_log(label, info, n_iter, secs, lockstep, dev_ms=None):
+    """Per-iteration HMC / NUTS statistics of a run and its host syncs;
+    returns the gradient evaluations per iteration."""
+    import numpy as np
+    si = info['_reg_coef_sampling_info']
+    n_grad = si['n_grad_evals']
+    for key in ('n_grad_evals', 'n_integrator_step', 'tree_height',
+                'n_hessian_matvec'):
+        if key in si:
+            log(f"[{label}] {key} per iteration "
+                f"{np.asarray(si[key]).astype(int).tolist()}")
+    for key in ('stepsize', 'accept_prob', 'ave_accept_prob',
+                'stability_limit_est'):
+        if key in si:
+            log(f"[{label}] {key} per iteration "
+                f"{np.round(np.asarray(si[key]), 5).tolist()}")
+    evals = int(np.sum(n_grad) + np.sum(si['n_hessian_matvec']))
+    log(f"[{label}] {n_iter} iterations in {secs:.2f} s: "
+        f"{n_iter / secs:.4f} iter/s, {evals / secs:.1f} gradient and "
+        f"Hessian evaluations per second; lockstep host syncs per "
+        f"iteration {lockstep['host'] / n_iter:.1f}, target calls per "
+        f"iteration {lockstep['eval'] / n_iter:.1f}"
+        + ("" if dev_ms is None else
+           f"; device {dev_ms:.2f} ms per iteration"))
+    return np.asarray(n_grad)
+
+
+def run_cox(X, logit_outcome, logit_design):
+    """The Cox phase at the flagship's width: Cox outcomes on the
+    flagship X (beta ten ones, censoring fraction 0.9), the model built
+    through the factory (the sorted rows' hybrid), its kernels checked,
+    then HMC (MAP search, counts, resume timed, exact resume, a profiler
+    window), NUTS, logit HMC on the hybrid slices' stored blocks
+    (``ne_oneread[logit]`` per gradient), COX_CHAINS Cox chains under
+    HMC (``ne_rows_k`` / ``colpass_k``), and 2 Cox chains against the
+    chains run alone. Returns (kernel results, {path: launch counts},
+    summary)."""
+    import warnings
+    import numpy as np
+    import torch
+    from bayesbridge_tpu_torch import (
+        BayesBridge, RegressionCoefPrior, RegressionModel, gibbs_chains)
+    from bayesbridge_tpu_torch import step as step_mod
+    from bayesbridge_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts)
+    from bayesbridge_tpu_torch.kernels.ne_oneread import ne_oneread_link
+    from bayesbridge_tpu_torch.kernels.ne_sweep import ne_sweep_plain
+    from bayesbridge_tpu_torch.models import CoxModel, LogisticModel
+    from bayesbridge_tpu_torch.multichain import (
+        _stack_chain_inits, gibbs_chains_resume)
+    from bayesbridge_tpu_torch.utils.chains import LOCKSTEP
+
+    def lockstep_reset():
+        LOCKSTEP.update(host=0, eval=0)
+
+    beta = np.zeros(N_PRED)
+    beta[:10] = 1.0
+    event, censor = CoxModel.simulate_outcome(X, beta, censoring_frac=.9,
+                                              seed=2)
+    n_event = int(np.isfinite(event).sum())
+    assert 0 < n_event < N_OBS, n_event
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        model = RegressionModel((event, censor), X, family='cox',
+                                dtype=np.float32, device='cuda')
+    torch.cuda.synchronize()
+    design = model.design
+    gb = design.storage_bytes() / 1e9
+    log(f"[cox] {n_event} events of {N_OBS}; model build (sort + hybrid "
+        f"+ transfer): {time.perf_counter() - t0:.1f} s; warnings "
+        f"{[str(w.message)[:60] for w in caught]}; X_exact "
+        f"{design.X_exact.dtype} {tuple(design.X_exact.shape)}, X_float "
+        f"{tuple(design.X_float.shape)}, {gb:.3f} GB on the device")
+    assert design.backend == 'hybrid' and not design.intercept_added
+    # The logit design's blocks, its rows sorted: the same stored bytes.
+    assert design.X_exact.dtype == torch.int8, design.X_exact.dtype
+    assert design.storage_bytes() == logit_design.storage_bytes(), gb
+    results = cox_kernel_checks(design)
+    # Per gradient (and per Hessian matvec): one row and one column pass.
+    grad_ms = time_ms(lambda: model.compute_loglik_and_gradient(
+        torch.zeros(N_PRED, device='cuda')))
+    log(f"[cox] one gradient (loglik, risk-set sums, X' u): {grad_ms:.3f} "
+        f"ms against its bound of two reads, {2 * READ_MS:.3f} ms")
+
+    prior = RegressionCoefPrior(bridge_exponent=0.5)
+    bridge = BayesBridge(model, prior)
+    counts, summary = {}, {'grad_ms': grad_ms}
+    label = 'cox_hmc'
+    n_first, n_more = 6, 4
+    reset_launch_counts()
+    lockstep_reset()
+    t0 = time.perf_counter()
+    samples, info = bridge.gibbs(n_first, seed=0, coef_sampler_type='hmc',
+                                 params_to_save='all')
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts[label] = c = launch_counts()
+    log(f"[{label}] gibbs({n_first}) incl. MAP search: {secs:.1f} s; MAP "
+        f"{info['_init_optim_info']}; launch counts {c}")
+    n_grad = hmc_iteration_log(label, info, n_first, secs, dict(LOCKSTEP))
+    si = info['_reg_coef_sampling_info']
+    assert samples['coef'].shape == (N_PRED, n_first)
+    assert np.all(np.isfinite(samples['coef']))
+    assert np.all(np.isfinite(samples['logp'])), samples['logp']
+    assert 'obs_prec' not in samples
+    # A gradient and a Hessian matvec each take one row and one column
+    # pass; each iteration adds a row pass for the Hessian operator's
+    # weights and one for the log density; each MAP objective one pair.
+    n_map = info['_init_optim_info']['n_design_matvec'] // 2
+    n_cols = n_map + int(np.sum(n_grad) + np.sum(si['n_hessian_matvec']))
+    assert c['ne_sweep[cols]'] == n_cols, (n_cols, c)
+    assert c['ne_sweep[rows]'] == n_cols + 2 * n_first, (n_cols, c)
+    assert c['ne_oneread'] == c['ne_oneread[logit]'] == 0, c
+    assert c['ne_rows_k'] == c['colpass_k'] == 0, c
+
+    torch.cuda.synchronize()
+    lockstep_reset()
+    t0 = time.perf_counter()
+    _, i_more = bridge.gibbs_resume(info, n_more)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    hmc_iteration_log(f'{label}_resume', i_more, n_more, secs,
+                      dict(LOCKSTEP))
+    summary['ips'] = n_more / secs
+
+    # Exact resume: the first run again in two parts (its MAP search
+    # repeated, deterministic).
+    s_a, i_a = bridge.gibbs(4, seed=0, coef_sampler_type='hmc',
+                            params_to_save='all')
+    s_b, _ = bridge.gibbs_resume(i_a, n_first - 4, merge=True,
+                                 prev_samples=s_a)
+    for key in samples:
+        if not np.array_equal(s_b[key], samples[key]):
+            raise AssertionError(f"[{label}] resume != uninterrupted for "
+                                 f"{key}")
+    log(f"[{label}] resume check: gibbs(4) + gibbs_resume({n_first - 4}, "
+        f"merge=True) == gibbs({n_first}) exactly (the stepsize adapter "
+        f"carried in mcmc_info)")
+    # The later runs start from the first run's start (no MAP search).
+    init = {key: val for key, val in info['init'].items()
+            if val is not None}
+    n_prof = 2
+    lockstep_reset()
+    busy, dev_ms = profile_window(bridge, i_more, label, n_iter=n_prof)
+    summary.update(busy=busy, dev_ms=dev_ms)
+
+    label = 'cox_nuts'
+    reset_launch_counts()
+    lockstep_reset()
+    t0 = time.perf_counter()
+    s_n, i_n = bridge.gibbs(4, seed=2, init=init, coef_sampler_type='nuts',
+                            params_to_save='all')
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts[label] = launch_counts()
+    hmc_iteration_log(label, i_n, 4, secs, dict(LOCKSTEP))
+    assert np.all(np.isfinite(s_n['coef']))
+    assert counts[label]['ne_sweep[cols]'] > 0, counts[label]
+    summary['nuts_ips'] = 4 / secs
+
+    # Logit HMC on the hybrid slices' stored blocks ('auto': the
+    # gradient on ne_oneread's logit mode, the Hessian matvec composed).
+    label = 'logit_hmc'
+    logit = BayesBridge(LogisticModel(*logit_outcome,
+                                      logit_design.with_policy('auto')),
+                        prior)
+    reset_launch_counts()
+    lockstep_reset()
+    t0 = time.perf_counter()
+    s_l, i_l = logit.gibbs(4, seed=0, coef_sampler_type='hmc',
+                           params_to_save=('coef', 'logp'))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts[label] = c = launch_counts()
+    log(f"[{label}] gibbs(4) incl. MAP search: {secs:.1f} s; MAP "
+        f"{i_l['_init_optim_info']}; launch counts {c}")
+    n_grad_l = hmc_iteration_log(label, i_l, 4, secs, dict(LOCKSTEP))
+    assert np.all(np.isfinite(s_l['coef']))
+    n_map = i_l['_init_optim_info']['n_design_matvec'] // 2
+    assert c['ne_oneread[logit]'] == n_map + int(np.sum(n_grad_l)), c
+    assert c['ne_sweep[cols]'] == int(np.sum(
+        i_l['_reg_coef_sampling_info']['n_hessian_matvec'])), c
+    w = logit_design.with_policy('auto')
+    v = torch.zeros(logit.model.n_pred, device='cuda')
+    ones = torch.ones(N_OBS, device='cuda')
+    logit_ms = time_ms(lambda: logit.model.compute_loglik_and_gradient(v))
+    log(f"[{label}] one gradient (ne_oneread[logit]): {logit_ms:.3f} ms "
+        f"against its bound of one read, {READ_MS:.3f} ms; one Hessian "
+        f"matvec (the row and column passes) "
+        f"{time_ms(lambda: w.quad_matvec(v, ones)):.3f} ms")
+    summary.update(logit_grad_ms=logit_ms, logit_ips=4 / secs)
+    # The kernel of that gradient on the same stored blocks, against its
+    # plain version (outputs, link rows, loglik each at its own scale).
+    gen = torch.Generator(device='cuda').manual_seed(12)
+    Xs = [logit_design.X_exact, logit_design.X_float]
+    blocks = [(X, torch.randn(q, generator=gen, device='cuda') * 0.01)
+              for X, q in zip(Xs, (logit_design.n_exact,
+                                   logit_design.n_float))]
+    c0 = torch.zeros((), device='cuda')
+    a, b = logit.model.n_success, logit.model.n_trial
+    got = ne_oneread_link(blocks, c0, a, b, 'logit', True)
+    ref = ne_sweep_plain(blocks, c0, a, b, 'logit', True)
+    err = max(check(f"ne_oneread[logit]@logit_hmc [{i}]", g, r)
+              for i, (g, r) in enumerate(zip(
+                  (got[0], [got[1]], [got[2]]),
+                  (ref[0], [ref[1]], [ref[2]]))))
+    del got, ref
+    n_elem = N_OBS * (logit_design.n_exact + logit_design.n_float)
+    bound, by = bound_ms(nbytes(*Xs) + 8 * (logit_design.n_exact
+                                            + logit_design.n_float)
+                         + 12 * N_OBS, 4 * n_elem)
+    results['ne_oneread[logit]@logit_hmc'] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: ne_oneread_link(blocks, c0, a, b, 'logit', True)),
+        plain_ms=time_ms(lambda: ne_sweep_plain(blocks, c0, a, b, 'logit',
+                                                True), reps=3),
+        bound_ms=bound, bound_by=by, library_ms=None)
+    log(f"  ne_oneread[logit]@logit_hmc: "
+        f"{results['ne_oneread[logit]@logit_hmc']['ms']:.3f} ms; bound "
+        f"{bound:.3f} ms ({by})")
+    del logit, w, blocks
+
+    # COX_CHAINS chains under HMC: the batched row and column passes.
+    label, k = 'cox_chains', COX_CHAINS
+    reset_launch_counts()
+    lockstep_reset()
+    t0 = time.perf_counter()
+    s_c, i_c = gibbs_chains(bridge, 2, k, seed=5, init=init,
+                            coef_sampler_type='hmc',
+                            params_to_save=('coef', 'logp'))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts[label] = c = launch_counts()
+    log(f"[{label}] gibbs_chains(2, {k} chains): {secs:.1f} s; n_grad_evals "
+        f"per chain {i_c['_reg_coef_sampling_info']['n_grad_evals'].astype(int).tolist()}; "
+        f"lockstep host syncs {LOCKSTEP['host']}, target calls "
+        f"{LOCKSTEP['eval']}; launch counts {c}")
+    assert np.all(np.isfinite(s_c['coef']))
+    assert c['ne_rows_k'] > 0 and c['colpass_k'] > 0, c
+    busy_c, dev_ms_c = profile_window(
+        bridge, i_c, label, n_iter=1,
+        resume=lambda n: gibbs_chains_resume(bridge, i_c, n))
+    summary.update(chains_busy=busy_c, chains_dev_ms=dev_ms_c)
+
+    # 2 chains against the chains run alone: equal bits.
+    n_x = 1
+    s2, i2 = gibbs_chains(bridge, n_x, 2, seed=6, init=init,
+                          coef_sampler_type='hmc', params_to_save=('coef',))
+    cfg = bridge._step_config(bridge._resolve_options('hmc', None))
+    bridge.rg.set_seed(6)
+    starts = _stack_chain_inits(bridge, init, 2)
+    gens = bridge.rg.spawn(2)
+    for i in range(2):
+        coef, obs_prec, lscale, gscale = (s[i] for s in starts)
+        carry = step_mod.init_carry('cuda', coef, obs_prec, gscale, lscale,
+                                    cfg=cfg)
+        _, out = step_mod.run_chain(cfg, model, gens[i], carry, 0, n_x, 1,
+                                    0, save_keys=('coef',))
+        alone = np.stack([v.cpu().numpy() for v in out['coef']], -1)
+        if not np.array_equal(alone, s2['coef'][i]):
+            raise AssertionError(f"[cox_chains] chain {i} of 2 differs "
+                                 f"from the chain run alone")
+        log(f"[cox_chains] chain {i} of 2 against the chain alone: equal "
+            f"bits; n_grad_evals {out['n_grad_evals']}")
+    del model, bridge, design
+    torch.cuda.empty_cache()
+    return results, counts, summary
+
+
 def dense_block_checks(design, label):
     """The kernels on the dense design's lone float32 block (zero row
     offset, p + 1 columns in whole 16-byte rows): each against its plain
@@ -2071,6 +2439,11 @@ def main():
     counts.update(mc_counts)
     log(f"[multichain] summary: {json.dumps(mc)}")
     t0 = phase('multichain', t0)
+    res, cox_counts, cox = run_cox(X, outcome, design)
+    results.update(res)
+    counts.update(cox_counts)
+    log(f"[cox] summary: {json.dumps(cox)}")
+    t0 = phase('cox', t0)
     del design
     torch.cuda.empty_cache()
     dense_counts, res = run_dense()
@@ -2121,7 +2494,12 @@ def main():
                'ne_rows_k': 'multichain',
                'colpass_k': 'multichain',
                'tdots_sweep_k[u4]': 'multichain',
-               'tdots_sweep_k': 'multichain_fused'}
+               'tdots_sweep_k': 'multichain_fused',
+               'ne_sweep[rows]@cox': 'cox_hmc',
+               'ne_sweep[cols]@cox': 'cox_hmc',
+               'ne_rows_k@cox': 'cox_chains',
+               'colpass_k@cox': 'cox_chains',
+               'ne_oneread[logit]@logit_hmc': 'logit_hmc'}
     kernels = []
     for name, res in results.items():
         counter = name.split('@')[0]

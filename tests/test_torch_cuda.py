@@ -15,7 +15,10 @@ Gram stays full float32 with TF32 allowed. The chain-batched kernels
 (``ne_rows_k``, ``colpass_k``, ``tdots_sweep_k``) must equal k
 single-vector launches bit for bit (``torch.equal``) and their plain
 versions to the same tolerance, and chain c of ``gibbs_chains`` on the
-card must equal the chain run alone.
+card must equal the chain run alone, for the Cox model under HMC and NUTS
+too (whose likelihood, gradient, Hessian matvec and leapfrog trajectory
+on the card match the CPU's within the kernels' tolerance); the linear
+and logit models run HMC and NUTS and the Newton MAP searches there.
 """
 
 import numpy as np
@@ -660,3 +663,184 @@ def test_dense_and_linear_chains_resume_on_card(dev, family, sampler,
     merged, _ = bridge.gibbs_resume(info, 4, merge=True, prev_samples=part)
     for key in full:
         np.testing.assert_array_equal(merged[key], full[key])
+
+
+def _cox_problem(device, n=3000, p=600):
+    """A small Cox model on the hybrid backend (int8 + float32 blocks)."""
+    import warnings
+    from bayesbridge_tpu_torch import RegressionModel
+    from bayesbridge_tpu_torch.models import CoxModel
+    from bayesbridge_tpu_torch.utils.simulate_data import simulate_design
+    X = simulate_design(n, p, binary_frac=.9, seed=3)
+    beta = np.zeros(p)
+    beta[:5] = 1.0
+    event, censor = CoxModel.simulate_outcome(X, beta, censoring_frac=.8,
+                                              seed=4)
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore')
+        return RegressionModel((event, censor), X, family='cox',
+                               device=device)
+
+
+def test_cox_on_card_matches_cpu(dev):
+    """The Cox model's loglik, gradient and Hessian matvec on the card
+    (the row and column passes) against the CPU's plain versions within
+    the kernels' tolerance, and an HMC trajectory from the same q0, p0,
+    dt and step count (the transition's deterministic core; the CPU and
+    card generators differ) within 1e-4 of its scale."""
+    from bayesbridge_tpu_torch.ops import hmc
+    from bayesbridge_tpu_torch.ops.reg_coef import (
+        make_precond_logp_and_grad,
+    )
+    models = {d: _cox_problem(d) for d in ('cpu', dev)}
+    rng = np.random.default_rng(5)
+    p = models['cpu'].n_pred
+    beta = rng.standard_normal(p) * 0.05
+    v = rng.standard_normal(p)
+    out = {}
+    reset_launch_counts()
+    for d, model in models.items():
+        b = torch.as_tensor(beta, dtype=torch.float32, device=d)
+        lp, grad = model.compute_loglik_and_gradient(b)
+        hv = model.get_hessian_matvec_operator(b)(
+            torch.as_tensor(v, dtype=torch.float32, device=d))
+        scale = torch.full((p,), 0.5, device=d)
+        f = make_precond_logp_and_grad(model, scale, torch.ones_like(scale))
+        q0 = b / scale
+        lp0, g0 = f(q0)
+        traj = hmc.simulate_dynamics(
+            f, 0.02, 8, q0, torch.as_tensor(v, dtype=torch.float32,
+                                            device=d), lp0, g0)
+        out[d] = [x.cpu() for x in (lp, grad, hv, traj[0], traj[1])]
+    counts = launch_counts()
+    assert counts['ne_sweep[rows]'] > 0 and counts['ne_sweep[cols]'] > 0
+    for got, ref in zip(out[dev], out['cpu']):
+        _assert_close([got.reshape(-1)], [ref.reshape(-1)])
+
+
+def test_cox_chains_on_card_equal_chains_alone(dev):
+    """Cox under HMC and NUTS on the card: 2 chains of ``gibbs_chains``
+    (the batched row and column passes) equal the chains run alone bit
+    for bit, and a resumed single chain equals the uninterrupted one."""
+    from bayesbridge_tpu_torch import (
+        BayesBridge, RegressionCoefPrior, gibbs_chains,
+    )
+    from bayesbridge_tpu_torch import step as step_mod
+    from bayesbridge_tpu_torch.multichain import _stack_chain_inits
+    model = _cox_problem(dev)
+    bridge = BayesBridge(model, RegressionCoefPrior(bridge_exponent=.5))
+    init = {'coef': np.zeros(model.n_pred), 'global_scale': 0.1,
+            'local_scale': np.ones(model.n_pred)}
+    for sampler in ('hmc', 'nuts'):
+        reset_launch_counts()
+        samples, info = gibbs_chains(bridge, 3, 2, seed=7, init=dict(init),
+                                     coef_sampler_type=sampler)
+        counts = launch_counts()
+        assert counts['ne_rows_k'] > 0 and counts['colpass_k'] > 0
+        cfg = bridge._step_config(bridge._resolve_options(sampler, None))
+        bridge.rg.set_seed(7)
+        starts = _stack_chain_inits(bridge, dict(init), 2)
+        gens = bridge.rg.spawn(2)
+        for c in range(2):
+            coef, obs_prec, lscale, gscale = (s[c] for s in starts)
+            carry = step_mod.init_carry(dev, coef, obs_prec, gscale, lscale,
+                                        cfg=cfg)
+            _, out = step_mod.run_chain(cfg, model, gens[c], carry, 0, 3, 1,
+                                        0, save_keys=('coef',))
+            alone = np.stack([x.cpu().numpy() for x in out['coef']], -1)
+            np.testing.assert_array_equal(samples['coef'][c], alone)
+        full, _ = bridge.gibbs(5, seed=1, init=dict(init),
+                               coef_sampler_type=sampler,
+                               params_to_save='all')
+        part, p_info = bridge.gibbs(3, seed=1, init=dict(init),
+                                    coef_sampler_type=sampler,
+                                    params_to_save='all')
+        merged, _ = bridge.gibbs_resume(p_info, 2, merge=True,
+                                        prev_samples=part)
+        for key in full:
+            np.testing.assert_array_equal(merged[key], full[key])
+
+
+def test_ne_oneread_small_plan_reruns_give_the_same_bits(dev):
+    """A block pair whose plan has four consumer warps (20,000 rows of
+    9,001 int8 and 999 f32 columns), small enough that two CTAs would
+    share an SM but for a pair's shared-memory floor: twenty runs on the
+    same inputs give the same bits, within the kernels' tolerance of the
+    plain version."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    n, pe, pf = 20_000, 9_001, 999
+    Xe = (torch.rand((n, layout.padded_width(pe)), generator=g, device=dev)
+          < 0.1).to(torch.int8)
+    Xf = torch.randn((n, layout.padded_width(pf)), generator=g, device=dev)
+    blocks = [(Xe, torch.randn(pe, generator=g, device=dev) * 0.01),
+              (Xf, torch.randn(pf, generator=g, device=dev) * 0.01)]
+    c = torch.zeros((), device=dev)
+    w = torch.ones(n, device=dev)
+    runs = [torch.cat(ne_oneread(blocks, c, w)[0]) for _ in range(20)]
+    for r in runs[1:]:
+        assert torch.equal(r, runs[0])
+    _assert_close([runs[0]],
+                  [torch.cat(ne_sweep_plain(blocks, c, None, w, 'ne')[0])])
+
+
+def test_prefix_sum_gives_the_same_bits_every_run(dev):
+    """The Cox model's risk-set prefix sums (``utils.chains.prefix_sum``)
+    at the flagship's 100,000 rows: twenty runs give the same bits, within
+    float32 rounding of the float64 prefix sum."""
+    from bayesbridge_tpu_torch.utils.chains import prefix_sum
+    x = torch.rand(100_000, generator=torch.Generator(device=dev)
+                   .manual_seed(3), device=dev)
+    first = prefix_sum(x)
+    for _ in range(19):
+        assert torch.equal(prefix_sum(x), first)
+    ref = torch.cumsum(x.double(), 0)
+    assert float(((first.double() - ref).abs() / ref).max()) < 1e-5
+
+
+@pytest.mark.parametrize('family', ['linear', 'logit'])
+def test_hmc_nuts_and_newton_search_on_card(dev, family):
+    """The linear and logit models under HMC and NUTS on the card (finite
+    draws, exact resume), and the Newton-CG and trust-ncg MAP searches
+    there against the CPU's, within 1e-3 of max|MAP| (float32 products
+    summed in other orders)."""
+    import warnings
+    from bayesbridge_tpu_torch import (
+        BayesBridge, RegressionCoefPrior, RegressionModel,
+    )
+    from bayesbridge_tpu_torch.ops.reg_coef import search_mode
+    from bayesbridge_tpu_torch.utils.simulate_data import (
+        simulate_design, simulate_outcome,
+    )
+    X = simulate_design(2000, 300, binary_frac=.9, seed=5)
+    beta = np.zeros(300)
+    beta[:4] = 1.0
+    y = simulate_outcome(X, beta, family, seed=6)
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore')
+        models = {d: RegressionModel(y, X, family=family, device=d)
+                  for d in ('cpu', dev)}
+    bridge = BayesBridge(models[dev], RegressionCoefPrior(bridge_exponent=.5))
+    init = {'coef': np.zeros(301), 'global_scale': 0.1,
+            'local_scale': np.ones(300)}
+    for sampler in ('hmc', 'nuts'):
+        full, info = bridge.gibbs(4, seed=2, init=dict(init),
+                                  coef_sampler_type=sampler,
+                                  params_to_save='all')
+        assert np.all(np.isfinite(full['coef']))
+        assert np.all(info['_reg_coef_sampling_info']['n_grad_evals'] >= 1)
+        part, p_info = bridge.gibbs(2, seed=2, init=dict(init),
+                                    coef_sampler_type=sampler,
+                                    params_to_save='all')
+        merged, _ = bridge.gibbs_resume(p_info, 2, merge=True,
+                                        prev_samples=part)
+        for key in full:
+            np.testing.assert_array_equal(merged[key], full[key])
+    obs_prec = 1.0 if family == 'linear' else None
+    for trust in (False, True):
+        maps = [search_mode(np.zeros(301), np.ones(300), 0.3, obs_prec,
+                            models[d], np.array([2.0]), 2.0,
+                            use_newton_method=True,
+                            require_trust_region=trust)[0]
+                for d in ('cpu', dev)]
+        assert np.abs(maps[1] - maps[0]).max() \
+            <= 1e-3 * np.abs(maps[0]).max()

@@ -90,16 +90,21 @@ def test_resume_drops_unknown_option_keys():
 
 
 def test_unported_paths_raise():
-    """What the port still refuses: the HMC and NUTS samplers, the Cox
-    family and the ell backend (each citing its ROADMAP item)."""
+    """What the port still refuses: the ell backend (ROADMAP item 12).
+    The HMC and NUTS samplers and the Cox family, refused before, run
+    (tests/test_torch_cox_gibbs.py holds them against the JAX package)."""
     bridge = _canonical()
     for sampler in ('hmc', 'nuts'):
-        with pytest.raises(NotImplementedError, match=f"'{sampler}'"):
-            bridge.gibbs(2, seed=0, coef_sampler_type=sampler)
+        samples, info = bridge.gibbs(2, seed=0, coef_sampler_type=sampler)
+        assert info['coef_sampler_type'] == sampler
+        assert np.all(np.isfinite(samples['coef']))
     X = simulate_design(20, 5, binary_frac=.6, seed=1)
-    with pytest.raises(NotImplementedError, match="'cox'"):
-        RegressionModel((np.ones(20), np.ones(20)), X, family='cox',
-                        device='cpu')
+    event = np.where(np.arange(20) % 2 == 0, np.arange(20.) + 1, np.inf)
+    censor = np.where(np.isinf(event), np.arange(20.) + 1, np.inf)
+    with pytest.warns(UserWarning, match='sorted'):
+        model = RegressionModel((event, censor), X, family='cox',
+                                device='cpu')
+    assert model.name == 'cox' and not model.intercept_added
     with pytest.raises(NotImplementedError, match='ell'):
         RegressionModel(np.zeros(20), X, family='logit', backend='ell',
                         device='cpu')

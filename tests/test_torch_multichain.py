@@ -181,11 +181,16 @@ def test_inits_shared_per_chain_and_counted():
 
 
 def test_unported_options_raise():
+    """mesh= still raises (ROADMAP item 15); 'hmc', refused before, runs
+    (tests/test_torch_cox_gibbs.py holds its chains to the chain
+    alone)."""
     bridge = _bridge('hybrid_auto')
     with pytest.raises(NotImplementedError, match='item 15'):
         gibbs_chains(bridge, 2, 2, seed=0, mesh=object())
-    with pytest.raises(NotImplementedError, match="'hmc'"):
-        gibbs_chains(bridge, 2, 2, seed=0, coef_sampler_type='hmc')
+    samples, info = gibbs_chains(bridge, 2, 2, seed=0,
+                                 coef_sampler_type='hmc')
+    assert samples['coef'].shape == (2, bridge.n_pred, 2)
+    assert info['_reg_coef_sampling_info']['n_grad_evals'].shape == (2, 2)
 
 
 def _cg_problem(seed, n=80):
