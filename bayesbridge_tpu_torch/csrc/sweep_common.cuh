@@ -253,32 +253,139 @@ void launch_colpass(const void* X0, int64_t ld0, int p0, const void* X1,
 
 // ---- Chain-batched forms: several Markov chains' vectors per read ----
 //
-// The batched column pass computes, for each of C chains, the R
-// reductions of col_tile (R = 1: X'u; R = 4 or 5: those of
-// `accumulate`), from one read of X for all C chains. Each (chain,
-// reduction, column) sum runs in one register, row by row, with the
-// fmaf of the single-vector pass, over the row segments of the
-// single-vector launch (the caller passes them), and the ordered second
-// pass sums the segments: so each chain's column equals its
-// single-vector launch bit for bit, whatever the batch. A thread owns
-// UNIT bytes of a row (16, 8 or 4: the column ownership does not enter a
-// column's sum), chosen so that its C * R * UNIT / sizeof(T)
+// Every batched kernel serves up to kMaxChains chains from one read of X
+// in one launch, each chain's result equal to its single-vector launch
+// bit for bit. A launch for nc chains is compiled for C = nc rounded up
+// to 1, 2, 4 or 8 (chains_for; at least 2 for the row pass, batched_
+// chains); the chains past nc compute on zeros or on whatever their
+// staging holds and are never written. kernels/layout.py `batched_plan`
+// mirrors the geometry below (chains, panels, chunks, shared memory),
+// and bb_batched_smem reports it to the tests on the card.
+
+constexpr int kMaxChains = 8;
+
+__host__ __device__ constexpr int floor_pow2(int x) {
+  return x >= 8 ? 8 : x >= 4 ? 4 : x >= 2 ? 2 : 1;
+}
+
+// The compiled chain count for nc chains (1 <= nc <= kMaxChains).
+__host__ __device__ constexpr int chains_for(int nc) {
+  return nc <= 1 ? 1 : nc == 2 ? 2 : nc <= 4 ? 4 : 8;
+}
+
+// The compiled chain count of the row pass, which has no one-chain
+// form (a lone chain takes the single-vector kernel).
+__host__ __device__ constexpr int batched_chains(int nc) {
+  return nc <= 2 ? 2 : chains_for(nc);
+}
+
+// Asynchronous global -> shared copies (cp.async): 16 bytes through L2
+// only, or 4 bytes; committed in groups and waited for per thread.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most `kPending` of this thread's committed groups are
+// still in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// -- The batched row pass (ne_sweep.cu ne_rows_k): a CTA of row_warps(C)
+// warps owns row_warps(C) * kRowsPerWarpK rows and walks the columns in
+// chunks of kRowChunkK columns; each chunk of the C chains' v is staged
+// in shared memory once per CTA (kRowStagesK buffers, cp.async) and read
+// there by every warp; each lane stages its own share of its warp's next
+// rows (kRowXStagesK steps). Fewer chains hold fewer registers, so their
+// CTAs take more warps and keep more rows' loads in flight.
+constexpr int kRowWarpsK2 = 16;  // warps a CTA at 2 chains
+constexpr int kRowWarpsK4 = 12;  // at 4
+constexpr int kRowWarpsK8 = 12;  // at 8
+constexpr int kRowsPerWarpK = 8;
+constexpr int kRowChunkK = 512;   // columns (v floats per chain) a chunk
+constexpr int kRowStagesK = 3;    // chunks of v staged at once
+constexpr int kRowXStagesK = 3;   // steps of a warp's rows staged at once
+
+__host__ __device__ constexpr int row_warps(int C) {
+  return C <= 2 ? kRowWarpsK2 : C == 4 ? kRowWarpsK4 : kRowWarpsK8;
+}
+
+// The v chunks' ring, then each warp's ring of steps (512 bytes a row).
+__host__ __device__ constexpr int rows_k_smem(int C) {
+  return kRowStagesK * C * kRowChunkK * 4 +
+         row_warps(C) * kRowXStagesK * kRowsPerWarpK * 512;
+}
+
+// -- The batched pre-solve for 5 to 8 chains (tdots_sweep.cu, R = 4 or 5
+// reductions): a CTA owns a column tile and a row segment; row panels of
+// the tile (kTdPanelBytes of X) and the C = 8 chains' u's for those
+// rows, chains interleaved, are staged in shared memory (kTdStages
+// buffers, cp.async). Two warp groups of 4 chains each read the same
+// panel, each thread owning 4 columns of its group's chains.
+constexpr int kTdThreads = 256;
+constexpr int kTdPanelBytes = 16384;
+constexpr int kTdStages = 4;
+constexpr int kTdMinBlocks = 2;  // CTAs an SM is compiled to hold
+constexpr int kTdUnroll = 4;  // panel rows a thread's loop body holds
+
+template <int C> struct TdSplit {
+  static constexpr int sub = 4;                        // chains a group
+  static constexpr int groups = C / sub;
+  static constexpr int cols = 4;                       // a thread's
+  static constexpr int threads = kTdThreads / groups;  // a group's
+  static constexpr int tile_cols = threads * cols;
+};
+
+template <typename T, int C> __host__ __device__ constexpr int td_rows() {
+  return kTdPanelBytes / (TdSplit<C>::tile_cols * (int)sizeof(T));
+}
+
+// Floats of staged u per stage: R - 1 vectors of C chains over the panel
+// rows of a T0 tile (an f32 tile has fewer rows).
+template <typename T0, int R, int C>
+__host__ __device__ constexpr int td_ufloats() {
+  return (R - 1) * td_rows<T0, C>() * C;
+}
+
+template <typename T0, int R, int C>
+__host__ __device__ constexpr int td_smem() {
+  return kTdStages * (kTdPanelBytes + 4 * td_ufloats<T0, R, C>());
+}
+
+// -- The batched column pass (colpass_k, R = 1) and the pre-solve at up
+// to 4 chains (R = 4 or 5): for each of C chains, the R reductions of
+// col_tile (R = 1: X'u; R = 4 or 5: those of `accumulate`), from one read
+// of X for all C chains. Each (chain, reduction, column) sum runs in one
+// register, row by row, with the fmaf of the single-vector pass, over the
+// row segments of the single-vector launch (the caller passes them), and
+// the ordered second pass sums the segments: so each chain's column
+// equals its single-vector launch bit for bit, whatever the batch. A
+// thread owns UNIT bytes of a row (16, 8 or 4: the column ownership does
+// not enter a column's sum), chosen so that its C * R * UNIT / sizeof(T)
 // accumulators fit in registers: kAccBudget floats, the five-reduction
 // int8 pass's 80 that the single-vector kernel holds without spills.
-// Chains beyond C run in further launches (one more read of X each).
-
 constexpr int kAccBudget = 80;
-constexpr int kMaxChains = 8;
 // Bytes of the next rows each column-pass thread keeps in flight: 64 for
 // one or four reductions, 128 for the five-reduction pre-solve, whose
 // threads hold so many accumulators that a block of them fills an SM
 // (baselines/batched_variants.py times the alternatives).
 constexpr int kColBytesInFlight = 64;
 constexpr int kColBytesInFlight5 = 128;
-
-__host__ __device__ constexpr int floor_pow2(int x) {
-  return x >= 8 ? 8 : x >= 4 ? 4 : x >= 2 ? 2 : 1;
-}
 
 // The widest load unit that keeps kMaxChains chains' accumulators in
 // the budget, else 4 bytes; and the chains that then fit.

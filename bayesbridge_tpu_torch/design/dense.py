@@ -32,7 +32,7 @@ axis: a float64 design multiplies the k columns at once; a float32 one
 runs its single-vector product per chain (cuBLAS's k-column product does
 not give each column the bits of its one-column product, and a chain
 must equal itself run alone), except the fused pre-solve, whose
-``tdots_sweep_k`` reads the block once for the chains.
+``tdots_sweep_k`` reads the block once for up to 8 chains.
 """
 
 import copy

@@ -54,7 +54,7 @@ densifies the packed backends' small designs.
 
 Products take one vector or k Markov chains' vectors along a leading
 axis (what the JAX package's ``vmap`` over chains makes of its products,
-``multichain.py``): on the hybrid backend's composed path the chains
+``multichain.py``): on the hybrid backend's composed path up to 8 chains
 share one read of the blocks per launch (``ne_rows_k``, ``colpass_k``,
 ``tdots_sweep_k``); the fused CG operator, bitlut and wincsr run once per
 chain; a float64 design multiplies k columns at once. Each chain's
@@ -684,7 +684,7 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         out_bo[unperm] == quad_matvec(v_bo[unperm], weight), as the row
         pass and then the column pass over slices of the operand, for one
         vector or k chains' rows (one read of the blocks per pass for up
-        to ``bb_max_chains`` chains). With `return_t` also the row pass's
+        to 8 chains, ``kernels.layout.batched_plan``). With `return_t` also the row pass's
         ``t = X v`` (observation order), from which the CG loop
         accumulates the draw's linear predictor."""
         v_bo = self._as_tensor(v_bo)
@@ -740,7 +740,7 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         sweep's reduction set being fixed at four. The squared moment is
         computed from the loaded values, for 0/1 blocks too (where it
         equals X'u3). One vector each, or k chains' rows (one read for up
-        to ``bb_max_chains`` chains)."""
+        to 8 chains, ``kernels.layout.batched_plan``)."""
         us = [self._as_tensor(u) for u in (u1, u2, u3)]
         if u4 is not None:
             us.append(self._as_tensor(u4))

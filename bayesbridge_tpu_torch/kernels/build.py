@@ -58,6 +58,8 @@ _SIGNATURES = {
     'bb_tdots_sweep_k': [_I, _P, _L, _I, _P, _L, _I, _L, _I, _P, _P, _P,
                          _P, _I, _L, _P, _P, _P],
     'bb_max_chains': [_I, _I],
+    'bb_batched_smem': [_I, _I, _I],
+    'bb_batched_occupancy': [_I, _I, _I],
     'bb_rows_per_block': [],
 }
 

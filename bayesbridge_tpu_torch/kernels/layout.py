@@ -13,6 +13,7 @@ row chunks, so that no full float32 copy of a block ever exists (the
 flagship's 4.5 GB int8 block would be 18 GB in f32).
 """
 
+import collections
 import math
 
 import torch
@@ -83,6 +84,69 @@ def check_second_block(Xs):
 def chain_groups(k, cmax):
     """(first chain, count) of each launch for k chains, cmax a launch."""
     return [(c0, min(cmax, k - c0)) for c0 in range(0, k, cmax)]
+
+
+# The chain-batched kernels' launch geometry, as csrc/sweep_common.cuh
+# sets it (bb_batched_smem reports the C side's shared memory; the tests
+# on the card compare).
+MAX_CHAINS = 8
+SMEM_PER_CTA = 232_448        # bytes of shared memory a CTA may use
+ROWS_K = dict(warps={2: 16, 4: 12, 8: 12}, rows_per_warp=8, chunk=512,
+              stages=3, x_stages=3)
+TDOTS_K = dict(threads=256, panel_bytes=16_384, stages=4)  # 5-8 chains
+COLS_K_UROWS = 128            # rows of u the column pass stages at a time
+BATCHED_KINDS = {'rows': 0, 'cols': 1, 'tdots4': 4, 'tdots5': 5}
+
+
+# One batched launch: the `chains` it serves, the `compiled` chains (k
+# rounded up), `rows_per_panel` and `column_chunk` per block (the rows and
+# columns a CTA stages or owns at a time), `smem_bytes` per CTA.
+BatchedPlan = collections.namedtuple(
+    'BatchedPlan', 'chains compiled rows_per_panel column_chunk smem_bytes')
+
+
+def _compiled_chains(kind, nc):
+    c = 1 if nc <= 1 else 2 if nc == 2 else 4 if nc <= 4 else 8
+    return max(c, 2) if kind == 'rows' else c
+
+
+def batched_plan(kind, dtypes, k):
+    """The launch geometry of a batched kernel for `k` chains over blocks
+    of storage `dtypes` (the second float32): `kind` 'rows' (ne_rows_k),
+    'cols' (colpass_k) or 'tdots4' / 'tdots5' (tdots_sweep_k)."""
+    if kind not in BATCHED_KINDS:
+        raise ValueError(f"kind must be one of {sorted(BATCHED_KINDS)}")
+    sizes = [torch.empty((), dtype=d).element_size() for d in dtypes]
+    nc = min(k, MAX_CHAINS)
+    C = _compiled_chains(kind, nc)
+    if kind == 'rows':
+        return BatchedPlan(
+            MAX_CHAINS, C,
+            (ROWS_K['warps'][C] * ROWS_K['rows_per_warp'],) * len(sizes),
+            (ROWS_K['chunk'],) * len(sizes),
+            ROWS_K['stages'] * C * ROWS_K['chunk'] * 4
+            + ROWS_K['warps'][C] * ROWS_K['x_stages']
+            * ROWS_K['rows_per_warp'] * 512)
+    if kind == 'cols' or nc <= 4:
+        # The register-tiled column pass (ColPlan): a thread owns the
+        # widest unit of a row (16, 8 or 4 bytes) whose 8 chains' R
+        # accumulators fit 80 registers; u staged 128 rows at a time.
+        R = 1 if kind == 'cols' else BATCHED_KINDS[kind]
+        units = [next((u for u in (16, 8) if R * 8 * u // s <= 80), 4)
+                 for s in sizes]
+        return BatchedPlan(
+            MAX_CHAINS, C, (COLS_K_UROWS,) * len(sizes),
+            tuple(256 * u // s for u, s in zip(units, sizes)),
+            COLS_K_UROWS * max(R - 1, 1) * C * 4)
+    # 5-8 chains of the pre-solve: two groups of 4 chains, 4 columns a
+    # thread, panels of the tile staged with the chains' u's.
+    R = BATCHED_KINDS[kind]
+    tile_cols = TDOTS_K['threads'] // 2 * 4
+    rows = tuple(TDOTS_K['panel_bytes'] // (tile_cols * s) for s in sizes)
+    u_bytes = 4 * (R - 1) * rows[0] * C
+    return BatchedPlan(MAX_CHAINS, C, rows, (tile_cols,) * len(sizes),
+                       TDOTS_K['stages'] * (TDOTS_K['panel_bytes']
+                                            + u_bytes))
 
 
 def elem_ptr(t, offset_elems):

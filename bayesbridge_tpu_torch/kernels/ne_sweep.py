@@ -30,11 +30,11 @@ Their chain-batched forms serve k Markov chains from one read of the
 blocks per launch (the JAX package's ``vmap`` over chains turns its dots
 into k-column ones, ``multichain.py:34-53``): :func:`ne_rows_k` returns
 ``T = sum_b X_b V_b' + c`` as (k, n), :func:`colpass_k` ``[U X_b]`` as
-(k, p_b). A launch serves up to ``bb_max_chains`` chains (what fits in
-the threads' registers; ``launches['rows_k']`` / ``['cols_k']`` count
-launches, each one read of X); chain c's row equals its single-vector
-launch bit for bit, and k = 1 is the single-vector launch itself. Their
-plain versions run the single plain versions chain by chain.
+(k, p_b). A launch serves up to 8 chains (``layout.batched_plan``, its
+geometry; ``launches['rows_k']`` / ``['cols_k']`` count launches, each
+one read of X); chain c's row equals its single-vector launch bit for
+bit, and k = 1 is the single-vector launch itself. Their plain versions
+run the single plain versions chain by chain.
 """
 
 import torch
@@ -304,7 +304,18 @@ def ne_rows_k(blocks, c):
         return ne_rows_k_plain(blocks, c)
     if k == 1:
         return ne_rows([(X, V[0]) for X, V in blocks], c[0])[None]
-    kl = load_library()
+    plan = layout.batched_plan('rows', [X.dtype for X, _ in blocks], k)
+    T, n_launch = rows_k_launches(load_library(), plan.chains, blocks, c)
+    launches['rows_k'] += n_launch
+    return T
+
+
+def rows_k_launches(kl, cmax, blocks, c):
+    """((k, n) T, launches) of the batched row pass from library `kl`, in
+    launches of at most `cmax` chains."""
+    X0 = blocks[0][0]
+    device, n = X0.device, X0.shape[0]
+    k = c.shape[0]
     args = []
     for i, (X, V) in enumerate(blocks):
         layout.check_cuda_layout(X, f"X{i}")
@@ -319,8 +330,8 @@ def ne_rows_k(blocks, c):
     T = torch.empty((k, n), dtype=torch.float32, device=device)
     (X0, V0, p0), (X1, V1, p1) = args
     stream = torch.cuda.current_stream(device).cuda_stream
-    for c0, nc in layout.chain_groups(k, kl.lib.bb_max_chains(
-            0, layout.DTYPE_CODE[X0.dtype])):
+    groups = layout.chain_groups(k, cmax)
+    for c0, nc in groups:
         with torch.cuda.device(device):
             rc = kl.lib.bb_ne_rows_k(
                 layout.DTYPE_CODE[X0.dtype], X0.data_ptr(), X0.shape[1], p0,
@@ -332,8 +343,7 @@ def ne_rows_k(blocks, c):
                 layout.elem_ptr(c, c0 * c_chain), c_chain, c_stride,
                 layout.elem_ptr(T, c0 * n), stream)
         kl.check(rc, 'ne_rows_k')
-        launches['rows_k'] += 1
-    return T
+    return T, len(groups)
 
 
 def colpass_k_plain(Xs, ps, U):
@@ -356,18 +366,19 @@ def colpass_k(Xs, ps, U):
         return colpass_k_plain(Xs, ps, U)
     if k == 1:
         return [o[None] for o in colpass(Xs, ps, U[0])]
-    out, n_launch = batched_colpass('colpass_k', Xs, ps, n, [U], 1)
+    plan = layout.batched_plan('cols', [X.dtype for X in Xs], k)
+    out, n_launch = batched_colpass('colpass_k', Xs, ps, n, [U], 1,
+                                    load_library(), plan.chains)
     launches['cols_k'] += n_launch
     return list(torch.split(out[:, 0], list(ps), dim=1))
 
 
-def batched_colpass(name, Xs, ps, n, Us, R):
+def batched_colpass(name, Xs, ps, n, Us, R, kl, cmax):
     """((k, R, sum(ps)), launches) of the chain-batched column pass with R
     reductions (1: X'u of one (k, n) vector in `Us`; 4 or 5: the
-    pre-solve's of three or four), in launches of at most
-    ``bb_max_chains(R)`` chains, each over the single-vector launch's
-    row segments."""
-    kl = load_library()
+    pre-solve's of three or four) from library `kl`, in launches of at
+    most `cmax` chains, each over the single-vector launch's row
+    segments."""
     device = Xs[0].device
     k = Us[0].shape[0]
     for i, X in enumerate(Xs):
@@ -375,7 +386,6 @@ def batched_colpass(name, Xs, ps, n, Us, R):
     tiles = sum(layout.col_tiles(p, X) for X, p in zip(Xs, ps))
     n_seg, rows_per_seg = layout.segments(n, tiles, device)
     dt0 = layout.DTYPE_CODE[Xs[0].dtype]
-    cmax = kl.lib.bb_max_chains(R, dt0)
     p_total = sum(ps)
     out = torch.empty((k, R, p_total), dtype=torch.float32, device=device)
     partial = torch.empty(n_seg * min(cmax, k) * R * p_total,
@@ -383,7 +393,8 @@ def batched_colpass(name, Xs, ps, n, Us, R):
     X1 = Xs[1] if len(Xs) == 2 else None
     fn = kl.lib.bb_colpass_k if R == 1 else kl.lib.bb_tdots_sweep_k
     stream = torch.cuda.current_stream(device).cuda_stream
-    for c0, nc in layout.chain_groups(k, cmax):
+    groups = layout.chain_groups(k, cmax)
+    for c0, nc in groups:
         us = [layout.elem_ptr(U, c0 * n) for U in Us]
         if R != 1:
             us += [None] * (4 - len(us))
@@ -395,4 +406,4 @@ def batched_colpass(name, Xs, ps, n, Us, R):
                     rows_per_seg, partial.data_ptr(),
                     layout.elem_ptr(out, c0 * R * p_total), stream)
         kl.check(rc, name)
-    return out, -(-k // cmax)
+    return out, len(groups)

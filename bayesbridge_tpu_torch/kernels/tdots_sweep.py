@@ -15,12 +15,12 @@ multi-RHS dot with the warm start's column). On a CUDA tensor
 :func:`tdots_sweep_plain`. ``launches['tdots']`` and ``launches['u4']``
 count the kernel's launches with four and with five reductions.
 
-:func:`tdots_sweep_k` runs the reductions for k Markov chains, up to
-``bb_max_chains`` of them per read of the blocks (4 beside an int8
-block, 8 beside bf16 or f32; ``launches['tdots_k']`` / ``['u4_k']``
-count the launches), each chain's columns equal to its single-vector
-launch bit for bit; k = 1 is the single-vector launch. The JAX package
-gets this form from ``vmap`` of ``fused_tdots`` over its chains.
+:func:`tdots_sweep_k` runs the reductions for k Markov chains, up to 8
+of them per read of the blocks (``layout.batched_plan``;
+``launches['tdots_k']`` / ``['u4_k']`` count the launches), each chain's
+columns equal to its single-vector launch bit for bit; k = 1 is the
+single-vector launch. The JAX package gets this form from ``vmap`` of
+``fused_tdots`` over its chains.
 """
 
 import torch
@@ -141,7 +141,9 @@ def tdots_sweep_k(Xs, ps, U1, U2, U3, U4=None):
                            U4[0] if U4 is not None else None)
         return [tuple(o[None] for o in blk) for blk in outs]
     R = len(Us) + 1
-    out, n_launch = batched_colpass('tdots_sweep_k', Xs, ps, n, Us, R)
+    plan = layout.batched_plan(f'tdots{R}', [X.dtype for X in Xs], k)
+    out, n_launch = batched_colpass('tdots_sweep_k', Xs, ps, n, Us, R,
+                                    load_library(), plan.chains)
     launches['tdots_k' if U4 is None else 'u4_k'] += n_launch
     outs, off = [], 0
     for p in ps:

@@ -73,8 +73,10 @@ Phases, each of which raises on failure (exit code != 0):
    phase on the same stored blocks: the chain-batched kernels
    (``ne_rows_k``, ``colpass_k``, ``tdots_sweep_k`` with five and four
    reductions) for 1, 2, 4 and 8 chains against their plain versions
-   and, bit for bit, against the chains' single-vector launches, timed
-   beside k x the single launch and the bound; ``gibbs_chains`` with 4
+   and, bit for bit, against the chains' single-vector launches, each
+   call made twice for the same bits and its launches per call logged
+   (one for every k up to 8), timed beside k x the single launch and the
+   bound; ``gibbs_chains`` with 4
    overdispersed chains under 'auto' (the launch counts of the first
    call, ``gibbs_chains_resume`` timed against the single-chain 'auto'
    slice's iter/s, the exact-resume check, a profiler window, split
@@ -1573,9 +1575,13 @@ def batched_kernel_checks(design):
     single-vector launches (torch.equal), timed (CUDA events, median of
     10) beside k x the single launch and the bound (X's bytes once plus
     the k chains' vectors, or 2 n p k R operations at the float32 peak,
-    the larger). Returns the kernels line's entries at k = 4, the
-    chains of the phase's path."""
+    the larger). Each call is made twice on the same inputs, which must
+    give the same bits, and its launches per call are logged (one for
+    every k up to 8). Returns the kernels line's
+    entries at k = 4, the chains of the phase's path."""
     import torch
+    from bayesbridge_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts)
     from bayesbridge_tpu_torch.kernels.ne_sweep import (
         colpass, colpass_k, colpass_k_plain, ne_rows, ne_rows_k,
         ne_rows_k_plain)
@@ -1626,8 +1632,26 @@ def batched_kernel_checks(design):
                                            *(u[i] for u in Us[:3]))),
                 k * (3 * n + 4 * p), 2 * n * p * k * 4),
         }
+        # The launch counter of each kernel, the single-vector one at k = 1.
+        counters = {'ne_rows_k': ('ne_rows_k', 'ne_sweep[rows]'),
+                    'colpass_k': ('colpass_k', 'ne_sweep[cols]'),
+                    'tdots_sweep_k[u4]': ('tdots_sweep_k[u4]',
+                                          'tdots_sweep[u4]'),
+                    'tdots_sweep_k': ('tdots_sweep_k', 'tdots_sweep')}
         for name, (kern, plain, single, floats, ops) in cases.items():
+            reset_launch_counts()
             got = kern()
+            per_call = launch_counts()[counters[name][k == 1]]
+            again = kern()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name} k={k}: a rerun on the same "
+                                     f"inputs gave other bits")
+            del again
+            log(f"  {name} k={k}: {per_call} launch(es) per call; a rerun "
+                f"gives the same bits")
+            if k > 1 and k <= 8 and per_call != 1:
+                raise AssertionError(f"{name} k={k}: {per_call} launches "
+                                     f"per call, not one")
             err = check(f"[multichain] {name} k={k}", got, plain())
             for i in range(k):
                 if not all(torch.equal(g[i], s)
@@ -1713,8 +1737,8 @@ def run_multichain(design, outcome, single_ips):
     assert np.all(np.isfinite(samples['coef']))
     assert np.all(np.isfinite(samples['logp'])), samples['logp']
     # One row and one column pass per CG iteration in which a chain runs,
-    # for all its running chains (up to 4 per launch beside an int8
-    # block; a lone running chain takes the single-vector launch); one
+    # for all its running chains (up to 8 per launch; a lone running
+    # chain takes the single-vector launch); one
     # batched row pass per draw for the warm start, one per chain for
     # the inits' linear predictors; one five-reduction pre-solve per
     # draw.
@@ -1887,6 +1911,30 @@ def cox_kernel_checks(design):
         results[name] = dict(max_abs_err=err, ms=ms,
                              plain_ms=time_ms(lambda: plain(), reps=3),
                              bound_ms=bound, bound_by=by, library_ms=None)
+    # The batched passes at 2 and 8 chains too, each chain its single
+    # launch's bits, timed beside the bound (log only).
+    for kk in (2, 8):
+        Vk = [torch.randn((kk, q), generator=gen, device='cuda')
+              for q in ps]
+        ck = torch.randn(kk, generator=gen, device='cuda') * 0.1
+        Uk = torch.randn((kk, n), generator=gen, device='cuda')
+        bk = list(zip(Xs, Vk))
+        T, cols = ne_rows_k(bk, ck), colpass_k(Xs, ps, Uk)
+        for i in range(kk):
+            if not (torch.equal(T[i], ne_rows([(X, V[i]) for X, V in bk],
+                                              ck[i]))
+                    and all(torch.equal(g[i], s) for g, s in
+                            zip(cols, colpass(Xs, ps, Uk[i])))):
+                raise AssertionError(f"[cox] k={kk}: chain {i} differs "
+                                     f"from its single-vector launches")
+        for name, fn in (('ne_rows_k@cox', lambda: ne_rows_k(bk, ck)),
+                         ('colpass_k@cox', lambda: colpass_k(Xs, ps, Uk))):
+            ms = time_ms(fn)
+            bound, by = bound_ms(x_bytes + 4 * kk * (p + n), 2 * n * p * kk)
+            log(f"  {name} k={kk}: {ms:.3f} ms; bound {bound:.3f} ms "
+                f"({by}); {100 * bound / ms:.0f}% of the bound; the single "
+                f"launches' bits")
+        del Vk, Uk, bk, T, cols
     del Vs, U, blocks, one
     torch.cuda.empty_cache()
     return results

@@ -152,3 +152,57 @@ def test_batched_wrappers_check_their_operands():
     blocks = [(s, torch.from_numpy(V)) for s, V in zip(S, Vs)]
     with pytest.raises(ValueError, match=r'\(k,\)'):
         ne_rows_k(blocks, torch.zeros((3, 5)))
+
+
+PLAN_BLOCKS = {'int8+f32': [torch.int8, torch.float32],
+               'bf16+f32': [torch.bfloat16, torch.float32],
+               'f32+f32': [torch.float32, torch.float32],
+               'int8': [torch.int8], 'bf16': [torch.bfloat16],
+               'f32': [torch.float32]}
+
+
+@pytest.mark.parametrize('kind', sorted(layout.BATCHED_KINDS))
+@pytest.mark.parametrize('blocks', list(PLAN_BLOCKS))
+def test_batched_plan_one_launch_up_to_8_chains(kind, blocks):
+    """The launch plan serves k <= 8 chains in one launch on every block
+    pair (chain_groups agrees), within a CTA's 227 KB of shared memory,
+    and rounds k up to the compiled chain count."""
+    dtypes = PLAN_BLOCKS[blocks]
+    for k in range(1, 9):
+        plan = layout.batched_plan(kind, dtypes, k)
+        assert plan.chains >= 8
+        assert layout.chain_groups(k, plan.chains) == [(0, k)]
+        assert 0 < plan.smem_bytes <= layout.SMEM_PER_CTA
+        assert plan.compiled >= k and plan.compiled in (1, 2, 4, 8)
+        assert len(plan.rows_per_panel) == len(plan.column_chunk) \
+            == len(dtypes)
+        assert min(plan.rows_per_panel) >= 1
+    # Past 8 chains: launches of 8.
+    assert layout.chain_groups(11, layout.batched_plan(
+        kind, dtypes, 11).chains) == [(0, 8), (8, 3)]
+
+
+def test_batched_plan_geometry():
+    """The geometry the CUDA sources compile: the row pass's 96-row
+    panels (128 at 2 chains), 512-column chunks of v and three steps of
+    each warp's rows (192 KB of shared memory at 4 and 8 chains); the
+    pre-solve's staged kernel for 5-8
+    chains (tiles of 512 columns, 32-row int8 and 8-row f32 panels) and
+    the register-tiled pass below (4-byte units of a row, 128 rows of u
+    staged), which the column pass runs at every k."""
+    i8f = [torch.int8, torch.float32]
+    rows = layout.batched_plan('rows', i8f, 8)
+    assert rows == (8, 8, (96, 96), (512, 512), 196_608)
+    assert layout.batched_plan('rows', i8f, 3)[:3] == (8, 4, (96, 96))
+    assert layout.batched_plan('rows', i8f, 1)[:3] == (8, 2, (128, 128))
+    t8 = layout.batched_plan('tdots5', i8f, 6)
+    assert t8 == (8, 8, (32, 8), (512, 512), 4 * (16_384 + 4 * 4 * 32 * 8))
+    t4 = layout.batched_plan('tdots5', i8f, 4)
+    assert t4 == (8, 4, (128, 128), (1024, 512), 128 * 4 * 4 * 4)
+    assert layout.batched_plan('tdots4', i8f, 3).smem_bytes \
+        == 128 * 3 * 4 * 4
+    assert layout.batched_plan('tdots5', i8f, 1).compiled == 1
+    cols = layout.batched_plan('cols', i8f, 8)
+    assert cols == (8, 8, (128, 128), (2048, 1024), 128 * 8 * 4)
+    with pytest.raises(ValueError, match='kind'):
+        layout.batched_plan('gram', i8f, 2)

@@ -26,7 +26,7 @@ import pytest
 import torch
 
 from bayesbridge_tpu_torch.kernels import layout, launch_counts, \
-    reset_launch_counts
+    load_library, reset_launch_counts
 from bayesbridge_tpu_torch.kernels.bitlut import (
     bitlut, bitlut_plain, bitlut_variant, byte_lut_plain,
 )
@@ -136,17 +136,23 @@ def test_row_and_column_pass_entries_match_plain(dev, dtype, two):
     assert torch.equal(torch.cat(outs), torch.cat(colpass(Xs, ps, u)))
 
 
-@pytest.mark.parametrize('k', [2, 3, 5, 8])
-@pytest.mark.parametrize('pair', ['int8+f32', 'bf16+f32', 'f32'])
-def test_batched_kernels_equal_single_launches(dev, pair, k):
-    """ne_rows_k, colpass_k and tdots_sweep_k (four and five reductions)
-    for k chains (ragged k included: launches of up to bb_max_chains
-    chains) against k single-vector launches, bit for bit, and against
-    their plain versions."""
-    g = torch.Generator(device=dev).manual_seed(10 + k)
-    n, widths = 1037, (4097, 513)
+# (n, widths) of the batched kernels' checks: the first crosses the row
+# pass's 96- and 128-row panels and 512-column chunks of v and the
+# pre-solve's tiles (256 to 2048 columns) and panels; the second crosses
+# f32 chunk and tile edges (1025 columns) with n one past a 32-row
+# panel's multiple; 'f32@4001' is the dense design's lone f32 block.
+BATCHED_SHAPES = {'int8+f32': (1037, (4097, 513)),
+                  'bf16+f32': (1037, (4097, 513)),
+                  'f32': (1037, (4097,)),
+                  'int8+f32@2113': (2113, (2049, 1025)),
+                  'f32@4001': (2500, (4001,))}
+
+
+def _batched_inputs(dev, pair, k, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    n, widths = BATCHED_SHAPES[pair]
     Xs = []
-    for kind, p in zip(pair.split('+'), widths):
+    for kind, p in zip(pair.split('@')[0].split('+'), widths):
         X = torch.randn((n, layout.padded_width(p)), generator=g,
                         device=dev)
         if kind == 'int8':
@@ -160,6 +166,16 @@ def test_batched_kernels_equal_single_launches(dev, pair, k):
     Vs = [torch.randn((k, p), generator=g, device=dev) for p in ps]
     Us = [torch.randn((k, n), generator=g, device=dev) for _ in range(4)]
     c = torch.randn(k, generator=g, device=dev)
+    return Xs, ps, Vs, Us, c
+
+
+@pytest.mark.parametrize('k', [2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize('pair', list(BATCHED_SHAPES))
+def test_batched_kernels_equal_single_launches(dev, pair, k):
+    """ne_rows_k, colpass_k and tdots_sweep_k (four and five reductions)
+    for k chains in one launch each, against k single-vector launches,
+    bit for bit, and against their plain versions."""
+    Xs, ps, Vs, Us, c = _batched_inputs(dev, pair, k, 10 + k)
     blocks = list(zip(Xs, Vs))
     reset_launch_counts()
     T = ne_rows_k(blocks, c)
@@ -167,8 +183,8 @@ def test_batched_kernels_equal_single_launches(dev, pair, k):
     four = tdots_sweep_k(Xs, ps, *Us[:3])
     five = tdots_sweep_k(Xs, ps, *Us)
     counts = launch_counts()
-    assert counts['ne_rows_k'] >= 1 and counts['colpass_k'] >= 1
-    assert counts['tdots_sweep_k'] >= 1 and counts['tdots_sweep_k[u4]'] >= 1
+    assert counts['ne_rows_k'] == counts['colpass_k'] == 1
+    assert counts['tdots_sweep_k'] == counts['tdots_sweep_k[u4]'] == 1
     assert counts['ne_sweep[rows]'] == counts['tdots_sweep'] == 0
     for i in range(k):
         assert torch.equal(T[i], ne_rows([(X, V[i]) for X, V in blocks],
@@ -186,6 +202,47 @@ def test_batched_kernels_equal_single_launches(dev, pair, k):
     _assert_close([o for blk in five for o in blk],
                   [o for blk in tdots_sweep_k_plain(Xs, ps, *Us)
                    for o in blk])
+
+
+@pytest.mark.parametrize('k', [2, 4, 8])
+def test_batched_kernels_reruns_give_the_same_bits(dev, k):
+    """20 launches of each batched kernel on the same inputs give the same
+    bits, at a shape whose grids put several CTAs on each SM at once
+    (20,000 rows of 9,001 int8 and 999 f32 columns)."""
+    g = torch.Generator(device=dev).manual_seed(21)
+    n, pe, pf = 20_000, 9_001, 999
+    Xe = (torch.rand((n, layout.padded_width(pe)), generator=g,
+                     device=dev) < .1).to(torch.int8)
+    Xf = torch.randn((n, layout.padded_width(pf)), generator=g, device=dev)
+    Xs, ps = [Xe, Xf], [pe, pf]
+    Vs = [torch.randn((k, p), generator=g, device=dev) for p in ps]
+    Us = [torch.randn((k, n), generator=g, device=dev) for _ in range(4)]
+    c = torch.randn(k, generator=g, device=dev)
+    calls = [lambda: [ne_rows_k(list(zip(Xs, Vs)), c)],
+             lambda: colpass_k(Xs, ps, Us[0]),
+             lambda: [o for blk in tdots_sweep_k(Xs, ps, *Us) for o in blk],
+             lambda: [o for blk in tdots_sweep_k(Xs, ps, *Us[:3])
+                      for o in blk]]
+    for call in calls:
+        first = call()
+        for _ in range(19):
+            assert all(torch.equal(a, b) for a, b in zip(call(), first))
+
+
+def test_batched_plan_matches_the_kernels(dev):
+    """layout.batched_plan's chains and shared memory are the library's
+    (bb_max_chains, bb_batched_smem) for every kind, storage type and k;
+    the pre-solve's CTAs share an SM as designed."""
+    kl = load_library()
+    for kind, code in layout.BATCHED_KINDS.items():
+        for dtype, dt in layout.DTYPE_CODE.items():
+            for k in range(1, 9):
+                plan = layout.batched_plan(kind, [dtype, torch.float32], k)
+                assert kl.lib.bb_max_chains(code, dt) == plan.chains == 8
+                assert kl.lib.bb_batched_smem(code, dt, k) \
+                    == plan.smem_bytes
+                assert kl.lib.bb_batched_occupancy(code, dt, k) >= 1
+    assert kl.lib.bb_batched_occupancy(5, 2, 8) >= 2
 
 
 def test_chains_on_card_equal_single_chains(dev):
