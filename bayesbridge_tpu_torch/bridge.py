@@ -11,6 +11,7 @@ ring) to continue, so that a resumed and merged run equals an
 uninterrupted one exactly.
 """
 
+import copy
 import time
 from warnings import warn
 
@@ -269,8 +270,8 @@ class BayesBridge:
         obs_prec = self._initialize_obs_precision(init, coef)
 
         if coef_only_specified:
-            gscale = self._update_global_scale_mc_em(
-                coef[self.n_unshrunk:], bridge_exp)
+            gscale = self.update_global_scale(
+                None, coef[self.n_unshrunk:], bridge_exp, method='optimize')
             lscale = self._draw_local_scale(
                 gscale, coef[self.n_unshrunk:], bridge_exp)
         else:
@@ -340,25 +341,9 @@ class BayesBridge:
         lin_pred = self.model.design.dot(coef)
         if self.model.name == 'linear':
             resid = (self.model.y - lin_pred).double().cpu().numpy()
-            return self.rg.gamma(self.n_obs / 2) / (np.sum(resid ** 2) / 2)
+            return float(self.rg.gamma(self.n_obs / 2)) \
+                / (np.sum(resid ** 2) / 2)
         return self.rg.polya_gamma(self.model.n_trial_np, lin_pred)
-
-    def _update_global_scale_mc_em(self, coef_shrunk, bridge_exp):
-        """MC-EM 'optimize' update with the lower-bound guard
-        (bayesbridge.py:418-456)."""
-        if coef_shrunk.size == 0:
-            return 1.0
-        phi = len(coef_shrunk) / bridge_exp \
-            / np.sum(np.abs(coef_shrunk) ** bridge_exp)
-        gscale = phi ** -(1 / bridge_exp)
-        lower_bd = 0.001 / self.prior.compute_power_exp_ave_magnitude(
-            bridge_exp)
-        if gscale < lower_bd:
-            warn("The global shrinkage parameter update returned an "
-                 "unreasonably small value. Returning a specified lower "
-                 "bound value instead.")
-            gscale = lower_bd
-        return gscale
 
     def _draw_local_scale(self, gscale, coef_shrunk, bridge_exp):
         """Eager one-time local-scale draw (bayesbridge.py:458-478)."""
@@ -370,6 +355,128 @@ class BayesBridge:
         lscale[lscale == 0] = 1e-15
         lscale[np.isinf(lscale)] = 2.0 / gscale
         return lscale
+
+    # ------------------------------------------------------------------ #
+    # Public component updates (bridge.py:400-524; reference:            #
+    # bayesbridge.py:355-511): the building blocks of custom samplers.   #
+    # Each draws from the bridge's generator and takes and returns host  #
+    # values; the Gibbs step runs the same updates on the device.        #
+    # ------------------------------------------------------------------ #
+
+    def initialize_obs_precision(self, init, coef):
+        """Observation precision from an init dict, or its model-specific
+        moment-matched default (bayesbridge.py:355-370)."""
+        return self._initialize_obs_precision(
+            dict(init), np.asarray(coef, dtype=np.float64))
+
+    def update_regress_coef(self, coef, obs_prec, gscale, lscale,
+                            sampling_method):
+        """One conditional draw of coef | obs_prec, gscale, lscale
+        (bayesbridge.py:372-395) by 'cholesky', 'cg', 'hmc' or 'nuts',
+        from a fresh one-chain carry (its summarizer and, for HMC, its
+        stepsize adapter at their starts). Returns ``(coef, info)``."""
+        cfg = self._step_config(SamplerOptions(sampling_method))
+        carry = step_mod.init_carry(self.device, coef, obs_prec, gscale,
+                                    lscale, dtype=self.dtype, cfg=cfg)
+        new_coef, _, info = step_mod.update_regress_coef_chains(
+            cfg, self.model, [self.rg.gen], step_mod.stack_carries([carry]))
+        return new_coef[0].cpu().numpy(), {
+            key: val[0].cpu().numpy() if torch.is_tensor(val)
+            else np.asarray(val)[0] for key, val in info.items()}
+
+    def update_obs_precision(self, coef):
+        """One conditional draw of the observation precision | coef
+        (bayesbridge.py:397-410): the linear model's Gamma draw of the
+        precision, the logit model's Polya-Gamma latent precisions, None
+        for Cox."""
+        if self.model.name not in ('linear', 'logit'):
+            return None
+        return self._draw_obs_precision(np.asarray(coef, np.float64))
+
+    def update_global_scale(self, gscale, coef_under_shrinkage, bridge_exp,
+                            coef_expected_magnitude_lower_bd=.001,
+                            method='sample'):
+        """Global-scale update | coef (bayesbridge.py:412-448): the
+        conjugate Gamma draw on phi = gscale^(-bridge_exp) ('sample'),
+        the MC-EM maximizer ('optimize') or none (None), with the
+        lower-bound guard."""
+        coef_under_shrinkage = np.asarray(coef_under_shrinkage, np.float64)
+        if coef_under_shrinkage.size == 0:
+            return 1.0  # placeholder, as in the reference
+        lower_bd = coef_expected_magnitude_lower_bd \
+            / self.prior.compute_power_exp_ave_magnitude(bridge_exp)
+        if method == 'optimize':
+            gscale = self.monte_carlo_em_global_scale(
+                coef_under_shrinkage, bridge_exp)
+        elif method == 'sample':
+            if np.count_nonzero(coef_under_shrinkage) == 0:
+                gscale = 0.0
+            else:
+                prior_param = self.prior.param['gscale_neg_power']
+                shape = prior_param['shape'] \
+                    + coef_under_shrinkage.size / bridge_exp
+                rate = prior_param['rate'] \
+                    + np.sum(np.abs(coef_under_shrinkage) ** bridge_exp)
+                phi = float(self.rg.gamma(shape)) / rate
+                gscale = phi ** -(1 / bridge_exp)
+        elif method is not None:
+            raise ValueError(method)
+        if method is not None and gscale < lower_bd:
+            warn("The global shrinkage parameter update returned an "
+                 "unreasonably small value. Returning a specified lower "
+                 "bound value instead.")
+            gscale = lower_bd
+        return gscale
+
+    def monte_carlo_em_global_scale(self, coef_under_shrinkage,
+                                    bridge_exp):
+        """The maximizer of the likelihood of coef | gscale
+        (bayesbridge.py:450-456)."""
+        coef_under_shrinkage = np.asarray(coef_under_shrinkage)
+        phi = len(coef_under_shrinkage) / bridge_exp \
+            / np.sum(np.abs(coef_under_shrinkage) ** bridge_exp)
+        return phi ** -(1 / bridge_exp)
+
+    def update_local_scale(self, gscale, coef_under_shrinkage, bridge_exp):
+        """Local-scale draw | gscale, coef by exponentially tilted stable
+        variables (bayesbridge.py:458-478), warning where it replaces an
+        under- or overflow (the first of the two that occurs, as the
+        JAX package does)."""
+        coef_under_shrinkage = np.asarray(coef_under_shrinkage, np.float64)
+        if bridge_exp == 2:
+            return .5 * np.ones(coef_under_shrinkage.size)
+        ts = self.rg.tilted_stable(bridge_exp / 2,
+                                   (coef_under_shrinkage / gscale) ** 2)
+        lscale = np.sqrt(0.5 / ts.astype(np.float64))
+        if np.any(lscale == 0):
+            warn("Local scale parameter under-flowed. Replacing with a "
+                 "small number.")
+            lscale[lscale == 0] = 1e-15
+        elif np.any(np.isinf(lscale)):
+            warn("Local scale parameter over-flowed. Replacing with a "
+                 "large number.")
+            lscale[np.isinf(lscale)] = 2.0 / gscale
+        return lscale
+
+    def compute_posterior_logprob(self, coef, gscale, obs_prec, bridge_exp):
+        """Joint log density of (coef, gscale | rest)
+        (bayesbridge.py:480-511), in the chain's dtype."""
+        cfg = self._step_config(SamplerOptions(
+            'cg' if self.model.name != 'cox' else 'hmc'))
+        if bridge_exp != cfg.bridge_exp:
+            cfg = copy.copy(cfg)
+            cfg.bridge_exp = float(bridge_exp)
+
+        def one(x):
+            return torch.as_tensor(np.asarray(x, np.float64),
+                                   dtype=self.dtype, device=self.device)[None]
+
+        coef = one(coef)
+        lin_pred = None if self.model.name == 'cox' \
+            else self.model.design.dot(coef)
+        obs_prec = None if obs_prec is None else one(obs_prec)
+        return float(step_mod.compute_posterior_logprob(
+            cfg, self.model, coef, one(gscale), obs_prec, lin_pred)[0])
 
     def _warn_guard_rails(self, carry):
         """Surface the step's numerical guard-rail counters as warnings

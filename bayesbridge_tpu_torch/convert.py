@@ -109,16 +109,20 @@ def packed_design_from_numpy(backend, arrays, meta, column_offset, shape,
                              nnz=None, add_intercept=True,
                              center_predictor=False, device='cuda',
                              fused=None):
-    """A bitpack or winell SparseDesignMatrix from the JAX design's arrays.
+    """A bitpack, winell or ell SparseDesignMatrix from the JAX design's
+    arrays.
 
     Parameters
     ----------
-    backend : 'bitpack' | 'winell'
+    backend : 'bitpack' | 'winell' | 'ell'
     arrays : {name: numpy array} holding the JAX design's attributes of
         those names: bits_col, bits_row, X_float, bin_cols, float_cols
         (bitpack); widx_dot, wval_dot, widx_tdot, wval_tdot, sd_idx,
-        sd_val, st_idx, st_val (winell)
-    meta : the JAX design's ``_bitpack_meta`` / ``_winell_meta``
+        sd_val, st_idx, st_val (winell); row_idx, row_val, col_idx,
+        col_val (ell, whose values' dtype, float32 or float64, is the
+        design's)
+    meta : the JAX design's ``_bitpack_meta`` / ``_winell_meta``; None
+        for ell
     column_offset : (p,) centering offsets (zeros when not centered)
     shape : (n, p) of the main design, intercept excluded
     """
@@ -127,11 +131,13 @@ def packed_design_from_numpy(backend, arrays, meta, column_offset, shape,
     parts = {name: np.asarray(arrays[name])
              for name in PACKED_ARRAYS[backend]}
     parts.update(backend=backend, column_offset=np.asarray(
-        column_offset, np.float64), shape_main=tuple(shape), nnz=nnz,
-        meta=tuple(meta))
+        column_offset, np.float64), shape_main=tuple(shape), nnz=nnz)
+    if meta is not None:
+        parts['meta'] = tuple(meta)
+    dtype = parts['row_val'].dtype if backend == 'ell' else np.float32
     return SparseDesignMatrix(None, center_predictor=center_predictor,
-                              add_intercept=add_intercept, fused=fused,
-                              device=device, _parts=parts)
+                              add_intercept=add_intercept, dtype=dtype,
+                              fused=fused, device=device, _parts=parts)
 
 
 def cox_model_from_numpy(event_time, censoring_time, design,

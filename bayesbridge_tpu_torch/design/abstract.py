@@ -13,9 +13,33 @@ row is the product of its vector alone.
 """
 
 import abc
+import functools
 import warnings
 
 import numpy as np
+import torch
+
+
+def _host(v):
+    return v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+
+
+def memoized_dot(dot):
+    """Decorate a design's `dot` with the memo of :meth:`memoize_dot`:
+    while it is on, a call with the caller's value equal to the last
+    call's returns that call's result, without a product or a count."""
+    @functools.wraps(dot)
+    def wrapper(self, v):
+        if not self.memoized:
+            return dot(self, v)
+        if self._memo_v is not None and np.array_equal(self._memo_v,
+                                                       _host(v)):
+            return self._memo_result
+        result = dot(self, v)
+        self._memo_v = np.array(_host(v), copy=True)
+        self._memo_result = result
+        return result
+    return wrapper
 
 
 class AbstractDesignMatrix(abc.ABC):
@@ -23,6 +47,9 @@ class AbstractDesignMatrix(abc.ABC):
     def __init__(self):
         self.dot_count = 0
         self.Tdot_count = 0
+        self.memoized = False
+        self._memo_v = None
+        self._memo_result = None
 
     @property
     @abc.abstractmethod
@@ -95,6 +122,23 @@ class AbstractDesignMatrix(abc.ABC):
 
     def get_dot_count(self):
         return self.dot_count, self.Tdot_count
+
+    def reset_matvec_count(self, count=0):
+        """Set the (dot, Tdot) counters to `count` (one number for both,
+        or a pair)."""
+        if not hasattr(count, "__len__"):
+            count = (count, count)
+        self.dot_count, self.Tdot_count = count[0], count[1]
+
+    def memoize_dot(self, flag=True):
+        """Cache X v for a repeated identical v (abstract.py:142-149,
+        after the reference's abstract_matrix.py:42-48): the memo keys on
+        the caller's value, copied to the host; turning it off drops
+        it."""
+        self.memoized = flag
+        if not flag:
+            self._memo_v = None
+            self._memo_result = None
 
     # -- preprocessing -------------------------------------------------- #
 

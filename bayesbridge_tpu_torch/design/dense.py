@@ -41,7 +41,7 @@ import warnings
 import numpy as np
 import torch
 
-from .abstract import AbstractDesignMatrix
+from .abstract import AbstractDesignMatrix, memoized_dot
 from .fusedne import POLICIES, dispatch_mode
 from .gram import chunked_gram, squared_col_moment
 from ..kernels.ne_sweep import ne_sweep
@@ -161,6 +161,7 @@ class DenseDesignMatrix(AbstractDesignMatrix):
         product; a float32 design's chains run one at a time."""
         return x.dim() == 2 and self.dtype == torch.float64
 
+    @memoized_dot
     def dot(self, v):
         """X v, or X v_c for each row of v (k, p): (k, n)."""
         v = self._as_tensor(v)
@@ -288,3 +289,7 @@ class DenseDesignMatrix(AbstractDesignMatrix):
 
     def toarray(self):
         return self.X_main.cpu().numpy()
+
+    def extract_matrix(self, order=None):
+        """The stored (n, p) design on its device (dense.py:222-223)."""
+        return self.X_main

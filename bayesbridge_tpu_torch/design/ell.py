@@ -1,9 +1,10 @@
 """CSR -> padded ELL conversion (host side, one-time data preparation).
 
-Port of ``bayesbridge_tpu/design/ell.py`` ``csr_to_ell`` (its NumPy
-path). The winell backend stores its spill matrices this way: every row
+Port of ``bayesbridge_tpu/design/ell.py`` (its NumPy path): every row
 padded to the longest row, padding index `pad_value` with value 0, so a
-padded gather lane adds exactly zero.
+padded gather lane adds exactly zero. The ell backend stores X and X'
+this way (:func:`dual_ell_from_scipy`), the winell backend its spill
+matrices.
 """
 
 import numpy as np
@@ -24,3 +25,16 @@ def csr_to_ell(indptr, indices, data, n_cols, pad_value=0):
     ell_idx[valid] = indices[flat_pos]
     ell_val[valid] = data[flat_pos]
     return ell_idx, ell_val
+
+
+def dual_ell_from_scipy(X_csr, dtype):
+    """((row_idx, row_val), (col_idx, col_val)): the row-ELL of X and the
+    row-ELL of X' (ell.py:47-59), values in `dtype`, explicit zeros kept
+    as entries."""
+    X_csr = X_csr.tocsr()
+    X_csc = X_csr.tocsc()
+    rows = csr_to_ell(X_csr.indptr, X_csr.indices,
+                      X_csr.data.astype(dtype), X_csr.shape[1])
+    cols = csr_to_ell(X_csc.indptr, X_csc.indices,
+                      X_csc.data.astype(dtype), X_csc.shape[0])
+    return rows, cols

@@ -1,7 +1,7 @@
-"""Sparse design matrix: the hybrid, bitpack and winell backends.
+"""Sparse design matrix: the hybrid, bitpack, winell and ell backends.
 
 Port of ``bayesbridge_tpu/design/sparse.py`` (unsharded; float32, and
-float64 on the hybrid backend).
+float64 on the hybrid and ell backends).
 
 ``hybrid``
     Dense blocks split by column representability: the exactly
@@ -35,8 +35,16 @@ float64 on the hybrid backend).
     packing with its plain-ELL spill (:mod:`.winell`) is planned
     alongside and packed only on demand (``winell_packing``); a JAX
     design's packing carries across into the windowed CSR.
+``ell``
+    Where neither packed form fits and dense blocks would be larger: the
+    row-ELL of X and the row-ELL of X' (:func:`.ell.dual_ell_from_scipy`,
+    every row padded to the longest with index 0, value 0), in float32
+    or float64. `dot` runs the gather kernel (:mod:`..kernels.ell`) on
+    the row-ELL, `Tdot` and the Fisher diagonal's moments on the
+    col-ELL. Every large float64 sparse design lands here under
+    ``'auto'`` (bitpack and winell are float32 only).
 
-The fused sweeps serve the hybrid backend only; the other two run the
+The fused sweeps serve the hybrid backend only; the other three run the
 composed path (`quad_matvec` = `dot` then `Tdot`, the pre-solve as
 separate `Tdot`s and the Fisher diagonal), whatever `fused` says, as in
 the JAX package; so does a hybrid design without an exact column.
@@ -54,20 +62,21 @@ densifies the packed backends' small designs.
 
 Products take one vector or k Markov chains' vectors along a leading
 axis (what the JAX package's ``vmap`` over chains makes of its products,
-``multichain.py``): on the hybrid backend's composed path up to 8 chains
-share one read of the blocks per launch (``ne_rows_k``, ``colpass_k``,
-``tdots_sweep_k``); the fused CG operator, bitlut and wincsr run once per
-chain; a float64 design multiplies k columns at once. Each chain's
-result is its single-vector product, bit for bit in float32.
+``multichain.py``): on the hybrid backend's composed path and on ell up
+to 8 chains share one read of the design per launch (``ne_rows_k``,
+``colpass_k``, ``tdots_sweep_k``; ``ell_matvec_k``); the fused CG
+operator, bitlut and wincsr run once per chain; a float64 hybrid design
+multiplies k columns at once. Each chain's result is its single-vector
+product, bit for bit on the kernels.
 
-Not ported (each raises NotImplementedError): the ell backend and the
-int4 tier (no int4 MMA on Hopper). bitpack and winell refuse float64 on
-every build path.
+Not ported: the int4 tier (no int4 MMA on Hopper). bitpack and winell
+refuse float64 on every build path (NotImplementedError).
 """
 
 import copy
 import os
 import time
+import warnings
 
 import numpy as np
 import scipy.sparse as sps
@@ -76,10 +85,12 @@ import torch
 from . import bitlut as bitlut_mod
 from . import wincsr as wincsr_mod
 from . import winell as winell_mod
-from .abstract import AbstractDesignMatrix
+from .abstract import AbstractDesignMatrix, memoized_dot
+from .ell import dual_ell_from_scipy
 from .fusedne import POLICIES, dispatch_mode
 from ..kernels import layout
 from ..kernels.bitlut import bitlut
+from ..kernels.ell import ell_matvec_k
 from ..kernels.ne_sweep import colpass_k, ne_rows_k, ne_sweep
 from ..kernels.tdots_sweep import tdots_sweep_k
 from ..kernels.wincsr import wincsr
@@ -107,6 +118,7 @@ PACKED_ARRAYS = {
                 'float_cols'),
     'winell': ('widx_dot', 'wval_dot', 'widx_tdot', 'wval_tdot', 'sd_idx',
                'sd_val', 'st_idx', 'st_val'),
+    'ell': ('row_idx', 'row_val', 'col_idx', 'col_val'),
 }
 
 
@@ -131,11 +143,13 @@ def _int8_exact(data):
 
 def choose_backend(X_csr, int8_mask, bf16_mask, binary_mask,
                    dtype=torch.float32):
-    """The JAX package's ``backend='auto'`` rule (sparse.py:327-386,
+    """The JAX package's ``backend='auto'`` rule (sparse.py:327-403,
     without the int4 tier): hybrid while its blocks fit the budget, then
     (float32 only) bitpack for mostly-binary designs, then winell while
     its slots fill sanely, then the least bad of hybrid and ell. Under
-    float64 every hybrid column is 8 bytes."""
+    float64 every hybrid column is 8 bytes, and where a float32 design
+    would have taken bitpack or winell it warns as the JAX package
+    does."""
     n, p = X_csr.shape
     nnz = X_csr.nnz
     f32 = dtype == torch.float32
@@ -162,7 +176,18 @@ def choose_backend(X_csr, int8_mask, bf16_mask, binary_mask,
         return 'bitpack'
     if winell_bytes <= _BITPACK_MAX_BYTES and winell_ok and f32:
         return 'winell'
-    return 'hybrid' if hybrid_bytes <= ell_bytes else 'ell'
+    backend = 'hybrid' if hybrid_bytes <= ell_bytes else 'ell'
+    packed_bytes = min(
+        bitpack_bytes if binary_frac >= _BITPACK_MIN_BINARY_FRAC
+        else np.inf, winell_bytes if winell_ok else np.inf)
+    if not f32 and packed_bytes <= _BITPACK_MAX_BYTES:
+        warnings.warn(
+            "backend='auto' selected '{}' only because the compiled "
+            "bitpack/winell kernels are 32-bit; at this scale ({:,} x "
+            "{:,}) that costs memory or throughput. Build the design with "
+            "dtype=np.float32 (works inside x64 sessions) to use the fast "
+            "beyond-HBM path.".format(backend, n, p))
+    return backend
 
 
 def _densify(X_csr, cols, np_dtype, width):
@@ -241,8 +266,10 @@ class SparseDesignMatrix(AbstractDesignMatrix):
                                masks['bf16'])
         elif backend == 'bitpack':
             self._build_bitpack(X, offsets, masks['binary'])
-        else:
+        elif backend == 'winell':
             self._build_winell(X, offsets)
+        else:
+            self._build_ell(X, offsets)
 
     def with_policy(self, fused):
         """This design's stored arrays (shared, not copied) under another
@@ -256,19 +283,16 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         return other
 
     def _set_backend(self, backend):
-        if backend == 'ell':
-            raise NotImplementedError(
-                "backend='ell': the dual-ELL backend is not ported "
-                "(ROADMAP.md Queue 1 item 12)")
-        if backend not in ('hybrid', 'bitpack', 'winell'):
+        if backend not in ('hybrid', 'bitpack', 'winell', 'ell'):
             raise ValueError(f"Unknown backend '{backend}'")
-        if backend != 'hybrid' and self._dtype != torch.float32:
+        if backend in ('bitpack', 'winell') \
+                and self._dtype != torch.float32:
             # Both build paths (sparse.py:266-292 gates only the fresh
             # one): the bitmap and windowed-CSR kernels are float32.
             raise NotImplementedError(
                 f"backend={backend!r} runs float32 only (its kernels are "
                 f"32-bit); got {self._dtype}. float64 runs on the hybrid "
-                "backend.")
+                "and ell backends.")
         self.backend = backend
 
     # -- construction ---------------------------------------------------- #
@@ -356,6 +380,18 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         self._set_wincsr(offsets, (n, p), nnz, meta, X)
         self.build_seconds['wincsr'] = time.perf_counter() - t0
 
+    def _build_ell(self, X, offsets):
+        """The row-ELL of X and of X' in the working dtype (sparse.py
+        :757-764)."""
+        t0 = time.perf_counter()
+        np_dtype = np.float64 if self._dtype == torch.float64 \
+            else np.float32
+        (row_idx, row_val), (col_idx, col_val) = \
+            dual_ell_from_scipy(X, np_dtype)
+        self.build_seconds['ell'] = time.perf_counter() - t0
+        self._set_ell(row_idx, row_val, col_idx, col_val, offsets, X.shape,
+                      X.nnz)
+
     def _set_common(self, column_offset, shape_main, nnz):
         self._shape_main = tuple(shape_main)
         self._nnz = nnz
@@ -424,6 +460,18 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         self.wc_tdot = wincsr_mod.build_wincsr(
             X_csr.T.tocsr()).to(self.device)
 
+    def _set_ell(self, row_idx, row_val, col_idx, col_val, column_offset,
+                 shape_main, nnz):
+        """The dual ELL arrays (the JAX design's, or built here; rows past
+        the design's are cut)."""
+        self._set_common(column_offset, shape_main, nnz)
+        self.exact_is_binary = False
+        n, p = shape_main
+        self.row_idx = self._dev(np.asarray(row_idx)[:n], torch.int32)
+        self.row_val = self._dev(np.asarray(row_val)[:n], self._dtype)
+        self.col_idx = self._dev(np.asarray(col_idx)[:p], torch.int32)
+        self.col_val = self._dev(np.asarray(col_val)[:p], self._dtype)
+
     def winell_packing(self):
         """The JAX package's windowed-ELL arrays of this winell design (by
         the names of ``PACKED_ARRAYS['winell']``, numpy, element for
@@ -450,8 +498,8 @@ class SparseDesignMatrix(AbstractDesignMatrix):
 
     @property
     def dtype(self):
-        """The working dtype: float32, or float64 on the hybrid backend
-        (sparse.py:829-844 reads it off the stored arrays)."""
+        """The working dtype: float32, or float64 on the hybrid and ell
+        backends (sparse.py:829-844 reads it off the stored arrays)."""
         return self._dtype
 
     def _stored_tensors(self):
@@ -459,6 +507,8 @@ class SparseDesignMatrix(AbstractDesignMatrix):
             return (self.X_exact, self.X_float)
         if self.backend == 'bitpack':
             return (self.bits_col, self.bits_row, self.X_float)
+        if self.backend == 'ell':
+            return (self.row_idx, self.row_val, self.col_idx, self.col_val)
         return self.wc_dot.tensors() + self.wc_tdot.tensors()
 
     def storage_bytes(self):
@@ -487,9 +537,10 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         return self.backend == 'hybrid' and self.n_exact > 0
 
     def _kernels(self):
-        """Whether the products run on the hand-written kernels: the
-        float32 designs. A float64 design, which has one hybrid block,
-        runs them as torch.matmul, the one place that decides it."""
+        """Whether a hybrid design's products run on the hand-written
+        kernels: the float32 ones. A float64 hybrid design, which has one
+        block, runs them as torch.matmul, the one place that decides
+        it."""
         return self._dtype == torch.float32
 
     # -- helpers --------------------------------------------------------- #
@@ -588,8 +639,10 @@ class SparseDesignMatrix(AbstractDesignMatrix):
                 result = result + torch.stack([layout.matvec(
                     self.X_float, self.n_float, v[self.float_cols])
                     for v in V])
-        else:
+        elif self.backend == 'winell':
             result = torch.stack([self._winell_dot_main(v) for v in V])
+        else:  # one launch for up to 8 chains
+            result = ell_matvec_k(self.row_idx, self.row_val, V.contiguous())
         return result - offset[:, None]
 
     def main_Tdot(self, U):
@@ -606,6 +659,7 @@ class SparseDesignMatrix(AbstractDesignMatrix):
             raw = self._weighted_col_moments(U, 1)
         return raw - rsum(U)[:, None] * self.column_offset
 
+    @memoized_dot
     def dot(self, v):
         """X v, or X v_c for each row of v (k, p): (k, n)."""
         v = self._as_tensor(v)
@@ -782,11 +836,15 @@ class SparseDesignMatrix(AbstractDesignMatrix):
 
     def _weighted_col_moments(self, W, power):
         """sum_i w_i * X_ij^power per main column j, uncentered, on the
-        packed backends (sparse.py:1490-1508), for each chain's row of W
-        (k, n): the kernels run once per chain. 0/1 bits are idempotent
-        under powers, so the bitmaps serve both moments as X' w; the float
-        side block squares in row chunks, never as a whole-block
-        transient."""
+        packed and ell backends (sparse.py:1490-1537), for each chain's
+        row of W (k, n): the ell kernel on the col-ELL for up to 8 chains
+        a launch, the other kernels once per chain. 0/1 bits are
+        idempotent under powers, so the bitmaps serve both moments as X'
+        w; the float side block squares in row chunks, never as a
+        whole-block transient."""
+        if self.backend == 'ell':
+            return ell_matvec_k(self.col_idx, self.col_val, W.contiguous(),
+                                power=power, tag='tdot')
         if self.backend == 'winell':
             return torch.stack([self._winell_tdot_main(w, power=power)
                                 for w in W])
@@ -844,6 +902,8 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         weight = self._as_tensor(weight)
         if self.backend == 'hybrid':
             G, s1 = self._gram_main(weight)
+        elif self.backend == 'ell':
+            G, s1 = self._ell_gram_main(weight)
         else:
             # The packed backends serve designs far past the Cholesky
             # size, so the guarded densify only meets small ones.
@@ -882,6 +942,26 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         G, s1 = chunked_gram(chunk, n, p_main, weight, self._dtype)
         inv = torch.argsort(torch.cat(self._block_cols()))
         return G[inv][:, inv], s1[inv]
+
+    def _ell_gram_main(self, weight):
+        """(X' W X, X' w) over the uncentered main columns (sparse.py
+        :1633-1648): each row chunk's (slot -> column) pairs scattered
+        into a bounded dense panel, through :func:`.gram.chunked_gram`.
+        A padded slot adds value 0 at column 0."""
+        p_main = self._shape_main[1]
+        width = self.row_idx.shape[1]
+
+        def chunk(start, size):
+            idx = self.row_idx[start:start + size].long()
+            rows = torch.arange(size, device=self.device)[:, None] \
+                .expand(-1, width)
+            Z = torch.zeros((size, p_main), dtype=self._dtype,
+                            device=self.device)
+            return Z.index_put_((rows, idx), self.row_val[start:start + size],
+                                accumulate=True)
+
+        return chunked_gram(chunk, self._shape_main[0], p_main, weight,
+                            self._dtype)
 
     def compute_transposed_fisher_info(self, weight, include_intrcpt=False):
         """X diag(weight) X' over predictors, the intercept's weight first
@@ -931,7 +1011,24 @@ class SparseDesignMatrix(AbstractDesignMatrix):
             if self.n_float:
                 X[:, self.float_cols.cpu()] = self.X_float.cpu()
             return X
+        if self.backend == 'ell':
+            rows = torch.arange(n)[:, None].expand(-1, self.row_idx.shape[1])
+            # A padded slot adds value 0 at column 0.
+            return X.index_put_((rows, self.row_idx.cpu().long()),
+                                self.row_val.cpu(), accumulate=True)
         X[:] = torch.from_numpy(self.wc_dot.to_scipy().toarray())
+        return X
+
+    def extract_matrix(self, order=None):
+        """The full design (intercept and centering included) as a dense
+        tensor on the design's device (sparse.py:1762-1763); guarded, for
+        small designs. `order` is kept for the JAX signature."""
+        X = self._materialize_main()
+        if self.centered:
+            X = X - self.column_offset[None, :]
+        if self.intercept_added:
+            X = torch.cat((torch.ones((X.shape[0], 1), dtype=X.dtype,
+                                      device=X.device), X), 1)
         return X
 
     def toarray(self):

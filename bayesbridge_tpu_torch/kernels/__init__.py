@@ -2,7 +2,8 @@
 
 Counterparts of the Pallas kernels of ``bayesbridge_tpu/design/``
 (``fusedne.py``, ``bitlut.py``, ``winell.py``) and of the sweep A/B
-harness ``baselines/dev_ne_variants.py``. One dispatch point
+harness ``baselines/dev_ne_variants.py``, and the ell backend's gather
+product, which the JAX package left to XLA. One dispatch point
 per kernel: each wrapper launches its CUDA kernel for CUDA tensors and
 runs its plain version (beside it in the same module) for CPU tensors;
 no call site branches on the device. ``REGISTRY`` names each kernel's
@@ -10,6 +11,7 @@ source and the TPU kernel it replaces, for the chip smoke's report.
 """
 
 from . import bitlut as _bl
+from . import ell as _el
 from . import ne_onepass as _op
 from . import ne_oneread as _or
 from . import ne_sweep as _ne
@@ -44,6 +46,9 @@ REGISTRY = {
                        replaces='baselines/dev_ne_variants.py:302'),
     'stream_probe': dict(source='bayesbridge_tpu_torch/csrc/stream_probe.cu',
                          replaces='baselines/dev_ne_variants.py:393'),
+    # No Pallas kernel: the XLA gathers of the ell backend.
+    'ell': dict(source='bayesbridge_tpu_torch/csrc/ell.cu',
+                replaces='bayesbridge_tpu/design/sparse.py:1006'),
 }
 
 
@@ -53,7 +58,8 @@ def launch_counts():
     'ne_rows_k', 'colpass_k', 'tdots_sweep_k' and 'tdots_sweep_k[u4]'
     (launches of k >= 2 chains; k = 1 counts as the single-vector
     kernel), 'bitlut[dot]': ...,
-    'winell[tdot]': ..., 'wincsr[dot]': ..., 'ne_onepass': ...,
+    'winell[tdot]': ..., 'wincsr[dot]': ..., 'ell[dot]': ...,
+    'ell[tdot]': ..., 'ne_onepass': ...,
     'ne_oneread': ... (the CG operator), 'ne_oneread[logit]': ...,
     'ne_oneread[linear]': ..., 'stream_probe[i32]': ...}."""
     counts = {f'ne_sweep[{key}]': k for key, k in _ne.launches.items()
@@ -65,7 +71,7 @@ def launch_counts():
     counts['tdots_sweep_k'] = _td.launches['tdots_k']
     counts['tdots_sweep_k[u4]'] = _td.launches['u4_k']
     for name, mod in (('bitlut', _bl), ('winell', _we), ('wincsr', _wc),
-                      ('stream_probe', _sp)):
+                      ('ell', _el), ('stream_probe', _sp)):
         counts.update({f'{name}[{tag}]': k
                        for tag, k in mod.launches.items()})
     counts['ne_onepass'] = _op.launches['onepass']
@@ -77,7 +83,8 @@ def launch_counts():
 
 def reset_launch_counts():
     for counter in (_ne.launches, _td.launches, _bl.launches, _we.launches,
-                    _wc.launches, _op.launches, _or.launches, _sp.launches):
+                    _wc.launches, _el.launches, _op.launches, _or.launches,
+                    _sp.launches):
         for key in counter:
             counter[key] = 0
 

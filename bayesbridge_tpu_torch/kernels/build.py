@@ -23,7 +23,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 BUILD_ROOT = _PKG / '_build'
 SOURCES = ('ne_oneread.cu', 'ne_sweep.cu', 'tdots_sweep.cu', 'bitlut.cu',
-           'winell.cu', 'wincsr.cu', 'ne_onepass.cu', 'stream_probe.cu')
+           'winell.cu', 'wincsr.cu', 'ne_onepass.cu', 'stream_probe.cu',
+           'ell.cu')
 HEADERS = ('sweep_common.cuh', 'mbarrier.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC')
@@ -44,6 +45,7 @@ _SIGNATURES = {
     'bb_winell': [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                   _P],
     'bb_wincsr': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    'bb_ell': [_P, _P, _L, _I, _P, _I, _I, _I, _P, _P],
     'bb_ne_oneread': [_I, _P, _L, _I, _P, _I, _P, _L, _I, _P, _L, _P, _I,
                       _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                       _P, _P],

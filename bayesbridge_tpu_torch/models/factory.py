@@ -2,7 +2,8 @@
 
 Port of ``bayesbridge_tpu/models/factory.py``: dense X (a numpy array or
 a torch tensor) is stored as one block (:class:`..design.DenseDesignMatrix`),
-sparse X on the hybrid, bitpack or winell backend, on an explicit device.
+sparse X on the hybrid, bitpack, winell or ell backend, on an explicit
+device.
 The Cox family never gets an intercept, and its observations are sorted
 by risk set up front (reference: bayesbridge/model/factory.py:10-68).
 """
@@ -48,17 +49,17 @@ def RegressionModel(outcome, X, family='linear', add_intercept=None,
     center_predictor : bool
         Column-center X (implicitly, never materialized, for sparse X).
     dtype : float32 (None) or float64, the design's working dtype; the
-        hand-written kernels run float32 designs, float64 runs on
-        torch.matmul and cuSOLVER, and sparse float64 X on the hybrid
-        backend only
+        hand-written kernels run float32 designs and the ell backend in
+        both types; float64 hybrid and dense designs run on torch.matmul
+        and cuSOLVER; bitpack and winell are float32 only
     fused : None | 'auto' | '0' | '1' | 'full' — the fused-sweep policy
         of the hybrid and dense designs (``design.fusedne``): '0'
         composes every call site, '1' / 'full' run the fused sweeps,
         'auto' picks per call site; None reads ``BB_FUSED_NE``, default
         'auto'. The bitpack and winell backends always compose.
-    backend : None | 'auto' | 'hybrid' | 'bitpack' | 'winell' for sparse
-        X; 'auto' (the default) picks as the JAX package does, 'ell'
-        raises. Ignored for dense X.
+    backend : None | 'auto' | 'hybrid' | 'bitpack' | 'winell' | 'ell'
+        for sparse X; 'auto' (the default) picks as the JAX package does.
+        Ignored for dense X.
     device : 'cuda' (default) or 'cpu'; 'cuda' without a GPU raises.
     """
     if family == 'cox':

@@ -108,6 +108,33 @@ class LogisticModel(AbstractModel):
         return float(np.log(p_mle / (1 - p_mle)))
 
     @staticmethod
+    def convert_to_probability_scale(logit_prob, truncate=False):
+        """1 / (1 + e^-x) of a tensor or array (logistic.py:131-137); with
+        `truncate` x is clipped to [-709, 36.7], which keeps 0 < prob < 1
+        in float64 (logistic_model.py:95-103)."""
+        logit_prob = torch.as_tensor(logit_prob)
+        if truncate:
+            logit_prob = torch.clamp(logit_prob, -709.0, 36.7)
+        return 1.0 / (1.0 + torch.exp(-logit_prob))
+
+    @staticmethod
+    def compute_predicted_prob(X, beta, truncate=False):
+        """The success probabilities of X beta (logistic.py:139-142); X
+        only needs `.dot`."""
+        return LogisticModel.convert_to_probability_scale(
+            X.dot(beta), truncate)
+
+    @staticmethod
+    def simulate_outcome(n_trial, X, beta, seed=None):
+        """Binomial successes of `n_trial` trials at X beta's
+        probabilities, drawn on the host from numpy's global generator
+        seeded with `seed` (logistic.py:144-149)."""
+        prob = LogisticModel.compute_predicted_prob(X, beta).cpu().numpy()
+        if seed is not None:
+            np.random.seed(seed)
+        return np.random.binomial(np.asarray(n_trial).astype(np.int64), prob)
+
+    @staticmethod
     def compute_polya_gamma_mean(shape, tilt):
         """E[PG(shape, tilt)] = shape * tanh(tilt/2) / (2 tilt), with the
         small-tilt limit shape/4 (logistic_model.py:79-87)."""

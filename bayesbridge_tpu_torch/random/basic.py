@@ -75,8 +75,22 @@ class BasicRandom:
         return sample_tilted_stable(self.gen, char_exponent,
                                     self._tensor(tilt)).cpu().numpy()
 
-    def gamma(self, shape):
-        """One Gamma(shape, 1) draw from the generator, as a float."""
-        return float(torch._standard_gamma(
-            torch.full((1,), float(shape), dtype=self.dtype,
-                       device=self.device), generator=self.gen)[0])
+    def normal(self, size):
+        """`size` standard normal draws (basic.py:62-63), numpy."""
+        return torch.randn((size,), generator=self.gen, dtype=self.dtype,
+                           device=self.device).cpu().numpy()
+
+    def uniform(self, size=()):
+        """Uniform(0, 1) draws of shape `size` (basic.py:65-66), numpy."""
+        return torch.rand(size, generator=self.gen, dtype=self.dtype,
+                          device=self.device).cpu().numpy()
+
+    def gamma(self, a, size=()):
+        """Gamma(a, 1) draws of shape `size` (basic.py:68-69), numpy (a
+        0-d array for the default size)."""
+        size = tuple(int(s) for s in np.atleast_1d(size)) \
+            if np.size(size) else ()
+        draw = torch._standard_gamma(
+            torch.full(size or (1,), float(a), dtype=self.dtype,
+                       device=self.device), generator=self.gen)
+        return draw.reshape(size).cpu().numpy()

@@ -216,21 +216,27 @@ def _collapsed_draw(cfg, model, gens, carry):
                   'n_cg_unconverged': n_unconverged}, info
 
 
+def update_regress_coef_chains(cfg, model, gens, carry):
+    """coef | obs_prec, gscale, lscale (step.py:203-231) for k chains: the
+    Gaussian collapse (Cholesky, CG) or an HMC / NUTS transition. Returns
+    (coef, carry, info)."""
+    if cfg.hmc:
+        return hmc_update.sample_coef_by_hmc(cfg, model, gens, carry)
+    return _collapsed_draw(cfg, model, gens, carry)
+
+
 def gibbs_step_chains(cfg, model, gens, carry):
     """One Gibbs iteration of k chains (carry entries with a leading
     chain axis, gens one generator per chain): returns (carry, outputs),
     outputs with the same leading axis (the sampler's host counts, such
     as 'n_cg_iter', (k,) numpy arrays)."""
+    coef, carry, info = update_regress_coef_chains(cfg, model, gens, carry)
     if cfg.hmc:
-        coef, carry, info = hmc_update.sample_coef_by_hmc(cfg, model, gens,
-                                                          carry)
         # The reference raises on a non-positive curvature estimate
         # (reg_coef_sampler.py:233-239); the step counts it, and the run
         # warns at its end (step.py:252-260).
         carry['n_curvature_invalid'] = carry['n_curvature_invalid'] \
             + info.pop('curvature_estimate_invalid').to(torch.int32)
-    else:
-        coef, carry, info = _collapsed_draw(cfg, model, gens, carry)
     coef = coef.to(cfg.dtype)
     # ONE linear predictor per iteration, shared by the observation
     # precision draw and the log density (step.py:261-270): on the

@@ -5,9 +5,10 @@ The JAX package follows the process's default float (float64 under
 float32 unless a design asks for float64 (``dtype=np.float64`` or
 ``torch.float64``), and a chain follows its model's design unless
 ``BayesBridge(..., dtype=...)`` says otherwise. The hand-written kernels
-are float32 only; a float64 design runs its products as ``torch.matmul``
-(and cuSOLVER for the Cholesky factor), as the JAX package runs them as
-XLA products outside Pallas.
+are float32 only, but for the ell backend's gather kernel, which runs
+both types; a float64 hybrid or dense design runs its products as
+``torch.matmul`` (and cuSOLVER for the Cholesky factor), as the JAX
+package runs them as XLA products outside Pallas.
 
 The device is always explicit. ``'cuda'`` is the default everywhere;
 with no GPU it raises instead of falling back to the CPU. The CPU tests

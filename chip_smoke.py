@@ -136,7 +136,21 @@ Phases, each of which raises on failure (exit code != 0):
    counters are zeroed (the launches the kernels line reports, marked
    ``"path": "check-only"``), then checked and timed the same way; then
    the same chain, on wincsr;
-9. the sweep A/B harness (``bayesbridge_tpu_torch.baselines.
+9. the ell slice: 262,144 x 16,384 with 164 standard-normal entries per
+   row (``baselines/bench_sparse_matvec.py`` ``build_sparse`` at its
+   defaults), logit outcome; (a) float64 under ``backend='auto'``, which
+   picks ell (the dual row-ELL of X and X') with the JAX package's
+   warning: the gather kernel ``ell_matvec_k`` in both orientations,
+   power 1 and 2, for 1, 2, 4 and 8 vectors a launch against its plain
+   version (rtol 1e-12 of max|plain|) and bit for bit against single
+   launches, each call rerun for the same bits, timed beside its bound
+   and cuSPARSE; ``gibbs(20)`` with CG, 'diag' and bridge exponent 0.5
+   (launch counts read right after it), ``gibbs_resume(10)`` timed, the
+   exact-resume check, a profiler window, 2 chains against the chains
+   run alone, and 5 sweeps of the public component updates with finite
+   log densities, the last above the first; (b) the same X in float32 with
+   ``backend='ell'`` forced: the kernel checks and timings, ``gibbs(10)``;
+10. the sweep A/B harness (``bayesbridge_tpu_torch.baselines.
    dev_ne_variants``) at the flagship block shape: the composed pair,
    ne_sweep's two-pass route, ne_oneread and the default one-read
    variants of ne_onepass, then ``--probe`` and ``--presolve``, its
@@ -159,7 +173,11 @@ import time
 N_OBS, N_PRED = 100_000, 50_000
 DENSE_N, DENSE_P = 100_000, 4_000
 BINARY_FRAC = 0.9
-WINELL_N, WINELL_P, WINELL_PER_ROW = 131_072, 16_384, 164
+WINELL_N = 131_072
+ELL_N = 262_144  # baselines/bench_sparse_matvec.py's default n
+# The columns and draws per row of baselines/bench_sparse_matvec.py's
+# general-valued designs (the winell and ell slices).
+SPARSE_P, SPARSE_PER_ROW = 16_384, 164
 RTOL = 1e-4  # relative to max|plain|: the two sum in different orders
 # The H100 SXM's published peaks (NVIDIA data sheet): HBM bytes/s and
 # float32 operations/s outside the tensor cores.
@@ -168,6 +186,9 @@ F32_OPS_PER_S = 67e12
 # The FP64 tensor-core peak of the same data sheet (cuBLAS's DGEMM runs
 # there): the float64 Gram's bound.
 FP64_TC_OPS_PER_S = 67e12
+# Float64 outside the tensor cores (the same data sheet): the ell
+# kernel's float64 FMAs.
+FP64_OPS_PER_S = 34e12
 
 
 def log(*args):
@@ -202,11 +223,12 @@ def time_ms(fn, reps=10, inner=1):
     return statistics.median(times)
 
 
-def bound_ms(n_bytes, n_ops):
+def bound_ms(n_bytes, n_ops, ops_per_s=F32_OPS_PER_S):
     """(least time in ms, 'bytes' | 'operations'): the larger of the bytes
-    over the HBM rate and the float32 operations over the peak rate."""
+    over the HBM rate and the operations over their peak rate (float32
+    outside the tensor cores unless `ops_per_s` says otherwise)."""
     by_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    by_ops = n_ops / F32_OPS_PER_S * 1e3
+    by_ops = n_ops / ops_per_s * 1e3
     return (by_bytes, 'bytes') if by_bytes >= by_ops \
         else (by_ops, 'operations')
 
@@ -824,17 +846,18 @@ def build_data():
     return X, outcome
 
 
-def build_winell_data():
-    """131,072 x 16,384 with 164 standard-normal entries per row at
-    uniform columns (duplicates summed), seed 0, as
-    baselines/bench_sparse_matvec.py builds it; logit outcome with
-    beta[:10] = 1, seed 1."""
+def build_normal_data(n):
+    """n x 16,384 with 164 standard-normal entries per row at uniform
+    columns (duplicates summed), seed 0, as
+    baselines/bench_sparse_matvec.py ``build_sparse`` builds it (its
+    defaults at n = 262,144, density 0.01, values 'normal'); logit
+    outcome with beta[:10] = 1, seed 1."""
     import numpy as np
     import scipy.sparse as sps
     from bayesbridge_tpu_torch.utils.simulate_data import simulate_outcome
     t0 = time.perf_counter()
     rng = np.random.default_rng(0)
-    n, p, k = WINELL_N, WINELL_P, WINELL_PER_ROW
+    p, k = SPARSE_P, SPARSE_PER_ROW
     cols = rng.integers(0, p, size=(n, k))
     X = sps.csr_matrix((np.ones(n * k), cols.ravel(),
                         np.arange(n + 1, dtype=np.int64) * k), shape=(n, p))
@@ -849,9 +872,9 @@ def build_winell_data():
     return X, outcome
 
 
-def device_csr_pair(X, col_map=None):
-    """(A, A') as torch sparse CSR on the card (int32 indices, f32
-    values) from a scipy CSR, keeping only the columns with col_map >= 0
+def device_csr_pair(X, col_map=None, dtype='float32'):
+    """(A, A') as torch sparse CSR on the card (int32 indices, values in
+    `dtype`) from a scipy CSR, keeping only the columns with col_map >= 0
     (renumbered to col_map) when given; the transpose is sorted on the
     card. For the library yardstick only."""
     import torch
@@ -859,7 +882,7 @@ def device_csr_pair(X, col_map=None):
     dev = 'cuda'
     indptr = torch.from_numpy(X.indptr.astype('int64')).to(dev)
     cols = torch.from_numpy(X.indices).to(dev).long()
-    vals = torch.from_numpy(X.data.astype('float32')).to(dev)
+    vals = torch.from_numpy(X.data.astype(dtype)).to(dev)
     rows = torch.repeat_interleave(torch.arange(n, device=dev),
                                    indptr.diff())
     m = X.shape[1]
@@ -1155,33 +1178,35 @@ def run_chain(model, label, step_bytes, n_first=30, n_more=20,
 
 
 def profile_window(bridge, info, label, n_iter=3, resume=None):
-    """torch.profiler over `n_iter` more iterations (``resume(n_iter)``,
-    by default ``bridge.gibbs_resume(info, n_iter)``): (the device's busy
-    share of the window's wall clock, profiler overhead included; device
-    ms per iteration), both None where the profiler saw no device events,
-    logged with the kernels that took the most device time."""
+    """A profiler window (``utils.profiling.trace``, read back by
+    ``op_stats_from_trace``) over `n_iter` more iterations
+    (``resume(n_iter)``, by default ``bridge.gibbs_resume(info,
+    n_iter)``): (the device's busy share of the window's wall clock,
+    profiler overhead included; device ms per iteration), both None where
+    the profiler saw no device events, logged with the kernels that took
+    the most device time."""
+    import shutil
+    import tempfile
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from bayesbridge_tpu_torch.utils.profiling import (
+        annotate, op_stats_from_trace, trace)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        if resume is None:
-            bridge.gibbs_resume(info, n_iter)
-        else:
-            resume(n_iter)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-
-    def dev_ms(e):
-        return getattr(e, 'self_device_time_total',
-                       getattr(e, 'self_cuda_time_total', 0.0)) / 1e3
-
-    busy = sum(dev_ms(e) for e in kernels)
-    if not kernels:
+    log_dir = tempfile.mkdtemp(prefix='bb-profile-')
+    try:
+        with trace(log_dir):
+            t0 = time.perf_counter()
+            with annotate(f'{label} window'):
+                if resume is None:
+                    bridge.gibbs_resume(info, n_iter)
+                else:
+                    resume(n_iter)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        rows = op_stats_from_trace(log_dir, device_only=True)
+    finally:
+        shutil.rmtree(log_dir, ignore_errors=True)
+    busy = sum(r['self_us'] for r in rows) / 1e3
+    if not rows:
         log(f"[{label}] profiler: no device events (busy share not "
             f"measured)")
         return None, None
@@ -1189,8 +1214,9 @@ def profile_window(bridge, info, label, n_iter=3, resume=None):
         f"{busy:.1f} ms of {wall:.1f} ms wall ({100 * busy / wall:.1f}%, "
         f"idle {100 - 100 * busy / wall:.1f}%); device "
         f"{busy / n_iter:.2f} ms per iteration")
-    for e in sorted(kernels, key=dev_ms, reverse=True)[:8]:
-        log(f"    {dev_ms(e):9.2f} ms  {e.count:6d} x  {e.key[:90]}")
+    for r in rows[:8]:
+        log(f"    {r['self_us'] / 1e3:9.2f} ms  {r['occurrences']:6d} x  "
+            f"{r['name'][:90]}")
     return busy / wall, busy / n_iter
 
 
@@ -1694,6 +1720,37 @@ def overdispersed_inits(model, n_chains):
     return inits
 
 
+def chains_against_alone(bridge, inits, label, n_x, seed=3):
+    """Chain c of a 2-chain CG ``gibbs_chains`` run of `n_x` iterations
+    against the chain run alone from its generator (``step.run_chain``
+    in the bridge's dtype): equal CG iteration counts, coef within rtol
+    1e-6."""
+    import numpy as np
+    from bayesbridge_tpu_torch import gibbs_chains
+    from bayesbridge_tpu_torch import step as step_mod
+    from bayesbridge_tpu_torch.multichain import _stack_chain_inits
+    s2, i2 = gibbs_chains(bridge, n_x, 2, seed=seed, init=inits,
+                          coef_sampler_type='cg', params_to_save=('coef',))
+    cfg = bridge._step_config(bridge._resolve_options('cg', None))
+    bridge.rg.set_seed(seed)
+    starts = _stack_chain_inits(bridge, inits, 2)
+    gens = bridge.rg.spawn(2)
+    for i in range(2):
+        coef, obs_prec, lscale, gscale = (s[i] for s in starts)
+        carry = step_mod.init_carry('cuda', coef, obs_prec, gscale, lscale,
+                                    dtype=bridge.dtype)
+        _, out = step_mod.run_chain(cfg, bridge.model, gens[i], carry, 0,
+                                    n_x, 1, 0, save_keys=('coef',))
+        alone = np.stack([v.cpu().numpy() for v in out['coef']], -1)
+        diff = float(np.abs(alone - s2['coef'][i]).max())
+        np.testing.assert_array_equal(
+            i2['_reg_coef_sampling_info']['n_cg_iter'][i], out['n_cg_iter'])
+        np.testing.assert_allclose(s2['coef'][i], alone, rtol=1e-6,
+                                   atol=1e-7)
+        log(f"[{label}] chain {i} of 2 against the chain alone: n_cg_iter "
+            f"{out['n_cg_iter']} equal, max |coef diff| {diff:.3g}")
+
+
 def run_multichain(design, outcome, single_ips):
     """The multichain phase on the hybrid phase's stored flagship blocks
     (no second densify): the batched kernels' checks and timings, then
@@ -1706,12 +1763,10 @@ def run_multichain(design, outcome, single_ips):
     import torch
     from bayesbridge_tpu_torch import (
         BayesBridge, RegressionCoefPrior, gibbs_chains)
-    from bayesbridge_tpu_torch import step as step_mod
     from bayesbridge_tpu_torch.kernels import (
         launch_counts, reset_launch_counts)
     from bayesbridge_tpu_torch.models import LogisticModel
-    from bayesbridge_tpu_torch.multichain import (
-        _stack_chain_inits, gibbs_chains_resume)
+    from bayesbridge_tpu_torch.multichain import gibbs_chains_resume
     from bayesbridge_tpu_torch.utils.mcmc_summarizer import (
         compute_multichain_ess, compute_split_rhat)
     results = batched_kernel_checks(design)
@@ -1796,28 +1851,8 @@ def run_multichain(design, outcome, single_ips):
               rhat_median=float(np.median(rhat)),
               ess_median=float(np.median(ess)))
 
-    # Chain c of a 2-chain run against the chain run alone from its
-    # generator.
     n_x = 3
-    s2, i2 = gibbs_chains(bridge, n_x, 2, seed=3, init=inits[:2],
-                          coef_sampler_type='cg', params_to_save=('coef',))
-    cfg = bridge._step_config(bridge._resolve_options('cg', None))
-    bridge.rg.set_seed(3)
-    starts = _stack_chain_inits(bridge, inits[:2], 2)
-    gens = bridge.rg.spawn(2)
-    for i in range(2):
-        coef, obs_prec, lscale, gscale = (s[i] for s in starts)
-        carry = step_mod.init_carry('cuda', coef, obs_prec, gscale, lscale)
-        _, out = step_mod.run_chain(cfg, model, gens[i], carry, 0, n_x, 1,
-                                    0, save_keys=('coef',))
-        alone = np.stack([v.cpu().numpy() for v in out['coef']], -1)
-        diff = float(np.abs(alone - s2['coef'][i]).max())
-        np.testing.assert_array_equal(
-            i2['_reg_coef_sampling_info']['n_cg_iter'][i], out['n_cg_iter'])
-        np.testing.assert_allclose(s2['coef'][i], alone, rtol=1e-6,
-                                   atol=1e-7)
-        log(f"[{label}] chain {i} of 2 against the chain alone: n_cg_iter "
-            f"{out['n_cg_iter']} equal, max |coef diff| {diff:.3g}")
+    chains_against_alone(bridge, inits[:2], label, n_x)
 
     # The fused policy: the one-read CG operator once per chain per
     # application, the four-reduction pre-solve batched.
@@ -2409,8 +2444,228 @@ def run_dense():
     return counts, results
 
 
+ELL_KS = (1, 2, 4, 8)  # vectors per ell_matvec_k launch in the checks
+
+
+def ell_kernel_checks(design, X):
+    """``ell_matvec_k`` on the ell design's row-ELL (X v, tag 'dot') and
+    col-ELL (X' u and the Fisher moments, tag 'tdot'), power 1 and 2, k =
+    1, 2, 4, 8 vectors a launch, against its plain version (rtol 1e-12 of
+    max|plain| in float64, 1e-4 in float32), each vector bit for bit its
+    single launch, each call made twice for the same bits; CUDA-event
+    times of the kernel for each k beside its bound, and at k = 1 of the
+    plain version and of cuSPARSE (``torch.sparse_csr_tensor`` of X and of
+    X', the design's dtype, ``torch.mv``; checked against the kernel).
+    Returns {name: result dict} for k = 1, power 1; names carry '@f32'
+    for a float32 design."""
+    import torch
+    from bayesbridge_tpu_torch.kernels.ell import (
+        ell_matvec_k, ell_matvec_k_plain)
+    f64 = design.dtype == torch.float64
+    rtol = 1e-12 if f64 else RTOL
+    item = 8 if f64 else 4
+    rate = FP64_OPS_PER_S if f64 else F32_OPS_PER_S
+    suffix = '' if f64 else '@f32'
+    gen = torch.Generator(device='cuda').manual_seed(11)
+    A, At = device_csr_pair(X, dtype='float64' if f64 else 'float32')
+    results = {}
+    for tag, idx, val, mat in (('dot', design.row_idx, design.row_val, A),
+                               ('tdot', design.col_idx, design.col_val,
+                                At)):
+        m, width = idx.shape
+        n_in = mat.shape[1]
+        assert tuple(mat.shape) == (m, n_in)
+        name = f'ell[{tag}]{suffix}'
+        V = torch.randn((max(ELL_KS), n_in), generator=gen, device='cuda',
+                        dtype=design.dtype)
+        errs = {}
+        for power in (1, 2):
+            for k in ELL_KS:
+                got = ell_matvec_k(idx, val, V[:k], power, tag)
+                again = ell_matvec_k(idx, val, V[:k], power, tag)
+                ref = ell_matvec_k_plain(idx, val, V[:k], power)
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                scale = float(ref.abs().max())
+                errs[power, k] = err
+                if not err <= rtol * scale:
+                    raise AssertionError(
+                        f"{name} power {power} k {k}: kernel disagrees with "
+                        f"its plain version: {err:.3e} of {scale:.3e}, "
+                        f"beyond rtol {rtol}")
+                assert torch.equal(got, again), \
+                    f"{name} power {power} k {k} is not deterministic"
+                for c in range(k):
+                    assert torch.equal(got[c], ell_matvec_k(
+                        idx, val, V[c], power, tag)), \
+                        f"{name} power {power}: vector {c} of {k} differs " \
+                        f"from its single launch"
+                del got, again, ref
+        log(f"  {name} ({m} x {width} ELL, {design.dtype}): max_abs_err "
+            f"against the plain version, power 1 / 2 at k = "
+            f"{'/'.join(map(str, ELL_KS))}: "
+            f"{[f'{errs[1, k]:.2e}' for k in ELL_KS]} / "
+            f"{[f'{errs[2, k]:.2e}' for k in ELL_KS]} (rtol {rtol} of "
+            f"max|plain|); every vector its single launch's bits, every "
+            f"call's rerun the same bits")
+        v = V[0].contiguous()
+        check(f"{name}: cuSPARSE vs the kernel", [torch.mv(mat, v)],
+              [ell_matvec_k(idx, val, v, 1, tag)])
+        for k in ELL_KS:
+            Vk = V[:k]
+            ms = time_ms(lambda: ell_matvec_k(idx, val, Vk, 1, tag),
+                         inner=20)
+            work = (nbytes(idx, val) + k * (n_in + m) * item,
+                    2 * k * m * width)
+            bound, by = bound_ms(*work, ops_per_s=rate)
+            log(f"  {name} k={k}: {ms:.4f} ms ({ms / k:.4f} per vector); "
+                f"bound {bound:.4f} ms ({by}), {bound / ms:.0%} of it; "
+                f"{work[0] / 1e9:.4f} GB at "
+                f"{work[0] / 1e9 / (ms / 1e3):.1f} GB/s of 3350")
+            if k == 1:
+                entry = dict(max_abs_err=errs[1, 1], ms=ms, bound_ms=bound,
+                             bound_by=by)
+        entry['plain_ms'] = time_ms(
+            lambda: ell_matvec_k_plain(idx, val, v, 1))
+        entry['library_ms'] = time_ms(lambda: torch.mv(mat, v), inner=20)
+        # The bound above counts every padded slot, as the kernel reads
+        # them; this one counts the nonzeros alone, so that the padding's
+        # share of the bytes shows beside it.
+        nnz = mat._nnz()
+        nnz_bound, _ = bound_ms(nnz * (4 + item) + (n_in + m) * item,
+                                2 * nnz, ops_per_s=rate)
+        log(f"  {name}: kernel {entry['ms']:.4f} ms, plain "
+            f"{entry['plain_ms']:.3f} ms, cuSPARSE {entry['library_ms']:.4f}"
+            f" ms, bound {entry['bound_ms']:.4f} ms ({by}) over the padded "
+            f"slots, {nnz_bound:.4f} ms over the nonzeros alone "
+            f"({nnz_bound / entry['ms']:.0%} of the kernel's time); the "
+            f"{nbytes(idx, val) / 1e9:.4f} GB ELL arrays hold {nnz} "
+            f"nonzeros in {m * width} slots")
+        results[name] = entry
+        del V
+    del A, At
+    torch.cuda.empty_cache()
+    return results
+
+
+def run_ell(X, outcome):
+    """Phase 9: the ell slice on the 262,144 x 16,384 design. (a) float64
+    under ``backend='auto'``, which must pick ell with the JAX package's
+    warning: the kernel checks and timings, ``gibbs(20)`` with CG,
+    'diag' and bridge exponent 0.5 (launch counts read right after it),
+    ``gibbs_resume(10)`` timed, the exact-resume check and a profiler
+    window (``run_chain``), 2 chains against the chains run alone, and 5
+    sweeps of the reference-style loop through the public component
+    methods; (b) the same X in float32 with ``backend='ell'`` forced: the
+    kernel checks and timings, then ``gibbs(10)``. Returns (kernel
+    results, {path: launch counts})."""
+    import warnings
+    import numpy as np
+    import torch
+    from bayesbridge_tpu_torch import (
+        BayesBridge, RegressionCoefPrior, RegressionModel)
+    from bayesbridge_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts)
+    counts = {}
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        model = RegressionModel(outcome, X, family='logit',
+                                dtype=np.float64, device='cuda')
+    torch.cuda.synchronize()
+    design = model.design
+    said = [str(w.message) for w in caught if '32-bit' in str(w.message)]
+    assert design.backend == 'ell', design.backend
+    assert said, [str(w.message) for w in caught]
+    gb = design.storage_bytes() / 1e9
+    log(f"[ell64] backend='auto' in float64 picks '{design.backend}' and "
+        f"warns: \"{said[0][:110]}...\"; design build + transfer: "
+        f"{time.perf_counter() - t0:.1f} s (host dual ELL "
+        f"{design.build_seconds['ell']:.1f} s); row-ELL "
+        f"{tuple(design.row_idx.shape)}, col-ELL "
+        f"{tuple(design.col_idx.shape)}, {gb:.3f} GB on the device")
+    assert design.row_idx.shape[0] == ELL_N
+    assert design.row_idx.shape[1] <= SPARSE_PER_ROW
+    results = ell_kernel_checks(design, X)
+    dot_b = nbytes(design.row_idx, design.row_val)
+    tdot_b = nbytes(design.col_idx, design.col_val)
+    n_first = 20
+    # Per iteration: dot + Tdot per CG operator application (k + 1), two
+    # pre-solve Tdots and the Fisher diagonal's two moments.
+    counts['ell64'], n_cg, info, stats = run_chain(
+        model, 'ell64', lambda k: (k + 1) * (dot_b + tdot_b) + 4 * tdot_b,
+        n_first=n_first, n_more=10)
+    c = counts['ell64']
+    n_map = info['_init_optim_info']['n_design_matvec'] // 2
+    need = int(np.sum(n_cg + 1))
+    assert c['ell[dot]'] >= need + n_map, c
+    assert c['ell[tdot]'] >= need + 4 * n_first + n_map, c
+    assert sum(c.values()) == c['ell[dot]'] + c['ell[tdot]'], c
+    bridge = stats['chain'][0]
+    chains_against_alone(bridge, overdispersed_inits(model, 2), 'ell64', 3)
+
+    # The reference-style loop through the public component methods.
+    alpha = bridge.prior.bridge_exp
+    bridge.rg.set_seed(7)
+    coef = np.zeros(bridge.n_pred)
+    gscale, lscale = 0.1, np.ones(bridge.n_pred - bridge.n_unshrunk)
+    obs_prec = bridge.initialize_obs_precision({}, coef)
+    logp0 = bridge.compute_posterior_logprob(coef, gscale, obs_prec, alpha)
+    logps, n_cg_c = [], []
+    t0 = time.perf_counter()
+    for _ in range(5):
+        coef, c_info = bridge.update_regress_coef(coef, obs_prec, gscale,
+                                                  lscale, 'cg')
+        n_cg_c.append(int(c_info['n_cg_iter']))
+        obs_prec = bridge.update_obs_precision(coef)
+        shrunk = coef[bridge.n_unshrunk:]
+        gscale = bridge.update_global_scale(gscale, shrunk, alpha)
+        lscale = bridge.update_local_scale(gscale, shrunk, alpha)
+        logps.append(bridge.compute_posterior_logprob(coef, gscale,
+                                                      obs_prec, alpha))
+    log(f"[ell64] 5 sweeps of the public component updates: "
+        f"{time.perf_counter() - t0:.1f} s; n_cg_iter {n_cg_c}; logp at "
+        f"the start {logp0:.6g}, then {[f'{x:.6g}' for x in logps]}; "
+        f"mean coef[1:11] {coef[1:11].mean():.4f}")
+    assert np.all(np.isfinite(logps)) and logps[-1] > logps[0], logps
+    del model, design, bridge, stats, info
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    model = RegressionModel(outcome, X, family='logit', dtype=np.float32,
+                            backend='ell', device='cuda')
+    torch.cuda.synchronize()
+    design = model.design
+    log(f"[ell32] backend='ell' in float32: design build + transfer "
+        f"{time.perf_counter() - t0:.1f} s (host dual ELL "
+        f"{design.build_seconds['ell']:.1f} s); "
+        f"{design.storage_bytes() / 1e9:.3f} GB on the device")
+    results.update(ell_kernel_checks(design, X))
+    bridge = BayesBridge(model, RegressionCoefPrior(bridge_exponent=0.5))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    samples, info32 = bridge.gibbs(10, seed=0, coef_sampler_type='cg',
+                                   params_to_save='all')
+    torch.cuda.synchronize()
+    counts['ell32'] = c = launch_counts()
+    n_cg = info32['_reg_coef_sampling_info']['n_cg_iter']
+    log(f"[ell32] gibbs(10) incl. MAP search: "
+        f"{time.perf_counter() - t0:.1f} s; dtype {samples['coef'].dtype}; "
+        f"MAP {info32['_init_optim_info']}; n_cg_iter "
+        f"{n_cg.astype(int).tolist()}; mean coef[1:11] "
+        f"{samples['coef'][1:11].mean():.4f}; launch counts {c}")
+    assert samples['coef'].dtype == np.float32
+    assert np.all(np.isfinite(samples['coef']))
+    assert np.all(np.isfinite(samples['logp']))
+    assert c['ell[dot]'] >= int(np.sum(n_cg + 1)), c
+    assert sum(c.values()) == c['ell[dot]'] + c['ell[tdot]'], c
+    del model, design, bridge
+    torch.cuda.empty_cache()
+    return results, counts
+
+
 def run_harness():
-    """Phase 9: the sweep A/B harness at the flagship block shape, with the
+    """Phase 10: the sweep A/B harness at the flagship block shape, with the
     launch counts of its run. Returns the counts."""
     import torch
     from bayesbridge_tpu_torch.baselines import dev_ne_variants as harness
@@ -2502,12 +2757,18 @@ def main():
     results.update(res)
     del X, outcome
     t0 = phase('bitpack slice', t0)
-    X, outcome = build_winell_data()
+    X, outcome = build_normal_data(WINELL_N)
     res, counts['winell'], counts['winell_packing'] = run_packed(
         X, outcome, 'winell')
     results.update(res)
     del X, outcome
     t0 = phase('winell slice', t0)
+    X, outcome = build_normal_data(ELL_N)
+    res, ell_counts = run_ell(X, outcome)
+    results.update(res)
+    counts.update(ell_counts)
+    del X, outcome
+    t0 = phase('ell slice', t0)
     counts['harness'] = run_harness()
     phase('harness', t0)
 
@@ -2547,7 +2808,9 @@ def main():
                'ne_sweep[cols]@cox': 'cox_hmc',
                'ne_rows_k@cox': 'cox_chains',
                'colpass_k@cox': 'cox_chains',
-               'ne_oneread[logit]@logit_hmc': 'logit_hmc'}
+               'ne_oneread[logit]@logit_hmc': 'logit_hmc',
+               'ell[dot]': 'ell64', 'ell[tdot]': 'ell64',
+               'ell[dot]@f32': 'ell32', 'ell[tdot]@f32': 'ell32'}
     kernels = []
     for name, res in results.items():
         counter = name.split('@')[0]

@@ -4,7 +4,9 @@ the JAX package's, and ``backend='auto'`` parity.
 * ``backend='auto'`` picks what the JAX package picks for hybrid-,
   bitpack-, winell- and ell-shaped designs, with the budgets patched in
   both packages' modules (the port's seam is its own
-  ``design.sparse`` module); the port raises on 'ell', not ported;
+  ``design.sparse`` module), and the picked design's X v matches the
+  JAX design's (rtol 1e-5 of max; tests/test_torch_ell.py holds the
+  ell backend in full);
 * ``sample_gaussian_cg`` with ``return_lin_pred`` on identical numpy
   inputs: the same ``n_cg_iter``, the draw within rtol 1e-4 / atol 1e-4
   * max|coef| (the two operators round differently in each of a few
@@ -81,12 +83,12 @@ def test_auto_backend_matches_jax(monkeypatch, shape, budgets, want):
         X = X.tocsr()
     jd = JaxDesign(X, add_intercept=False, backend='auto', dtype=np.float32)
     assert jd.backend == want
-    if want == 'ell':
-        with pytest.raises(NotImplementedError, match='ell'):
-            SparseDesignMatrix(X, add_intercept=False, device='cpu')
-        return
     td = SparseDesignMatrix(X, add_intercept=False, device='cpu')
     assert td.backend == want
+    v = rng.standard_normal(X.shape[1]).astype(np.float32)
+    ref = np.asarray(jd.dot(jnp.asarray(v)), np.float64)
+    np.testing.assert_allclose(td.dot(v).numpy(), ref, rtol=0,
+                               atol=1e-5 * np.abs(ref).max())
 
 
 def _designs(backend, seed, centered):

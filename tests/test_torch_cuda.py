@@ -18,7 +18,10 @@ versions to the same tolerance, and chain c of ``gibbs_chains`` on the
 card must equal the chain run alone, for the Cox model under HMC and NUTS
 too (whose likelihood, gradient, Hessian matvec and leapfrog trajectory
 on the card match the CPU's within the kernels' tolerance); the linear
-and logit models run HMC and NUTS and the Newton MAP searches there.
+and logit models run HMC and NUTS and the Newton MAP searches there. The
+ell backend's gather kernel (``ell_matvec_k``, float32 and float64, 1-8
+vectors a launch) must equal its plain version (rtol 1e-4 / 1e-12 of
+max|plain|), its single launches bit for bit, and itself on a rerun.
 """
 
 import numpy as np
@@ -29,6 +32,9 @@ from bayesbridge_tpu_torch.kernels import layout, launch_counts, \
     load_library, reset_launch_counts
 from bayesbridge_tpu_torch.kernels.bitlut import (
     bitlut, bitlut_plain, bitlut_variant, byte_lut_plain,
+)
+from bayesbridge_tpu_torch.kernels.ell import (
+    ell_matvec_k, ell_matvec_k_plain,
 )
 from bayesbridge_tpu_torch.kernels.wincsr import wincsr, wincsr_plain
 from bayesbridge_tpu_torch.kernels.winell import winell, winell_plain
@@ -564,8 +570,42 @@ def _chain_problem():
     return X, outcome
 
 
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('k', [1, 2, 3, 5, 8, 11])
+@pytest.mark.parametrize('power', [1, 2])
+def test_ell_kernel_matches_plain(dev, dtype, k, power):
+    """Ragged row-ELL arrays (45 slots a row, not a multiple of 32; rows
+    of padding only; padding at index 0, value 0) and k vectors: the
+    plain version's values, each vector's single launch bit for bit,
+    the same bits on a rerun, ceil(k / 8) launches."""
+    g = torch.Generator(device=dev).manual_seed(k + 10 * power)
+    m, width, n_in = 333, 45, 1000
+    idx = torch.randint(0, n_in, (m, width), generator=g, device=dev,
+                        dtype=torch.int32)
+    val = torch.randn((m, width), generator=g, device=dev, dtype=dtype)
+    lens = torch.randint(0, width + 1, (m,), generator=g, device=dev)
+    lens[50:60] = 0
+    pad = torch.arange(width, device=dev)[None, :] >= lens[:, None]
+    idx[pad] = 0
+    val[pad] = 0.0
+    X = torch.randn((k, n_in), generator=g, device=dev, dtype=dtype)
+    reset_launch_counts()
+    got = ell_matvec_k(idx, val, X, power, tag='tdot')
+    assert launch_counts()['ell[tdot]'] == -(-k // 8)
+    assert launch_counts()['ell[dot]'] == 0
+    ref = ell_matvec_k_plain(idx, val, X, power)
+    scale = float(ref.abs().max())
+    rtol = 1e-4 if dtype == torch.float32 else 1e-12
+    assert got.dtype == dtype and got.shape == (k, m)
+    assert float((got - ref).abs().max()) <= rtol * scale
+    assert torch.all(got[:, 50:60] == 0)
+    assert torch.equal(got, ell_matvec_k(idx, val, X, power, tag='tdot'))
+    for c in range(k):
+        assert torch.equal(got[c], ell_matvec_k(idx, val, X[c], power))
+
+
 @pytest.mark.parametrize('backend', ['hybrid', 'hybrid_fused', 'bitpack',
-                                     'winell'])
+                                     'winell', 'ell'])
 def test_chain_resumes_exactly_on_card(dev, backend):
     """'hybrid' runs the composed path (the default policy), 'hybrid_fused'
     the fused sweeps (fused='1')."""
@@ -582,7 +622,8 @@ def test_chain_resumes_exactly_on_card(dev, backend):
     full, _ = bridge.gibbs(12, seed=0, coef_sampler_type='cg',
                            params_to_save='all')
     counts = launch_counts()
-    kern = {'bitpack': 'bitlut', 'winell': 'wincsr'}.get(backend)
+    kern = {'bitpack': 'bitlut', 'winell': 'wincsr',
+            'ell': 'ell'}.get(backend)
     if backend == 'hybrid':
         assert counts['ne_sweep[rows]'] > 12 and counts['ne_sweep[cols]'] > 12
         assert counts['tdots_sweep[u4]'] == 12

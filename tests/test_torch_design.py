@@ -151,8 +151,9 @@ def test_matvec_counters(monkeypatch):
 
 
 def test_unported_options_raise():
-    """'auto' and '0' (the composed path) and a design without an exact
-    column build and run composed; the unported options raise."""
+    """'auto' and '0' (the composed path), a design without an exact
+    column and the ell backend build and run composed; the options the
+    port refuses raise (float64 bitpack, dense X)."""
     X = _design_data()
     rng = np.random.default_rng(0)
     no_exact = sps.csr_matrix(rng.standard_normal((20, 3)))
@@ -164,8 +165,15 @@ def test_unported_options_raise():
         w = np.ones(d.shape[0], np.float32)
         ref = d.toarray().astype(np.float64)
         _close(d.quad_matvec(v, w).numpy(), ref.T @ (ref @ v))
-    with pytest.raises(NotImplementedError, match='ell'):
-        SparseDesignMatrix(X, backend='ell', device='cpu')
+    d = SparseDesignMatrix(X, backend='ell', device='cpu')
+    assert d.backend == 'ell' and d.fused_ne_mode() is None
+    assert d.cg_blockorder_ctx() is None and not d.has_presolve_reductions()
+    v = np.ones(d.shape[1], np.float32)
+    w = np.ones(d.shape[0], np.float32)
+    ref = d.toarray().astype(np.float64)
+    np.testing.assert_array_equal(ref, SparseDesignMatrix(
+        X, device='cpu').toarray())
+    _close(d.quad_matvec(v, w).numpy(), ref.T @ (ref @ v))
     with pytest.raises(NotImplementedError, match='float32'):
         SparseDesignMatrix(X, backend='bitpack', dtype=np.float64,
                            device='cpu')

@@ -90,9 +90,9 @@ def test_resume_drops_unknown_option_keys():
 
 
 def test_unported_paths_raise():
-    """What the port still refuses: the ell backend (ROADMAP item 12).
-    The HMC and NUTS samplers and the Cox family, refused before, run
-    (tests/test_torch_cox_gibbs.py holds them against the JAX package)."""
+    """Paths the port once refused run: the HMC and NUTS samplers, the
+    Cox family (tests/test_torch_cox_gibbs.py holds them against the JAX
+    package) and the ell backend (tests/test_torch_ell.py)."""
     bridge = _canonical()
     for sampler in ('hmc', 'nuts'):
         samples, info = bridge.gibbs(2, seed=0, coef_sampler_type=sampler)
@@ -105,9 +105,14 @@ def test_unported_paths_raise():
         model = RegressionModel((event, censor), X, family='cox',
                                 device='cpu')
     assert model.name == 'cox' and not model.intercept_added
-    with pytest.raises(NotImplementedError, match='ell'):
-        RegressionModel(np.zeros(20), X, family='logit', backend='ell',
-                        device='cpu')
+    model = RegressionModel((np.arange(20) % 2).astype(float), X,
+                            family='logit', backend='ell', device='cpu')
+    assert model.design.backend == 'ell'
+    np.testing.assert_allclose(model.design.toarray(), RegressionModel(
+        np.zeros(20), X, family='logit', device='cpu').design.toarray())
+    samples, _ = BayesBridge(model, RegressionCoefPrior(
+        bridge_exponent=.5)).gibbs(3, seed=0, coef_sampler_type='cg')
+    assert np.all(np.isfinite(samples['coef']))
 
 
 def _parity_problem():

@@ -87,6 +87,8 @@ CASES = {
                         {'cg_preconditioner': 'prior'}),
     'bitpack': ('logit', 'sparse', dict(backend='bitpack'), 'cg', None),
     'winell': ('logit', 'sparse', dict(backend='winell'), 'cg', None),
+    'ell_float64': ('logit', 'sparse', dict(backend='ell',
+                                            dtype=np.float64), 'cg', None),
     'dense_float64_linear': ('linear', 'dense', dict(dtype=np.float64),
                              'cholesky', None),
 }
