@@ -8,16 +8,21 @@ The public API mirrors the reference library and the JAX package:
         gibbs_chains,
     )
 
-This package serves the linear and logistic models on dense designs
-(one block) and sparse ones (int8/bf16 + f32 blocks, bitmaps or a
-windowed CSR), float32 or float64, the coefficients drawn by the
-Cholesky sampler or the CG sampler (Jacobi or prior preconditioner),
-with the float32 design sweeps in hand-written CUDA kernels for Hopper
-(``csrc/``). ``gibbs_chains`` runs several independent chains as one
+This package serves the linear, logistic and Cox models on dense
+designs (one block) and sparse ones (int8/bf16 + f32 blocks, bitmaps, a
+windowed CSR, or the dual row-ELL of X and X' on the ``ell`` backend),
+float32 or float64. The coefficients are drawn by the Cholesky sampler,
+the CG sampler (Jacobi or prior preconditioner) or the HMC and NUTS
+samplers (the Cox model's default), with the design sweeps and products
+in hand-written CUDA kernels for Hopper (``csrc/``; the ``ell`` backend's
+col-ELL product on a traversal that stages windows of the vectors in
+shared memory). ``gibbs_chains`` runs several independent chains as one
 chain-batched step (:mod:`.multichain`; split R-hat and pooled ESS in
-:mod:`.utils.mcmc_summarizer`). Devices are explicit: models live on
-``device='cuda'`` by default, and ``device='cpu'`` runs every kernel's
-plain PyTorch version.
+:mod:`.utils.mcmc_summarizer`); ``BayesBridge`` also exposes the Gibbs
+step's component updates, for custom samplers. :mod:`.utils.profiling`
+traces any block with ``torch.profiler`` and sums its device time by
+operation. Devices are explicit: models live on ``device='cuda'`` by
+default, and ``device='cpu'`` runs every kernel's plain PyTorch version.
 It imports torch and never jax.
 """
 

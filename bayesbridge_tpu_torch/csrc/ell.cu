@@ -34,8 +34,26 @@
 // chain c's sum is the same bits as its single-vector launch, and reruns
 // give the same bits.
 
+// The col-ELL (X' u, 262,144 observations against 16,384 predictors) is
+// where that last choice fails: u is 2 MB in float64, lives only in L2,
+// and each column's row indices lie about 93 apart, so every gather moves
+// its own 32-byte sector to use 8 bytes of it (42% of the bound). So a
+// sorted col-ELL takes a second traversal, ell_win_kernel below: each
+// CTA owns a contiguous range of ELL rows, one warp per row as before,
+// and walks the input axis in windows of W inputs that a producer warp
+// stages in shared memory with bulk copies (double-buffered, mbarriers);
+// the gathers then read shared memory, and each CTA reads u once from L2
+// in whole lines. A lane still adds slots l, l + 32, ... in order, each
+// with one FMA, and the same xor-shuffle tree joins the lanes, so its
+// results are the first traversal's bits: a window holds the slots of
+// each row whose indices lie in it (precomputed per-(row, window) slot
+// pointers; indices ascend within a row), and skipping a row's trailing
+// (0, 0.0) padding adds nothing (fma(0, x, acc) == acc for finite x).
+//
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mbarrier.cuh"
 
 namespace {
 
@@ -160,6 +178,274 @@ cudaError_t launch(const int32_t* idx, const T* val, int64_t m, int width,
   }
 }
 
+
+// ---- The windowed traversal of a sorted col-ELL ----------------------------
+//
+// Layout (built once per design on the host, kernels/ell.py EllLayout):
+// wptr (m, ld_ptr) int32 at a grain of G = W / stride inputs, wptr[r, g] =
+// the first slot of row r whose index is >= g * G (ascending indices),
+// wptr[r, ld_ptr - 1] = the row's valid slots (one plus the last slot
+// whose index or value is non-zero). A window of W = stride * G inputs
+// spans slots [wptr[r, w * stride], wptr[r, (w + 1) * stride]) of row r. xt holds n_win * W rows of k values
+// (the wrapper pads it), so every window is one bulk copy of W * k *
+// sizeof(T) bytes, a multiple of 16.
+
+constexpr int kWinWarps = 16;    // consumer warps a CTA, one producer warp
+constexpr int kWinThreads = (kWinWarps + 1) * 32;
+constexpr int kStages = 2;       // windows of u staged at once
+constexpr int kMaxSmem = 232448; // dynamic shared memory a CTA may take
+// By vectors k = 1..8: the ELL rows a consumer warp owns (their k sums
+// stay in registers across the windows) and the 32-slot groups of each
+// row it loads at once, float64 and float32; from the timings in turns of
+// baselines/ell_variants.py. A CTA of 17 warps gets 96 registers a
+// thread; more rows or groups spilled (float64 k = 2 at 6 rows, k = 8 at
+// 4), and the copies issued by a lane of a consumer warp instead (16
+// warps, 128 registers) ran slower.
+constexpr int kRowsF64[kMaxVectors + 1] = {0, 8, 4, 4, 4, 3, 3, 3, 2};
+constexpr int kUnrollF64[kMaxVectors + 1] = {0, 4, 4, 2, 2, 2, 2, 2, 2};
+constexpr int kRowsF32[kMaxVectors + 1] = {0, 8, 8, 4, 4, 4, 4, 4, 4};
+constexpr int kUnrollF32[kMaxVectors + 1] = {0, 2, 2, 2, 4, 2, 2, 2, 2};
+
+template <typename T, int K>
+__host__ __device__ constexpr int win_rows() {
+  return sizeof(T) == 8 ? kRowsF64[K] : kRowsF32[K];
+}
+
+template <typename T, int K>
+__host__ __device__ constexpr int win_unroll() {
+  return sizeof(T) == 8 ? kUnrollF64[K] : kUnrollF32[K];
+}
+
+// x[0..K) = p[0..K) from shared memory, in 16- or 8-byte loads where K
+// allows (p is aligned to K * sizeof(T)).
+template <int K>
+__device__ __forceinline__ void load_ks(const float* p, float (&x)[K]) {
+  if constexpr (K % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < K / 4; ++i) {
+      const float4 q = reinterpret_cast<const float4*>(p)[i];
+      x[4 * i] = q.x;
+      x[4 * i + 1] = q.y;
+      x[4 * i + 2] = q.z;
+      x[4 * i + 3] = q.w;
+    }
+  } else if constexpr (K % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < K / 2; ++i) {
+      const float2 q = reinterpret_cast<const float2*>(p)[i];
+      x[2 * i] = q.x;
+      x[2 * i + 1] = q.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < K; ++i) x[i] = p[i];
+  }
+}
+
+template <int K>
+__device__ __forceinline__ void load_ks(const double* p, double (&x)[K]) {
+  if constexpr (K % 2 == 0) {
+#pragma unroll
+    for (int i = 0; i < K / 2; ++i) {
+      const double2 q = reinterpret_cast<const double2*>(p)[i];
+      x[2 * i] = q.x;
+      x[2 * i + 1] = q.y;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < K; ++i) x[i] = p[i];
+  }
+}
+
+// Grid: one CTA per rows_cta ELL rows; block: kWinWarps consumer warps and
+// one producer warp. Consumer warp v owns rows r0 + v + j * kWinWarps, j <
+// win_rows. For each window, it loads win_unroll aligned 32-slot groups of
+// each of its rows at once (lane l holds slot 32 t + l of group t, kept
+// when it lies in the row's slots of the window), then adds them in
+// order.
+template <typename T, int K, int kPower>
+__global__ void __launch_bounds__(kWinThreads, 1) ell_win_kernel(
+    const int32_t* __restrict__ idx, const T* __restrict__ val, int64_t m,
+    int width, const int32_t* __restrict__ wptr, int ld_ptr, int stride,
+    const T* __restrict__ xt, int W, int n_win, int rows_cta,
+    T* __restrict__ out) {
+  using namespace bbasync;
+  constexpr int R = win_rows<T, K>();
+  constexpr int kUnroll = win_unroll<T, K>();
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* buf = reinterpret_cast<T*>(smem_raw);
+  __shared__ uint64_t full[kStages], empty[kStages];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int64_t r0 = (int64_t)blockIdx.x * rows_cta;
+  const int64_t r1 = min(m, r0 + rows_cta);
+  const int64_t win_elems = (int64_t)W * K;
+
+  if (warp == kWinWarps) {  // the producer warp
+    if (lane == 0) {
+      for (int i = 0; i < kStages; ++i) {
+        bar_init(&full[i], 1);
+        bar_init(&empty[i], kWinWarps);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (lane != 0) return;
+    const uint32_t bytes = (uint32_t)(win_elems * sizeof(T));
+    for (int w = 0; w < n_win; ++w) {  // once window w - kStages is done
+      const int st = w % kStages;
+      if (w >= kStages)
+        bar_wait<false>(&empty[st], (uint32_t)((w / kStages - 1) & 1));
+      bar_expect(&full[st], bytes);
+      bulk_copy(buf + st * win_elems, xt + w * win_elems, bytes, &full[st]);
+    }
+    return;
+  }
+  __syncthreads();  // the barriers are initialised
+
+  int a[R], b[R];
+  T acc[R][K];
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    a[j] = b[j] = 0;
+#pragma unroll
+    for (int c = 0; c < K; ++c) acc[j][c] = T(0);
+  }
+  const int last = ld_ptr - 1;
+  for (int w = 0; w < n_win; ++w) {
+    const int st = w % kStages;
+    const int pe = min((w + 1) * stride, last);
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int64_t row = r0 + warp + j * kWinWarps;
+      b[j] = row < r1 ? __ldg(wptr + row * ld_ptr + pe) : 0;
+    }
+    bar_wait<false>(&full[st], (uint32_t)((w / kStages) & 1));
+    const T* us = buf + st * win_elems;
+    const int base = w * W;
+    int g[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) g[j] = a[j] & ~31;
+    for (;;) {
+      bool more = false;
+#pragma unroll
+      for (int j = 0; j < R; ++j) more |= g[j] < b[j];
+      if (!more) break;  // warp-uniform: a, b, g are the same in every lane
+      int32_t ii[R][kUnroll];
+      T vv[R][kUnroll];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const int64_t off = (r0 + warp + j * kWinWarps) * width;
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int s = g[j] + 32 * u + lane;
+          const bool in = s >= a[j] && s < b[j];
+          ii[j][u] = in ? __ldg(idx + off + s) : base;
+          vv[j][u] = in ? __ldg(val + off + s) : T(0);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+#pragma unroll
+        for (int u = 0; u < kUnroll; ++u) {
+          const int s = g[j] + 32 * u + lane;
+          if (s >= a[j] && s < b[j]) {
+            T xj[K];
+            load_ks<K>(us + (int64_t)(ii[j][u] - base) * K, xj);
+            T av = vv[j][u];
+            if (kPower == 2) av = av * av;
+#pragma unroll
+            for (int c = 0; c < K; ++c) acc[j][c] = fma_t<T>(av, xj[c], acc[j][c]);
+          }
+        }
+        g[j] += 32 * kUnroll;
+      }
+    }
+    __syncwarp();
+    if (lane == 0) bar_arrive(&empty[st]);
+#pragma unroll
+    for (int j = 0; j < R; ++j) a[j] = b[j];
+  }
+#pragma unroll
+  for (int j = 0; j < R; ++j) {
+    const int64_t row = r0 + warp + j * kWinWarps;
+    if (row >= r1) continue;  // warp-uniform
+#pragma unroll
+    for (int c = 0; c < K; ++c) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        acc[j][c] += __shfl_xor_sync(0xffffffffu, acc[j][c], off);
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < K; ++c) out[c * m + row] = acc[j][c];
+    }
+  }
+}
+
+template <typename T, int K, int kPower>
+cudaError_t launch_win_p(const int32_t* idx, const T* val, int64_t m,
+                         int width, const int32_t* wptr, int ld_ptr,
+                         int stride, const T* xt, int W, int n_win,
+                         int rows_cta, T* out, cudaStream_t s) {
+  const int64_t grid = (m + rows_cta - 1) / rows_cta;
+  const size_t smem = (size_t)kStages * W * K * sizeof(T);
+  if (grid > 0x7fffffff || smem > (size_t)kMaxSmem)
+    return cudaErrorInvalidConfiguration;
+  auto kern = ell_win_kernel<T, K, kPower>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kern<<<(unsigned)grid, kWinThreads, smem, s>>>(
+      idx, val, m, width, wptr, ld_ptr, stride, xt, W, n_win, rows_cta, out);
+  return cudaGetLastError();
+}
+
+template <typename T, int K>
+cudaError_t launch_win_k(const int32_t* idx, const T* val, int64_t m,
+                         int width, const int32_t* wptr, int ld_ptr,
+                         int stride, const T* xt, int power, int W,
+                         int n_win, int rows_cta, T* out, cudaStream_t s) {
+  if (rows_cta > kWinWarps * win_rows<T, K>())
+    return cudaErrorInvalidValue;
+  if (power == 2)
+    return launch_win_p<T, K, 2>(idx, val, m, width, wptr, ld_ptr, stride,
+                                 xt, W, n_win, rows_cta, out, s);
+  return launch_win_p<T, K, 1>(idx, val, m, width, wptr, ld_ptr, stride, xt,
+                               W, n_win, rows_cta, out, s);
+}
+
+template <typename T>
+cudaError_t launch_win(const int32_t* idx, const T* val, int64_t m,
+                       int width, const int32_t* wptr, int ld_ptr,
+                       int stride, const T* xt, int k, int power, int W,
+                       int n_win, int rows_cta, T* out, cudaStream_t s) {
+#define BB_WIN_K(KK)                                                       \
+  case KK:                                                                 \
+    return launch_win_k<T, KK>(idx, val, m, width, wptr, ld_ptr, stride,  \
+                               xt, power, W, n_win, rows_cta, out, s);
+  switch (k) {
+    BB_WIN_K(1) BB_WIN_K(2) BB_WIN_K(3) BB_WIN_K(4)
+    BB_WIN_K(5) BB_WIN_K(6) BB_WIN_K(7) BB_WIN_K(8)
+    default: return cudaErrorInvalidValue;
+  }
+#undef BB_WIN_K
+}
+
+template <typename T>
+int win_rows_of(int k) {
+  switch (k) {
+    case 1: return win_rows<T, 1>();
+    case 2: return win_rows<T, 2>();
+    case 3: return win_rows<T, 3>();
+    case 4: return win_rows<T, 4>();
+    case 5: return win_rows<T, 5>();
+    case 6: return win_rows<T, 6>();
+    case 7: return win_rows<T, 7>();
+    case 8: return win_rows<T, 8>();
+    default: return 0;
+  }
+}
+
 }  // namespace
 
 // C interface (ctypes). idx: m * width int32 in [0, n_in); val: m *
@@ -181,4 +467,37 @@ extern "C" int bb_ell(const int32_t* idx, const void* val, long long m,
   return (int)launch<float>(idx, static_cast<const float*>(val), m, width,
                             static_cast<const float*>(xt), k, power,
                             static_cast<float*>(out), s);
+}
+
+// The windowed traversal of a sorted col-ELL (see ell_win_kernel). wptr:
+// m * ld_ptr int32 window pointers at W / stride inputs a step;
+// xt: n_win * W rows of k values (rows past n_in are never gathered);
+// rows_cta: ELL rows a CTA, at most bb_ell_win_rows(k, f64). Returns the
+// CUDA error of the launch (0 = ok).
+extern "C" int bb_ell_win(const int32_t* idx, const void* val, long long m,
+                          int width, const int32_t* wptr, int ld_ptr,
+                          int stride, const void* xt, int k, int power,
+                          int f64, int W, int n_win, int rows_cta, void* out,
+                          void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (m <= 0 || width <= 0 || k < 1 || k > kMaxVectors ||
+      (power != 1 && power != 2) || ld_ptr < 2 || stride < 1 ||
+      W < stride || W % stride != 0 || n_win < 1 || rows_cta < 1 ||
+      (long long)n_win * W > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (f64)
+    return (int)launch_win<double>(
+        idx, static_cast<const double*>(val), m, width, wptr, ld_ptr, stride,
+        static_cast<const double*>(xt), k, power, W, n_win, rows_cta,
+        static_cast<double*>(out), s);
+  return (int)launch_win<float>(
+      idx, static_cast<const float*>(val), m, width, wptr, ld_ptr, stride,
+      static_cast<const float*>(xt), k, power, W, n_win, rows_cta,
+      static_cast<float*>(out), s);
+}
+
+// The most ELL rows a CTA of the windowed traversal takes for k vectors
+// (kWinWarps * win_rows), 0 for a k it does not take.
+extern "C" int bb_ell_win_rows(int k, int f64) {
+  return kWinWarps * (f64 ? win_rows_of<double>(k) : win_rows_of<float>(k));
 }

@@ -41,7 +41,9 @@ float64 on the hybrid and ell backends).
     every row padded to the longest with index 0, value 0), in float32
     or float64. `dot` runs the gather kernel (:mod:`..kernels.ell`) on
     the row-ELL, `Tdot` and the Fisher diagonal's moments on the
-    col-ELL. Every large float64 sparse design lands here under
+    col-ELL, through its layout on a CUDA device (``col_layout``, built
+    once: the windowed traversal's slot pointers where they pay). Every
+    large float64 sparse design lands here under
     ``'auto'`` (bitpack and winell are float32 only).
 
 The fused sweeps serve the hybrid backend only; the other three run the
@@ -90,6 +92,7 @@ from .ell import dual_ell_from_scipy
 from .fusedne import POLICIES, dispatch_mode
 from ..kernels import layout
 from ..kernels.bitlut import bitlut
+from ..kernels import ell as ell_kernel
 from ..kernels.ell import ell_matvec_k
 from ..kernels.ne_sweep import colpass_k, ne_rows_k, ne_sweep
 from ..kernels.tdots_sweep import tdots_sweep_k
@@ -164,6 +167,10 @@ def choose_backend(X_csr, int8_mask, bf16_mask, binary_mask,
                    exact_frac * 2 + (1 - exact_frac) * 4) if f32 else 8
     hybrid_bytes = n * p * per_elem
     ell_bytes = 2 * nnz * (4 + itemsize)
+    # the col-ELL's window pointers, where the design would keep them
+    pointers = ell_kernel.pointer_bytes(p, n)
+    if pointers <= ell_kernel.POINTER_SHARE * nnz * (4 + itemsize):
+        ell_bytes += pointers
     bitpack_bytes = n * p * binary_frac / 4.0 \
         + n * p * (1 - binary_frac) * itemsize
     winell_bytes = winell_mod.estimate_bytes(X_csr.shape, nnz)
@@ -463,14 +470,22 @@ class SparseDesignMatrix(AbstractDesignMatrix):
     def _set_ell(self, row_idx, row_val, col_idx, col_val, column_offset,
                  shape_main, nnz):
         """The dual ELL arrays (the JAX design's, or built here; rows past
-        the design's are cut)."""
+        the design's are cut), and on a CUDA device the col-ELL's layout
+        for the windowed traversal (valid slots, window pointers where
+        they pay; ``kernels.ell.col_layout``)."""
         self._set_common(column_offset, shape_main, nnz)
         self.exact_is_binary = False
         n, p = shape_main
+        col_idx, col_val = np.asarray(col_idx)[:p], np.asarray(col_val)[:p]
         self.row_idx = self._dev(np.asarray(row_idx)[:n], torch.int32)
         self.row_val = self._dev(np.asarray(row_val)[:n], self._dtype)
-        self.col_idx = self._dev(np.asarray(col_idx)[:p], torch.int32)
-        self.col_val = self._dev(np.asarray(col_val)[:p], self._dtype)
+        self.col_idx = self._dev(col_idx, torch.int32)
+        self.col_val = self._dev(col_val, self._dtype)
+        np_dtype = np.float64 if self._dtype == torch.float64 \
+            else np.float32
+        self.col_layout = ell_kernel.col_layout(
+            col_idx, col_val.astype(np_dtype, copy=False), n, self._dtype,
+            self.device)
 
     def winell_packing(self):
         """The JAX package's windowed-ELL arrays of this winell design (by
@@ -508,7 +523,8 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         if self.backend == 'bitpack':
             return (self.bits_col, self.bits_row, self.X_float)
         if self.backend == 'ell':
-            return (self.row_idx, self.row_val, self.col_idx, self.col_val)
+            return (self.row_idx, self.row_val, self.col_idx, self.col_val) \
+                + (self.col_layout.tensors() if self.col_layout is not None else ())
         return self.wc_dot.tensors() + self.wc_tdot.tensors()
 
     def storage_bytes(self):
@@ -844,7 +860,8 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         whole-block transient."""
         if self.backend == 'ell':
             return ell_matvec_k(self.col_idx, self.col_val, W.contiguous(),
-                                power=power, tag='tdot')
+                                power=power, tag='tdot',
+                                layout=self.col_layout)
         if self.backend == 'winell':
             return torch.stack([self._winell_tdot_main(w, power=power)
                                 for w in W])

@@ -46,7 +46,9 @@ REGISTRY = {
                        replaces='baselines/dev_ne_variants.py:302'),
     'stream_probe': dict(source='bayesbridge_tpu_torch/csrc/stream_probe.cu',
                          replaces='baselines/dev_ne_variants.py:393'),
-    # No Pallas kernel: the XLA gathers of the ell backend.
+    # No Pallas kernel: the XLA gathers of the ell backend. Both
+    # traversals of csrc/ell.cu: ell[dot] and ell[tdot] the first,
+    # ell[tdot_win] the col-ELL's windowed one.
     'ell': dict(source='bayesbridge_tpu_torch/csrc/ell.cu',
                 replaces='bayesbridge_tpu/design/sparse.py:1006'),
 }
@@ -59,7 +61,7 @@ def launch_counts():
     (launches of k >= 2 chains; k = 1 counts as the single-vector
     kernel), 'bitlut[dot]': ...,
     'winell[tdot]': ..., 'wincsr[dot]': ..., 'ell[dot]': ...,
-    'ell[tdot]': ..., 'ne_onepass': ...,
+    'ell[tdot]': ..., 'ell[tdot_win]': ..., 'ne_onepass': ...,
     'ne_oneread': ... (the CG operator), 'ne_oneread[logit]': ...,
     'ne_oneread[linear]': ..., 'stream_probe[i32]': ...}."""
     counts = {f'ne_sweep[{key}]': k for key, k in _ne.launches.items()

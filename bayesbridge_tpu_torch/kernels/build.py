@@ -46,6 +46,9 @@ _SIGNATURES = {
                   _P],
     'bb_wincsr': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     'bb_ell': [_P, _P, _L, _I, _P, _I, _I, _I, _P, _P],
+    'bb_ell_win': [_P, _P, _L, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
+                   _P, _P],
+    'bb_ell_win_rows': [_I, _I],
     'bb_ne_oneread': [_I, _P, _L, _I, _P, _I, _P, _L, _I, _P, _L, _P, _I,
                       _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                       _P, _P],

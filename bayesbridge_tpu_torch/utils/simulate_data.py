@@ -66,6 +66,23 @@ def simulate_design(
     return X
 
 
+def normal_design(n, p=16_384, per_row=164, seed=0):
+    """n x p with `per_row` standard-normal draws a row at uniform columns
+    (duplicates summed, zeros dropped), as a scipy CSR: the sparse
+    benchmark's general-valued design (``build_sparse`` of
+    ``baselines/bench_sparse_matvec.py`` with values 'normal', at
+    density per_row / p)."""
+    rng = np.random.default_rng(seed)
+    cols = rng.integers(0, p, size=(n, per_row))
+    X = sps.csr_matrix((np.ones(n * per_row), cols.ravel(),
+                        np.arange(n + 1, dtype=np.int64) * per_row),
+                       shape=(n, p))
+    X.sum_duplicates()
+    X.data[:] = rng.standard_normal(X.nnz)
+    X.eliminate_zeros()
+    return X
+
+
 def _simulate_dense(n_obs, n_pred, corr_design):
     if not corr_design:
         return np.random.randn(n_obs, n_pred)

@@ -137,19 +137,28 @@ Phases, each of which raises on failure (exit code != 0):
    ``"path": "check-only"``), then checked and timed the same way; then
    the same chain, on wincsr;
 9. the ell slice: 262,144 x 16,384 with 164 standard-normal entries per
-   row (``baselines/bench_sparse_matvec.py`` ``build_sparse`` at its
+   row (``utils.simulate_data.normal_design``, as
+   ``baselines/bench_sparse_matvec.py`` ``build_sparse`` builds it at its
    defaults), logit outcome; (a) float64 under ``backend='auto'``, which
    picks ell (the dual row-ELL of X and X') with the JAX package's
    warning: the gather kernel ``ell_matvec_k`` in both orientations,
    power 1 and 2, for 1, 2, 4 and 8 vectors a launch against its plain
    version (rtol 1e-12 of max|plain|) and bit for bit against single
-   launches, each call rerun for the same bits, timed beside its bound
-   and cuSPARSE; ``gibbs(20)`` with CG, 'diag' and bridge exponent 0.5
+   launches, each call rerun for the same bits, each launch on the
+   traversal the dispatch gives it (the col-ELL's windowed one,
+   ``ell[tdot_win]``, where ``kernels.ell.takes_window`` gives the
+   launch to it by its bytes), the col-ELL's two traversals to the same
+   bits at every k, each traversal timed beside its bound (the first
+   one's over the padded slots, the windowed one's over the valid slots
+   and the window pointers it reads; both beside the nonzeros alone) and
+   cuSPARSE; ``gibbs(20)`` with CG, 'diag' and bridge exponent 0.5
    (launch counts read right after it), ``gibbs_resume(10)`` timed, the
    exact-resume check, a profiler window, 2 chains against the chains
    run alone, and 5 sweeps of the public component updates with finite
    log densities, the last above the first; (b) the same X in float32 with
    ``backend='ell'`` forced: the kernel checks and timings, ``gibbs(10)``;
+   both slices' chains must run the col-ELL on the traversal the
+   dispatch gives one vector (the windowed one);
 10. the sweep A/B harness (``bayesbridge_tpu_torch.baselines.
    dev_ne_variants``) at the flagship block shape: the composed pair,
    ne_sweep's two-pass route, ne_oneread and the default one-read
@@ -853,17 +862,11 @@ def build_normal_data(n):
     defaults at n = 262,144, density 0.01, values 'normal'); logit
     outcome with beta[:10] = 1, seed 1."""
     import numpy as np
-    import scipy.sparse as sps
-    from bayesbridge_tpu_torch.utils.simulate_data import simulate_outcome
+    from bayesbridge_tpu_torch.utils.simulate_data import (
+        normal_design, simulate_outcome)
     t0 = time.perf_counter()
-    rng = np.random.default_rng(0)
-    p, k = SPARSE_P, SPARSE_PER_ROW
-    cols = rng.integers(0, p, size=(n, k))
-    X = sps.csr_matrix((np.ones(n * k), cols.ravel(),
-                        np.arange(n + 1, dtype=np.int64) * k), shape=(n, p))
-    X.sum_duplicates()
-    X.data[:] = rng.standard_normal(X.nnz)
-    X.eliminate_zeros()
+    p = SPARSE_P
+    X = normal_design(n, p, SPARSE_PER_ROW, seed=0)
     beta = np.zeros(p)
     beta[:10] = 1.0
     outcome = simulate_outcome(X, beta, 'logit', seed=1)
@@ -2449,18 +2452,24 @@ ELL_KS = (1, 2, 4, 8)  # vectors per ell_matvec_k launch in the checks
 
 def ell_kernel_checks(design, X):
     """``ell_matvec_k`` on the ell design's row-ELL (X v, tag 'dot') and
-    col-ELL (X' u and the Fisher moments, tag 'tdot'), power 1 and 2, k =
-    1, 2, 4, 8 vectors a launch, against its plain version (rtol 1e-12 of
-    max|plain| in float64, 1e-4 in float32), each vector bit for bit its
-    single launch, each call made twice for the same bits; CUDA-event
-    times of the kernel for each k beside its bound, and at k = 1 of the
-    plain version and of cuSPARSE (``torch.sparse_csr_tensor`` of X and of
-    X', the design's dtype, ``torch.mv``; checked against the kernel).
-    Returns {name: result dict} for k = 1, power 1; names carry '@f32'
-    for a float32 design."""
+    col-ELL (X' u and the Fisher moments, tag 'tdot', through the design's
+    layout: the windowed traversal where ``takes_window`` says so), power 1
+    and 2, k = 1, 2, 4, 8 vectors a launch, against its plain version
+    (rtol 1e-12 of max|plain| in float64, 1e-4 in float32), each vector
+    bit for bit its single launch, each call made twice for the same bits;
+    on the col-ELL both traversals give the same bits for every k (the
+    windowed one launched directly where the dispatch does not take it),
+    and each launch advances its own counter. CUDA-event times of each
+    traversal for each k beside its bound, and at k = 1 of the plain
+    version and of cuSPARSE (``torch.sparse_csr_tensor`` of X and of X',
+    the design's dtype, ``torch.mv``; checked against the kernel). Returns
+    {name: result dict} for k = 1, power 1: 'ell[dot]', 'ell[tdot]' (the
+    first traversal on the col-ELL), 'ell[tdot_win]' (the windowed one),
+    with '@f32' for a float32 design."""
     import torch
+    from bayesbridge_tpu_torch.kernels import launch_counts, load_library
     from bayesbridge_tpu_torch.kernels.ell import (
-        ell_matvec_k, ell_matvec_k_plain)
+        ell_matvec_k, ell_matvec_k_plain, win_launch, win_plan)
     f64 = design.dtype == torch.float64
     rtol = 1e-12 if f64 else RTOL
     item = 8 if f64 else 4
@@ -2468,10 +2477,23 @@ def ell_kernel_checks(design, X):
     suffix = '' if f64 else '@f32'
     gen = torch.Generator(device='cuda').manual_seed(11)
     A, At = device_csr_pair(X, dtype='float64' if f64 else 'float32')
+    lay = design.col_layout
+    assert lay.ascending and lay.win_ptr is not None, \
+        "the col-ELL has no window pointers"
+    taken = [k for k in range(1, 9) if lay.windowed(design.dtype, k)]
+    assert 1 in taken, "one vector does not take the windowed traversal"
+    kl = load_library()
+
+    def windowed(V, power):  # the windowed traversal, uncounted
+        out = torch.empty((V.shape[0], lay.valid.shape[0]),
+                          dtype=V.dtype, device='cuda')
+        return win_launch(kl, design.col_idx, design.col_val, lay, V, power,
+                          out)
+
     results = {}
-    for tag, idx, val, mat in (('dot', design.row_idx, design.row_val, A),
-                               ('tdot', design.col_idx, design.col_val,
-                                At)):
+    for tag, idx, val, mat, layout in (
+            ('dot', design.row_idx, design.row_val, A, None),
+            ('tdot', design.col_idx, design.col_val, At, lay)):
         m, width = idx.shape
         n_in = mat.shape[1]
         assert tuple(mat.shape) == (m, n_in)
@@ -2481,8 +2503,15 @@ def ell_kernel_checks(design, X):
         errs = {}
         for power in (1, 2):
             for k in ELL_KS:
-                got = ell_matvec_k(idx, val, V[:k], power, tag)
-                again = ell_matvec_k(idx, val, V[:k], power, tag)
+                before = launch_counts()
+                got = ell_matvec_k(idx, val, V[:k], power, tag, layout)
+                delta = {key: n - before[key]
+                         for key, n in launch_counts().items()}
+                win = layout is not None and layout.windowed(design.dtype, k)
+                key = f'ell[{tag}_win]' if win else f'ell[{tag}]'
+                assert delta[key] == 1 and sum(delta.values()) == 1, \
+                    (name, k, delta)
+                again = ell_matvec_k(idx, val, V[:k], power, tag, layout)
                 ref = ell_matvec_k_plain(idx, val, V[:k], power)
                 torch.cuda.synchronize()
                 err = float((got - ref).abs().max())
@@ -2497,9 +2526,14 @@ def ell_kernel_checks(design, X):
                     f"{name} power {power} k {k} is not deterministic"
                 for c in range(k):
                     assert torch.equal(got[c], ell_matvec_k(
-                        idx, val, V[c], power, tag)), \
+                        idx, val, V[c], power, tag, layout)), \
                         f"{name} power {power}: vector {c} of {k} differs " \
                         f"from its single launch"
+                if layout is not None:
+                    first = ell_matvec_k(idx, val, V[:k], power, tag)
+                    assert torch.equal(windowed(V[:k], power), first) \
+                        and torch.equal(got, first), \
+                        f"{name} power {power} k {k}: the traversals differ"
                 del got, again, ref
         log(f"  {name} ({m} x {width} ELL, {design.dtype}): max_abs_err "
             f"against the plain version, power 1 / 2 at k = "
@@ -2507,41 +2541,59 @@ def ell_kernel_checks(design, X):
             f"{[f'{errs[1, k]:.2e}' for k in ELL_KS]} / "
             f"{[f'{errs[2, k]:.2e}' for k in ELL_KS]} (rtol {rtol} of "
             f"max|plain|); every vector its single launch's bits, every "
-            f"call's rerun the same bits")
+            f"call's rerun the same bits"
+            + ("; the windowed traversal the first one's bits at every k, "
+               f"taken at k in {taken} (takes_window)"
+               if layout is not None else ''))
         v = V[0].contiguous()
         check(f"{name}: cuSPARSE vs the kernel", [torch.mv(mat, v)],
-              [ell_matvec_k(idx, val, v, 1, tag)])
-        for k in ELL_KS:
-            Vk = V[:k]
-            ms = time_ms(lambda: ell_matvec_k(idx, val, Vk, 1, tag),
-                         inner=20)
-            work = (nbytes(idx, val) + k * (n_in + m) * item,
-                    2 * k * m * width)
-            bound, by = bound_ms(*work, ops_per_s=rate)
-            log(f"  {name} k={k}: {ms:.4f} ms ({ms / k:.4f} per vector); "
-                f"bound {bound:.4f} ms ({by}), {bound / ms:.0%} of it; "
-                f"{work[0] / 1e9:.4f} GB at "
-                f"{work[0] / 1e9 / (ms / 1e3):.1f} GB/s of 3350")
-            if k == 1:
-                entry = dict(max_abs_err=errs[1, 1], ms=ms, bound_ms=bound,
-                             bound_by=by)
-        entry['plain_ms'] = time_ms(
-            lambda: ell_matvec_k_plain(idx, val, v, 1))
-        entry['library_ms'] = time_ms(lambda: torch.mv(mat, v), inner=20)
-        # The bound above counts every padded slot, as the kernel reads
-        # them; this one counts the nonzeros alone, so that the padding's
-        # share of the bytes shows beside it.
+              [ell_matvec_k(idx, val, v, 1, tag, layout)])
         nnz = mat._nnz()
-        nnz_bound, _ = bound_ms(nnz * (4 + item) + (n_in + m) * item,
-                                2 * nnz, ops_per_s=rate)
-        log(f"  {name}: kernel {entry['ms']:.4f} ms, plain "
-            f"{entry['plain_ms']:.3f} ms, cuSPARSE {entry['library_ms']:.4f}"
-            f" ms, bound {entry['bound_ms']:.4f} ms ({by}) over the padded "
-            f"slots, {nnz_bound:.4f} ms over the nonzeros alone "
-            f"({nnz_bound / entry['ms']:.0%} of the kernel's time); the "
-            f"{nbytes(idx, val) / 1e9:.4f} GB ELL arrays hold {nnz} "
-            f"nonzeros in {m * width} slots")
-        results[name] = entry
+        traversals = {name: lambda Vk: ell_matvec_k(idx, val, Vk, 1, tag)}
+        if layout is not None:
+            traversals[f'ell[tdot_win]{suffix}'] = \
+                lambda Vk: windowed(Vk, 1)
+        for label, fn in traversals.items():
+            for k in ELL_KS:
+                Vk = V[:k]
+                ms = time_ms(lambda: fn(Vk), inner=20)
+                if label.startswith('ell[tdot_win]'):
+                    # the valid slots and the window pointers it reads
+                    plan = win_plan(design.dtype, k, m, n_in,
+                                    *lay.card(design.dtype, k))
+                    work = (lay.n_valid * (4 + item) + 4 * m * plan['n_win']
+                            + k * (n_in + m) * item, 2 * k * lay.n_valid)
+                else:  # every padded slot
+                    work = (nbytes(idx, val) + k * (n_in + m) * item,
+                            2 * k * m * width)
+                bound, by = bound_ms(*work, ops_per_s=rate)
+                log(f"  {label} k={k}: {ms:.4f} ms ({ms / k:.4f} per "
+                    f"vector); bound {bound:.4f} ms ({by}), {bound / ms:.0%} "
+                    f"of it; {work[0] / 1e9:.4f} GB at "
+                    f"{work[0] / 1e9 / (ms / 1e3):.1f} GB/s of 3350")
+                if k == 1:
+                    entry = dict(max_abs_err=errs[1, 1], ms=ms,
+                                 bound_ms=bound, bound_by=by)
+            entry['plain_ms'] = time_ms(
+                lambda: ell_matvec_k_plain(idx, val, v, 1))
+            entry['library_ms'] = time_ms(lambda: torch.mv(mat, v),
+                                          inner=20)
+            # The bound above counts what the traversal reads (the first:
+            # every padded slot); this one counts the nonzeros alone, so
+            # that the padding's share of the bytes shows beside it.
+            nnz_bound, _ = bound_ms(nnz * (4 + item) + (n_in + m) * item,
+                                    2 * nnz, ops_per_s=rate)
+            over = 'the valid slots and pointers' \
+                if label.startswith('ell[tdot_win]') else 'the padded slots'
+            log(f"  {label}: kernel {entry['ms']:.4f} ms, plain "
+                f"{entry['plain_ms']:.3f} ms, cuSPARSE "
+                f"{entry['library_ms']:.4f} ms, bound "
+                f"{entry['bound_ms']:.4f} ms ({by}) over {over}, "
+                f"{nnz_bound:.4f} ms over the nonzeros alone "
+                f"({nnz_bound / entry['ms']:.0%} of the kernel's time); the "
+                f"{nbytes(idx, val) / 1e9:.4f} GB ELL arrays hold {nnz} "
+                f"nonzeros in {m * width} slots ({card_line()})")
+            results[label] = entry
         del V
     del A, At
     torch.cuda.empty_cache()
@@ -2586,7 +2638,9 @@ def run_ell(X, outcome):
         f"{tuple(design.col_idx.shape)}, {gb:.3f} GB on the device")
     assert design.row_idx.shape[0] == ELL_N
     assert design.row_idx.shape[1] <= SPARSE_PER_ROW
+    reset_launch_counts()
     results = ell_kernel_checks(design, X)
+    counts['ell64_checks'] = launch_counts()
     dot_b = nbytes(design.row_idx, design.row_val)
     tdot_b = nbytes(design.col_idx, design.col_val)
     n_first = 20
@@ -2598,9 +2652,13 @@ def run_ell(X, outcome):
     c = counts['ell64']
     n_map = info['_init_optim_info']['n_design_matvec'] // 2
     need = int(np.sum(n_cg + 1))
+    # One chain: every col-ELL launch serves one vector, on the traversal
+    # the dispatch gives k = 1.
+    tdot = 'ell[tdot_win]' if design.col_layout.windowed(design.dtype, 1) \
+        else 'ell[tdot]'
     assert c['ell[dot]'] >= need + n_map, c
-    assert c['ell[tdot]'] >= need + 4 * n_first + n_map, c
-    assert sum(c.values()) == c['ell[dot]'] + c['ell[tdot]'], c
+    assert c[tdot] >= need + 4 * n_first + n_map, c
+    assert sum(c.values()) == c['ell[dot]'] + c[tdot], c
     bridge = stats['chain'][0]
     chains_against_alone(bridge, overdispersed_inits(model, 2), 'ell64', 3)
 
@@ -2640,7 +2698,9 @@ def run_ell(X, outcome):
         f"{time.perf_counter() - t0:.1f} s (host dual ELL "
         f"{design.build_seconds['ell']:.1f} s); "
         f"{design.storage_bytes() / 1e9:.3f} GB on the device")
+    reset_launch_counts()
     results.update(ell_kernel_checks(design, X))
+    counts['ell32_checks'] = launch_counts()
     bridge = BayesBridge(model, RegressionCoefPrior(bridge_exponent=0.5))
     reset_launch_counts()
     t0 = time.perf_counter()
@@ -2657,8 +2717,11 @@ def run_ell(X, outcome):
     assert samples['coef'].dtype == np.float32
     assert np.all(np.isfinite(samples['coef']))
     assert np.all(np.isfinite(samples['logp']))
+    tdot = 'ell[tdot_win]' if design.col_layout.windowed(design.dtype, 1) \
+        else 'ell[tdot]'
     assert c['ell[dot]'] >= int(np.sum(n_cg + 1)), c
-    assert sum(c.values()) == c['ell[dot]'] + c['ell[tdot]'], c
+    assert c[tdot] >= int(np.sum(n_cg + 1)) + 4 * 10, c
+    assert sum(c.values()) == c['ell[dot]'] + c[tdot], c
     del model, design, bridge
     torch.cuda.empty_cache()
     return results, counts
@@ -2809,8 +2872,14 @@ def main():
                'ne_rows_k@cox': 'cox_chains',
                'colpass_k@cox': 'cox_chains',
                'ne_oneread[logit]@logit_hmc': 'logit_hmc',
-               'ell[dot]': 'ell64', 'ell[tdot]': 'ell64',
-               'ell[dot]@f32': 'ell32', 'ell[tdot]@f32': 'ell32'}
+               'ell[dot]': 'ell64', 'ell[tdot_win]': 'ell64',
+               'ell[dot]@f32': 'ell32', 'ell[tdot_win]@f32': 'ell32'}
+    # The col-ELL's first traversal: on the ell slices where the dispatch
+    # gives it a chain's launches, else counted on their kernel checks
+    # (check-only).
+    for suffix, path in (('', 'ell64'), ('@f32', 'ell32')):
+        path_of[f'ell[tdot]{suffix}'] = \
+            path if counts[path]['ell[tdot]'] else path + '_checks'
     kernels = []
     for name, res in results.items():
         counter = name.split('@')[0]
@@ -2825,7 +2894,8 @@ def main():
         kernels.append(dict(
             name=name, route='cuda', source=REGISTRY[base]['source'],
             replaces=REGISTRY[base]['replaces'], launches=launches, **res,
-            path='check-only' if path in ('winell_packing', 'link_turns')
+            path='check-only' if path in ('winell_packing', 'link_turns',
+                                          'ell64_checks', 'ell32_checks')
             else path))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({'kernels': kernels}))

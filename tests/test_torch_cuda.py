@@ -21,7 +21,9 @@ on the card match the CPU's within the kernels' tolerance); the linear
 and logit models run HMC and NUTS and the Newton MAP searches there. The
 ell backend's gather kernel (``ell_matvec_k``, float32 and float64, 1-8
 vectors a launch) must equal its plain version (rtol 1e-4 / 1e-12 of
-max|plain|), its single launches bit for bit, and itself on a rerun.
+max|plain|), its single launches bit for bit, and itself on a rerun; its
+windowed traversal of a sorted col-ELL must give the first traversal's
+bits.
 """
 
 import numpy as np
@@ -33,8 +35,9 @@ from bayesbridge_tpu_torch.kernels import layout, launch_counts, \
 from bayesbridge_tpu_torch.kernels.bitlut import (
     bitlut, bitlut_plain, bitlut_variant, byte_lut_plain,
 )
+from bayesbridge_tpu_torch.kernels import ell as ell_mod
 from bayesbridge_tpu_torch.kernels.ell import (
-    ell_matvec_k, ell_matvec_k_plain,
+    EllLayout, ell_matvec_k, ell_matvec_k_plain, win_launch, win_plan,
 )
 from bayesbridge_tpu_torch.kernels.wincsr import wincsr, wincsr_plain
 from bayesbridge_tpu_torch.kernels.winell import winell, winell_plain
@@ -604,6 +607,106 @@ def test_ell_kernel_matches_plain(dev, dtype, k, power):
         assert torch.equal(got[c], ell_matvec_k(idx, val, X[c], power))
 
 
+def _sorted_col_ell(g, dev, dtype, m, n_in):
+    """A col-ELL of m rows over n_in inputs with ascending indices: ragged
+    rows (some spanning several windows, one 70 slots long in a single
+    window, empty rows), padded with (0, 0.0), an explicit zero inside."""
+    lens = torch.randint(0, 300, (m,), generator=g, device=dev)
+    lens[10:15] = 0
+    lens[20] = 70
+    width = int(lens.max()) + 3
+    keys = torch.rand((m, width), generator=g, device=dev)
+    idx = (keys * n_in).long().sort(dim=1).values.int()
+    idx[20] = torch.arange(width, device=dev, dtype=torch.int32) // 2 + 1500
+    val = torch.randn((m, width), generator=g, device=dev, dtype=dtype)
+    val[30, 5] = 0.0
+    pad = torch.arange(width, device=dev)[None, :] >= lens[:, None]
+    idx[pad] = 0
+    val[pad] = 0.0
+    return idx.contiguous(), val.contiguous()
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('k', [1, 2, 3, 4, 5, 6, 7, 8, 11])
+@pytest.mark.parametrize('power', [1, 2])
+def test_ell_windowed_traversal_gives_the_first_ones_bits(dev, dtype, k,
+                                                          power,
+                                                          monkeypatch):
+    """On sorted col-ELL arrays with ragged, padded and empty rows and
+    inputs spanning many windows, the windowed traversal (forced for every
+    k) gives the first traversal's bits, each vector its single launch's,
+    the same bits on a rerun; its counter advances, the first one's not."""
+    g = torch.Generator(device=dev).manual_seed(k + 10 * power)
+    m, n_in = 700, 70_000
+    idx, val = _sorted_col_ell(g, dev, dtype, m, n_in)
+    lay = EllLayout.from_numpy(idx.cpu().numpy(), val.cpu().numpy(), n_in,
+                               dev)
+    assert lay.ascending
+    X = torch.randn((k, n_in), generator=g, device=dev, dtype=dtype)
+    first = ell_matvec_k(idx, val, X, power, tag='tdot')
+    monkeypatch.setattr(ell_mod, 'takes_window', lambda *args: True)
+    reset_launch_counts()
+    got = ell_matvec_k(idx, val, X, power, tag='tdot', layout=lay)
+    counts = launch_counts()
+    assert counts['ell[tdot_win]'] == -(-k // 8)
+    assert counts['ell[tdot]'] == counts['ell[dot]'] == 0
+    assert torch.equal(got, first)
+    assert torch.equal(got, ell_matvec_k(idx, val, X, power, 'tdot', lay))
+    for c in range(k):
+        assert torch.equal(got[c], ell_matvec_k(idx, val, X[c], power,
+                                                'tdot', lay))
+    ref = ell_matvec_k_plain(idx, val, X, power)
+    rtol = 1e-4 if dtype == torch.float32 else 1e-12
+    assert float((got - ref).abs().max()) <= rtol * float(ref.abs().max())
+    assert torch.all(got[:, 10:15] == 0)
+
+
+def test_ell_windowed_plan_matches_the_kernel(dev):
+    """The kernel takes the wrapper's plan for every k (its rows a CTA,
+    its windows' shared memory), refuses more rows a CTA than it has, and
+    an unsorted layout keeps the first traversal."""
+    kl = load_library()
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    g = torch.Generator(device=dev).manual_seed(2)
+    idx, val = _sorted_col_ell(g, dev, torch.float64, 300, 40_000)
+    lay = EllLayout.from_numpy(idx.cpu().numpy(), val.cpu().numpy(),
+                               40_000, dev)
+    for dtype in (torch.float32, torch.float64):
+        v = val.to(dtype)
+        for k in range(1, 9):
+            rows = kl.lib.bb_ell_win_rows(k, int(dtype == torch.float64))
+            assert 1 <= rows <= 128
+            assert lay.card(dtype, k) == (n_sm, rows)
+            plan = win_plan(dtype, k, 300, 40_000, n_sm, rows)
+            assert plan['smem_bytes'] <= ell_mod.MAX_SMEM
+            X = torch.randn((k, 40_000), generator=g, device=dev,
+                            dtype=dtype)
+            out = torch.empty((k, 300), dtype=dtype, device=dev)
+            win_launch(kl, idx, v, lay, X, 1, out, rows_max=rows)
+            assert torch.equal(out, ell_matvec_k(idx, v, X, 1, 'tdot'))
+            Xt = torch.zeros((plan['n_pad'], k), dtype=dtype, device=dev)
+            assert kl.lib.bb_ell_win(
+                idx.data_ptr(), v.data_ptr(), 300, idx.shape[1],
+                lay.win_ptr.data_ptr(), lay.win_ptr.shape[1], plan['stride'],
+                Xt.data_ptr(), k, 1, int(dtype == torch.float64),
+                plan['window'], plan['n_win'], rows + 1, out.data_ptr(),
+                torch.cuda.current_stream().cuda_stream) != 0
+    assert kl.lib.bb_ell_win_rows(9, 1) == 0
+    g = torch.Generator(device=dev).manual_seed(3)
+    idx, val = _sorted_col_ell(g, dev, torch.float64, 50, 5000)
+    idx = idx.flip(1).contiguous()
+    val = val.flip(1).contiguous()
+    lay = EllLayout.from_numpy(idx.cpu().numpy(), val.cpu().numpy(), 5000,
+                               dev)
+    assert not lay.ascending and lay.win_ptr is None
+    X = torch.randn((2, 5000), generator=g, device=dev, dtype=torch.float64)
+    reset_launch_counts()
+    got = ell_matvec_k(idx, val, X, 1, 'tdot', lay)
+    assert launch_counts()['ell[tdot]'] == 1
+    assert launch_counts()['ell[tdot_win]'] == 0
+    assert torch.equal(got, ell_matvec_k(idx, val, X, 1, 'tdot'))
+
+
 @pytest.mark.parametrize('backend', ['hybrid', 'hybrid_fused', 'bitpack',
                                      'winell', 'ell'])
 def test_chain_resumes_exactly_on_card(dev, backend):
@@ -634,6 +737,8 @@ def test_chain_resumes_exactly_on_card(dev, backend):
         assert counts['ne_sweep[ne]'] == 0
     else:
         assert counts[f'{kern}[dot]'] > 12 and counts[f'{kern}[tdot]'] > 12
+    if backend == 'ell':  # u (500 values) fits L1: the first traversal
+        assert counts['ell[tdot_win]'] == 0
     part, info = bridge.gibbs(7, seed=0, coef_sampler_type='cg',
                               params_to_save='all')
     merged, _ = bridge.gibbs_resume(info, 5, merge=True, prev_samples=part)
