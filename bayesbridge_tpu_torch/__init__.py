@@ -19,9 +19,11 @@ col-ELL product on a traversal that stages windows of the vectors in
 shared memory). ``gibbs_chains`` runs several independent chains as one
 chain-batched step (:mod:`.multichain`; split R-hat and pooled ESS in
 :mod:`.utils.mcmc_summarizer`); ``BayesBridge`` also exposes the Gibbs
-step's component updates, for custom samplers. :mod:`.utils.profiling`
-traces any block with ``torch.profiler`` and sums its device time by
-operation. Devices are explicit: models live on ``device='cuda'`` by
+step's component updates, for custom samplers. :mod:`.parallel` splits
+a design by rows over a mesh of devices, in one process or several, and
+``gibbs_chains(mesh=)`` runs groups of chains on them.
+:mod:`.utils.profiling` traces any block with ``torch.profiler`` and
+sums its device time by operation. Devices are explicit: models live on ``device='cuda'`` by
 default, and ``device='cpu'`` runs every kernel's plain PyTorch version.
 It imports torch and never jax.
 """

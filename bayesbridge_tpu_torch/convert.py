@@ -10,10 +10,13 @@ times and risk sets go through :func:`cox_model_from_numpy`.
 """
 
 import numpy as np
+import scipy.sparse as sps
 import torch
 
+from .design import bitlut as bitlut_mod
 from .design.dense import DenseDesignMatrix, stored_width
 from .design.sparse import PACKED_ARRAYS, SparseDesignMatrix
+from .design.wincsr import csr_from_winell
 from .kernels import layout
 from .models.cox import CoxModel
 from .step import init_carry, stack_carries
@@ -138,6 +141,68 @@ def packed_design_from_numpy(backend, arrays, meta, column_offset, shape,
     return SparseDesignMatrix(None, center_predictor=center_predictor,
                               add_intercept=add_intercept, dtype=dtype,
                               fused=fused, device=device, _parts=parts)
+
+
+def design_from_sharded_numpy(backend, arrays, meta, column_offset, shape,
+                              nnz=None, add_intercept=True,
+                              center_predictor=False, device='cuda',
+                              fused=None):
+    """The port's unsharded design from a JAX design sharded on a 1-d
+    mesh (``bayesbridge_tpu.parallel.shard_design``): `arrays` are
+    ``np.asarray`` of its attributes (which gathers a sharded array),
+    with the mesh's zero padding (``_put_pad``) still on; it is cut off
+    here. Shard the result with ``parallel.shard_model`` / ``shard_design``
+    over as many shards.
+
+    backend : 'hybrid' (`arrays` as :func:`design_from_numpy` names them,
+        and ``exact_is_binary``), 'dense' ({'X': the stored X}),
+        'bitpack', 'winell' or 'ell' (:func:`packed_design_from_numpy`'s
+        names)
+    meta : the JAX design's ``_bitpack_meta`` (bitpack; re-planned for
+        the unsharded shape here), ``_winell_shard[2:7]`` = (w_dot, k_dot,
+        w_tdot, k_tdot, rows a device) (winell; its packings are one per
+        device, stacked), else None
+    shape : (n, p) of the main design, intercept excluded
+    """
+    n, p = shape
+    kw = dict(add_intercept=add_intercept, center_predictor=center_predictor,
+              device=device, fused=fused)
+    if backend == 'hybrid':
+        return design_from_numpy(
+            arrays['X_exact'], arrays['X_float'], arrays['exact_cols'],
+            arrays['float_cols'], column_offset, shape,
+            exact_is_binary=bool(arrays.get('exact_is_binary', False)), **kw)
+    if backend == 'dense':
+        return dense_design_from_numpy(arrays['X'], n, **kw)
+    if backend == 'ell':
+        return packed_design_from_numpy('ell', arrays, None, column_offset,
+                                        shape, nnz, **kw)
+    if backend == 'bitpack':
+        p_bin = int(meta[0])
+        gcol_pad, n_pad, k_dot = bitlut_mod.plan_blocks(p_bin, n)
+        grow_pad, pbin_pad, k_tdot = bitlut_mod.plan_blocks(n, p_bin)
+        cut = dict(arrays)
+        cut['bits_col'] = np.asarray(arrays['bits_col'])[:gcol_pad, :n_pad]
+        cut['bits_row'] = np.asarray(arrays['bits_row'])[:grow_pad,
+                                                         :pbin_pad]
+        cut['X_float'] = np.asarray(arrays['X_float'])[:n]
+        return packed_design_from_numpy(
+            'bitpack', cut, (p_bin, gcol_pad, n_pad, k_dot, grow_pad,
+                             pbin_pad, k_tdot), column_offset, shape, nnz,
+            **kw)
+    if backend != 'winell':
+        raise ValueError(f"unknown backend {backend!r}")
+    w_dot, k_dot, _, _, n_loc = (int(m) for m in meta)
+    blocks = [csr_from_winell(
+        arrays['widx_dot'][d], arrays['wval_dot'][d], arrays['sd_idx'][d],
+        arrays['sd_val'][d], (n_loc, p), w_dot, k_dot)
+        for d in range(len(arrays['widx_dot']))]
+    X = sps.vstack(blocks).tocsr()[:n]
+    design = SparseDesignMatrix(X, backend='winell', **kw)
+    design.column_offset = torch.as_tensor(
+        np.asarray(column_offset, np.float64), dtype=design.dtype,
+        device=design.device)
+    return design
 
 
 def cox_model_from_numpy(event_time, censoring_time, design,

@@ -17,6 +17,7 @@ per binary column) for ``X' u``. All padding is zero bits, which add
 """
 
 import numpy as np
+import torch
 
 # Block plan constants of the JAX package (bitlut.py:47-50); the padded
 # shapes they imply are part of the stored layout.
@@ -108,3 +109,32 @@ def pack_csr_bitmaps(X_csr, bin_cols, plan_col, plan_row):
                            minlength=g_rows * pbin_pad)
         bits_row[r0 // 8:r0 // 8 + g_rows] = slab.reshape(g_rows, pbin_pad)
     return bits_col, bits_row
+
+
+def row_block_bits(bits_col, bits_row, r0, r1, plan_col, plan_row):
+    """Both bitmaps (uint8 tensors) of rows r0:r1 of a design's binary
+    columns, from the design's bitmaps, padded to the block's plans
+    ``plan_col = (gcol_pad, n_pad)`` and ``plan_row = (grow_pad,
+    pbin_pad)``, on the bitmaps' device. bits_col keeps its byte-groups
+    (one byte per row); bits_row's bytes group rows by 8, so its groups
+    are shifted by r0 % 8 bits, and the last group's bits past r1 are
+    cleared."""
+    m = r1 - r0
+    dev = bits_col.device
+    col = torch.zeros(plan_col, dtype=torch.uint8, device=dev)
+    g = min(plan_col[0], bits_col.shape[0])
+    col[:g, :m] = bits_col[:g, r0:r1]
+    g0, shift = divmod(r0, 8)
+    g_out = -(-m // 8)
+    src = bits_row.to(torch.int32)
+    pbin = min(plan_row[1], bits_row.shape[1])
+    lo = src[g0:g0 + g_out, :pbin]
+    hi = torch.zeros_like(lo)
+    nxt = src[g0 + 1:g0 + 1 + g_out, :pbin]
+    hi[:nxt.shape[0]] = nxt
+    rows = ((lo >> shift) | (hi << (8 - shift))) & 0xFF
+    if m % 8:
+        rows[-1] &= (1 << (m % 8)) - 1
+    row = torch.zeros(plan_row, dtype=torch.uint8, device=dev)
+    row[:g_out, :pbin] = rows.to(torch.uint8)
+    return col, row

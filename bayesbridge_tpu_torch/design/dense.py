@@ -116,6 +116,22 @@ class DenseDesignMatrix(AbstractDesignMatrix):
         other.dot_count = other.Tdot_count = 0
         return other
 
+    def row_block(self, r0, r1, device=None):
+        """Rows r0:r1 of this design as a design of their own on `device`
+        (default this design's): its stored rows carry the intercept
+        column and the whole design's centering, so the block keeps the
+        column layout. On this design's device a row view, not a copy;
+        rows 0:n on another device are the design moved there."""
+        n = self.X.shape[0]
+        if not 0 <= r0 < r1 <= n:
+            raise ValueError(f"rows {r0}:{r1} of a {n}-row design")
+        device = self.device if device is None else resolve_device(device)
+        blk = copy.copy(self)
+        AbstractDesignMatrix.__init__(blk)  # fresh counters, no memo
+        blk.device = device
+        blk.X = self.X[r0:r1].to(device)
+        return blk
+
     def to_dtype(self, dtype):
         """This design's stored X copied into another working dtype (a
         float64 design from a float32 one without preprocessing again)."""

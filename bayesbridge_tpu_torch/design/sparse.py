@@ -487,6 +487,101 @@ class SparseDesignMatrix(AbstractDesignMatrix):
             col_idx, col_val.astype(np_dtype, copy=False), n, self._dtype,
             self.device)
 
+    def row_block(self, r0, r1, device=None):
+        """Rows r0:r1 of this design as a design of their own on `device`
+        (default this design's), with this design's column layout: the
+        same exact / float (bitpack: binary / float) column split, the
+        same centering offsets, an intercept column over the block's
+        rows; the ell, bitpack and winell blocks re-pack their stored
+        transpose from the block's rows. On this design's device the
+        hybrid blocks, the row-ELL and the bitpack side block are row
+        views of the stored arrays, not copies (a stored row is a whole
+        number of 16-byte vectors, so a view starts aligned). Rows 0:n
+        on another device are the design moved there. The shards of
+        :mod:`.sharded` are such blocks."""
+        n, p = self._shape_main
+        if not 0 <= r0 < r1 <= n:
+            raise ValueError(f"rows {r0}:{r1} of a {n}-row design")
+        device = self.device if device is None else resolve_device(device)
+        blk = copy.copy(self)
+        AbstractDesignMatrix.__init__(blk)  # fresh counters, no memo
+        blk.device = device
+        blk.build_seconds = {}
+        whole = (r0, r1) == (0, n)
+        getattr(blk, '_rows_' + self.backend)(self, r0, r1, whole)
+        blk._shape_main = (r1 - r0, p)
+        blk._nnz = self._nnz if whole else blk._nnz
+        blk.column_offset = self.column_offset.to(device)
+        return blk
+
+    def _rows_hybrid(self, src, r0, r1, whole):
+        self.X_exact = src.X_exact[r0:r1].to(self.device)
+        self.X_float = src.X_float[r0:r1].to(self.device)
+        self.exact_cols = src.exact_cols.to(self.device)
+        self.float_cols = src.float_cols.to(self.device)
+        self._nnz = None
+
+    def _rows_bitpack(self, src, r0, r1, whole):
+        p_bin = src._bitpack_meta[0]
+        plan_col = bitlut_mod.plan_blocks(p_bin, r1 - r0)
+        plan_row = bitlut_mod.plan_blocks(r1 - r0, p_bin)
+        if whole:
+            self.bits_col = src.bits_col.to(self.device)
+            self.bits_row = src.bits_row.to(self.device)
+        else:
+            self.bits_col, self.bits_row = bitlut_mod.row_block_bits(
+                src.bits_col, src.bits_row, r0, r1, plan_col[:2],
+                plan_row[:2])
+            self.bits_col = self.bits_col.to(self.device)
+            self.bits_row = self.bits_row.to(self.device)
+        self._bitpack_meta = (p_bin,) + plan_col + plan_row
+        self.X_float = src.X_float[r0:r1].to(self.device)
+        self.bin_cols = src.bin_cols.to(self.device)
+        self.float_cols = src.float_cols.to(self.device)
+        self._nnz = None
+
+    def _rows_winell(self, src, r0, r1, whole):
+        if whole:
+            self.wc_dot = src.wc_dot.to(self.device)
+            self.wc_tdot = src.wc_tdot.to(self.device)
+            return
+        self._build_winell(src.wc_dot.to_scipy()[r0:r1],
+                           src.column_offset.cpu().numpy())
+
+    def _rows_ell(self, src, r0, r1, whole):
+        """The block's row-ELL rows as they are; its col-ELL (the
+        transpose of the block's rows) built again, and its layout for
+        the windowed traversal on a CUDA device, whose dispatch
+        (``kernels.ell.takes_window``) then decides on the block's
+        shape."""
+        self.row_idx = src.row_idx[r0:r1].to(self.device)
+        self.row_val = src.row_val[r0:r1].to(self.device)
+        np_dtype = np.float64 if self._dtype == torch.float64 \
+            else np.float32
+        if whole:
+            col_idx = src.col_idx.cpu().numpy()
+            col_val = src.col_val.cpu().numpy()
+            self.col_idx = src.col_idx.to(self.device)
+            self.col_val = src.col_val.to(self.device)
+        else:
+            idx = src.row_idx[r0:r1].cpu().numpy()
+            val = src.row_val[r0:r1].cpu().numpy()
+            live = val != 0  # padded slots hold value 0
+            X = sps.csr_matrix(
+                (val[live], idx[live], np.concatenate(
+                    ([0], np.cumsum(live.sum(1))))),
+                shape=(r1 - r0, src._shape_main[1]))
+            self._nnz = X.nnz
+            (_, _), (col_idx, col_val) = dual_ell_from_scipy(X, np_dtype)
+            self.col_idx = self._dev(col_idx, torch.int32)
+            self.col_val = self._dev(col_val, self._dtype)
+        if whole and self.device == src.device:
+            self.col_layout = src.col_layout
+        else:
+            self.col_layout = ell_kernel.col_layout(
+                col_idx, col_val.astype(np_dtype, copy=False), r1 - r0,
+                self._dtype, self.device)
+
     def winell_packing(self):
         """The JAX package's windowed-ELL arrays of this winell design (by
         the names of ``PACKED_ARRAYS['winell']``, numpy, element for
@@ -509,7 +604,30 @@ class SparseDesignMatrix(AbstractDesignMatrix):
 
     @property
     def nnz(self):
+        """Stored entries; a hybrid or bitpack design built from another's
+        arrays (``convert``, ``row_block``) counts its nonzeros once."""
+        if self._nnz is None and self.backend in ('hybrid', 'bitpack'):
+            self._nnz = self._count_nnz()
         return self._nnz
+
+    def _count_nnz(self):
+        """Nonzeros of the stored blocks (bitpack: set bits), counted in
+        row chunks of at most _DENSIFY_CHUNK elements."""
+        def count(X, width, fn):
+            step = max(1, _DENSIFY_CHUNK // max(1, X.shape[1]))
+            return sum(int(fn(X[i:i + step, :width]).sum())
+                       for i in range(0, X.shape[0], step))
+
+        def nonzero(X):
+            return X != 0
+
+        if self.backend == 'bitpack':
+            ones = torch.tensor([bin(b).count('1') for b in range(256)],
+                                device=self.device)
+            return count(self.bits_col.T, self.bits_col.shape[0],
+                         lambda B: ones[B.long()]) \
+                + count(self.X_float, self.n_float, nonzero)
+        return sum(count(X, k, nonzero) for X, k in self._stored())
 
     @property
     def dtype(self):

@@ -27,7 +27,7 @@ import math
 import torch
 
 from . import layout
-from .build import load_library
+from .build import count_launch, load_library
 
 launches = {'dot': 0, 'tdot': 0}
 # Byte-groups gathered per step of the plain version (bounds its
@@ -112,7 +112,7 @@ def bitlut(bits, v, n_out, tag='dot'):
     if bits.device.type != 'cuda':
         raise ValueError(f"no bitlut for device {bits.device}")
     out = _bitlut_cuda(bits, v, n_out, MODES['nibble'])
-    launches[tag] += 1
+    count_launch(launches, tag)
     return out
 
 

@@ -8,6 +8,12 @@ runs on first use, on the machine with the card, into
 ``bayesbridge_tpu_torch/_build/<hash>/`` where the hash covers the
 sources and the compiler flags; a later call with the same sources
 reuses the library. Nothing here runs at import time.
+
+Several host threads may drive kernels at once (``gibbs_chains`` with a
+mesh runs a group of chains per device, each in its own thread): the
+first use builds and loads the library once under a lock, and the
+wrappers advance their launch counters through :func:`count_launch`,
+under another.
 """
 
 import ctypes
@@ -16,6 +22,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -87,6 +94,15 @@ class KernelLibrary:
 
 
 _LOADED = None  # the process's one KernelLibrary, built on first use
+_LOAD_LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(launches, key, n=1):
+    """Advance a wrapper's launch counter `launches[key]` by `n` (a
+    read-modify-write that two threads must not interleave)."""
+    with _COUNT_LOCK:
+        launches[key] += n
 
 
 def _nvcc():
@@ -142,10 +158,18 @@ def _compile_and_link(out_dir, so_path):
 
 
 def load_library():
-    """Build (once per source hash) and load the kernel library."""
-    global _LOADED
+    """Build (once per source hash) and load the kernel library; the
+    first caller builds it, concurrent callers wait for it."""
     if _LOADED is not None:
         return _LOADED
+    with _LOAD_LOCK:
+        if _LOADED is None:
+            _load()
+    return _LOADED
+
+
+def _load():
+    global _LOADED
     out_dir = BUILD_ROOT / _source_hash()
     so_path = out_dir / 'libbb_sweeps.so'
     log = ''
@@ -164,4 +188,3 @@ def load_library():
     lib.bb_ne_onepass_smem.argtypes = [_I, _I, _I, _I]
     lib.bb_ne_onepass_smem.restype = ctypes.c_longlong
     _LOADED = KernelLibrary(lib, so_path, build_seconds, log)
-    return _LOADED

@@ -37,7 +37,7 @@ import math
 import numpy as np
 import torch
 
-from .build import load_library
+from .build import count_launch, load_library
 
 launches = {'dot': 0, 'tdot': 0, 'tdot_win': 0}
 MAX_VECTORS = 8  # vectors per launch (csrc/ell.cu kMaxVectors)
@@ -334,7 +334,7 @@ def _ell_cuda(idx, val, X, power, tag, layout):
     kl = load_library()
     if layout is not None and layout.windowed(val.dtype, k):
         win_launch(kl, idx, val, layout, X, power, out)
-        launches[tag + '_win'] += 1
+        count_launch(launches, tag + '_win')
         return out
     Xt = X.t().contiguous()  # (n_in, k): one index's values side by side
     stream = torch.cuda.current_stream(X.device).cuda_stream
@@ -344,7 +344,7 @@ def _ell_cuda(idx, val, X, power, tag, layout):
                            int(val.dtype == torch.float64), out.data_ptr(),
                            stream)
     kl.check(rc, 'ell_matvec_k')
-    launches[tag] += 1
+    count_launch(launches, tag)
     return out
 
 

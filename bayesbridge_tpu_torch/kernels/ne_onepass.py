@@ -32,7 +32,7 @@ import math
 import torch
 
 from . import layout
-from .build import load_library
+from .build import count_launch, load_library
 
 A_MODES = {'fma': 0, 'mma2': 1, 'mma1': 2}
 B_MODES = {'fma': 0, 'mma2': 1, 'mma3': 2}
@@ -196,5 +196,5 @@ def _ne_onepass_cuda(Xe, Xf, ve, vf, c, w, a_mode, b_mode, cvt,
             B_MODES[b_mode], int(cvt), max_clusters, u.data_ptr(),
             partial.data_ptr(), out.data_ptr(), stream)
     kl.check(rc, 'ne_onepass')
-    launches['onepass'] += 1
+    count_launch(launches, 'onepass')
     return out[:pe], (out[pe:] if Xf is not None else None), u

@@ -34,7 +34,7 @@ from dataclasses import dataclass
 import torch
 
 from . import layout
-from .build import load_library
+from .build import count_launch, load_library
 
 ROWS = 4                 # rows per panel (csrc kRows)
 MAX_CONSUMERS = 512      # consumer threads per CTA (csrc kMaxConsumers)
@@ -188,6 +188,6 @@ def _ne_oneread_cuda(blocks, c, a, w, mid, with_logp, p, clusters=None):
             clusters, u.data_ptr(), partial.data_ptr(),
             out.data_ptr(), stream)
     kl.check(rc, 'ne_oneread')
-    launches[mid] += 1
+    count_launch(launches, mid)
     outs = list(torch.split(out[:sum(widths)], widths))
     return outs, u, (out[-1] if with_logp else None)

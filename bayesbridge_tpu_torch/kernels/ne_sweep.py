@@ -41,7 +41,7 @@ import torch
 
 from . import layout
 from . import ne_oneread as _oneread
-from .build import load_library
+from .build import count_launch, load_library
 
 MIDS = {'ne': 0, 'logit': 1, 'linear': 2}
 launches = {key: 0 for key in (*MIDS, 'rows', 'cols', 'rows_k', 'cols_k')}
@@ -197,7 +197,7 @@ def ne_rows(blocks, c):
                                0 if c.dim() == 0 else 1, t.data_ptr(),
                                stream)
     kl.check(rc, 'ne_rows')
-    launches['rows'] += 1
+    count_launch(launches, 'rows')
     return t
 
 
@@ -230,7 +230,7 @@ def colpass(Xs, ps, u):
         rc = kl.lib.bb_colpass(*args, n, u.data_ptr(), n_seg, rows_per_seg,
                                partial.data_ptr(), out.data_ptr(), stream)
     kl.check(rc, 'colpass')
-    launches['cols'] += 1
+    count_launch(launches, 'cols')
     return list(torch.split(out, list(ps)))
 
 
@@ -266,7 +266,7 @@ def _ne_sweep_cuda(blocks, c, a, b, mid, with_logp):
             None if lp_partial is None else lp_partial.data_ptr(),
             None if lp is None else lp.data_ptr(), stream)
     kl.check(rc, 'ne_sweep')
-    launches[mid] += 1
+    count_launch(launches, mid)
     outs = list(torch.split(out, widths))
     return outs, u, (lp[0] if with_logp else None)
 
@@ -306,7 +306,7 @@ def ne_rows_k(blocks, c):
         return ne_rows([(X, V[0]) for X, V in blocks], c[0])[None]
     plan = layout.batched_plan('rows', [X.dtype for X, _ in blocks], k)
     T, n_launch = rows_k_launches(load_library(), plan.chains, blocks, c)
-    launches['rows_k'] += n_launch
+    count_launch(launches, 'rows_k', n_launch)
     return T
 
 
@@ -369,7 +369,7 @@ def colpass_k(Xs, ps, U):
     plan = layout.batched_plan('cols', [X.dtype for X in Xs], k)
     out, n_launch = batched_colpass('colpass_k', Xs, ps, n, [U], 1,
                                     load_library(), plan.chains)
-    launches['cols_k'] += n_launch
+    count_launch(launches, 'cols_k', n_launch)
     return list(torch.split(out[:, 0], list(ps), dim=1))
 
 

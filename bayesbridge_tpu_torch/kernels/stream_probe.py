@@ -22,7 +22,7 @@ On a CUDA tensor :func:`stream_probe` launches the kernel of
 import torch
 
 from . import layout
-from .build import load_library
+from .build import count_launch, load_library
 
 KINDS = {'i32': 0, 'cvt': 1, 'mul': 2}
 DTYPES = {'i32': torch.int32, 'cvt': torch.int8, 'mul': torch.int8}
@@ -106,5 +106,5 @@ def _stream_probe_cuda(X, seed, kind, v):
             v.data_ptr() if v is not None else None, seed.data_ptr(),
             rows.data_ptr(), out.data_ptr(), grid, stream)
     kl.check(rc, 'stream_probe')
-    launches[kind] += 1
+    count_launch(launches, kind)
     return out[0]

@@ -26,7 +26,7 @@ single-vector launch. The JAX package gets this form from ``vmap`` of
 import torch
 
 from . import layout
-from .build import load_library
+from .build import count_launch, load_library
 from .ne_sweep import batched_colpass
 
 launches = {'tdots': 0, 'u4': 0, 'tdots_k': 0, 'u4_k': 0}
@@ -97,7 +97,7 @@ def _tdots_sweep_cuda(Xs, ps, u1, u2, u3, u4):
             None if u4 is None else u4.data_ptr(), n_seg, rows_per_seg,
             partial.data_ptr(), out.data_ptr(), stream)
     kl.check(rc, 'tdots_sweep')
-    launches['tdots' if u4 is None else 'u4'] += 1
+    count_launch(launches, 'tdots' if u4 is None else 'u4')
     outs, off = [], 0
     for p in ps:
         blk = out[:, off:off + p]
@@ -144,7 +144,7 @@ def tdots_sweep_k(Xs, ps, U1, U2, U3, U4=None):
     plan = layout.batched_plan(f'tdots{R}', [X.dtype for X in Xs], k)
     out, n_launch = batched_colpass('tdots_sweep_k', Xs, ps, n, Us, R,
                                     load_library(), plan.chains)
-    launches['tdots_k' if U4 is None else 'u4_k'] += n_launch
+    count_launch(launches, 'tdots_k' if U4 is None else 'u4_k', n_launch)
     outs, off = [], 0
     for p in ps:
         outs.append(tuple(out[:, r, off:off + p] for r in range(R)))

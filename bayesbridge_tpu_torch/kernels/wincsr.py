@@ -25,7 +25,7 @@ X' u 0.0785 against 0.0702 (windows of 16,384) and 0.1207 (32,768).
 
 import torch
 
-from .build import load_library
+from .build import count_launch, load_library
 
 launches = {'dot': 0, 'tdot': 0}
 
@@ -97,5 +97,5 @@ def _wincsr_cuda(m, v, square, tag):
                               m.n_win, m.n_out, m.lanes, int(square),
                               out.data_ptr(), stream)
     kl.check(rc, 'wincsr')
-    launches[tag] += 1
+    count_launch(launches, tag)
     return out

@@ -24,7 +24,7 @@ import torch
 
 from ..design.winell import tile_block
 from . import layout
-from .build import load_library
+from .build import count_launch, load_library
 
 launches = {'dot': 0, 'tdot': 0}
 _LANE = 128
@@ -99,5 +99,5 @@ def _winell_cuda(idx, val, v, n_out, W, K, square, tag, T, Wn):
                               n_split, per, partial.data_ptr(),
                               out.data_ptr(), stream)
     kl.check(rc, 'winell')
-    launches[tag] += 1
+    count_launch(launches, tag)
     return out

@@ -19,25 +19,33 @@ of init dicts for the overdispersed starting points that make split
 R-hat meaningful. ``gibbs_chains_resume`` continues all chains from
 their exact final states. Cross-chain diagnostics (split R-hat, pooled
 ESS) live in :mod:`.utils.mcmc_summarizer`.
+
+With ``mesh=`` (a :class:`.parallel.Mesh`) the chains are split into
+contiguous groups over the mesh's devices (multichain.py:146-155,
+178-256, where the JAX package shards the vmapped chain axis): each
+group runs the chain-batched step on its device, over a copy of the
+model placed there (``parallel.place_model``: replicated, as the JAX
+``P()``), in its own host thread, so that several cards work at once;
+the results are gathered in chain order on the bridge's device. A
+chain's generator state restores on its group's device, and chain c
+still equals the chain run alone, draw for draw.
 """
+
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
 from .bridge import resolve_params_to_save
 from .gibbs_util import SamplerOptions
+from .parallel.sharding import place_model
+from .design.sharded import ShardedDesignMatrix, on_device
 from .random.basic import generator_from_state, generator_state
+from .utils.dtypes import full_float32
 from . import step as step_mod
 
 _COUNTERS = ('n_gscale_clamped', 'n_lscale_underflow', 'n_lscale_overflow',
              'n_cg_unconverged', 'n_curvature_invalid')
-
-
-def _refuse_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh=: sharding the chains over several cards is not ported "
-            "(ROADMAP.md Queue 1 item 15)")
 
 
 def _stack_chain_inits(bridge, init, n_chains):
@@ -150,13 +158,74 @@ def _assemble(bridge, options, params_to_save, carry, outputs, gens,
     return samples, info
 
 
+def _check_mesh(bridge, mesh):
+    if mesh is not None and isinstance(bridge.model.design,
+                                       ShardedDesignMatrix):
+        raise ValueError(
+            "mesh= puts a copy of the model on each device; the model's "
+            "design is sharded already, and copying it would un-shard it")
+
+
 def _execute(bridge, cfg, gens, carry, n_iter, n_burnin, thin,
-             params_to_save):
+             params_to_save, mesh=None):
+    """Run the chains: one chain-batched step, or with `mesh` one per
+    group of chains on its device, each in a thread. Returns (carry,
+    outputs, generators), all in chain order on the bridge's device (the
+    generators on their groups')."""
     n_sample = (n_iter - n_burnin) // thin
     n_remainder = (n_iter - n_burnin) - n_sample * thin
-    return step_mod.run_chains(cfg, bridge.model, gens, carry, n_burnin,
-                               n_sample, thin, n_remainder,
-                               save_keys=tuple(params_to_save))
+    args = (n_burnin, n_sample, thin, n_remainder)
+    save_keys = tuple(params_to_save)
+    if mesh is None:
+        carry, outputs = step_mod.run_chains(cfg, bridge.model, gens, carry,
+                                             *args, save_keys=save_keys)
+        return carry, outputs, gens
+    k = len(gens)
+    size = -(-k // mesh.size)
+    groups = []
+    for dev, r0 in zip(mesh.devices, range(0, k, size)):
+        idx = list(range(r0, min(k, r0 + size)))
+        groups.append((dev, idx, [generator_from_state(
+            generator_state(gens[c]), dev) for c in idx]))
+
+    def run(device, idx, group_gens):
+        with on_device(device):
+            return step_mod.run_chains(
+                cfg, place_model(bridge.model, device), group_gens,
+                _chains_on(carry, idx, device), *args, save_keys=save_keys)
+
+    # One precision setting around every thread: full_float32 inside
+    # run_chains saves and restores a process-wide setting.
+    with full_float32(), ThreadPoolExecutor(len(groups)) as pool:
+        futures = [pool.submit(run, *group) for group in groups]
+        results = [f.result() for f in futures]
+    home = bridge.device
+    carry = _cat_chains([c for c, _ in results], home)
+    outputs = {key: [_cat_chains(list(vals), home) for vals in
+                     zip(*(out[key] for _, out in results))]
+               for key in results[0][1]}
+    return carry, outputs, [g for _, _, gg in groups for g in gg]
+
+
+def _chains_on(tree, idx, device):
+    """Chains `idx` of a chain-batched carry, on `device`."""
+    if isinstance(tree, dict):
+        return {key: _chains_on(val, idx, device) for key, val in
+                tree.items()}
+    if torch.is_tensor(tree):
+        return tree[idx].to(device)
+    return np.asarray(tree)[idx]
+
+
+def _cat_chains(trees, device):
+    """Chain-batched carries (or per-draw outputs) of consecutive chain
+    groups as one, on `device`."""
+    if isinstance(trees[0], dict):
+        return {key: _cat_chains([t[key] for t in trees], device)
+                for key in trees[0]}
+    if torch.is_tensor(trees[0]):
+        return torch.cat([t.to(device) for t in trees])
+    return np.concatenate([np.asarray(t) for t in trees])
 
 
 def gibbs_chains(bridge, n_iter, n_chains, n_burnin=0, thin=1, seed=None,
@@ -173,8 +242,10 @@ def gibbs_chains(bridge, n_iter, n_chains, n_burnin=0, thin=1, seed=None,
         R-hat, pooled ESS) prefer a sequence of overdispersed starts:
         identical starts can leave a shared basin of a multimodal
         posterior undetected.
-    mesh : must be None (chains sharded over several cards are not
-        ported).
+    mesh : a :class:`.parallel.Mesh`, or None: the chains split into
+        contiguous groups over its devices (a device may repeat), each
+        group on a copy of the model placed there, in its own thread
+        (module docstring); the model's design must not be sharded
 
     The chains' generators derive from `seed` through the bridge's
     generator, which then moves past them (:meth:`BasicRandom.spawn`).
@@ -186,7 +257,7 @@ def gibbs_chains(bridge, n_iter, n_chains, n_burnin=0, thin=1, seed=None,
         counters summed over chains, and the exact per-chain resume
         state consumed by ``gibbs_chains_resume``.
     """
-    _refuse_mesh(mesh)
+    _check_mesh(bridge, mesh)
     options = bridge._resolve_options(coef_sampler_type, options)
     params_to_save = resolve_params_to_save(bridge.model.name,
                                             params_to_save)
@@ -200,8 +271,8 @@ def gibbs_chains(bridge, n_iter, n_chains, n_burnin=0, thin=1, seed=None,
         step_mod.init_carry(bridge.device, *start, dtype=bridge.dtype,
                             cfg=cfg)
         for start in zip(coef, obs_prec, gscale, lscale)])
-    carry, outputs = _execute(bridge, cfg, gens, carry, n_iter, n_burnin,
-                              thin, params_to_save)
+    carry, outputs, gens = _execute(bridge, cfg, gens, carry, n_iter,
+                                    n_burnin, thin, params_to_save, mesh)
     base_info = {'n_iter': n_iter, 'n_burnin': n_burnin, 'thin': thin,
                  'n_chains': n_chains, 'seed': seed}
     return _assemble(bridge, options, params_to_save, carry, outputs, gens,
@@ -215,13 +286,15 @@ def gibbs_chains_resume(bridge, prev_info, n_add_iter, merge=False,
     With ``merge=True`` (requires `prev_samples`) the returned samples
     are the previous and new draws concatenated along the iteration
     axis; the continuation equals having run the longer chains
-    uninterrupted, bit for bit.
+    uninterrupted, bit for bit. `mesh` as for :func:`gibbs_chains` (it
+    may differ from the first run's: a chain's state restores on any
+    device).
     """
     if merge and prev_samples is None:
         raise ValueError(
             "To merge the outputs from previous and new MCMC runs, "
             "supply the optional argument `prev_samples`.")
-    _refuse_mesh(mesh)
+    _check_mesh(bridge, mesh)
     options = SamplerOptions.from_info(prev_info['options'])
     params_to_save = prev_info['saved_params']
     cfg = bridge._step_config(options)
@@ -229,8 +302,8 @@ def gibbs_chains_resume(bridge, prev_info, n_add_iter, merge=False,
     gens = [generator_from_state(state, bridge.device)
             for state in prev_info['_chain_generator_states']]
     thin = prev_info['thin']
-    carry, outputs = _execute(bridge, cfg, gens, carry, n_add_iter, 0, thin,
-                              params_to_save)
+    carry, outputs, gens = _execute(bridge, cfg, gens, carry, n_add_iter,
+                                    0, thin, params_to_save, mesh)
     base_info = {'n_iter': n_add_iter, 'n_burnin': 0, 'thin': thin,
                  'n_chains': prev_info['n_chains'],
                  'seed': prev_info.get('seed')}

@@ -10,7 +10,8 @@ Phases, each of which raises on failure (exit code != 0):
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
    TF32 is turned off for matmuls and cuDNN;
 2. build the hand-written kernels from ``bayesbridge_tpu_torch/csrc``
-   with nvcc for sm_90a (one nvcc per source, all started together);
+   with nvcc for sm_90a (one nvcc per source, all started together),
+   while the host builds the flagship data in a thread;
 3. each kernel against its plain PyTorch version on the card at ragged
    small shapes: every mode of ne_sweep's two-pass route (ne / logit /
    linear, with and without logp), its row pass (``ne_rows``) and column
@@ -57,7 +58,7 @@ Phases, each of which raises on failure (exit code != 0):
    through ``gibbs_resume`` timed, resume on the card (``gibbs(13)`` +
    ``gibbs_resume(7, merge=True)`` must equal the ``gibbs(20)`` run
    exactly) and a profiler window (busy share, device ms per
-   iteration); then the alternating A/B segments (4 rounds); then the
+   iteration); then the alternating A/B segments (2 rounds); then the
    MAP search's witness (the search with the fused objective, on
    ``ne_oneread[logit]``, and with the composed one on the same design,
    and the two objectives compared) and the two objectives' times in
@@ -67,7 +68,7 @@ Phases, each of which raises on failure (exit code != 0):
    MAP search on ``ne_oneread[linear]``, the CG operator and the
    pre-solve composed): ``gibbs(20)`` with the Jacobi preconditioner,
    launch counters read right after it, 10 resumed iterations timed,
-   the resume check and a profiler window, then ``gibbs(10)`` with the
+   the resume check and a profiler window, then ``gibbs(5)`` with the
    prior preconditioner, and the one-read linear objective in turns
    against the two-pass sweep and the composed one; then the multichain
    phase on the same stored blocks: the chain-batched kernels
@@ -104,7 +105,20 @@ Phases, each of which raises on failure (exit code != 0):
    iteration (equal bits); per iteration the gradient evaluations, step counts or tree
    heights, stepsizes, acceptance, Hessian matvecs and host syncs, and
    one gradient's time beside its bound (two reads for Cox, one for
-   logit); (b) a dense logit
+   logit); then the sharded phase on the same stored blocks: a mesh
+   of 4 (four cards where the machine has them, else ``[cuda:0] * 4``,
+   each shard a row view of the blocks), the sharded products (dot,
+   Tdot, the fused and the composed CG operator, the pre-solve fused and
+   composed, the Fisher diagonal, the logit link, and the 4-chain forms)
+   against the unsharded design's (rtol 1e-4 of max), each rerun for the
+   same bits and each launching its kernel once per shard; the price of
+   a gather; ``gibbs(10)`` + ``gibbs_resume(10)`` under ``'1'`` and
+   ``'auto'`` with the exact-resume check and a profiler window, beside
+   the unsharded slices' in the same run; one CG solve from the same
+   state sharded and unsharded; 4 chains on the mesh against the chains
+   alone; and an NCCL process group of one (``initialize_multihost``,
+   ``host_local_to_global``), whose 2 iterations must equal the one-shard
+   single-process run bit for bit; (b) a dense logit
    design, X standard normal, 100,000 x 4,000, made on the card and
    stored as 4,004 float32 columns: ``ne_oneread``, its logit mode and
    ``tdots_sweep`` on the lone block against their plain versions, the
@@ -151,7 +165,11 @@ Phases, each of which raises on failure (exit code != 0):
    bits at every k, each traversal timed beside its bound (the first
    one's over the padded slots, the windowed one's over the valid slots
    and the window pointers it reads; both beside the nonzeros alone) and
-   cuSPARSE; ``gibbs(20)`` with CG, 'diag' and bridge exponent 0.5
+   cuSPARSE (at k = 2, 4 and 8 on the k vectors at once); the design
+   on a 4-shard mesh (each shard's col-ELL built from its rows, the
+   traversal each takes logged), its products against the unsharded
+   design's at 1e-12 of max; ``gibbs(20)`` with CG, 'diag' and bridge
+   exponent 0.5
    (launch counts read right after it), ``gibbs_resume(10)`` timed, the
    exact-resume check, a profiler window, 2 chains against the chains
    run alone, and 5 sweeps of the public component updates with finite
@@ -178,6 +196,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 N_OBS, N_PRED = 100_000, 50_000
 DENSE_N, DENSE_P = 100_000, 4_000
@@ -1406,7 +1425,7 @@ def run_hybrid(X, outcome):
     return counts, witness, design, stats['hybrid_composed']['ips']
 
 
-def ab_segments(chains, n_iter=10, rounds=4):
+def ab_segments(chains, n_iter=10, rounds=2):
     """Steady-state A/B of the hybrid policies in one call: `rounds`
     rounds of `n_iter` iterations per chain through ``gibbs_resume``, each
     chain continuing from its last state, the order reversed every other
@@ -1510,7 +1529,7 @@ def run_linear_hybrid(design, X):
     bench.py draws it: under 'auto' (the MAP search on
     ``ne_oneread[linear]``, the CG operator and the pre-solve composed)
     gibbs(20), 10 resumed iterations, the resume check and a profiler
-    window with the Jacobi preconditioner, then gibbs(10) with the prior
+    window with the Jacobi preconditioner, then gibbs(5) with the prior
     preconditioner; then the one-read linear objective in turns against
     the two-pass link sweep and against the composed objective at the
     design's blocks. Returns the launch counts of the first run."""
@@ -1547,16 +1566,16 @@ def run_linear_hybrid(design, X):
 
     bridge = BayesBridge(model, RegressionCoefPrior(bridge_exponent=0.5))
     t0 = time.perf_counter()
-    samples, info_p = bridge.gibbs(10, seed=0, coef_sampler_type='cg',
+    samples, info_p = bridge.gibbs(5, seed=0, coef_sampler_type='cg',
                                    options={'cg_preconditioner': 'prior'},
                                    params_to_save=('coef', 'logp'))
     torch.cuda.synchronize()
     cg_p = info_p['_reg_coef_sampling_info']['n_cg_iter']
     assert np.all(np.isfinite(samples['logp']))
-    log(f"[{label}] gibbs(10) with the prior preconditioner: "
+    log(f"[{label}] gibbs(5) with the prior preconditioner: "
         f"{time.perf_counter() - t0:.1f} s, n_cg_iter "
         f"{cg_p.astype(int).tolist()}, mean {cg_p.mean():.2f} against "
-        f"{np.mean(n_cg[:10]):.2f} over the first 10 with 'diag'")
+        f"{np.mean(n_cg[:5]):.2f} over the first 5 with 'diag'")
 
     # The MAP objective at the design's blocks: the one-read linear
     # sweep with its logp in turns against the two-pass sweep and against
@@ -1591,6 +1610,8 @@ def run_linear_hybrid(design, X):
 
 
 MC_CHAINS = 4
+# Entries of the sharded phase's mesh.
+SHARDS = 4
 MC_KS = (1, 2, 4, 8)  # chains per batched kernel call in the checks
 # The coefficients the multichain phase's split R-hat and pooled ESS read:
 # 1..200, the ten signal coefficients and 190 null ones.
@@ -1723,22 +1744,25 @@ def overdispersed_inits(model, n_chains):
     return inits
 
 
-def chains_against_alone(bridge, inits, label, n_x, seed=3):
-    """Chain c of a 2-chain CG ``gibbs_chains`` run of `n_x` iterations
-    against the chain run alone from its generator (``step.run_chain``
-    in the bridge's dtype): equal CG iteration counts, coef within rtol
+def chains_against_alone(bridge, inits, label, n_x, seed=3, n_chains=2,
+                         mesh=None):
+    """Chain c of an `n_chains`-chain CG ``gibbs_chains`` run of `n_x`
+    iterations (over `mesh`'s devices where one is given) against the
+    chain run alone from its generator (``step.run_chain`` in the
+    bridge's dtype): equal CG iteration counts, coef within rtol
     1e-6."""
     import numpy as np
     from bayesbridge_tpu_torch import gibbs_chains
     from bayesbridge_tpu_torch import step as step_mod
     from bayesbridge_tpu_torch.multichain import _stack_chain_inits
-    s2, i2 = gibbs_chains(bridge, n_x, 2, seed=seed, init=inits,
-                          coef_sampler_type='cg', params_to_save=('coef',))
+    s2, i2 = gibbs_chains(bridge, n_x, n_chains, seed=seed, init=inits,
+                          coef_sampler_type='cg', params_to_save=('coef',),
+                          mesh=mesh)
     cfg = bridge._step_config(bridge._resolve_options('cg', None))
     bridge.rg.set_seed(seed)
-    starts = _stack_chain_inits(bridge, inits, 2)
-    gens = bridge.rg.spawn(2)
-    for i in range(2):
+    starts = _stack_chain_inits(bridge, inits, n_chains)
+    gens = bridge.rg.spawn(n_chains)
+    for i in range(n_chains):
         coef, obs_prec, lscale, gscale = (s[i] for s in starts)
         carry = step_mod.init_carry('cuda', coef, obs_prec, gscale, lscale,
                                     dtype=bridge.dtype)
@@ -1750,8 +1774,9 @@ def chains_against_alone(bridge, inits, label, n_x, seed=3):
             i2['_reg_coef_sampling_info']['n_cg_iter'][i], out['n_cg_iter'])
         np.testing.assert_allclose(s2['coef'][i], alone, rtol=1e-6,
                                    atol=1e-7)
-        log(f"[{label}] chain {i} of 2 against the chain alone: n_cg_iter "
-            f"{out['n_cg_iter']} equal, max |coef diff| {diff:.3g}")
+        log(f"[{label}] chain {i} of {n_chains} against the chain alone: "
+            f"n_cg_iter {out['n_cg_iter']} equal, max |coef diff| "
+            f"{diff:.3g}")
 
 
 def run_multichain(design, outcome, single_ips):
@@ -2460,9 +2485,10 @@ def ell_kernel_checks(design, X):
     on the col-ELL both traversals give the same bits for every k (the
     windowed one launched directly where the dispatch does not take it),
     and each launch advances its own counter. CUDA-event times of each
-    traversal for each k beside its bound, and at k = 1 of the plain
-    version and of cuSPARSE (``torch.sparse_csr_tensor`` of X and of X',
-    the design's dtype, ``torch.mv``; checked against the kernel). Returns
+    traversal for each k beside its bound, at k = 1 of the plain version
+    and of cuSPARSE (``torch.sparse_csr_tensor`` of X and of X', the
+    design's dtype, ``torch.mv``; checked against the kernel), and at k =
+    2, 4, 8 of cuSPARSE on the k vectors (``torch.sparse.mm``). Returns
     {name: result dict} for k = 1, power 1: 'ell[dot]', 'ell[tdot]' (the
     first traversal on the col-ELL), 'ell[tdot_win]' (the windowed one),
     with '@f32' for a float32 design."""
@@ -2571,6 +2597,16 @@ def ell_kernel_checks(design, X):
                     f"vector); bound {bound:.4f} ms ({by}), {bound / ms:.0%} "
                     f"of it; {work[0] / 1e9:.4f} GB at "
                     f"{work[0] / 1e9 / (ms / 1e3):.1f} GB/s of 3350")
+                if k > 1 and label == name:
+                    # cuSPARSE on k vectors at once (the same function as
+                    # one launch of k), checked against the kernel.
+                    VkT = Vk.T.contiguous()
+                    check(f"{name}: cuSPARSE on {k} vectors vs the kernel",
+                          [torch.sparse.mm(mat, VkT).T], [fn(Vk)])
+                    lib_k = time_ms(lambda: torch.sparse.mm(mat, VkT),
+                                    inner=20)
+                    log(f"  {name} k={k}: cuSPARSE (torch.sparse.mm, "
+                        f"{k} columns) {lib_k:.4f} ms")
                 if k == 1:
                     entry = dict(max_abs_err=errs[1, 1], ms=ms,
                                  bound_ms=bound, bound_by=by)
@@ -2661,6 +2697,9 @@ def run_ell(X, outcome):
     assert sum(c.values()) == c['ell[dot]'] + c[tdot], c
     bridge = stats['chain'][0]
     chains_against_alone(bridge, overdispersed_inits(model, 2), 'ell64', 3)
+    errs, traversals = sharded_ell_checks(design)
+    log(f"[ell64_sharded] summary: "
+        f"{json.dumps(dict(errs=errs, traversals=traversals))}")
 
     # The reference-style loop through the public component methods.
     alpha = bridge.prior.bridge_exp
@@ -2727,6 +2766,369 @@ def run_ell(X, outcome):
     return results, counts
 
 
+def sharded_mesh():
+    """The 4-entry mesh of the sharded phase: four cards where the machine
+    has them, else four shards on card 0 (row views of its blocks)."""
+    import torch
+    from bayesbridge_tpu_torch.parallel import make_mesh
+    if torch.cuda.device_count() >= SHARDS:
+        devices = [torch.device('cuda', i) for i in range(SHARDS)]
+        how = f'{SHARDS} cards'
+    else:
+        devices = [torch.device('cuda', 0)] * SHARDS
+        how = (f'one card: [cuda:0] * {SHARDS}, each shard a row view of '
+               f'the stored blocks')
+    log(f"[sharded] mesh of {SHARDS} on {how}")
+    return make_mesh(devices=devices)
+
+
+def rel_err(got, ref):
+    """max |got - ref| / max |ref| in float64, over matching tensors."""
+    err = max(float((g.double() - r.double()).abs().max())
+              for g, r in zip(got, ref))
+    return err / max(float(r.double().abs().max()) for r in ref)
+
+
+def sharded_checks(label, pairs, tol, launches=None):
+    """Each (name, fn) of `pairs` on the unsharded design (fn(False)) and
+    the sharded one (fn(True)): the sharded result within `tol` of max
+    |unsharded|, the same bits on a rerun (each shard's product again).
+    `launches` {name: {counter: launches per call}} are asserted on the
+    counts of the first sharded call. Returns {name: relative error}."""
+    import torch
+    from bayesbridge_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts)
+
+    def as_tuple(x):
+        return x if isinstance(x, tuple) else (x,)
+
+    errs = {}
+    for name, fn in pairs:
+        ref = as_tuple(fn(False))
+        reset_launch_counts()
+        got = as_tuple(fn(True))
+        torch.cuda.synchronize()
+        counts = {k: c for k, c in launch_counts().items() if c}
+        same = all(torch.equal(a, b) for a, b in zip(got, as_tuple(fn(True))))
+        errs[name] = err = rel_err(got, ref)
+        log(f"[{label}] {name}: rel err {err:.3e} (tol {tol:g}); rerun "
+            f"{'same bits' if same else 'DIFFERENT BITS'}; launches {counts}")
+        assert err <= tol, (name, err)
+        assert same, name
+        for counter, n in (launches or {}).get(name, {}).items():
+            assert counts.get(counter, 0) == n, (name, counter, counts)
+    return errs
+
+
+def sharded_flagship_checks(design, sd_f, sd_c):
+    """The sharded products on the flagship blocks against the unsharded
+    design's, fused (``sd_f``, policy '1') and composed (``sd_c``,
+    'auto'), one vector and 4 chains' rows, with the launches of each
+    sharded call: one per shard."""
+    import torch
+    g = torch.Generator(device='cuda').manual_seed(11)
+    n, p = design.shape
+    v = torch.randn(p, generator=g, device='cuda') * .01
+    u = torch.randn(n, generator=g, device='cuda')
+    w = torch.rand(n, generator=g, device='cuda') + .1
+    a = (torch.rand(n, generator=g, device='cuda') < .5).float()
+    V = torch.randn((4, p), generator=g, device='cuda') * .01
+    U = torch.randn((4, n), generator=g, device='cuda')
+    W = torch.rand((4, n), generator=g, device='cuda') + .1
+    fused, comp = design.with_policy('1'), design.with_policy('auto')
+    perm, _, off = comp.cg_blockorder_ctx()
+
+    def f(sharded):
+        return sd_f if sharded else fused
+
+    def c(sharded):
+        return sd_c if sharded else comp
+
+    pairs = [
+        ('dot', lambda s: c(s).dot(v)),
+        ('Tdot', lambda s: c(s).Tdot(u)),
+        ('quad fused', lambda s: f(s).quad_matvec(v, w)),
+        ('quad composed', lambda s: c(s).quad_matvec_blockorder(
+            v[perm], w, off, return_t=True)),
+        ('presolve fused', lambda s: f(s).presolve_reductions(u, u * w, w)),
+        ('presolve composed', lambda s: c(s).presolve_reductions(
+            u, u * w, w, w * u)),
+        ('fisher diag', lambda s: c(s).compute_fisher_diag(w)),
+        ('link logit', lambda s: c(s).fused_link_grad(
+            v, a, torch.ones_like(w), 'logit')),
+        ('dot 4 chains', lambda s: c(s).dot(V)),
+        ('Tdot 4 chains', lambda s: c(s).Tdot(U)),
+        ('quad composed 4 chains', lambda s: c(s).quad_matvec_blockorder(
+            V[:, perm].contiguous(), W, off)),
+        ('presolve composed 4 chains', lambda s: c(s).presolve_reductions(
+            U, U * W, W, W * U)),
+    ]
+    launches = {'quad fused': {'ne_oneread': SHARDS},
+                'quad composed': {'ne_sweep[rows]': SHARDS,
+                                  'ne_sweep[cols]': SHARDS},
+                'link logit': {'ne_oneread[logit]': SHARDS},
+                'presolve fused': {'tdots_sweep': SHARDS},
+                'presolve composed': {'tdots_sweep[u4]': SHARDS},
+                'quad composed 4 chains': {'ne_rows_k': SHARDS,
+                                           'colpass_k': SHARDS}}
+    return sharded_checks('sharded', pairs, RTOL, launches)
+
+
+def sharded_chain(model, label, check_resume=True):
+    """``gibbs(10)`` with CG (launch counts read right after it),
+    ``gibbs_resume(10)`` timed, with `check_resume` the exact-resume
+    check (``gibbs(7)`` + ``gibbs_resume(3, merge=True)``), and a
+    profiler window. Returns
+    {ips, dev_ms, busy, n_cg, mean_cg, counts, combines, samples}."""
+    import numpy as np
+    import torch
+    from bayesbridge_tpu_torch import BayesBridge, RegressionCoefPrior
+    from bayesbridge_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts)
+    bridge = BayesBridge(model, RegressionCoefPrior(bridge_exponent=0.5))
+    kw = dict(seed=0, coef_sampler_type='cg', params_to_save='all')
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    samples, info = bridge.gibbs(10, **kw)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    n_cg = info['_reg_coef_sampling_info']['n_cg_iter']
+    log(f"[{label}] gibbs(10) incl. MAP search: "
+        f"{time.perf_counter() - t0:.1f} s; n_cg_iter "
+        f"{n_cg.astype(int).tolist()}; launch counts "
+        f"{ {k: n for k, n in counts.items() if n} }")
+    assert np.all(np.isfinite(samples['logp']))
+    assert np.all(np.isfinite(samples['coef']))
+    design = model.design
+    c0 = getattr(design, 'combine_count', 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, more = bridge.gibbs_resume(info, 10)
+    torch.cuda.synchronize()
+    ips = 10 / (time.perf_counter() - t0)
+    combines = (getattr(design, 'combine_count', 0) - c0) / 10
+    cg_more = more['_reg_coef_sampling_info']['n_cg_iter']
+    log(f"[{label}] steady state, 10 iterations via gibbs_resume: "
+        f"{ips:.4f} iter/s, mean CG iterations {cg_more.mean():.2f}"
+        + (f", {combines:.1f} gather-and-combine steps an iteration"
+           if combines else ""))
+    if check_resume:
+        s_a, i_a = bridge.gibbs(7, **kw)
+        s_b, _ = bridge.gibbs_resume(i_a, 3, merge=True, prev_samples=s_a)
+        for key in samples:
+            if not np.array_equal(s_b[key], samples[key]):
+                raise AssertionError(f"[{label}] resume != uninterrupted "
+                                     f"for {key}")
+        log(f"[{label}] resume check: gibbs(7) + gibbs_resume(3, "
+            f"merge=True) == gibbs(10) exactly")
+    busy, dev_ms = profile_window(bridge, more, label)
+    return dict(ips=ips, dev_ms=dev_ms, busy=busy, n_cg=n_cg,
+                mean_cg=float(cg_more.mean()), counts=counts,
+                combines=combines, samples=samples)
+
+
+def sharded_cg_solve(design, sd):
+    """One CG solve from the same state on the unsharded and the sharded
+    composed design (the block-ordered operator): both n_cg_iter and the
+    solutions' relative error. Returns the error."""
+    import torch
+    from bayesbridge_tpu_torch.ops.cg import sample_gaussian_cg
+    g = torch.Generator(device='cuda').manual_seed(12)
+    n, p = design.shape
+    obs_prec = torch.rand(n, generator=g, device='cuda') * .25 + .05
+    pps = torch.cat((torch.full((1,), 1e-3, device='cuda'),
+                     1 / (torch.rand(p - 1, generator=g, device='cuda')
+                          * 2.95 + .05)))
+    z = design.Tdot(obs_prec * torch.randn(n, generator=g, device='cuda'))
+    pert = torch.randn(p, generator=g, device='cuda')
+    precond = 1 / torch.sqrt(pps ** 2 + design.compute_fisher_diag(obs_prec))
+    out = {}
+    for name, d in (('unsharded', design), ('sharded', sd)):
+        coef, info = sample_gaussian_cg(
+            None, d, obs_prec, pps, z, coef_cg_init=torch.zeros_like(z),
+            precond_scale=precond, atol=1e-5 * p ** .5, perturbation=pert)
+        out[name] = (coef, info['n_cg_iter'])
+    err = rel_err([out['sharded'][0]], [out['unsharded'][0]])
+    log(f"[sharded] one CG solve from the same state: n_cg_iter unsharded "
+        f"{out['unsharded'][1]}, sharded {out['sharded'][1]}; solutions' "
+        f"relative error {err:.3e}")
+    assert abs(out['sharded'][1] - out['unsharded'][1]) <= 2, out
+    assert err < 1e-3, err
+    return err
+
+
+def nccl_of_one(design, outcome, init, ref_samples):
+    """An NCCL process group of one process: the global mesh, the design
+    and the outcome handed over by host_local_to_global, 2 iterations
+    from `init`, which must equal the one-shard single-process run bit
+    for bit."""
+    import socket
+    import numpy as np
+    import torch
+    from bayesbridge_tpu_torch import BayesBridge, RegressionCoefPrior
+    from bayesbridge_tpu_torch.models import LogisticModel
+    from bayesbridge_tpu_torch.parallel import distributed
+    with socket.socket() as s:
+        s.bind(('127.0.0.1', 0))
+        port = s.getsockname()[1]
+    distributed.initialize_multihost(f'tcp://127.0.0.1:{port}', 1, 0,
+                                     device='cuda')
+    try:
+        assert torch.distributed.get_backend() == 'nccl'
+        mesh = distributed.global_mesh()
+        sd = distributed.host_local_to_global(design, mesh)
+        n_success = distributed.host_local_to_global(outcome[0], mesh)
+        n_trial = distributed.host_local_to_global(outcome[1], mesh)
+        bridge = BayesBridge(LogisticModel(n_success, n_trial, sd),
+                             RegressionCoefPrior(bridge_exponent=0.5))
+        samples, _ = bridge.gibbs(2, seed=0, init=init,
+                                  coef_sampler_type='cg',
+                                  params_to_save='all')
+        torch.cuda.synchronize()
+        for key in ref_samples:
+            if not np.array_equal(samples[key], ref_samples[key]):
+                raise AssertionError(f"[nccl] {key} differs from the "
+                                     f"single-process one-shard run")
+        log(f"[nccl] process group of one (backend nccl, {mesh}): 2 "
+            f"iterations through host_local_to_global, "
+            f"{sd.combine_count} gathers by all_gather, equal to the "
+            f"one-shard single-process run bit for bit")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run_sharded(design, outcome):
+    """The sharded phase on the flagship's stored blocks: the 4-entry
+    mesh; the sharded products against the unsharded design's with their
+    per-shard launches; the price of a gather; ``gibbs(10)`` +
+    ``gibbs_resume(10)`` under the fused policy and 'auto', each beside
+    the unsharded slice's device ms in the same run; one CG solve
+    sharded and unsharded; ``gibbs_chains`` on the mesh against the
+    chains alone; the NCCL process group of one. Returns (counts,
+    summary)."""
+    import numpy as np
+    import torch
+    from bayesbridge_tpu_torch import BayesBridge, RegressionCoefPrior
+    from bayesbridge_tpu_torch.models import LogisticModel
+    from bayesbridge_tpu_torch.parallel import make_mesh, shard_design
+    mesh = sharded_mesh()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sd_f = shard_design(design.with_policy('1'), mesh)
+    sd_c = sd_f.with_policy('auto')
+    torch.cuda.synchronize()
+    log(f"[sharded] shard_design: {time.perf_counter() - t0:.2f} s; rows "
+        f"{[b - a for a, b in sd_f.bounds]}; shards' stored bytes "
+        f"{sd_f.storage_bytes() / 1e9:.3f} GB, new device bytes "
+        f"{(torch.cuda.memory_allocated() - before) / 1e9:.4f} GB")
+    summary = {'product_errs': sharded_flagship_checks(design, sd_f, sd_c)}
+
+    # The price of one gather-and-combine step at the flagship's shapes.
+    p = design.shape[1]
+    parts_p = [torch.randn(p, device='cuda') for _ in range(SHARDS)]
+    parts_n = [torch.randn(b - a, device='cuda') for a, b in sd_f.bounds]
+    sum_ms = time_ms(lambda: sd_f._sum(parts_p), reps=20, inner=10)
+    cat_ms = time_ms(lambda: sd_f._cat(parts_n), reps=20, inner=10)
+    log(f"[sharded] gather-and-combine: the sum of {SHARDS} p-partials "
+        f"{sum_ms:.4f} ms, the concatenation of {SHARDS} row blocks "
+        f"{cat_ms:.4f} ms (CUDA events, device time)")
+    summary.update(sum_ms=sum_ms, cat_ms=cat_ms)
+
+    counts = {}
+    for policy, sd in (('1', sd_f), ('auto', sd_c)):
+        tag = 'fused' if policy == '1' else 'auto'
+        res = sharded_chain(LogisticModel(*outcome, sd), f'sharded_{tag}')
+        # The unsharded slice beside it (its resume was checked in the
+        # hybrid phase).
+        base = sharded_chain(LogisticModel(
+            *outcome, design.with_policy(policy)), f'unsharded_{tag}',
+            check_resume=False)
+        counts[f'sharded_{tag}'] = res['counts']
+        key = 'ne_oneread' if policy == '1' else 'ne_sweep[rows]'
+        log(f"[sharded_{tag}] {key} launches {res['counts'][key]} against "
+            f"the unsharded {base['counts'][key]} (n_cg_iter sharded "
+            f"{res['n_cg'].astype(int).tolist()}, unsharded "
+            f"{base['n_cg'].astype(int).tolist()})")
+        gather_ms = res['combines'] * max(sum_ms, cat_ms)
+        dev = {'sharded': res['dev_ms'], 'unsharded': base['dev_ms']}
+        log(f"[sharded_{tag}] device ms per iteration {dev['sharded']} "
+            f"sharded against {dev['unsharded']} unsharded in this run; "
+            f"iter/s {res['ips']:.4f} against {base['ips']:.4f}; the "
+            f"gathers at most {gather_ms:.3f} ms an iteration "
+            f"({res['combines']:.1f} steps)")
+        summary[tag] = {k: res[k] for k in ('ips', 'dev_ms', 'busy',
+                                            'mean_cg', 'combines')}
+        summary[tag]['unsharded'] = {k: base[k] for k in
+                                     ('ips', 'dev_ms', 'busy', 'mean_cg')}
+        summary[tag]['gather_ms'] = gather_ms
+    summary['cg_err'] = sharded_cg_solve(design.with_policy('auto'), sd_c)
+
+    model = LogisticModel(*outcome, design.with_policy('auto'))
+    bridge = BayesBridge(model, RegressionCoefPrior(bridge_exponent=0.5))
+    t0 = time.perf_counter()
+    chains_against_alone(bridge, overdispersed_inits(model, SHARDS),
+                         'sharded_chains', 3, n_chains=SHARDS, mesh=mesh)
+    log(f"[sharded_chains] {SHARDS} chains on the mesh, each against the "
+        f"chain alone: {time.perf_counter() - t0:.1f} s")
+
+    # From a given start (no MAP search): 2 iterations, one shard.
+    init = {'coef': np.zeros(design.shape[1]), 'global_scale': 0.1,
+            'local_scale': np.ones(design.shape[1] - 1)}
+    one = LogisticModel(*outcome, shard_design(
+        design.with_policy('auto'), make_mesh(devices=[mesh.devices[0]])))
+    ref, _ = BayesBridge(one, RegressionCoefPrior(bridge_exponent=0.5)) \
+        .gibbs(2, seed=0, init=init, coef_sampler_type='cg',
+               params_to_save='all')
+    nccl_of_one(design.with_policy('auto'), outcome, init, ref)
+    log(f"[sharded] peak device memory in the phase "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    del sd_f, sd_c
+    torch.cuda.empty_cache()
+    return counts, summary
+
+
+def sharded_ell_checks(design):
+    """The ell float64 slice's design on the 4-entry mesh: each shard's
+    col-ELL traversal for 1 and 4 vectors, the products against the
+    unsharded design's at 1e-12 of max. Returns ({name: relative
+    error}, {k: each shard's traversal for k vectors})."""
+    import torch
+    from bayesbridge_tpu_torch.parallel import shard_design
+    mesh = sharded_mesh()
+    t0 = time.perf_counter()
+    sd = shard_design(design, mesh)
+    torch.cuda.synchronize()
+    whole = 'windowed' if design.col_layout.windowed(design.dtype, 1) \
+        else 'first'
+    traversals = {1: sd.traversals(1), 4: sd.traversals(4)}
+    log(f"[ell64_sharded] shard_design: {time.perf_counter() - t0:.1f} s "
+        f"(each shard's col-ELL built again from its rows); col-ELL "
+        f"shapes {[tuple(s.col_idx.shape) for _, s in sd.local_shards()]}; "
+        f"traversal for 1 vector {traversals[1]}, for 4 {traversals[4]} "
+        f"(unsharded, 1 vector: {whole})")
+    g = torch.Generator(device='cuda').manual_seed(13)
+    n, p = design.shape
+    f64 = dict(device='cuda', dtype=torch.float64)
+    v = torch.randn(p, generator=g, **f64)
+    u = torch.randn(n, generator=g, **f64)
+    w = torch.rand(n, generator=g, **f64) + .1
+    V = torch.randn((4, p), generator=g, **f64)
+    U = torch.randn((4, n), generator=g, **f64)
+    dsg = {False: design, True: sd}
+    pairs = [('dot', lambda s: dsg[s].dot(v)),
+             ('Tdot', lambda s: dsg[s].Tdot(u)),
+             ('quad', lambda s: dsg[s].quad_matvec(v, w)),
+             ('fisher diag', lambda s: dsg[s].compute_fisher_diag(w)),
+             ('dot 4 chains', lambda s: dsg[s].dot(V)),
+             ('Tdot 4 chains', lambda s: dsg[s].Tdot(U))]
+    errs = sharded_checks('ell64_sharded', pairs, 1e-12,
+                          {'dot': {'ell[dot]': SHARDS}})
+    del sd
+    torch.cuda.empty_cache()
+    return errs, traversals
+
+
 def run_harness():
     """Phase 10: the sweep A/B harness at the flagship block shape, with the
     launch counts of its run. Returns the counts."""
@@ -2781,12 +3183,18 @@ def main():
         return time.perf_counter()
 
     t0 = time.perf_counter()
-    kl = load_library()
-    log(f"kernel build: {kl.build_seconds:.1f} s -> {kl.path.name}")
-    for line in kl.ptxas_log.splitlines():
-        if 'registers' in line or 'spill' in line:
-            log('  ptxas: ' + line.strip())
-    t0 = phase('build', t0)
+    # The host builds the flagship data in a thread while nvcc compiles
+    # the kernels in processes of its own; the data is waited for before
+    # the first kernel is timed.
+    with ThreadPoolExecutor(1) as pool:
+        data = pool.submit(build_data)
+        kl = load_library()
+        log(f"kernel build: {kl.build_seconds:.1f} s -> {kl.path.name}")
+        for line in kl.ptxas_log.splitlines():
+            if 'registers' in line or 'spill' in line:
+                log('  ptxas: ' + line.strip())
+        X, outcome = data.result()
+    t0 = phase('build and flagship data', t0)
     kernel_checks()
     composed_and_onepass_checks()
     packed_kernel_checks()
@@ -2794,7 +3202,6 @@ def main():
     results, link_turns = flagship_kernel_checks()
     results.update(probe_timings())
     t0 = phase('flagship kernel checks', t0)
-    X, outcome = build_data()
     counts, witness, design, composed_ips = run_hybrid(X, outcome)
     counts['link_turns'] = link_turns
     t0 = phase('hybrid slices', t0)
@@ -2810,6 +3217,10 @@ def main():
     counts.update(cox_counts)
     log(f"[cox] summary: {json.dumps(cox)}")
     t0 = phase('cox', t0)
+    sh_counts, sharded = run_sharded(design, outcome)
+    counts.update(sh_counts)
+    log(f"[sharded] summary: {json.dumps(sharded)}")
+    t0 = phase('sharded', t0)
     del design
     torch.cuda.empty_cache()
     dense_counts, res = run_dense()

@@ -29,6 +29,9 @@ def test_import_pulls_in_no_jax():
     code = ("import sys, bayesbridge_tpu_torch, bayesbridge_tpu_torch.convert;"
             "import bayesbridge_tpu_torch.kernels;"
             "import bayesbridge_tpu_torch.design.fusedne;"
+            "import bayesbridge_tpu_torch.design.sharded;"
+            "import bayesbridge_tpu_torch.parallel;"
+            "import bayesbridge_tpu_torch.parallel.distributed;"
             "import bayesbridge_tpu_torch.kernels.ne_onepass;"
             "import bayesbridge_tpu_torch.kernels.stream_probe;"
             "import bayesbridge_tpu_torch.baselines.dev_ne_variants;"

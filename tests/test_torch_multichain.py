@@ -10,8 +10,8 @@ on the CPU.
   from one column's);
 * a resumed and merged run equals the uninterrupted one exactly;
 * a shared (partial) init resolves once and starts every chain there,
-  per-chain inits give different chains, a wrong count raises, and so
-  do ``mesh`` and the unported samplers;
+  per-chain inits give different chains, a wrong count raises, and
+  ``mesh=`` runs the chains over a mesh of devices to the same draws;
 * the batched CG solve against ``jax.vmap`` of the JAX
   ``sample_gaussian_cg`` on the same inputs: per-chain iteration counts
   equal, coef within tests/test_torch_cg.py's tolerance;
@@ -183,12 +183,20 @@ def test_inits_shared_per_chain_and_counted():
 
 
 def test_unported_options_raise():
-    """mesh= still raises (ROADMAP item 15); 'hmc', refused before, runs
+    """mesh=, refused before, runs: the chains split over a 2-device CPU
+    mesh give the chains run without it (tests/test_torch_parallel.py
+    holds them to the chains alone); 'hmc', refused before, runs
     (tests/test_torch_cox_gibbs.py holds its chains to the chain
     alone)."""
+    from bayesbridge_tpu_torch.parallel import make_mesh
     bridge = _bridge('hybrid_auto')
-    with pytest.raises(NotImplementedError, match='item 15'):
-        gibbs_chains(bridge, 2, 2, seed=0, mesh=object())
+    mesh = make_mesh(devices=[torch.device('cpu')] * 2)
+    on_mesh, info = gibbs_chains(bridge, 2, 2, seed=0, mesh=mesh)
+    plain, _ = gibbs_chains(bridge, 2, 2, seed=0)
+    for key in plain:
+        np.testing.assert_array_equal(on_mesh[key], plain[key])
+    more, _ = gibbs_chains_resume(bridge, info, 1, mesh=mesh)
+    assert more['coef'].shape == (2, bridge.n_pred, 1)
     samples, info = gibbs_chains(bridge, 2, 2, seed=0,
                                  coef_sampler_type='hmc')
     assert samples['coef'].shape == (2, bridge.n_pred, 2)
