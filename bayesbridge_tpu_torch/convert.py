@@ -47,7 +47,7 @@ def _block_tensor(block, p):
 def design_from_numpy(X_exact, X_float, exact_cols, float_cols,
                       column_offset, shape, add_intercept=True,
                       center_predictor=False, exact_is_binary=False,
-                      device='cuda', fused=None):
+                      device='cuda', fused=None, exact_tier=None):
     """A hybrid SparseDesignMatrix from the JAX design's arrays.
 
     Parameters
@@ -55,10 +55,14 @@ def design_from_numpy(X_exact, X_float, exact_cols, float_cols,
     X_exact, X_float : the stored blocks (int8 / bfloat16 / float32 and
         float32; or both float64, which make one float64 block of every
         column in the port), possibly wider than their column sets (mesh
-        padding)
+        padding). The JAX design's packed-s4 (int4) block arrives widened
+        to int8 (``np.asarray(X_exact).astype(np.int8)``) with
+        ``exact_tier='int4'``, and is packed here.
     exact_cols, float_cols : original column index of each block column
     column_offset : (p,) centering offsets (zeros when not centered)
     shape : (n, p) of the main design, intercept excluded
+    exact_tier : 'int4' to store X_exact as a packed int4 block, else
+        None (its own dtype)
     """
     n, p = shape
     exact_cols = np.asarray(exact_cols)
@@ -77,9 +81,16 @@ def design_from_numpy(X_exact, X_float, exact_cols, float_cols,
                                   add_intercept=add_intercept,
                                   dtype=torch.float64, fused=fused,
                                   device=device, _parts=parts)
+    if exact_tier == 'int4':
+        X_exact = layout.pack_int4(torch.from_numpy(np.ascontiguousarray(
+            np.asarray(X_exact, np.int8)[:n])), len(exact_cols))
+    elif exact_tier is not None:
+        raise ValueError(f"exact_tier must be 'int4' or None, got "
+                         f"{exact_tier!r}")
+    else:
+        X_exact = _block_tensor(np.asarray(X_exact)[:n], len(exact_cols))
     parts = dict(
-        backend='hybrid',
-        X_exact=_block_tensor(np.asarray(X_exact)[:n], len(exact_cols)),
+        backend='hybrid', X_exact=X_exact,
         X_float=torch.from_numpy(_pad_cols(
             np.asarray(X_float, np.float32)[:n, :len(float_cols)],
             layout.padded_width(len(float_cols)))),
@@ -155,9 +166,9 @@ def design_from_sharded_numpy(backend, arrays, meta, column_offset, shape,
     over as many shards.
 
     backend : 'hybrid' (`arrays` as :func:`design_from_numpy` names them,
-        and ``exact_is_binary``), 'dense' ({'X': the stored X}),
-        'bitpack', 'winell' or 'ell' (:func:`packed_design_from_numpy`'s
-        names)
+        ``exact_is_binary`` and ``exact_tier``), 'dense' ({'X': the
+        stored X}), 'bitpack', 'winell' or 'ell'
+        (:func:`packed_design_from_numpy`'s names)
     meta : the JAX design's ``_bitpack_meta`` (bitpack; re-planned for
         the unsharded shape here), ``_winell_shard[2:7]`` = (w_dot, k_dot,
         w_tdot, k_tdot, rows a device) (winell; its packings are one per
@@ -171,7 +182,8 @@ def design_from_sharded_numpy(backend, arrays, meta, column_offset, shape,
         return design_from_numpy(
             arrays['X_exact'], arrays['X_float'], arrays['exact_cols'],
             arrays['float_cols'], column_offset, shape,
-            exact_is_binary=bool(arrays.get('exact_is_binary', False)), **kw)
+            exact_is_binary=bool(arrays.get('exact_is_binary', False)),
+            exact_tier=arrays.get('exact_tier'), **kw)
     if backend == 'dense':
         return dense_design_from_numpy(arrays['X'], n, **kw)
     if backend == 'ell':

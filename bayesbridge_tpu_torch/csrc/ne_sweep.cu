@@ -48,15 +48,25 @@ namespace {
 constexpr int kRowsPerWarp = 4;
 constexpr int kRowsPerBlock = (kThreads / 32) * kRowsPerWarp;
 
-// acc[r] += X[row0 + r, :p] . v[:p] for r < nvalid, this lane's share.
-template <typename T>
+// Rows a warp owns: 4, and 8 over a packed int4 block, whose lane reads
+// half of int8's bytes a step for the same 16 columns of v: 8 rows keep
+// int8's bytes of v read per byte of X (and its 64 bytes in flight).
+template <typename T> constexpr int rows_per_warp() {
+  return is_nib<T> ? 2 * kRowsPerWarp : kRowsPerWarp;
+}
+
+// acc[r] += X[row0 + r, :p] . v[:p] for r < nvalid, this lane's share:
+// its units (16-byte vectors; 8 bytes, 16 columns, of a packed int4
+// block) lane, lane + 32, ..., element by element.
+template <typename T, int RW>
 __device__ __forceinline__ void rows_dot(const T* __restrict__ X,
                                          int64_t ld, int p,
                                          const float* __restrict__ v,
                                          int64_t row0, int nvalid,
-                                         float (&acc)[kRowsPerWarp],
-                                         int lane) {
-  constexpr int N = Vec<T>::N;
+                                         float (&acc)[RW], int lane) {
+  constexpr bool kNib = is_nib<T>;
+  constexpr int N = vec_of<T>();
+  using Q = std::conditional_t<kNib, uint2, uint4>;
   const T* base = X + row0 * ld;
   for (int k = lane * N; k < p; k += 32 * N) {
     float vv[N];
@@ -65,15 +75,25 @@ __device__ __forceinline__ void rows_dot(const T* __restrict__ X,
       const float4 q = __ldg(reinterpret_cast<const float4*>(v + k + e));
       vv[e] = q.x; vv[e + 1] = q.y; vv[e + 2] = q.z; vv[e + 3] = q.w;
     }
-    uint4 q[kRowsPerWarp];
+    Q q[RW];
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r)
-      q[r] = r < nvalid ? load16(base + r * ld + k) : make_uint4(0, 0, 0, 0);
+    for (int r = 0; r < RW; ++r) {
+      if constexpr (kNib)
+        q[r] = r < nvalid ? load8(reinterpret_cast<const uint8_t*>(
+                                base + r * ld) + k / 2)
+                          : make_uint2(0, 0);
+      else
+        q[r] = r < nvalid ? load16(base + r * ld + k)
+                          : make_uint4(0, 0, 0, 0);
+    }
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
+    for (int r = 0; r < RW; ++r) {
       if (r < nvalid) {
         float xs[N];
-        Vec<T>::cvt(q[r], xs);
+        if constexpr (kNib)
+          Nib4::cvt(q[r], xs);
+        else
+          Vec<T>::cvt(q[r], xs);
         if (k + N > p) {  // ragged lane tail: select, so padding bits vanish
 #pragma unroll
           for (int e = 0; e < N; ++e) if (k + e >= p) xs[e] = 0.f;
@@ -85,7 +105,8 @@ __device__ __forceinline__ void rows_dot(const T* __restrict__ X,
   }
 }
 
-template <typename T0, typename T1>
+// RW rows a warp (rows_per_warp<T0>), (kThreads / 32) * RW a block.
+template <typename T0, typename T1, int RW>
 __global__ void __launch_bounds__(kThreads) ne_rows_kernel(
     const T0* __restrict__ X0, int64_t ld0, int p0,
     const float* __restrict__ v0, const T1* __restrict__ X1, int64_t ld1,
@@ -96,18 +117,18 @@ __global__ void __launch_bounds__(kThreads) ne_rows_kernel(
   __shared__ float warp_lp[kThreads / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int64_t row0 =
-      (int64_t)blockIdx.x * kRowsPerBlock + warp * kRowsPerWarp;
-  const int nvalid = (int)min64(kRowsPerWarp, n - row0 > 0 ? n - row0 : 0);
-  float acc[kRowsPerWarp];
+      (int64_t)blockIdx.x * (kThreads / 32) * RW + warp * RW;
+  const int nvalid = (int)min64(RW, n - row0 > 0 ? n - row0 : 0);
+  float acc[RW];
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) acc[r] = 0.f;
+  for (int r = 0; r < RW; ++r) acc[r] = 0.f;
   if (nvalid > 0) {
-    rows_dot<T0>(X0, ld0, p0, v0, row0, nvalid, acc, lane);
-    if (p1 > 0) rows_dot<T1>(X1, ld1, p1, v1, row0, nvalid, acc, lane);
+    rows_dot<T0, RW>(X0, ld0, p0, v0, row0, nvalid, acc, lane);
+    if (p1 > 0) rows_dot<T1, RW>(X1, ld1, p1, v1, row0, nvalid, acc, lane);
   }
   // Butterfly sums: every lane ends with every row's total, same order.
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
+  for (int r = 0; r < RW; ++r)
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], off);
@@ -116,7 +137,7 @@ __global__ void __launch_bounds__(kThreads) ne_rows_kernel(
   if (lane < nvalid) {  // lane r finishes row r
     float t = acc[0];
 #pragma unroll
-    for (int r = 1; r < kRowsPerWarp; ++r) if (lane == r) t = acc[r];
+    for (int r = 1; r < RW; ++r) if (lane == r) t = acc[r];
     const int64_t row = row0 + lane;
     t += c[c_stride * row];
     const float aa = mid == MID_LOGIT || mid == MID_LINEAR ? a[row] : 0.f;
@@ -444,7 +465,7 @@ cudaError_t ne_sweep_impl(const void* X0, int64_t ld0, int p0,
                           float* out, float* lp_partial, float* lp,
                           cudaStream_t stream) {
   const int grid_a = (int)((n + kRowsPerBlock - 1) / kRowsPerBlock);
-  ne_rows_kernel<T0, T1><<<grid_a, kThreads, 0, stream>>>(
+  ne_rows_kernel<T0, T1, kRowsPerWarp><<<grid_a, kThreads, 0, stream>>>(
       static_cast<const T0*>(X0), ld0, p0, v0, static_cast<const T1*>(X1),
       ld1, p1, v1, n, c, c_stride, a, b, mid, with_logp, u, lp_partial);
   if (with_logp)
@@ -481,6 +502,10 @@ extern "C" int bb_ne_sweep(int dt0, const void* X0, long long ld0, int p0,
 }
 
 // The row pass alone: t = X0 v0 (+ X1 v1) + c, written to t (n floats).
+// dt0 may be 3, a packed int4 block (ld0 in bytes): its nibble mode,
+// which replaces the JAX package's XLA dot over the packed-s4 block
+// (bayesbridge_tpu/design/sparse.py:984-1001). Bound by bytes as the
+// int8 mode: half its exact block's bytes, the same FMAs.
 extern "C" int bb_ne_rows(int dt0, const void* X0, long long ld0, int p0,
                           const float* v0, int dt1, const void* X1,
                           long long ld1, int p1, const float* v1,
@@ -488,9 +513,11 @@ extern "C" int bb_ne_rows(int dt0, const void* X0, long long ld0, int p0,
                           float* t, void* stream) {
   using namespace bbsweep;
   auto s = static_cast<cudaStream_t>(stream);
-  const int grid_a = (int)((n + kRowsPerBlock - 1) / kRowsPerBlock);
-  BB_DISPATCH(dt0, T0, BB_DISPATCH(dt1, T1,
-      ne_rows_kernel<T0, T1><<<grid_a, kThreads, 0, s>>>(
+  BB_DISPATCH_I4(dt0, T0, BB_DISPATCH(dt1, T1,
+      constexpr int RW = rows_per_warp<T0>();
+      constexpr int rows = (kThreads / 32) * RW;  // a block's
+      ne_rows_kernel<T0, T1, RW><<<(int)((n + rows - 1) / rows), kThreads,
+                                   0, s>>>(
           static_cast<const T0*>(X0), ld0, p0, v0,
           static_cast<const T1*>(X1), ld1, p1, v1, n, c, c_stride, nullptr,
           nullptr, MID_ROWS, 0, t, nullptr);
@@ -498,7 +525,10 @@ extern "C" int bb_ne_rows(int dt0, const void* X0, long long ld0, int p0,
 }
 
 // The column pass alone: out = [X0' u ; X1' u] ((p0 + p1) floats), with
-// partial n_seg * (p0 + p1) floats of scratch.
+// partial n_seg * (p0 + p1) floats of scratch. dt0 may be 3, a packed
+// int4 block: its nibble mode (col_tile_i4), which replaces the XLA dot
+// Xe.T @ u over the packed-s4 block (sparse.py:1003-1037), with int8's
+// tiles and row segments.
 extern "C" int bb_colpass(int dt0, const void* X0, long long ld0, int p0,
                           int dt1, const void* X1, long long ld1, int p1,
                           long long n, const float* u, int n_seg,
@@ -506,7 +536,7 @@ extern "C" int bb_colpass(int dt0, const void* X0, long long ld0, int p0,
                           void* stream) {
   using namespace bbsweep;
   auto s = static_cast<cudaStream_t>(stream);
-  BB_DISPATCH(dt0, T0, BB_DISPATCH(dt1, T1,
+  BB_DISPATCH_I4(dt0, T0, BB_DISPATCH(dt1, T1,
       launch_colpass<T0, T1, 1>(X0, ld0, p0, X1, ld1, p1, n, n_seg,
                                 rows_per_seg, u, nullptr, nullptr, nullptr,
                                 partial, out, s);
@@ -616,6 +646,11 @@ extern "C" int bb_batched_occupancy(int kind, int dt0, int nc) {
 }
 
 extern "C" int bb_rows_per_block() { return bbsweep::kRowsPerBlock; }
+
+// Whether this library has the nibble modes of the row pass, the column
+// pass and the pre-solve (a packed int4 first block, DType 3): the
+// design's int4 capability probe asks it.
+extern "C" int bb_has_int4() { return 1; }
 
 extern "C" const char* bb_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -6,7 +6,10 @@
 // row stride ld * sizeof(T) is a multiple of 16 bytes and whose base is
 // 16-byte aligned, so every thread reads whole 16-byte vectors. Only the
 // first p <= ld columns are logical; the kernels mask columns >= p by
-// index and never read rows >= n, so padding may hold any bits.
+// index and never read rows >= n, so padding may hold any bits. A packed
+// int4 block (DT_I4, Nib4 below) holds two columns a byte and its ld
+// counts bytes; only the row pass, the column pass and the pre-solve
+// take one (BB_DISPATCH_I4).
 //
 // Every reduction runs in a fixed order (warp butterflies, per-segment
 // partials, an ordered second pass). There are no float atomics, so two
@@ -18,10 +21,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace bbsweep {
 namespace {  // internal linkage: each .cu file gets its own copy
 
-enum DType { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2 };
+enum DType { DT_F32 = 0, DT_BF16 = 1, DT_I8 = 2, DT_I4 = 3 };
 
 constexpr int kThreads = 256;      // threads per block, both passes
 constexpr int kUrows = 128;        // rows of u staged in shared memory
@@ -61,6 +66,46 @@ template <> struct Vec<int8_t> {
         o[4 * j + k] = (float)((int32_t)(w[j] << (24 - 8 * k)) >> 24);
   }
 };
+
+// A packed int4 block: two's-complement nibbles in [-8, 7], two columns
+// a byte, the even column in the low nibble. Replaces the JAX package's
+// packed-s4 exact block (bayesbridge_tpu/design/sparse.py:492-493),
+// which XLA widened inside its dots. A thread reads 8 bytes, 16 columns,
+// at a time: the int8 kernels' columns per thread, so the nibble modes
+// keep int8's column tiles, row segments, per-lane column order and
+// accumulator count, and with them int8's sums on the same values, at
+// half the bytes. (Whole 16-byte units would give a thread 32 columns:
+// twice the column pass's accumulators, 160 at five reductions.)
+struct Nib4 {
+  static constexpr int N = 16;  // columns of an 8-byte load
+  // Each nibble + 8 ((w >> 4k) & 0x0F0F0F0F ^ 0x08080808), byte-permuted
+  // into the float 2^23 + (x + 8), less 2^23 + 8: exact, on the integer
+  // and FMA pipes (not the conversion unit), as cvt_group does int8.
+  __device__ __forceinline__ static void cvt(uint2 q, float (&o)[N]) {
+    const uint32_t w[2] = {q.x, q.y};
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const uint32_t lo = (w[j] & 0x0F0F0F0Fu) ^ 0x08080808u;
+      const uint32_t hi = ((w[j] >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        o[8 * j + 2 * k] =
+            __uint_as_float(__byte_perm(lo, 0x4B000000u, 0x7540 + k)) -
+            8388616.f;
+        o[8 * j + 2 * k + 1] =
+            __uint_as_float(__byte_perm(hi, 0x4B000000u, 0x7540 + k)) -
+            8388616.f;
+      }
+    }
+  }
+};
+
+template <typename T>
+constexpr bool is_nib = std::is_same<T, Nib4>::value;
+
+__device__ __forceinline__ uint2 load8(const uint8_t* p) {
+  return __ldg(reinterpret_cast<const uint2*>(p));
+}
 
 __host__ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
   return a < b ? a : b;
@@ -125,6 +170,42 @@ __device__ __forceinline__ void accumulate(float (&acc)[K][N],
   }
 }
 
+// Stage rows rb .. rb + cnt of u0 (u1 u2 (u3)) in `su` for a block's
+// threads (the barriers on both sides included).
+template <int K>
+__device__ __forceinline__ void stage_u(float* su, int64_t rb, int cnt,
+                                        const float* __restrict__ u0,
+                                        const float* __restrict__ u1,
+                                        const float* __restrict__ u2,
+                                        const float* __restrict__ u3) {
+  constexpr int NU = NumU<K>::value;
+  __syncthreads();
+  for (int i = threadIdx.x; i < cnt; i += kThreads) {
+    su[i] = u0[rb + i];
+    if constexpr (NU >= 3) {
+      su[kUrows + i] = u1[rb + i];
+      su[2 * kUrows + i] = u2[rb + i];
+    }
+    if constexpr (NU == 4) su[3 * kUrows + i] = u3[rb + i];
+  }
+  __syncthreads();
+}
+
+// A thread's K x N column sums, from column c0, to its segment's partial
+// rows (columns >= p dropped).
+template <int K, int N>
+__device__ __forceinline__ void write_part(const float (&acc)[K][N], int c0,
+                                           int p, float* __restrict__ part,
+                                           int64_t p_total, int col_off) {
+  if (c0 < p) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+      for (int e = 0; e < N; ++e)
+        if (c0 + e < p) part[k * p_total + col_off + c0 + e] = acc[k][e];
+  }
+}
+
 // Column pass over one block: this thread owns N consecutive columns of
 // tile `tile` and sums rows [r0, r1) of X' [u0 (u1 u2 (u3))] into
 // registers, then writes them to its segment's partial row (the K
@@ -137,7 +218,6 @@ __device__ __forceinline__ void col_tile(
     const float* __restrict__ u2, const float* __restrict__ u3, float* su,
     float* __restrict__ part, int64_t p_total, int col_off) {
   constexpr int N = Vec<T>::N;
-  constexpr int NU = NumU<K>::value;
   const int c0 = tile * (kThreads * N) + threadIdx.x * N;
   float acc[K][N];
 #pragma unroll
@@ -147,16 +227,7 @@ __device__ __forceinline__ void col_tile(
 
   for (int64_t rb = r0; rb < r1; rb += kUrows) {
     const int cnt = (int)min64(kUrows, r1 - rb);
-    __syncthreads();
-    for (int i = threadIdx.x; i < cnt; i += kThreads) {
-      su[i] = u0[rb + i];
-      if constexpr (NU >= 3) {
-        su[kUrows + i] = u1[rb + i];
-        su[2 * kUrows + i] = u2[rb + i];
-      }
-      if constexpr (NU == 4) su[3 * kUrows + i] = u3[rb + i];
-    }
-    __syncthreads();
+    stage_u<K>(su, rb, cnt, u0, u1, u2, u3);
     if (c0 < p) {
       const T* xp = X + rb * ld + c0;
       int i = 0;
@@ -179,13 +250,66 @@ __device__ __forceinline__ void col_tile(
       }
     }
   }
-  if (c0 < p) {
+  write_part<K, N>(acc, c0, p, part, p_total, col_off);
+}
+
+// col_tile over a packed int4 block (ld in bytes): 16 columns a thread,
+// 8 rows' 8-byte loads in flight (int8's 64 bytes), the same staging,
+// accumulation and partial rows.
+template <int K>
+__device__ __forceinline__ void col_tile_i4(
+    const uint8_t* __restrict__ X, int64_t ld, int p, int tile, int64_t r0,
+    int64_t r1, const float* __restrict__ u0, const float* __restrict__ u1,
+    const float* __restrict__ u2, const float* __restrict__ u3, float* su,
+    float* __restrict__ part, int64_t p_total, int col_off) {
+  constexpr int N = Nib4::N, ROWS = 8;
+  const int c0 = tile * (kThreads * N) + threadIdx.x * N;
+  float acc[K][N];
 #pragma unroll
-    for (int k = 0; k < K; ++k)
+  for (int k = 0; k < K; ++k)
 #pragma unroll
-      for (int e = 0; e < N; ++e)
-        if (c0 + e < p) part[k * p_total + col_off + c0 + e] = acc[k][e];
+    for (int e = 0; e < N; ++e) acc[k][e] = 0.f;
+
+  for (int64_t rb = r0; rb < r1; rb += kUrows) {
+    const int cnt = (int)min64(kUrows, r1 - rb);
+    stage_u<K>(su, rb, cnt, u0, u1, u2, u3);
+    if (c0 < p) {
+      const uint8_t* xp = X + rb * ld + c0 / 2;
+      int i = 0;
+      for (; i + ROWS <= cnt; i += ROWS, xp += ROWS * ld) {
+        uint2 q[ROWS];
+#pragma unroll
+        for (int j = 0; j < ROWS; ++j) q[j] = load8(xp + j * ld);
+#pragma unroll
+        for (int j = 0; j < ROWS; ++j) {
+          float xs[N];
+          Nib4::cvt(q[j], xs);
+          accumulate<K, N>(acc, xs, su, i + j);
+        }
+      }
+      for (; i < cnt; ++i, xp += ld) {
+        float xs[N];
+        Nib4::cvt(load8(xp), xs);
+        accumulate<K, N>(acc, xs, su, i);
+      }
+    }
   }
+  write_part<K, N>(acc, c0, p, part, p_total, col_off);
+}
+
+// col_tile, or col_tile_i4 for a packed int4 block.
+template <typename T, int K>
+__device__ __forceinline__ void col_tile_of(
+    const T* __restrict__ X, int64_t ld, int p, int tile, int64_t r0,
+    int64_t r1, const float* __restrict__ u0, const float* __restrict__ u1,
+    const float* __restrict__ u2, const float* __restrict__ u3, float* su,
+    float* __restrict__ part, int64_t p_total, int col_off) {
+  if constexpr (is_nib<T>)
+    col_tile_i4<K>(reinterpret_cast<const uint8_t*>(X), ld, p, tile, r0,
+                   r1, u0, u1, u2, u3, su, part, p_total, col_off);
+  else
+    col_tile<T, K>(X, ld, p, tile, r0, r1, u0, u1, u2, u3, su, part,
+                   p_total, col_off);
 }
 
 // Column pass over one or two row-aligned blocks. Grid: x = column tiles
@@ -204,11 +328,11 @@ __global__ void __launch_bounds__(kThreads) colpass_kernel(
   const int64_t r1 = min64(n, r0 + rows_per_seg);
   float* part = partial + (int64_t)blockIdx.y * K * p_total;
   if ((int)blockIdx.x < tiles0)
-    col_tile<T0, K>(X0, ld0, p0, blockIdx.x, r0, r1, u0, u1, u2, u3, su,
-                    part, p_total, 0);
+    col_tile_of<T0, K>(X0, ld0, p0, blockIdx.x, r0, r1, u0, u1, u2, u3, su,
+                       part, p_total, 0);
   else
-    col_tile<T1, K>(X1, ld1, p1, blockIdx.x - tiles0, r0, r1, u0, u1, u2,
-                    u3, su, part, p_total, p0);
+    col_tile_of<T1, K>(X1, ld1, p1, blockIdx.x - tiles0, r0, r1, u0, u1,
+                       u2, u3, su, part, p_total, p0);
 }
 
 // Second pass: out[j] = sum over segments s, in order, of partial[s, j]
@@ -229,7 +353,10 @@ inline int tiles_of(int p, int vec) {
   return (p + w - 1) / w;
 }
 
-template <typename T> constexpr int vec_of() { return Vec<T>::N; }
+template <typename T> __host__ __device__ constexpr int vec_of() {
+  if constexpr (is_nib<T>) return Nib4::N;  // a thread's 8 bytes
+  else return Vec<T>::N;
+}
 
 // Launch the column pass and its reduction for blocks (X0: T0, X1: T1).
 template <typename T0, typename T1, int K>
@@ -623,6 +750,16 @@ cudaError_t colpass_k(const void* X0, int64_t ld0, int p0, const float* X1,
     case ::bbsweep::DT_I8: { using T = int8_t; __VA_ARGS__; }      \
     default: return cudaErrorInvalidValue;            \
   }
+
+// BB_DISPATCH with the packed int4 block too (DT_I4: T = Nib4), for the
+// first block of the single-vector row pass, column pass and pre-solve;
+// `stmt` must return.
+#define BB_DISPATCH_I4(dt, T, ...)                                    \
+  if ((dt) == ::bbsweep::DT_I4) {                                     \
+    using T = ::bbsweep::Nib4;                                        \
+    __VA_ARGS__;                                                      \
+  }                                                                   \
+  BB_DISPATCH(dt, T, __VA_ARGS__)
 
 }  // namespace
 }  // namespace bbsweep

@@ -276,7 +276,12 @@ cudaError_t tdots_k(const void* X0, int64_t ld0, int p0, const float* X1,
 }  // namespace
 }  // namespace bbsweep
 
-// C interface (ctypes). dt*: 0 f32, 1 bf16, 2 int8; p1 == 0 means one
+// C interface (ctypes). dt*: 0 f32, 1 bf16, 2 int8; dt0 also 3, a packed
+// int4 block (ld0 in bytes), the nibble mode: col_tile_i4 with int8's
+// tiles, segments and 80 accumulators at five reductions, which replaces
+// the JAX package's _presolve_multirhs over the packed-s4 block
+// (bayesbridge_tpu/design/sparse.py:1325-1368; its squares, at most 64,
+// exact here as in f32). p1 == 0 means one
 // block; u4 == NULL means four reductions (K = 4), else five. partial:
 // n_seg * K * (p0 + p1) floats; out: (K, p0 + p1) floats, row k holding
 // reduction k for block 0's columns then block 1's.
@@ -291,13 +296,13 @@ extern "C" int bb_tdots_sweep(int dt0, const void* X0, long long ld0,
   using namespace bbsweep;
   auto s = static_cast<cudaStream_t>(stream);
   if (u4 == nullptr) {
-    BB_DISPATCH(dt0, T0, BB_DISPATCH(dt1, T1,
+    BB_DISPATCH_I4(dt0, T0, BB_DISPATCH(dt1, T1,
         launch_colpass<T0, T1, 4>(X0, ld0, p0, X1, ld1, p1, n, n_seg,
                                   rows_per_seg, u1, u2, u3, nullptr,
                                   partial, out, s);
         return (int)cudaGetLastError()));
   }
-  BB_DISPATCH(dt0, T0, BB_DISPATCH(dt1, T1,
+  BB_DISPATCH_I4(dt0, T0, BB_DISPATCH(dt1, T1,
       launch_colpass<T0, T1, 5>(X0, ld0, p0, X1, ld1, p1, n, n_seg,
                                 rows_per_seg, u1, u2, u3, u4, partial, out,
                                 s);

@@ -6,11 +6,18 @@ float64 on the hybrid and ell backends).
 ``hybrid``
     Dense blocks split by column representability: the exactly
     representable columns form one narrow block (int8 when every value
-    is an integer in [-127, 127], else bf16 over the bf16-exact set,
-    whichever moves fewer bytes), the rest stay float32. `dot` is the row
-    pass of :mod:`..kernels.ne_sweep` (``ne_rows``), `Tdot` its column
-    pass (``colpass``), the pre-solve reductions and the Fisher diagonal
-    one :mod:`..kernels.tdots_sweep` read. The `fused` policy
+    is an integer in [-127, 127], else bf16 over the bf16-exact set, or,
+    opted into with ``BB_HYBRID_INT4=1``, packed int4 over the integers
+    in [-8, 7], whichever moves fewer bytes), the rest stay float32.
+    `dot` is the row pass of :mod:`..kernels.ne_sweep` (``ne_rows``),
+    `Tdot` its column pass (``colpass``), the pre-solve reductions and
+    the Fisher diagonal one :mod:`..kernels.tdots_sweep` read; over an
+    int4 block each runs its kernel's nibble mode. The int4 tier follows
+    the JAX package's rules (sparse.py:83-137, 435-493): the opt-in, a
+    capability probe cached per device type (:func:`_int4_supported`),
+    the pick by stored bytes, the demotion to int8 where the CG operator
+    runs fused (unless int8 would not fit the budget) or the device
+    cannot run it, no fused sweep over an int4 block. The `fused` policy
     (:mod:`.fusedne`, default 'auto') decides per call site whether the
     CG operator, the pre-solve and the GLM score run composed
     (block-ordered CG, the warm start folded into the pre-solve, the
@@ -71,8 +78,8 @@ operator, bitlut and wincsr run once per chain; a float64 hybrid design
 multiplies k columns at once. Each chain's result is its single-vector
 product, bit for bit on the kernels.
 
-Not ported: the int4 tier (no int4 MMA on Hopper). bitpack and winell
-refuse float64 on every build path (NotImplementedError).
+bitpack and winell refuse float64 on every build path
+(NotImplementedError).
 """
 
 import copy
@@ -114,6 +121,35 @@ _DENSIFY_CHUNK = 2 ** 25
 # the Cholesky path builds (sparse.py:74).
 _DENSE_FISHER_MAX_ELEMS = 5e7
 
+# Whether a device type runs the int4 tier, probed once per type (the
+# JAX package's _INT4_SUPPORTED, sparse.py:83-96): keyed by the device a
+# design EXECUTES on, never by where its host blocks were built.
+_INT4_SUPPORTED = {}
+
+
+def _int4_opted_in():
+    return os.environ.get('BB_HYBRID_INT4', '0') == '1'
+
+
+def _int4_supported(device):
+    """True iff the packed int4 tier runs on `device` (the JAX package's
+    ``_int4_matmul_supported``, sparse.py:98-137). Opt-in: without
+    ``BB_HYBRID_INT4=1`` False, touching no device. Probed once per device
+    type: the CPU runs the nibble modes' plain versions; a CUDA device
+    asks the built kernel library for them (``bb_has_int4``), a failed
+    build raising as every build does."""
+    if not _int4_opted_in():
+        return False
+    key = torch.device(device).type
+    if key not in _INT4_SUPPORTED:
+        if key == 'cuda':
+            from ..kernels import load_library
+            _INT4_SUPPORTED[key] = bool(load_library().lib.bb_has_int4())
+        else:
+            _INT4_SUPPORTED[key] = key == 'cpu'
+    return _INT4_SUPPORTED[key]
+
+
 # The arrays each packed backend stores, by the JAX design's names
 # (``convert.packed_design_from_numpy`` takes them so).
 PACKED_ARRAYS = {
@@ -144,12 +180,19 @@ def _int8_exact(data):
     return (data == np.round(data)) & (np.abs(data) <= 127)
 
 
+def _int4_exact(data):
+    """Integers in [-8, 7] (sparse.py:230-238): 0/1 columns qualify."""
+    return (data == np.round(data)) & (data >= -8) & (data <= 7)
+
+
 def choose_backend(X_csr, int8_mask, bf16_mask, binary_mask,
-                   dtype=torch.float32):
-    """The JAX package's ``backend='auto'`` rule (sparse.py:327-403,
-    without the int4 tier): hybrid while its blocks fit the budget, then
-    (float32 only) bitpack for mostly-binary designs, then winell while
-    its slots fill sanely, then the least bad of hybrid and ell. Under
+                   dtype=torch.float32, int4_mask=None, device='cpu'):
+    """The JAX package's ``backend='auto'`` rule (sparse.py:327-403):
+    hybrid while its blocks fit the budget, then (float32 only) bitpack
+    for mostly-binary designs, then winell while its slots fill sanely,
+    then the least bad of hybrid and ell. The hybrid estimate takes the
+    int4 tier's 0.5 bytes an element where `int4_mask` is given, it is
+    cheaper, and `device` runs it (:func:`_int4_supported`). Under
     float64 every hybrid column is 8 bytes, and where a float32 design
     would have taken bitpack or winell it warns as the JAX package
     does."""
@@ -165,6 +208,12 @@ def choose_backend(X_csr, int8_mask, bf16_mask, binary_mask,
     binary_frac = frac(binary_mask)
     per_elem = min(int8_frac * 1 + (1 - int8_frac) * 4,
                    exact_frac * 2 + (1 - exact_frac) * 4) if f32 else 8
+    if f32 and int4_mask is not None:
+        int4_frac = frac(int4_mask)
+        cost_int4 = int4_frac * 0.5 + (1 - int4_frac) * 4
+        # The probe only where int4 would change the estimate.
+        if cost_int4 < per_elem and _int4_supported(device):
+            per_elem = cost_int4
     hybrid_bytes = n * p * per_elem
     ell_bytes = 2 * nnz * (4 + itemsize)
     # the col-ELL's window pointers, where the design would keep them
@@ -258,25 +307,46 @@ class SparseDesignMatrix(AbstractDesignMatrix):
             offsets = np.bincount(X.indices, weights=data, minlength=p) / n
         else:
             offsets = np.zeros(p)
-        masks = {}
+        masks = {'int4': None}
         if backend in ('auto', 'hybrid'):
             masks['int8'] = _exact_column_mask(X, ~_int8_exact(data))
             masks['bf16'] = _exact_column_mask(X, ~_bf16_exact(data))
+            if _int4_opted_in():  # unset, no probe would say yes
+                masks['int4'] = _exact_column_mask(X, ~_int4_exact(data))
         if backend in ('auto', 'bitpack'):
             masks['binary'] = _exact_column_mask(X, data != 1.0)
         if backend == 'auto':
             backend = choose_backend(X, masks['int8'], masks['bf16'],
-                                     masks['binary'], self._dtype)
+                                     masks['binary'], self._dtype,
+                                     masks['int4'], self.device)
         self._set_backend(backend)
         if backend == 'hybrid':
             self._build_hybrid(X, data, offsets, masks['int8'],
-                               masks['bf16'])
+                               masks['bf16'], masks['int4'])
         elif backend == 'bitpack':
             self._build_bitpack(X, offsets, masks['binary'])
         elif backend == 'winell':
             self._build_winell(X, offsets)
         else:
             self._build_ell(X, offsets)
+
+    def with_exact_tier(self, tier):
+        """This hybrid design with its exact block stored as `tier`:
+        'int4' packs an int8 block (its values in [-8, 7]), 'int8' widens
+        a packed int4 one (the same values at twice the bytes). The float
+        block is shared, the matvec counters start at zero; on the
+        design's device, from its stored block (no host densify)."""
+        if self.backend != 'hybrid' or tier not in ('int4', 'int8'):
+            raise ValueError("with_exact_tier: a hybrid design, tier "
+                             "'int4' or 'int8'")
+        Xe = self.X_exact
+        if tier == 'int4' and not layout.is_int4(Xe):
+            Xe = layout.pack_int4(Xe, self.n_exact)
+        elif tier == 'int8' and layout.is_int4(Xe):
+            Xe = layout.unpack_int4(Xe)
+        other = self.with_policy(self.fused_policy)
+        other.X_exact = Xe
+        return other
 
     def with_policy(self, fused):
         """This design's stored arrays (shared, not copied) under another
@@ -304,10 +374,15 @@ class SparseDesignMatrix(AbstractDesignMatrix):
 
     # -- construction ---------------------------------------------------- #
 
-    def _build_hybrid(self, X, data, offsets, int8_mask, bf16_mask):
-        """Narrow-tier pick by stored bytes (sparse.py _build_hybrid,
-        without the int4 tier): ties go to int8. Under float64, one
-        float64 block of every column."""
+    def _build_hybrid(self, X, data, offsets, int8_mask, bf16_mask,
+                      int4_mask=None):
+        """Narrow-tier pick by stored bytes (sparse.py:422-498): ties go
+        to int4, then int8. int4 (where `int4_mask` is given, under the
+        opt-in) yields to the next tier where the design's device cannot
+        run it, and where the policy fuses the CG operator, which takes
+        no int4 block, unless that tier would not fit the hybrid budget
+        (int4 as a storage rescue). Under float64, one float64 block of
+        every column."""
         n, p = X.shape
         binary = bool(np.all((data == 0.0) | (data == 1.0)))
         if self._dtype == torch.float64:
@@ -318,15 +393,35 @@ class SparseDesignMatrix(AbstractDesignMatrix):
                              cols[:0], cols, offsets, (n, p), X.nnz, binary)
             return
         n_int8, n_bf16 = int(int8_mask.sum()), int(bf16_mask.sum())
-        costs = {'int8': 1 * n_int8 + 4 * (p - n_int8),
-                 'bf16': 2 * n_bf16 + 4 * (p - n_bf16)}
+        costs = {}
+        if int4_mask is not None:
+            n_int4 = int(int4_mask.sum())
+            costs['int4'] = 0.5 * n_int4 + 4 * (p - n_int4)
+        costs.update(int8=1 * n_int8 + 4 * (p - n_int8),
+                     bf16=2 * n_bf16 + 4 * (p - n_bf16))
         pick = min(costs, key=costs.get)
-        exact_mask = int8_mask if pick == 'int8' else bf16_mask
+        if pick == 'int4' and not _int4_supported(self.device):
+            del costs['int4']
+            pick = min(costs, key=costs.get)
+        if pick == 'int4' and dispatch_mode('quad', self.fused_policy) \
+                is not None:
+            # One fused sweep reads E + F bytes where the composed pair
+            # over int4 reads 2 (E / 2 + F): keep int4 only as a storage
+            # rescue (sparse.py:457-473).
+            alt = min((k for k in costs if k != 'int4'), key=costs.get)
+            if n * costs[alt] <= _HYBRID_MAX_BYTES:
+                pick = alt
+        exact_mask = {'int4': int4_mask, 'int8': int8_mask,
+                      'bf16': bf16_mask}[pick]
         exact_cols = np.where(exact_mask)[0]
         float_cols = np.where(~exact_mask)[0]
-        if pick == 'int8':
+        if pick in ('int4', 'int8'):
+            # int4 densifies through int8 (numpy has no 4-bit layout)
+            # and is packed on the host.
             Xe = torch.from_numpy(_densify(
                 X, exact_cols, np.int8, layout.padded_width(len(exact_cols))))
+            if pick == 'int4':
+                Xe = layout.pack_int4(Xe, len(exact_cols))
         else:
             # bf16 bits of bf16-exact values: the top half of their f32.
             bits = _densify(X, exact_cols, np.float32,
@@ -627,7 +722,12 @@ class SparseDesignMatrix(AbstractDesignMatrix):
             return count(self.bits_col.T, self.bits_col.shape[0],
                          lambda B: ones[B.long()]) \
                 + count(self.X_float, self.n_float, nonzero)
-        return sum(count(X, k, nonzero) for X, k in self._stored())
+        def stored(X, k):
+            if layout.is_int4(X):
+                return count(X, X.shape[1],
+                             lambda B: layout.unpack_int4(B, k) != 0)
+            return count(X, k, nonzero)
+        return sum(stored(X, k) for X, k in self._stored())
 
     @property
     def dtype(self):
@@ -654,12 +754,13 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         """True where the fused sweep serves the `kind` call site ('quad'
         | 'presolve' | 'link') of this design: the policy fuses the kind
         (.fusedne.dispatch_mode) and the design is an f32 hybrid with an
-        int8/bf16/f32 exact block (sparse.py:1039-1070 without the
-        sharding cases); else None, the composed path."""
+        int8/bf16/f32 exact block, not a packed int4 one (sparse.py
+        :1039-1070 without the sharding cases); else None, the composed
+        path."""
         if (dispatch_mode(kind, self.fused_policy) is None
                 or self.backend != 'hybrid' or not self._kernels()
                 or self.X_exact.dtype not in layout.DTYPE_CODE
-                or self.n_exact == 0):
+                or layout.is_int4(self.X_exact) or self.n_exact == 0):
             return None
         return True
 
@@ -1070,8 +1171,9 @@ class SparseDesignMatrix(AbstractDesignMatrix):
                     torch.zeros(p_main, dtype=self._dtype,
                                 device=self.device))
 
-        def chunk(start, size):
-            return torch.cat([X[start:start + size, :k].to(self._dtype)
+        def chunk(start, size):  # a packed int4 block unpacked
+            return torch.cat([layout.widen(X[start:start + size], k,
+                                           self._dtype)
                               for X, k in stored], 1)
 
         G, s1 = chunked_gram(chunk, n, p_main, weight, self._dtype)
@@ -1133,7 +1235,7 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         X = torch.zeros((n, p), dtype=self._dtype)
         if self.backend == 'hybrid':
             for (blk, k), cols in zip(self._stored(), self._block_cols()):
-                X[:, cols.cpu()] = blk[:, :k].to(self._dtype).cpu()
+                X[:, cols.cpu()] = layout.widen(blk, k, self._dtype).cpu()
             return X
         if self.backend == 'bitpack':
             p_bin = self._bitpack_meta[0]

@@ -46,6 +46,15 @@ REGISTRY = {
                        replaces='baselines/dev_ne_variants.py:302'),
     'stream_probe': dict(source='bayesbridge_tpu_torch/csrc/stream_probe.cu',
                          replaces='baselines/dev_ne_variants.py:393'),
+    # No Pallas kernel: the nibble modes of the row pass, the column pass
+    # and the pre-solve over the hybrid design's packed int4 block, which
+    # replace the XLA dots over the JAX design's packed-s4 block.
+    'ne_rows_i4': dict(source='bayesbridge_tpu_torch/csrc/ne_sweep.cu',
+                       replaces='bayesbridge_tpu/design/sparse.py:991'),
+    'colpass_i4': dict(source='bayesbridge_tpu_torch/csrc/sweep_common.cuh',
+                       replaces='bayesbridge_tpu/design/sparse.py:1020'),
+    'tdots_i4': dict(source='bayesbridge_tpu_torch/csrc/tdots_sweep.cu',
+                     replaces='bayesbridge_tpu/design/sparse.py:1356'),
     # No Pallas kernel: the XLA gathers of the ell backend. Both
     # traversals of csrc/ell.cu: ell[dot] and ell[tdot] the first,
     # ell[tdot_win] the col-ELL's windowed one.
@@ -63,9 +72,20 @@ def launch_counts():
     'winell[tdot]': ..., 'wincsr[dot]': ..., 'ell[dot]': ...,
     'ell[tdot]': ..., 'ell[tdot_win]': ..., 'ne_onepass': ...,
     'ne_oneread': ... (the CG operator), 'ne_oneread[logit]': ...,
-    'ne_oneread[linear]': ..., 'stream_probe[i32]': ...}."""
+    'ne_oneread[linear]': ..., 'stream_probe[i32]': ..., and the
+    nibble modes over a packed int4 block: 'ne_rows_i4', 'colpass_i4',
+    'tdots_i4', 'tdots_i4[u4]' (single-vector launches) and their
+    '...[chains]' counts (one single launch per chain of a chain batch,
+    which has no nibble mode)}."""
     counts = {f'ne_sweep[{key}]': k for key, k in _ne.launches.items()
-              if not key.endswith('_k')}
+              if not key.endswith('_k') and 'i4' not in key}
+    for name, key in (('ne_rows_i4', 'rows_i4'), ('colpass_i4', 'cols_i4')):
+        counts[name] = _ne.launches[key]
+        counts[f'{name}[chains]'] = _ne.launches[key + '_k']
+    for name, key in (('tdots_i4', 'i4'), ('tdots_i4[u4]', 'u4_i4')):
+        counts[name] = _td.launches[key]
+    counts['tdots_i4[chains]'] = _td.launches['i4_k']
+    counts['tdots_i4[u4,chains]'] = _td.launches['u4_i4_k']
     counts['ne_rows_k'] = _ne.launches['rows_k']
     counts['colpass_k'] = _ne.launches['cols_k']
     counts['tdots_sweep'] = _td.launches['tdots']

@@ -73,6 +73,7 @@ _SIGNATURES = {
     'bb_batched_smem': [_I, _I, _I],
     'bb_batched_occupancy': [_I, _I, _I],
     'bb_rows_per_block': [],
+    'bb_has_int4': [],
 }
 
 

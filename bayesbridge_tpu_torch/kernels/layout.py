@@ -1,16 +1,21 @@
 """The design blocks' storage contract, shared by both sweeps.
 
 A block is a row-major ``(n, ld)`` tensor of int8, bfloat16 or float32
-whose first ``p <= ld`` columns are logical. For the CUDA kernels the
-row stride must be a whole number of 16-byte vectors (``ld`` a multiple
-of 16 / itemsize) and the base 16-byte aligned; the design pads its
-blocks with zero columns to a multiple of ``COL_ALIGN`` elements, which
-satisfies every storage type. The plain versions read ``X[:, :p]`` and
+whose first ``p <= ld`` columns are logical, or a packed int4 block: a
+``torch.uint8`` tensor ``(n, ld / 2)`` holding two columns a byte, the
+even column in the low nibble, each a two's-complement value in [-8, 7]
+(the JAX package's packed-s4 device array, ``sparse.py:492-493``). For
+the CUDA kernels the row stride must be a whole number of 16-byte
+vectors and the base 16-byte aligned; the design pads its blocks with
+zero columns to a multiple of ``COL_ALIGN`` elements (``INT4_ALIGN``
+columns, 16 bytes, for a packed block), which satisfies every storage
+type. The plain versions read the first ``p`` columns (unpacked) and
 take any layout.
 
 Also here: the plain chunked products that up-convert a narrow block in
 row chunks, so that no full float32 copy of a block ever exists (the
-flagship's 4.5 GB int8 block would be 18 GB in f32).
+flagship's 4.5 GB int8 block would be 18 GB in f32), and
+:func:`pack_int4` / :func:`unpack_int4`, exact on either device.
 """
 
 import collections
@@ -19,33 +24,94 @@ import math
 import torch
 
 COL_ALIGN = 16
-DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
+INT4_ALIGN = 32  # columns of a packed block's 16-byte unit
+# Storage codes of the kernels (csrc/sweep_common.cuh DType); a uint8
+# tensor is a packed int4 block.
+INT4 = torch.uint8
+DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, INT4: 3}
 # Bound on the float32 transient of one up-converted row chunk.
 CHUNK_BYTES = 2 ** 28
 
 
-def padded_width(p):
-    """Stored column count for `p` logical columns."""
-    return max(COL_ALIGN, -(-p // COL_ALIGN) * COL_ALIGN)
+def padded_width(p, int4=False):
+    """Stored column count for `p` logical columns (of a packed int4
+    block with `int4`: a multiple of 32, 16 bytes a row unit)."""
+    align = INT4_ALIGN if int4 else COL_ALIGN
+    return max(align, -(-p // align) * align)
+
+
+def is_int4(X):
+    return X.dtype == INT4
+
+
+def stored_columns(X):
+    """Columns a stored block holds: two a byte for a packed int4 one."""
+    return X.shape[1] * (2 if is_int4(X) else 1)
+
+
+def pack_int4(X, p=None):
+    """The packed int4 block of the first `p` columns (default all) of
+    an int8 block X: uint8, (n, padded_width(p, int4=True) / 2), column
+    2j in the low nibble of byte j, column 2j + 1 in the high one, zero
+    past column p. Packs in row chunks, on X's device; raises unless
+    every packed value lies in [-8, 7]."""
+    if X.dtype != torch.int8 or X.dim() != 2:
+        raise ValueError(f"pack_int4 takes an int8 (n, ld) block; got "
+                         f"{X.dtype} {tuple(X.shape)}")
+    n = X.shape[0]
+    p = X.shape[1] if p is None else p
+    out = torch.zeros((n, padded_width(p, int4=True) // 2), dtype=INT4,
+                      device=X.device)
+    step = max(1, CHUNK_BYTES // max(1, p))
+    for i in range(0, n, step):
+        x = X[i:i + step, :p]
+        if bool(((x < -8) | (x > 7)).any()):
+            raise ValueError("pack_int4: a value lies outside [-8, 7]")
+        b = x.view(torch.uint8) & 0x0F
+        even, odd = b[:, 0::2], b[:, 1::2]
+        rows = out[i:i + step]
+        rows[:, :even.shape[1]] = even
+        rows[:, :odd.shape[1]] |= odd << 4
+    return out
+
+
+def unpack_int4(X, p=None):
+    """The int8 block (n, 2 ld_bytes) of a packed int4 block, or its first
+    `p` columns: exact (each nibble sign-extended)."""
+    n = X.shape[0]
+    lo = ((X & 0x0F).view(torch.int8) ^ 8) - 8
+    hi = ((X >> 4).view(torch.int8) ^ 8) - 8
+    out = torch.stack((lo, hi), -1).reshape(n, 2 * X.shape[1])
+    return out if p is None else out[:, :p]
+
+
+def widen(X, p, dtype=torch.float32):
+    """The first `p` logical columns of stored block X in `dtype` (a
+    packed int4 block unpacked on the way)."""
+    if is_int4(X):
+        return unpack_int4(X, p).to(dtype)
+    return X[:, :p].to(dtype)
 
 
 def check_block(X, p, name='X'):
-    """Validate a stored block for the kernels; returns (n, ld)."""
+    """Validate a stored block for the kernels; returns (n, ld), ld the
+    stored columns."""
     if X.dim() != 2:
         raise ValueError(f"{name} must be 2-d, got shape {tuple(X.shape)}")
     if X.dtype not in DTYPE_CODE:
         raise TypeError(f"{name}: storage dtype {X.dtype} not in "
-                        "int8 / bfloat16 / float32")
+                        "int8 / bfloat16 / float32 / packed int4 (uint8)")
     if not X.is_contiguous():
         raise ValueError(f"{name} must be contiguous (row-major)")
-    n, ld = X.shape
+    n, ld = X.shape[0], stored_columns(X)
     if not 0 < p <= ld:
         raise ValueError(f"{name}: logical width {p} outside (0, {ld}]")
     return n, ld
 
 
 def check_cuda_layout(X, name='X'):
-    """The kernels read whole 16-byte vectors of every row."""
+    """The kernels read whole 16-byte vectors of every row (of a packed
+    int4 block, 32 columns)."""
     vec = 16 // X.element_size()
     if X.shape[1] % vec or X.data_ptr() % 16:
         raise ValueError(
@@ -180,7 +246,8 @@ def splits(n_units, tiles, device):
 
 def col_tiles(p, X):
     """Column tiles of the column pass over a block (256 threads x one
-    16-byte vector each)."""
+    16-byte vector each; of a packed int4 block, 8 bytes or 16 columns
+    each, the int8 tile's columns)."""
     return math.ceil(p / (256 * (16 // X.element_size())))
 
 
@@ -189,24 +256,25 @@ def _row_chunk(X, p):
 
 
 def matvec(X, p, v):
-    """X[:, :p] @ v in float32, up-converting X in row chunks."""
+    """X[:, :p] @ v in float32, up-converting (unpacking) X in row
+    chunks."""
     n = X.shape[0]
     step = _row_chunk(X, p)
     if step >= n:
-        return X[:, :p].float() @ v
-    return torch.cat([X[i:i + step, :p].float() @ v
+        return widen(X, p) @ v
+    return torch.cat([widen(X[i:i + step], p) @ v
                       for i in range(0, n, step)])
 
 
 def rmatvec(X, p, U, square=False):
     """X[:, :p]' @ U in float32 (U: (n,) or (n, k)), or (X.X)' @ U with
-    `square`, up-converting X in row chunks and summing the chunks'
-    partial products in order."""
+    `square`, up-converting (unpacking) X in row chunks and summing the
+    chunks' partial products in order."""
     n = X.shape[0]
     step = _row_chunk(X, p)
     out = None
     for i in range(0, n, step):
-        Xc = X[i:i + step, :p].float()
+        Xc = widen(X[i:i + step], p)
         if square:
             Xc = Xc * Xc
         part = Xc.T @ U[i:i + step]

@@ -35,6 +35,17 @@ geometry; ``launches['rows_k']`` / ``['cols_k']`` count launches, each
 one read of X); chain c's row equals its single-vector launch bit for
 bit, and k = 1 is the single-vector launch itself. Their plain versions
 run the single plain versions chain by chain.
+
+The row and column passes take a packed int4 first block
+(``layout.pack_int4``; the hybrid design's int4 tier): their nibble
+modes, counted apart (``launches['rows_i4']`` / ``['cols_i4']``), which
+replace the JAX package's XLA dots over its packed-s4 block. The
+chain-batched forms have no nibble mode yet: over an int4 block they run
+one single-vector launch per chain (``launches['rows_i4_k']`` /
+``['cols_i4_k']``), each chain's result its single launch's bits. The
+fused sweep (:func:`ne_sweep`, and the one-read kernel behind it) takes
+no int4 block, as the JAX package's fused kernels do not
+(``sparse.py:1052``).
 """
 
 import torch
@@ -44,7 +55,9 @@ from . import ne_oneread as _oneread
 from .build import count_launch, load_library
 
 MIDS = {'ne': 0, 'logit': 1, 'linear': 2}
-launches = {key: 0 for key in (*MIDS, 'rows', 'cols', 'rows_k', 'cols_k')}
+launches = {key: 0 for key in (*MIDS, 'rows', 'cols', 'rows_k', 'cols_k',
+                                'rows_i4', 'cols_i4', 'rows_i4_k',
+                                'cols_i4_k')}
 
 
 def _row_map(t, a, b, mid, with_logp):
@@ -114,6 +127,9 @@ def check_sweep_args(blocks, c, w):
     row offset `c` and the row weights `w`."""
     device, n = _check_blocks([X for X, _ in blocks],
                               [v.shape[0] for _, v in blocks])
+    if any(layout.is_int4(X) for X, _ in blocks):
+        raise TypeError("the fused sweeps take no packed int4 block "
+                        "(sparse.py:1052): its design composes")
     for i, (_, v) in enumerate(blocks):
         layout.check_vector(v, v.shape[0], f"v{i}", device)
     layout.check_vector(w, n, 'b', device)
@@ -130,6 +146,8 @@ def _check_blocks(Xs, ps):
         if X.device != device or X.shape[0] != n:
             raise ValueError("blocks must share the device and row count")
         layout.check_block(X, p, f"X{i}")
+    if len(Xs) == 2 and layout.is_int4(Xs[1]):
+        raise TypeError("a packed int4 block must be the first")
     return device, n
 
 
@@ -160,7 +178,8 @@ def _block_args(blocks, device, keep):
             args += [0, None, 0, 0, None]
             continue
         layout.check_cuda_layout(X, f"X{i}")
-        v_pad = torch.zeros(X.shape[1], dtype=torch.float32, device=device)
+        v_pad = torch.zeros(layout.stored_columns(X), dtype=torch.float32,
+                            device=device)
         v_pad[:v.shape[0]] = v
         keep.append(v_pad)
         args += [layout.DTYPE_CODE[X.dtype], X.data_ptr(), X.shape[1],
@@ -187,7 +206,21 @@ def ne_rows(blocks, c):
     _check_c(c, n, device)
     if not _on_cuda(device, 'ne_rows'):
         return ne_rows_plain(blocks, c)
+    t = _rows_launch(blocks, c)
+    count_launch(launches, _key('rows', blocks[0][0]))
+    return t
+
+
+def _key(name, X0):
+    """The launch counter of a pass over first block X0: its nibble
+    mode's over a packed int4 block."""
+    return name + '_i4' if layout.is_int4(X0) else name
+
+
+def _rows_launch(blocks, c):
+    """One launch of the row pass on checked CUDA blocks (uncounted)."""
     kl = load_library()
+    device, n = blocks[0][0].device, blocks[0][0].shape[0]
     keep = []
     args = _block_args(blocks, device, keep)
     t = torch.empty(n, dtype=torch.float32, device=device)
@@ -197,7 +230,6 @@ def ne_rows(blocks, c):
                                0 if c.dim() == 0 else 1, t.data_ptr(),
                                stream)
     kl.check(rc, 'ne_rows')
-    count_launch(launches, 'rows')
     return t
 
 
@@ -213,7 +245,16 @@ def colpass(Xs, ps, u):
     layout.check_vector(u, n, 'u', device)
     if not _on_cuda(device, 'colpass'):
         return colpass_plain(Xs, ps, u)
+    outs = _colpass_launch(Xs, ps, u)
+    count_launch(launches, _key('cols', Xs[0]))
+    return outs
+
+
+def _colpass_launch(Xs, ps, u):
+    """One launch of the column pass on checked CUDA blocks
+    (uncounted)."""
     kl = load_library()
+    device, n = Xs[0].device, Xs[0].shape[0]
     args, tiles = [], 0
     for i, (X, p) in enumerate(zip(Xs, ps)):
         layout.check_cuda_layout(X, f"X{i}")
@@ -230,7 +271,6 @@ def colpass(Xs, ps, u):
         rc = kl.lib.bb_colpass(*args, n, u.data_ptr(), n_seg, rows_per_seg,
                                partial.data_ptr(), out.data_ptr(), stream)
     kl.check(rc, 'colpass')
-    count_launch(launches, 'cols')
     return list(torch.split(out, list(ps)))
 
 
@@ -304,6 +344,11 @@ def ne_rows_k(blocks, c):
         return ne_rows_k_plain(blocks, c)
     if k == 1:
         return ne_rows([(X, V[0]) for X, V in blocks], c[0])[None]
+    if layout.is_int4(blocks[0][0]):  # no chain-batched nibble mode
+        T = torch.stack([_rows_launch([(X, V[i]) for X, V in blocks], c[i])
+                         for i in range(k)])
+        count_launch(launches, 'rows_i4_k', k)
+        return T
     plan = layout.batched_plan('rows', [X.dtype for X, _ in blocks], k)
     T, n_launch = rows_k_launches(load_library(), plan.chains, blocks, c)
     count_launch(launches, 'rows_k', n_launch)
@@ -366,6 +411,11 @@ def colpass_k(Xs, ps, U):
         return colpass_k_plain(Xs, ps, U)
     if k == 1:
         return [o[None] for o in colpass(Xs, ps, U[0])]
+    if layout.is_int4(Xs[0]):  # no chain-batched nibble mode
+        per = [_colpass_launch(Xs, ps, u) for u in U]
+        count_launch(launches, 'cols_i4_k', k)
+        return [torch.stack([outs[b] for outs in per])
+                for b in range(len(Xs))]
     plan = layout.batched_plan('cols', [X.dtype for X in Xs], k)
     out, n_launch = batched_colpass('colpass_k', Xs, ps, n, [U], 1,
                                     load_library(), plan.chains)

@@ -21,6 +21,14 @@ of them per read of the blocks (``layout.batched_plan``;
 columns equal to its single-vector launch bit for bit; k = 1 is the
 single-vector launch. The JAX package gets this form from ``vmap`` of
 ``fused_tdots`` over its chains.
+
+A packed int4 first block (``layout.pack_int4``) takes the nibble mode
+of the kernel (``launches['i4']`` / ``['u4_i4']``), which replaces the
+JAX package's multi-RHS dot over its packed-s4 block
+(``sparse.py:1325-1368``); its squares (at most 64) are exact in
+float32. :func:`tdots_sweep_k` has no nibble mode yet: over an int4
+block it runs one single-vector launch per chain (``launches['i4_k']``
+/ ``['u4_i4_k']``).
 """
 
 import torch
@@ -29,7 +37,18 @@ from . import layout
 from .build import count_launch, load_library
 from .ne_sweep import batched_colpass
 
-launches = {'tdots': 0, 'u4': 0, 'tdots_k': 0, 'u4_k': 0}
+launches = {'tdots': 0, 'u4': 0, 'tdots_k': 0, 'u4_k': 0, 'i4': 0,
+            'u4_i4': 0, 'i4_k': 0, 'u4_i4_k': 0}
+
+
+def _key(u4, int4, chains=False):
+    """The launch counter: four or five reductions (`u4`), over a packed
+    int4 first block or not, per chain of a batch (`chains`)."""
+    if not int4:
+        key = 'tdots' if u4 is None else 'u4'
+    else:
+        key = 'i4' if u4 is None else 'u4_i4'
+    return key + '_k' if chains else key
 
 
 def tdots_sweep_plain(Xs, ps, u1, u2, u3, u4=None):
@@ -51,7 +70,8 @@ def tdots_sweep(Xs, ps, u1, u2, u3, u4=None):
 
     Parameters
     ----------
-    Xs : one or two (n, ld_b) int8/bf16/f32 stored blocks
+    Xs : one or two (n, ld_b) int8/bf16/f32 stored blocks (the first may
+        be a packed int4 one)
     ps : their logical widths p_b <= ld_b
     u1, u2, u3 : (n,) float32
     u4 : (n,) float32 or None
@@ -64,6 +84,8 @@ def tdots_sweep(Xs, ps, u1, u2, u3, u4=None):
         if X.device != device or X.shape[0] != n:
             raise ValueError("blocks must share the device and row count")
         layout.check_block(X, p, f"X{i}")
+    if len(Xs) == 2 and layout.is_int4(Xs[1]):
+        raise TypeError("a packed int4 block must be the first")
     us = (u1, u2, u3) + ((u4,) if u4 is not None else ())
     for i, u in enumerate(us):
         layout.check_vector(u, n, f'u{i + 1}', device)
@@ -71,7 +93,9 @@ def tdots_sweep(Xs, ps, u1, u2, u3, u4=None):
         return tdots_sweep_plain(Xs, ps, u1, u2, u3, u4)
     if device.type != 'cuda':
         raise ValueError(f"no tdots_sweep for device {device}")
-    return _tdots_sweep_cuda(Xs, ps, u1, u2, u3, u4)
+    outs = _tdots_sweep_cuda(Xs, ps, u1, u2, u3, u4)
+    count_launch(launches, _key(u4, layout.is_int4(Xs[0])))
+    return outs
 
 
 def _tdots_sweep_cuda(Xs, ps, u1, u2, u3, u4):
@@ -97,7 +121,6 @@ def _tdots_sweep_cuda(Xs, ps, u1, u2, u3, u4):
             None if u4 is None else u4.data_ptr(), n_seg, rows_per_seg,
             partial.data_ptr(), out.data_ptr(), stream)
     kl.check(rc, 'tdots_sweep')
-    count_launch(launches, 'tdots' if u4 is None else 'u4')
     outs, off = [], 0
     for p in ps:
         blk = out[:, off:off + p]
@@ -140,6 +163,14 @@ def tdots_sweep_k(Xs, ps, U1, U2, U3, U4=None):
         outs = tdots_sweep(Xs, ps, *(U[0] for U in Us[:3]),
                            U4[0] if U4 is not None else None)
         return [tuple(o[None] for o in blk) for blk in outs]
+    if layout.is_int4(Xs[0]):  # no chain-batched nibble mode
+        per = [_tdots_sweep_cuda(Xs, ps, U1[i], U2[i], U3[i],
+                                 None if U4 is None else U4[i])
+               for i in range(k)]
+        count_launch(launches, _key(U4, True, chains=True), k)
+        return [tuple(torch.stack([outs[b][r] for outs in per])
+                      for r in range(len(per[0][b])))
+                for b in range(len(Xs))]
     R = len(Us) + 1
     plan = layout.batched_plan(f'tdots{R}', [X.dtype for X in Xs], k)
     out, n_launch = batched_colpass('tdots_sweep_k', Xs, ps, n, Us, R,

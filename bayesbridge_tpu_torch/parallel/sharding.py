@@ -14,17 +14,23 @@ A :class:`Mesh` may repeat a device (``[cuda:0] * 4``; ``[cpu] * 4`` in
 the tests, the counterpart of the JAX suite's virtual CPU devices): its
 shards then share the card, each a row view of the stored blocks.
 
+A hybrid design's packed int4 block placed on a device that cannot run
+the int4 tier is widened to int8 first (``_demote_unsupported``, the
+JAX package's, with its warning): the same values at twice the bytes.
+An int4 design's row-block shards are row views of the packed block.
+
 Not ported: the 2-d obs x pred mesh (``make_mesh((r, c))``,
-``pred_axis=``; ROADMAP item 15b), which raises; and
-``_demote_unsupported``'s int4 widening, which has nothing to widen here
-(the port has no int4 tier, ROADMAP item 19).
+``pred_axis=``; ROADMAP item 15b), which raises.
 """
 
 import copy
+import warnings
 
 import torch
 
+from ..design import sparse as _sparse
 from ..design.sharded import ShardedDesignMatrix
+from ..kernels import layout
 
 SHARD_AXIS = 'shard'
 PRED_AXIS = 'pred'
@@ -117,14 +123,36 @@ def _check_axes(mesh, axis_name, pred_axis):
         raise ValueError(f"no axis {axis_name!r} in {mesh}")
 
 
+def _demote_unsupported(design, device):
+    """`design`, or, where it is a hybrid design with a packed int4 block
+    that `device` cannot run (``design.sparse._int4_supported``), a copy
+    with the block widened to int8 (sharding.py:213-230): numerically the
+    same at twice the bytes, where the first product would otherwise fail
+    on the device."""
+    if getattr(design, 'backend', None) != 'hybrid' \
+            or not layout.is_int4(design.X_exact) \
+            or _sparse._int4_supported(device):
+        return design
+    warnings.warn(
+        "place_model: widening a packed-s4 (int4) array to int8 — the "
+        "target device platform {!r} cannot execute S4 operands. The "
+        "design keeps exact semantics at 2x the storage bytes."
+        .format(torch.device(device).type))
+    return design.with_exact_tier('int8')
+
+
 def shard_design(design, mesh, axis_name=SHARD_AXIS, pred_axis=None):
     """The design split by rows over `mesh` (sharding.py:120-191): a
     :class:`ShardedDesignMatrix` whose shards are the design's row blocks
     on the mesh's devices (this process's entries only, in a process
-    group). Works for every backend; `pred_axis` (the 2-d mesh) raises."""
+    group), a packed int4 block widened first where a mesh device cannot
+    run it. Works for every backend; `pred_axis` (the 2-d mesh)
+    raises."""
     _check_axes(mesh, axis_name, pred_axis)
     if isinstance(design, ShardedDesignMatrix):
         raise ValueError("the design is sharded already")
+    for i in mesh.local_indices():
+        design = _demote_unsupported(design, mesh.devices[i])
     ranks = mesh.process_ids if mesh.group is not None else None
     return ShardedDesignMatrix.from_design(
         design, mesh.devices, local=mesh.local_indices(), group=mesh.group,
@@ -153,7 +181,8 @@ def place_model(model, device):
     """A copy of `model` with every tensor on `device` (sharding.py
     :194-210): the design's stored arrays (its rows 0:n as a design on
     `device`, ``row_block``; the same tensors where they are there
-    already), the outcome vectors and the Cox index arrays. The design
+    already; a packed int4 block widened to int8 where `device` cannot
+    run it), the outcome vectors and the Cox index arrays. The design
     gets counters of its own. A sharded design raises: placing it on one
     device would undo the sharding."""
     if isinstance(model.design, ShardedDesignMatrix):
@@ -161,7 +190,7 @@ def place_model(model, device):
                          "placing it on one device would un-shard it")
     device = torch.device(device)
     placed = copy.copy(model)
-    placed.design = model.design.row_block(0, model.design.shape[0],
-                                           device)
+    placed.design = _demote_unsupported(model.design.row_block(
+        0, model.design.shape[0], device), device)
     _move_outcomes(placed, model, device)
     return placed

@@ -62,7 +62,22 @@ Phases, each of which raises on failure (exit code != 0):
    MAP search's witness (the search with the fused objective, on
    ``ne_oneread[logit]``, and with the composed one on the same design,
    and the two objectives compared) and the two objectives' times in
-   turns;
+   turns; then the int4 phase (``BB_HYBRID_INT4=1``): the nibble modes of
+   the row pass, the column pass and the pre-solve (four and five
+   reductions) against their plain versions (rtol 1e-4 of max|plain|)
+   at ragged small shapes (values in [-8, 7], widths not a multiple of
+   32, one and two blocks, random padding nibbles) and on the hybrid
+   slices' stored int8 block packed on the card (``with_exact_tier``:
+   100,000 x 45,000 packed beside the f32 block), reruns and the int8
+   modes on the same values bit for bit, each timed in turns with its
+   int8 mode beside its bound; the logit chain on the packed design
+   under 'auto' (``gibbs(10)`` + ``gibbs_resume(10)``, the exact-resume
+   check, a profiler window beside the int8 'auto' slice's device ms),
+   ``gibbs(5)`` against the int8 design under '0' bit for bit and a
+   profiler window over the same 3 iterations of that chain on each
+   storage, 2 chains
+   against the chains alone, and the public constructor at 4,000 x 600,
+   which must store int4 under 'auto' and int8 under '1';
 6. the dense and linear slices: (a) the linear model over the hybrid
    slices' stored blocks (y = X beta + N(0, 1) noise), under 'auto' (its
    MAP search on ``ne_oneread[linear]``, the CG operator and the
@@ -1422,7 +1437,267 @@ def run_hybrid(X, outcome):
         f"{(ts[0] + ts[3]) / 2:.3f} ms")
     del model, composed
     torch.cuda.empty_cache()
-    return counts, witness, design, stats['hybrid_composed']['ips']
+    composed = stats['hybrid_composed']
+    composed.pop('chain', None)
+    return counts, witness, design, composed
+
+
+INT4_NAMES = {'rows': 'ne_rows_i4', 'cols': 'colpass_i4',
+              'tdots4': 'tdots_i4', 'tdots5': 'tdots_i4[u4]'}
+
+
+def int4_modes(Xe, Xf, pe, pf, gen):
+    """{mode: (kernel, plain version)} of the row pass, the column pass
+    and the pre-solve with four and five reductions, each a function of
+    the first block X0 (beside Xf where given) returning its outputs as
+    a list, on fresh random operands."""
+    import torch
+    from bayesbridge_tpu_torch.kernels.ne_sweep import (
+        colpass, colpass_plain, ne_rows, ne_rows_plain)
+    from bayesbridge_tpu_torch.kernels.tdots_sweep import (
+        tdots_sweep, tdots_sweep_plain)
+    n = Xe.shape[0]
+    two = Xf is not None
+    ps = [pe, pf] if two else [pe]
+    vs = [torch.randn(p, generator=gen, device='cuda') for p in ps]
+    c = torch.randn(n, generator=gen, device='cuda')
+    us = [torch.randn(n, generator=gen, device='cuda') for _ in range(4)]
+
+    def blocks(X0):
+        return [X0, Xf] if two else [X0]
+
+    def flat(r):
+        return [o for blk in r for o in blk]
+    return {
+        'rows': (lambda X0: [ne_rows(list(zip(blocks(X0), vs)), c)],
+                 lambda X0: [ne_rows_plain(list(zip(blocks(X0), vs)), c)]),
+        'cols': (lambda X0: colpass(blocks(X0), ps, us[0]),
+                 lambda X0: colpass_plain(blocks(X0), ps, us[0])),
+        'tdots4': (lambda X0: flat(tdots_sweep(blocks(X0), ps, *us[:3])),
+                   lambda X0: flat(tdots_sweep_plain(blocks(X0), ps,
+                                                     *us[:3]))),
+        'tdots5': (lambda X0: flat(tdots_sweep(blocks(X0), ps, *us)),
+                   lambda X0: flat(tdots_sweep_plain(blocks(X0), ps, *us))),
+    }
+
+
+def same_bits(a, b):
+    import torch
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def int4_kernel_checks(design):
+    """The int4 phase's kernel checks: (a) each nibble mode against its
+    plain version (rtol RTOL of max|plain|) at ragged small shapes (values
+    in [-8, 7], logical widths not a multiple of 32, one and two blocks,
+    random bits in the padding nibbles) and on the flagship's stored 0/1
+    int8 block packed on the card, each call rerun for the same bits; (b)
+    against the int8 mode on the same values, bit for bit; (c) timed in
+    turns with the int8 mode (int8, int4, int4, int8; CUDA events, median
+    of 10 each) beside the bound (bytes over 3,350 GB/s or float32
+    operations over 67 TFLOP/s, the larger) and the plain version. No
+    PyTorch call multiplies packed int4 by float32: no library time.
+    Returns (the kernels line's results, the int4 design, the launch
+    counts of these checks)."""
+    import torch
+    from bayesbridge_tpu_torch.kernels import (
+        launch_counts, layout, reset_launch_counts)
+    gen = torch.Generator(device='cuda').manual_seed(13)
+    reset_launch_counts()
+    for n, pe, pf in ((1037, 4097, 513), (1037, 45, 0), (3001, 8191, 100)):
+        X8 = torch.randint(-8, 8, (n, layout.padded_width(pe, int4=True)),
+                           generator=gen, device='cuda', dtype=torch.int8)
+        X4 = layout.pack_int4(X8)  # padding nibbles random
+        X8[:, pe:] = torch.randint(-100, 100, (n, X8.shape[1] - pe),
+                                   generator=gen, device='cuda',
+                                   dtype=torch.int8)
+        Xf = random_block('f32', n, pf, layout.padded_width(pf), gen) \
+            if pf else None
+        log(f"[int4] nibble modes, ragged n={n} p_int4={pe} p_f32={pf} "
+            f"(padding holds garbage)")
+        for mode, (kern, plain) in int4_modes(X4, Xf, pe, pf, gen).items():
+            got, again, ref = kern(X4), kern(X4), plain(X4)
+            i8 = kern(X8)
+            torch.cuda.synchronize()
+            check(f"{INT4_NAMES[mode]} (n={n}, p={pe}+{pf})", got, ref)
+            assert same_bits(got, again), (mode, 'rerun')
+            assert same_bits(got, i8), (mode, 'int8 bits')
+        log("  reruns give the same bits; every mode equals the int8 mode "
+            "on the same values bit for bit")
+
+    # The flagship's stored 0/1 int8 block, packed on the card.
+    t0 = time.perf_counter()
+    d4 = design.with_policy('auto').with_exact_tier('int4')
+    torch.cuda.synchronize()
+    Xe8, Xe4, Xf = design.X_exact, d4.X_exact, design.X_float
+    pe, pf = design.n_exact, design.n_float
+    for i in range(0, Xe8.shape[0], 8192):
+        assert torch.equal(layout.unpack_int4(Xe4[i:i + 8192], pe),
+                           Xe8[i:i + 8192, :pe])
+    gb4 = nbytes(Xe4, Xf) / 1e9
+    log(f"[int4] flagship block packed on the card in "
+        f"{time.perf_counter() - t0:.2f} s: {tuple(Xe8.shape)} int8 -> "
+        f"{tuple(Xe4.shape)} uint8 (unpacks to the int8 block exactly); "
+        f"{gb4:.4f} GB with the f32 block against "
+        f"{nbytes(Xe8, Xf) / 1e9:.4f} GB")
+    n_elem = N_OBS * (pe + pf)
+    vec, row = 4 * (pe + pf), 4 * N_OBS
+    work = {'rows': (vec + row, 2 * n_elem), 'cols': (vec + row, 2 * n_elem),
+            'tdots4': (4 * vec + 3 * row, 9 * n_elem),
+            'tdots5': (5 * vec + 4 * row, 11 * n_elem)}
+    results = {}
+    for mode, (kern, plain) in int4_modes(Xe4, Xf, pe, pf, gen).items():
+        name = INT4_NAMES[mode]
+        got, again, ref, i8 = kern(Xe4), kern(Xe4), plain(Xe4), kern(Xe8)
+        torch.cuda.synchronize()
+        err = check(f"{name} (flagship)", got, ref)
+        assert same_bits(got, again), (mode, 'rerun')
+        assert same_bits(got, i8), (mode, 'int8 bits')
+        del got, again, ref, i8
+        turns = [time_ms(lambda X=X: kern(X))
+                 for X in (Xe8, Xe4, Xe4, Xe8)]
+        ms, ms8 = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        plain_ms = time_ms(lambda: plain(Xe4), reps=3)
+        extra, ops = work[mode]
+        bound, by = bound_ms(gb4 * 1e9 + extra, ops)
+        bound8 = bound_ms(nbytes(Xe8, Xf) + extra, ops)[0]
+        log(f"  {name}: in turns (int8, int4, int4, int8) "
+            f"{[round(t, 3) for t in turns]} ms: int4 {ms:.3f} ms "
+            f"({100 * bound / ms:.0f}% of its bound {bound:.3f} ms, {by}), "
+            f"int8 {ms8:.3f} ms ({100 * bound8 / ms8:.0f}% of "
+            f"{bound8:.3f}); plain {plain_ms:.3f} ms; rerun bits and the "
+            f"int8 mode's bits equal")
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound, bound_by=by, library_ms=None,
+                             int8_ms=ms8)
+    torch.cuda.synchronize()
+    return results, d4, launch_counts()
+
+
+def run_int4(design, outcome, int8_auto):
+    """The int4 phase, after the hybrid slices, on their stored blocks
+    with ``BB_HYBRID_INT4=1``: the kernel checks (int4_kernel_checks),
+    then (d) the logit chain on the packed design under 'auto' (MAP search
+    composed: no fused sweep over int4) through run_chain (gibbs(10) +
+    gibbs_resume(10), the exact-resume check, a profiler window) beside
+    the int8 'auto' slice's device ms (another chain, at another
+    iteration), and gibbs(5) against the int8 design under '0' (composed
+    everywhere, as 'auto' is over int4: the same bits), then a profiler
+    window over the same 3 further iterations of that chain on each
+    storage (the same work); (e) the public constructor at a small size, which picks
+    int4 under 'auto' and int8 under '1'; (f) 2 chains against the chains
+    alone. Returns (kernel results, {path: launch counts}, summary)."""
+    import os
+    import numpy as np
+    import torch
+    from bayesbridge_tpu_torch import (
+        BayesBridge, RegressionCoefPrior, RegressionModel)
+    from bayesbridge_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts)
+    from bayesbridge_tpu_torch.models import LogisticModel
+    from bayesbridge_tpu_torch.utils.simulate_data import (
+        simulate_design, simulate_outcome)
+    before = os.environ.get('BB_HYBRID_INT4')
+    os.environ['BB_HYBRID_INT4'] = '1'
+    try:
+        results, d4, check_counts = int4_kernel_checks(design)
+        counts = {'int4_checks': check_counts}
+        label = 'hybrid_int4'
+        model = LogisticModel(*outcome, d4)
+        gb = d4.storage_bytes() / 1e9
+        assert d4.fused_ne_mode('link') is None \
+            and d4.fused_ne_mode('quad') is None
+        c, n_cg, info, st = run_chain(
+            model, label, lambda k: (2 * k + 2) * gb * 1e9, n_first=10,
+            n_more=10)
+        counts[label] = c
+        n_cg_sum = int(np.sum(n_cg))
+        # No int8 pass, no fused sweep: the MAP search composes on int4.
+        assert all(c[k] == 0 for k in (
+            'ne_sweep[rows]', 'ne_sweep[cols]', 'tdots_sweep[u4]',
+            'ne_oneread', 'ne_oneread[logit]', 'ne_sweep[logit]')), c
+        assert c['ne_rows_i4'] >= n_cg_sum and c['colpass_i4'] >= n_cg_sum, c
+        assert c['tdots_i4[u4]'] == 10, c
+        dev = 'not measured' if st['dev_ms'] is None or \
+            int8_auto['dev_ms'] is None else \
+            f"{st['dev_ms']:.2f} against {int8_auto['dev_ms']:.2f} " \
+            f"({100 * (st['dev_ms'] / int8_auto['dev_ms'] - 1):+.1f}%)"
+        log(f"[{label}] device ms per iteration, int4 'auto' against the "
+            f"int8 'auto' slice in this run: {dev}; steady iter/s "
+            f"{st['ips']:.4f} against {int8_auto['ips']:.4f}; mean CG "
+            f"iterations {st['mean_cg']:.2f} against "
+            f"{int8_auto['mean_cg']:.2f}; {gb:.3f} GB stored")
+
+        # The int8 design composed everywhere: the same draws. Then the
+        # same 3 iterations of that one chain (equal bits, so equal CG
+        # iterations) profiled on each storage.
+        kw = dict(seed=5, coef_sampler_type='cg', params_to_save='all')
+        prior = RegressionCoefPrior(bridge_exponent=0.5)
+        b4 = BayesBridge(model, prior)
+        b8 = BayesBridge(LogisticModel(*outcome, design.with_policy('0')),
+                         prior)
+        s4, i4 = b4.gibbs(5, **kw)
+        s8, i8 = b8.gibbs(5, **kw)
+        for key in s4:
+            if not np.array_equal(s4[key], s8[key]):
+                raise AssertionError(f"[{label}] int4 'auto' != int8 '0' "
+                                     f"for {key}")
+        log(f"[{label}] gibbs(5) on int4 under 'auto' equals gibbs(5) on "
+            f"int8 under '0' bit for bit (n_cg_iter "
+            f"{i4['_reg_coef_sampling_info']['n_cg_iter'].astype(int).tolist()})")
+        same4 = profile_window(b4, i4, f'{label} same chain')[1]
+        same8 = profile_window(b8, i8, "int8 '0' same chain")[1]
+        if same4 is not None and same8 is not None:
+            log(f"[{label}] the same 3 iterations of one chain: int4 "
+                f"{same4:.2f} device ms per iteration against int8 "
+                f"{same8:.2f} ({100 * (same4 / same8 - 1):+.1f}%)")
+        del b4, b8
+
+        # (f) 2 chains against the chains alone.
+        bridge = BayesBridge(model, prior)
+        reset_launch_counts()
+        chains_against_alone(bridge, overdispersed_inits(model, 2), label,
+                             2)
+        torch.cuda.synchronize()
+        counts['int4_chains'] = cc = launch_counts()
+        log(f"[{label}] launch counts of the 2-chain run and the chains "
+            f"alone: {cc}")
+        assert cc['ne_rows_i4[chains]'] > 0 and cc['colpass_i4[chains]'] \
+            > 0 and cc['tdots_i4[u4,chains]'] > 0, cc
+        assert cc['ne_rows_k'] == cc['colpass_k'] == 0, cc
+        del model, bridge, d4
+        torch.cuda.empty_cache()
+
+        # (e) the public constructor at a small size.
+        Xs = simulate_design(4000, 600, binary_frac=BINARY_FRAC, seed=7)
+        beta = np.zeros(600)
+        beta[:10] = 1.0
+        ys = simulate_outcome(Xs, beta, 'logit', seed=8)
+        tiers = {}
+        for fused in ('auto', '1'):
+            m = RegressionModel(ys, Xs, family='logit', dtype=np.float32,
+                                fused=fused, device='cuda')
+            tiers[fused] = str(m.design.X_exact.dtype)
+            dense = m.design.toarray()
+            v = np.random.default_rng(9).standard_normal(dense.shape[1])
+            got = m.design.dot(v).cpu().numpy()
+            err = float(np.abs(got - dense @ v).max()
+                        / np.abs(dense @ v).max())
+            assert err < RTOL, (fused, err)
+        log(f"[int4] RegressionModel at 4,000 x 600 with BB_HYBRID_INT4=1: "
+            f"'auto' stores {tiers['auto']}, '1' {tiers['1']} (the fused "
+            f"CG operator demotes to int8)")
+        assert tiers == {'auto': 'torch.uint8', '1': 'torch.int8'}, tiers
+    finally:
+        if before is None:
+            os.environ.pop('BB_HYBRID_INT4', None)
+        else:
+            os.environ['BB_HYBRID_INT4'] = before
+    summary = dict(dev_ms=st['dev_ms'], int8_dev_ms=int8_auto['dev_ms'],
+                   same_chain_ms=same4, same_chain_int8_ms=same8,
+                   ips=st['ips'], int8_ips=int8_auto['ips'],
+                   mean_cg=st['mean_cg'], busy=st['busy'], gb=gb)
+    return results, counts, summary
 
 
 def ab_segments(chains, n_iter=10, rounds=2):
@@ -3191,7 +3466,8 @@ def main():
         kl = load_library()
         log(f"kernel build: {kl.build_seconds:.1f} s -> {kl.path.name}")
         for line in kl.ptxas_log.splitlines():
-            if 'registers' in line or 'spill' in line:
+            # The nibble modes' entry names too, beside their registers.
+            if 'registers' in line or 'spill' in line or 'Nib4' in line:
                 log('  ptxas: ' + line.strip())
         X, outcome = data.result()
     t0 = phase('build and flagship data', t0)
@@ -3202,9 +3478,15 @@ def main():
     results, link_turns = flagship_kernel_checks()
     results.update(probe_timings())
     t0 = phase('flagship kernel checks', t0)
-    counts, witness, design, composed_ips = run_hybrid(X, outcome)
+    counts, witness, design, composed = run_hybrid(X, outcome)
     counts['link_turns'] = link_turns
+    composed_ips = composed['ips']
     t0 = phase('hybrid slices', t0)
+    res, i4_counts, i4 = run_int4(design, outcome, composed)
+    results.update(res)
+    counts.update(i4_counts)
+    log(f"[int4] summary: {json.dumps(i4)}")
+    t0 = phase('int4', t0)
     counts['linear_hybrid'] = run_linear_hybrid(design, X)
     t0 = phase('linear slice', t0)
     res, mc_counts, mc = run_multichain(design, outcome, composed_ips)
@@ -3284,7 +3566,14 @@ def main():
                'colpass_k@cox': 'cox_chains',
                'ne_oneread[logit]@logit_hmc': 'logit_hmc',
                'ell[dot]': 'ell64', 'ell[tdot_win]': 'ell64',
-               'ell[dot]@f32': 'ell32', 'ell[tdot_win]@f32': 'ell32'}
+               'ell[dot]@f32': 'ell32', 'ell[tdot_win]@f32': 'ell32',
+               'ne_rows_i4': 'hybrid_int4', 'colpass_i4': 'hybrid_int4',
+               'tdots_i4[u4]': 'hybrid_int4'}
+    # The four-reduction nibble mode: the fused pre-solve's, which no int4
+    # design runs (it composes); counted on its checks (check-only) unless
+    # a path ran it.
+    path_of['tdots_i4'] = 'hybrid_int4' if counts['hybrid_int4'][
+        'tdots_i4'] else 'int4_checks'
     # The col-ELL's first traversal: on the ell slices where the dispatch
     # gives it a chain's launches, else counted on their kernel checks
     # (check-only).
@@ -3306,7 +3595,8 @@ def main():
             name=name, route='cuda', source=REGISTRY[base]['source'],
             replaces=REGISTRY[base]['replaces'], launches=launches, **res,
             path='check-only' if path in ('winell_packing', 'link_turns',
-                                          'ell64_checks', 'ell32_checks')
+                                          'ell64_checks', 'ell32_checks',
+                                          'int4_checks')
             else path))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({'kernels': kernels}))

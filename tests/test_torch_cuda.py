@@ -23,7 +23,11 @@ ell backend's gather kernel (``ell_matvec_k``, float32 and float64, 1-8
 vectors a launch) must equal its plain version (rtol 1e-4 / 1e-12 of
 max|plain|), its single launches bit for bit, and itself on a rerun; its
 windowed traversal of a sorted col-ELL must give the first traversal's
-bits.
+bits. The nibble modes of the row pass, the column pass and the
+pre-solve over a packed int4 block (``layout.pack_int4``) must equal
+their plain versions to the same tolerance, the int8 modes on the same
+values and themselves on a rerun bit for bit, one and two blocks at
+ragged widths, and a chain on an int4 design must resume exactly.
 """
 
 import numpy as np
@@ -245,6 +249,8 @@ def test_batched_plan_matches_the_kernels(dev):
     kl = load_library()
     for kind, code in layout.BATCHED_KINDS.items():
         for dtype, dt in layout.DTYPE_CODE.items():
+            if dtype == layout.INT4:  # no chain-batched nibble mode
+                continue
             for k in range(1, 9):
                 plan = layout.batched_plan(kind, [dtype, torch.float32], k)
                 assert kl.lib.bb_max_chains(code, dt) == plan.chains == 8
@@ -1115,3 +1121,125 @@ def test_sharded_products_on_card(dev, case):
         lo = sd.presolve_reductions(u, u * w, w)
         for got, ref in zip(lo, design.presolve_reductions(u, u * w, w)):
             close(got, ref)
+
+
+def _int4_blocks(g, dev, n, pe, pf, binary):
+    """(X8, X4, Xf): an int8 block of values in [-8, 7] (0/1 with
+    `binary`), its packed int4 form with random padding nibbles, an f32
+    block (None without pf)."""
+    w = layout.padded_width(pe, int4=True)
+    if binary:
+        X8 = (torch.rand((n, w), generator=g, device=dev) < .2).to(
+            torch.int8)
+    else:
+        X8 = torch.randint(-8, 8, (n, w), generator=g, device=dev,
+                           dtype=torch.int8)
+    X4 = layout.pack_int4(X8)
+    X8[:, pe:] = 0
+    Xf = torch.randn((n, layout.padded_width(pf)), generator=g,
+                     device=dev) if pf else None
+    return X8, X4, Xf
+
+
+def _nibble_calls(g, dev, n, pe, pf):
+    ps = [pe, pf] if pf else [pe]
+    vs = [torch.randn(p, generator=g, device=dev) for p in ps]
+    c = torch.randn(n, generator=g, device=dev)
+    us = [torch.randn(n, generator=g, device=dev) for _ in range(4)]
+
+    def flat(r):
+        return [o for blk in r for o in blk]
+    return {
+        'rows': (lambda Xs: [ne_rows(list(zip(Xs, vs)), c)],
+                 lambda Xs: [ne_rows_plain(list(zip(Xs, vs)), c)]),
+        'cols': (lambda Xs: colpass(Xs, ps, us[0]),
+                 lambda Xs: colpass_plain(Xs, ps, us[0])),
+        'tdots4': (lambda Xs: flat(tdots_sweep(Xs, ps, *us[:3])),
+                   lambda Xs: flat(tdots_sweep_plain(Xs, ps, *us[:3]))),
+        'tdots5': (lambda Xs: flat(tdots_sweep(Xs, ps, *us)),
+                   lambda Xs: flat(tdots_sweep_plain(Xs, ps, *us))),
+    }
+
+
+@pytest.mark.parametrize('binary', [False, True])
+@pytest.mark.parametrize('n,pe,pf', [(1037, 4097, 513), (1037, 45, 0),
+                                     (3001, 8191, 100)])
+def test_nibble_modes_match_plain_and_int8(dev, n, pe, pf, binary):
+    """Each nibble mode against its plain version, the int8 mode on the
+    same values (bit for bit: the int8 kernels' tiles, segments and
+    per-lane order) and a rerun; logical widths not a multiple of 32, one
+    and two blocks (a two-block plan at ragged widths)."""
+    g = torch.Generator(device=dev).manual_seed(31 + n + pe)
+    X8, X4, Xf = _int4_blocks(g, dev, n, pe, pf, binary)
+    rest = [Xf] if pf else []
+    counters = {'rows': 'ne_rows_i4', 'cols': 'colpass_i4',
+                'tdots4': 'tdots_i4', 'tdots5': 'tdots_i4[u4]'}
+    for mode, (kern, plain) in _nibble_calls(g, dev, n, pe, pf).items():
+        reset_launch_counts()
+        got = kern([X4] + rest)
+        assert launch_counts()[counters[mode]] == 1, mode
+        again = kern([X4] + rest)
+        _assert_close(got, plain([X4] + rest))
+        i8 = kern([X8] + rest)
+        for x, y, z in zip(got, again, i8):
+            assert torch.equal(x, y) and torch.equal(x, z), mode
+
+
+def test_nibble_chain_batches_run_single_launches(dev):
+    """ne_rows_k, colpass_k and tdots_sweep_k over an int4 block: one
+    single-vector launch per chain, counted apart, each chain its single
+    launch's bits."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    n, pe, pf, k = 2000, 1500, 70, 3
+    _, X4, Xf = _int4_blocks(g, dev, n, pe, pf, True)
+    Xs, ps = [X4, Xf], [pe, pf]
+    V = [torch.randn((k, p), generator=g, device=dev) for p in ps]
+    c = torch.randn(k, generator=g, device=dev)
+    U = torch.randn((k, n), generator=g, device=dev)
+    reset_launch_counts()
+    T = ne_rows_k(list(zip(Xs, V)), c)
+    C = colpass_k(Xs, ps, U)
+    R = tdots_sweep_k(Xs, ps, U, U, U, U)
+    counts = launch_counts()
+    assert counts['ne_rows_i4[chains]'] == counts['colpass_i4[chains]'] \
+        == counts['tdots_i4[u4,chains]'] == k
+    assert counts['ne_rows_k'] == counts['colpass_k'] == 0
+    for i in range(k):
+        assert torch.equal(T[i], ne_rows(list(zip(Xs, [v[i] for v in V])),
+                                         c[i]))
+        for b, o in enumerate(colpass(Xs, ps, U[i])):
+            assert torch.equal(C[b][i], o)
+        for b, blk in enumerate(tdots_sweep(Xs, ps, U[i], U[i], U[i],
+                                            U[i])):
+            for r, o in enumerate(blk):
+                assert torch.equal(R[b][r][i], o)
+
+
+def test_int4_design_chain_resumes_exactly_on_card(dev, monkeypatch):
+    """The int4 tier on the card: the probe asks the library, 'auto'
+    stores a packed block, a chain runs the nibble modes only (no fused
+    sweep) and resumes exactly."""
+    from bayesbridge_tpu_torch import (
+        BayesBridge, RegressionCoefPrior, RegressionModel,
+    )
+    from bayesbridge_tpu_torch.design import sparse as sparse_mod
+    monkeypatch.setenv('BB_HYBRID_INT4', '1')
+    monkeypatch.setattr(sparse_mod, '_INT4_SUPPORTED', {})
+    assert sparse_mod._int4_supported(dev) is True
+    X, outcome = _chain_problem()
+    model = RegressionModel(outcome, X, family='logit')
+    assert layout.is_int4(model.design.X_exact)
+    assert model.design.fused_ne_mode('link') is None
+    bridge = BayesBridge(model, RegressionCoefPrior(bridge_exponent=.5))
+    reset_launch_counts()
+    full, _ = bridge.gibbs(12, seed=0, coef_sampler_type='cg',
+                           params_to_save='all')
+    counts = launch_counts()
+    assert counts['ne_rows_i4'] > 12 and counts['colpass_i4'] > 12
+    assert counts['tdots_i4[u4]'] == 12
+    assert counts['ne_sweep[rows]'] == counts['ne_oneread[logit]'] == 0
+    part, info = bridge.gibbs(7, seed=0, coef_sampler_type='cg',
+                              params_to_save='all')
+    merged, _ = bridge.gibbs_resume(info, 5, merge=True, prev_samples=part)
+    for key in full:
+        np.testing.assert_array_equal(merged[key], full[key])
