@@ -8,8 +8,8 @@
 // first p <= ld columns are logical; the kernels mask columns >= p by
 // index and never read rows >= n, so padding may hold any bits. A packed
 // int4 block (DT_I4, Nib4 below) holds two columns a byte and its ld
-// counts bytes; only the row pass, the column pass and the pre-solve
-// take one (BB_DISPATCH_I4).
+// counts bytes; only the row pass, the column pass (BB_DISPATCH_I4) and
+// the pre-solve (its nibble kernel, tdots_sweep.cu) take one.
 //
 // Every reduction runs in a fixed order (warp butterflies, per-segment
 // partials, an ordered second pass). There are no float atomics, so two
@@ -97,6 +97,15 @@ struct Nib4 {
             8388616.f;
       }
     }
+  }
+  // The 8 columns of one 32-bit word (column e in bits 4e .. 4e + 3):
+  // cvt's first half; the second half's arithmetic is dead code.
+  __device__ __forceinline__ static void cvt_word(uint32_t w,
+                                                  float (&o)[8]) {
+    float t[N];
+    cvt(make_uint2(w, 0u), t);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) o[e] = t[e];
   }
 };
 
@@ -752,7 +761,7 @@ cudaError_t colpass_k(const void* X0, int64_t ld0, int p0, const float* X1,
   }
 
 // BB_DISPATCH with the packed int4 block too (DT_I4: T = Nib4), for the
-// first block of the single-vector row pass, column pass and pre-solve;
+// first block of the single-vector row pass and column pass;
 // `stmt` must return.
 #define BB_DISPATCH_I4(dt, T, ...)                                    \
   if ((dt) == ::bbsweep::DT_I4) {                                     \

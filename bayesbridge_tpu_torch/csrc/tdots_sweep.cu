@@ -20,11 +20,12 @@
 // of a row, so a warp reads 512 contiguous bytes), loop over a row
 // segment with u1..u3 staged in shared memory, and write per-segment
 // partials that an ordered second pass sums. One read of X; no atomics.
-// The square moment is always computed from the loaded values, also for
-// 0/1 blocks (the composed JAX path reuses X'u3 there; the fused kernel
-// never did). With u4, an int8 thread holds 5 x 16 float accumulators
-// (80 registers against 64 for four reductions); -Xptxas -v reports the
-// build's registers and spills.
+// The square moment is computed from the loaded values, also for 0/1
+// blocks (the composed JAX path reuses X'u3 there; the fused kernel
+// never did), except in the binary mode of the nibble pre-solve below.
+// With u4, an int8 thread holds 5 x 16 float accumulators (80 registers
+// against 64 for four reductions); -Xptxas -v reports the build's
+// registers and spills.
 //
 // bb_tdots_sweep_k runs the same reductions for up to 8 Markov chains
 // from one read of X, in one launch. It replaces the TPU kernel
@@ -273,40 +274,316 @@ cudaError_t tdots_k(const void* X0, int64_t ld0, int p0, const float* X1,
   return cudaGetLastError();
 }
 
+// ---- The nibble pre-solve: a packed int4 first block (Nib4) beside an
+// optional f32 block ----
+//
+// It replaces the JAX package's _presolve_multirhs over its packed-s4
+// block (bayesbridge_tpu/design/sparse.py:1325-1368). The first nibble
+// design ran the column pass's tiles (colpass_kernel<Nib4, float, K>:
+// 16 columns a lane, u staged 128 rows at a time);
+// baselines/presolve_i4_variants.py --baseline times it against this one.
+//
+// What bounds it on the H100: bytes (the flagship's 4.25 GB, 1.27 ms),
+// with the issue slots close behind: the first design spent about 8.4
+// instructions an element at five reductions (its 8-byte conversion, 5
+// FMAs and the square) and held 217-221 registers, so an SM ran one
+// 256-thread CTA and nothing covered the loads that each of its barriers
+// (one per 128 rows of u) emptied. The design:
+//   - a lane owns 4 bytes (8 columns) of a nibble row and kI4FUnit bytes
+//     of an f32 row, at most 5 x 8 accumulators, so the kernel is compiled
+//     for kI4MinBlocks CTAs an SM; the f32 tiles share its launch, their
+//     memory-bound CTAs beside the nibble tiles' issue-bound ones;
+//   - a lane issues the loads of its next kI4Bytes (f32: kI4FBytes) of
+//     rows before the arithmetic of the current ones, so its loads stay
+//     in flight while it computes;
+//   - u1..u4 are staged interleaved (one 16-byte shared load a row)
+//     kI4Urows rows at a time: a pair of barriers per kI4Urows rows;
+//   - binary (a 0/1 block): the square row is X'u3 (0/1 values are their
+//     own squares, as the JAX package reuses its column 3), and an
+//     element adds its row's u's under a predicate on its nibble's low
+//     bit: fmaf(1, w, a) is a + w rounded, and fmaf(0, w, a) is a for a
+//     finite w (a sum that starts at +0 is never -0). About 5
+//     instructions an element at five reductions; a non-finite u value
+//     reaches only the columns with a 1 in its row.
+// Bits: the row segments are the int8 mode's (the caller passes them,
+// from the 16-column tiling), each column sums its segment's rows in
+// order with the int8 mode's arithmetic, and the ordered second pass
+// sums the segments, so both modes give the int8 mode's bits on the
+// same values. kernels/layout.py presolve_i4_plan mirrors the geometry;
+// bb_tdots_i4_plan reports it.
+constexpr int kI4Urows = 1024;   // rows of u staged at a time
+constexpr int kI4MinBlocks = 2;  // CTAs an SM is compiled to hold
+constexpr int kI4FUnit = 8;      // bytes of an f32 row a lane owns
+constexpr int kI4Bytes = 64;     // bytes of the next rows a nibble lane loads
+constexpr int kI4FBytes = 128;   // the same for an f32 lane
+
+// A lane's share of a row: `unit` bytes, `cols` columns; `rows` rows a
+// load group.
+template <typename T> struct I4Lane;
+template <> struct I4Lane<Nib4> {
+  static constexpr int unit = 4, cols = 8, rows = kI4Bytes / unit;
+};
+template <> struct I4Lane<float> {
+  static constexpr int unit = kI4FUnit, cols = kI4FUnit / 4,
+                       rows = kI4FBytes / kI4FUnit;
+};
+
+// a_j += b_j for each j where m != 0: predicated adds (add.rn, never
+// contracted), one predicate for the row's reductions of one column.
+__device__ __forceinline__ void add_if(uint32_t m, float& a0, float& a1,
+                                       float& a2, float b0, float b1,
+                                       float b2) {
+  asm("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %3, 0;\n\t"
+      "@p add.rn.f32 %0, %0, %4;\n\t@p add.rn.f32 %1, %1, %5;\n\t"
+      "@p add.rn.f32 %2, %2, %6;\n\t}"
+      : "+f"(a0), "+f"(a1), "+f"(a2)
+      : "r"(m), "f"(b0), "f"(b1), "f"(b2));
+}
+
+__device__ __forceinline__ void add_if(uint32_t m, float& a0, float& a1,
+                                       float& a2, float& a3, float b0,
+                                       float b1, float b2, float b3) {
+  asm("{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %4, 0;\n\t"
+      "@p add.rn.f32 %0, %0, %5;\n\t@p add.rn.f32 %1, %1, %6;\n\t"
+      "@p add.rn.f32 %2, %2, %7;\n\t@p add.rn.f32 %3, %3, %8;\n\t}"
+      : "+f"(a0), "+f"(a1), "+f"(a2), "+f"(a3)
+      : "r"(m), "f"(b0), "f"(b1), "f"(b2), "f"(b3));
+}
+
+// Accumulators a lane holds: K, or K - 1 when binary (no square).
+template <int K, bool BIN> struct I4Acc {
+  static constexpr int value = BIN ? K - 1 : K;
+};
+
+// One row of a lane's columns: acc += x * u (u = (u1, u2, u3, u4) of the
+// row), the square (X.X)'u3 unless binary.
+template <typename T, int K, bool BIN>
+__device__ __forceinline__ void i4_row(
+    float (&acc)[I4Acc<K, BIN>::value][I4Lane<T>::cols],
+    const uint32_t (&q)[I4Lane<T>::unit / 4], float4 w) {
+  constexpr int N = I4Lane<T>::cols;
+  if constexpr (BIN) {
+    static_assert(is_nib<T>, "binary is a nibble block's mode");
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      const uint32_t m = q[0] & (1u << (4 * e));
+      if constexpr (K == 5)
+        add_if(m, acc[0][e], acc[1][e], acc[2][e], acc[3][e], w.x, w.y,
+               w.z, w.w);
+      else
+        add_if(m, acc[0][e], acc[1][e], acc[2][e], w.x, w.y, w.z);
+    }
+  } else {
+    float xs[N];
+    if constexpr (is_nib<T>) {
+      Nib4::cvt_word(q[0], xs);
+    } else {
+#pragma unroll
+      for (int e = 0; e < N; ++e) xs[e] = __uint_as_float(q[e]);
+    }
+#pragma unroll
+    for (int e = 0; e < N; ++e) {
+      acc[0][e] = fmaf(xs[e], w.x, acc[0][e]);
+      acc[1][e] = fmaf(xs[e], w.y, acc[1][e]);
+      acc[2][e] = fmaf(xs[e], w.z, acc[2][e]);
+      acc[3][e] = fmaf(xs[e] * xs[e], w.z, acc[3][e]);
+      if constexpr (K == 5) acc[4][e] = fmaf(xs[e], w.w, acc[4][e]);
+    }
+  }
+}
+
+// One tile of one segment: rows [r0, r1) of the tile's columns of a block
+// with row stride `ldb` bytes, to the segment's partial rows (reduction k
+// of column j at part[k * p_total + col_off + j]).
+template <typename T, int K, bool BIN>
+__device__ __forceinline__ void i4_tile(
+    const char* __restrict__ X, int64_t ldb, int p, int tile, int64_t r0,
+    int64_t r1, const float* __restrict__ u0, const float* __restrict__ u1,
+    const float* __restrict__ u2, const float* __restrict__ u3, float4* su,
+    float* __restrict__ part, int64_t p_total, int col_off) {
+  using L = I4Lane<T>;
+  constexpr int N = L::cols, W = L::unit / 4, ROWS = L::rows;
+  constexpr int A = I4Acc<K, BIN>::value;
+  const int c0 = tile * (kThreads * N) + threadIdx.x * N;
+  const char* xb = X + (int64_t)c0 * L::unit / N;  // the lane's column
+  float acc[A][N];
+#pragma unroll
+  for (int a = 0; a < A; ++a)
+#pragma unroll
+    for (int e = 0; e < N; ++e) acc[a][e] = 0.f;
+
+  for (int64_t rb = r0; rb < r1; rb += kI4Urows) {
+    const int cnt = (int)min64(kI4Urows, r1 - rb);
+    __syncthreads();
+    for (int i = threadIdx.x; i < cnt; i += kThreads) {
+      float4 s = make_float4(u0[rb + i], u1[rb + i], u2[rb + i], 0.f);
+      if constexpr (K == 5) s.w = u3[rb + i];
+      su[i] = s;
+    }
+    __syncthreads();
+    if (c0 < p) {
+      // The next group's loads go out before this group's arithmetic, so
+      // a lane always has ROWS rows in flight (the chunk's last group
+      // loads itself again, from L1).
+      const char* xp = xb + rb * ldb;
+      const int full = cnt - cnt % ROWS;
+      uint32_t q[ROWS][W];
+      if (full > 0) {
+#pragma unroll
+        for (int j = 0; j < ROWS; ++j) load_words<L::unit>(xp + j * ldb, q[j]);
+      }
+      for (int i = 0; i < full; i += ROWS) {
+        const char* nx = i + ROWS < full ? xp + ROWS * ldb : xp;
+        uint32_t qn[ROWS][W];
+#pragma unroll
+        for (int j = 0; j < ROWS; ++j) load_words<L::unit>(nx + j * ldb, qn[j]);
+#pragma unroll
+        for (int j = 0; j < ROWS; ++j)
+          i4_row<T, K, BIN>(acc, q[j], su[i + j]);
+#pragma unroll
+        for (int j = 0; j < ROWS; ++j)
+#pragma unroll
+          for (int w = 0; w < W; ++w) q[j][w] = qn[j][w];
+        xp = nx;
+      }
+      for (int i = full; i < cnt; ++i) {
+        uint32_t qt[W];
+        load_words<L::unit>(xb + (rb + i) * ldb, qt);
+        i4_row<T, K, BIN>(acc, qt, su[i]);
+      }
+    }
+  }
+  if (c0 < p) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      // Binary: rows 0-2 and 4 from acc 0-2 and 3, the square row from
+      // X'u3 (acc 2).
+      const int a = !BIN ? k : k < 3 ? k : k == 3 ? 2 : 3;
+#pragma unroll
+      for (int e = 0; e < N; ++e)
+        if (c0 + e < p) part[k * p_total + col_off + c0 + e] = acc[a][e];
+    }
+  }
+}
+
+// Grid: x = the nibble tiles (kThreads * 8 columns each) then the f32
+// tiles, y = the row segments. partial: (n_seg, K, p0 + p1) floats.
+template <int K, bool BIN>
+__global__ void __launch_bounds__(kThreads, kI4MinBlocks) tdots_i4_kernel(
+    const uint8_t* __restrict__ X0, int64_t ld0, int p0, int tiles0,
+    const float* __restrict__ X1, int64_t ld1, int p1, int64_t n,
+    int64_t rows_per_seg, const float* __restrict__ u0,
+    const float* __restrict__ u1, const float* __restrict__ u2,
+    const float* __restrict__ u3, float* __restrict__ partial) {
+  __shared__ float4 su[kI4Urows];
+  const int64_t p_total = (int64_t)p0 + p1;
+  const int64_t r0 = (int64_t)blockIdx.y * rows_per_seg;
+  const int64_t r1 = min64(n, r0 + rows_per_seg);
+  float* part = partial + (int64_t)blockIdx.y * K * p_total;
+  if ((int)blockIdx.x < tiles0)
+    i4_tile<Nib4, K, BIN>(reinterpret_cast<const char*>(X0), ld0, p0,
+                          blockIdx.x, r0, r1, u0, u1, u2, u3, su, part,
+                          p_total, 0);
+  else
+    i4_tile<float, K, false>(reinterpret_cast<const char*>(X1), ld1 * 4,
+                             p1, blockIdx.x - tiles0, r0, r1, u0, u1, u2,
+                             u3, su, part, p_total, p0);
+}
+
+constexpr int kI4TileCols0 = kThreads * I4Lane<Nib4>::cols;
+constexpr int kI4TileCols1 = kThreads * I4Lane<float>::cols;
+
+// The nibble pre-solve and the ordered reduction of its segments: X0
+// packed int4 (ld0 bytes), X1 f32 (ld1 floats) or p1 == 0.
+template <int K, bool BIN>
+cudaError_t launch_tdots_i4(const void* X0, int64_t ld0, int p0,
+                            const float* X1, int64_t ld1, int p1, int64_t n,
+                            int n_seg, int64_t rows_per_seg, const float* u0,
+                            const float* u1, const float* u2,
+                            const float* u3, float* partial, float* out,
+                            cudaStream_t stream) {
+  const int tiles0 = (p0 + kI4TileCols0 - 1) / kI4TileCols0;
+  const int tiles1 = p1 > 0 ? (p1 + kI4TileCols1 - 1) / kI4TileCols1 : 0;
+  tdots_i4_kernel<K, BIN><<<dim3(tiles0 + tiles1, n_seg), kThreads, 0,
+                            stream>>>(
+      static_cast<const uint8_t*>(X0), ld0, p0, tiles0, X1, ld1, p1, n,
+      rows_per_seg, u0, u1, u2, u3, partial);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int64_t width = (int64_t)K * ((int64_t)p0 + p1);
+  const int rgrid = (int)min64((width + kThreads - 1) / kThreads, 4096);
+  reduce_segments_kernel<<<rgrid, kThreads, 0, stream>>>(partial, n_seg,
+                                                         width, out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace bbsweep
 
 // C interface (ctypes). dt*: 0 f32, 1 bf16, 2 int8; dt0 also 3, a packed
-// int4 block (ld0 in bytes), the nibble mode: col_tile_i4 with int8's
-// tiles, segments and 80 accumulators at five reductions, which replaces
-// the JAX package's _presolve_multirhs over the packed-s4 block
-// (bayesbridge_tpu/design/sparse.py:1325-1368; its squares, at most 64,
-// exact here as in f32). p1 == 0 means one
-// block; u4 == NULL means four reductions (K = 4), else five. partial:
-// n_seg * K * (p0 + p1) floats; out: (K, p0 + p1) floats, row k holding
-// reduction k for block 0's columns then block 1's.
+// int4 block (ld0 in bytes), whose reductions take the nibble pre-solve
+// above, beside an f32 X1 (or p1 == 0); `binary` 1 (a 0/1 packed block
+// only) takes its binary mode, whose square row is X'u3, and must be 0
+// for other blocks. p1 == 0 means one block; u4 == NULL means four
+// reductions (K = 4), else five. The segments (n_seg of rows_per_seg
+// rows) are the int8 mode's. partial: n_seg * K * (p0 + p1) floats; out:
+// (K, p0 + p1) floats, row k holding reduction k for block 0's columns
+// then block 1's.
 // Returns the CUDA error of the launches (0 = ok).
 extern "C" int bb_tdots_sweep(int dt0, const void* X0, long long ld0,
                               int p0, int dt1, const void* X1,
                               long long ld1, int p1, long long n,
                               const float* u1, const float* u2,
-                              const float* u3, const float* u4, int n_seg,
-                              long long rows_per_seg, float* partial,
-                              float* out, void* stream) {
+                              const float* u3, const float* u4, int binary,
+                              int n_seg, long long rows_per_seg,
+                              float* partial, float* out, void* stream) {
   using namespace bbsweep;
   auto s = static_cast<cudaStream_t>(stream);
+  if (binary < 0 || binary > 1 || (binary && dt0 != DT_I4))
+    return (int)cudaErrorInvalidValue;
+  if (dt0 == DT_I4) {
+    if (p1 > 0 && dt1 != DT_F32) return (int)cudaErrorInvalidValue;
+    const auto* X1f = static_cast<const float*>(X1);
+#define BB_TD_I4(K, BIN)                                                   \
+  return (int)launch_tdots_i4<K, BIN>(X0, ld0, p0, X1f, ld1, p1, n, n_seg, \
+                                      rows_per_seg, u1, u2, u3, u4,        \
+                                      partial, out, s)
+    if (u4 == nullptr) {
+      if (binary) BB_TD_I4(4, true);
+      BB_TD_I4(4, false);
+    }
+    if (binary) BB_TD_I4(5, true);
+    BB_TD_I4(5, false);
+#undef BB_TD_I4
+  }
   if (u4 == nullptr) {
-    BB_DISPATCH_I4(dt0, T0, BB_DISPATCH(dt1, T1,
+    BB_DISPATCH(dt0, T0, BB_DISPATCH(dt1, T1,
         launch_colpass<T0, T1, 4>(X0, ld0, p0, X1, ld1, p1, n, n_seg,
                                   rows_per_seg, u1, u2, u3, nullptr,
                                   partial, out, s);
         return (int)cudaGetLastError()));
   }
-  BB_DISPATCH_I4(dt0, T0, BB_DISPATCH(dt1, T1,
+  BB_DISPATCH(dt0, T0, BB_DISPATCH(dt1, T1,
       launch_colpass<T0, T1, 5>(X0, ld0, p0, X1, ld1, p1, n, n_seg,
                                 rows_per_seg, u1, u2, u3, u4, partial, out,
                                 s);
       return (int)cudaGetLastError()));
+}
+
+// The nibble pre-solve's geometry (kernels/layout.py presolve_i4_plan
+// mirrors it): field 0 the rows of u staged at a time, 1 the columns of
+// a nibble tile, 2 of an f32 tile, 3 the CTAs an SM is compiled for, 4
+// the static shared memory of a CTA in bytes; -1 for another field.
+extern "C" int bb_tdots_i4_plan(int field) {
+  using namespace bbsweep;
+  switch (field) {
+    case 0: return kI4Urows;
+    case 1: return kI4TileCols0;
+    case 2: return kI4TileCols1;
+    case 3: return kI4MinBlocks;
+    case 4: return (int)(kI4Urows * sizeof(float4));
+    default: return -1;
+  }
 }
 
 // The chain-batched pre-solve reductions for nc chains: u1..u4 (nc, n)

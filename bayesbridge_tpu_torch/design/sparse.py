@@ -339,13 +339,14 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         if self.backend != 'hybrid' or tier not in ('int4', 'int8'):
             raise ValueError("with_exact_tier: a hybrid design, tier "
                              "'int4' or 'int8'")
-        Xe = self.X_exact
+        Xe, binary = self.X_exact, self.int4_binary
         if tier == 'int4' and not layout.is_int4(Xe):
             Xe = layout.pack_int4(Xe, self.n_exact)
+            binary = self._int4_binary_of(Xe)
         elif tier == 'int8' and layout.is_int4(Xe):
-            Xe = layout.unpack_int4(Xe)
+            Xe, binary = layout.unpack_int4(Xe), False
         other = self.with_policy(self.fused_policy)
-        other.X_exact = Xe
+        other.X_exact, other.int4_binary = Xe, binary
         return other
 
     def with_policy(self, fused):
@@ -495,6 +496,9 @@ class SparseDesignMatrix(AbstractDesignMatrix):
                       X.nnz)
 
     def _set_common(self, column_offset, shape_main, nnz):
+        # Whether the exact block is packed int4 and holds only 0/1 (the
+        # pre-solve's binary mode): set with a hybrid design's block.
+        self.int4_binary = False
         self._shape_main = tuple(shape_main)
         self._nnz = nnz
         self.column_offset = torch.as_tensor(
@@ -520,6 +524,16 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         self.float_cols = self._dev(float_cols, torch.int64)
         self.n_exact = int(self.exact_cols.numel())
         self.n_float = int(self.float_cols.numel())
+        self.int4_binary = self._int4_binary_of(self.X_exact)
+
+    def _int4_binary_of(self, Xe):
+        """Whether exact block `Xe` of this design takes the pre-solve's
+        binary mode: packed int4 with only 0/1 values, read from the block
+        on its device. (`exact_is_binary`, the JAX package's flag, is the
+        whole design's, so it is False wherever float columns sit beside
+        the 0/1 ones, as at the flagship.)"""
+        return bool(self.n_exact) and layout.is_int4(Xe) and (
+            self.exact_is_binary or layout.int4_is_binary(Xe, self.n_exact))
 
     def _set_bitpack(self, bits_col, bits_row, X_float, bin_cols,
                      float_cols, column_offset, shape_main, nnz, meta):
@@ -611,6 +625,7 @@ class SparseDesignMatrix(AbstractDesignMatrix):
 
     def _rows_hybrid(self, src, r0, r1, whole):
         self.X_exact = src.X_exact[r0:r1].to(self.device)
+        self.int4_binary = src.int4_binary  # rows of a 0/1 block
         self.X_float = src.X_float[r0:r1].to(self.device)
         self.exact_cols = src.exact_cols.to(self.device)
         self.float_cols = src.float_cols.to(self.device)
@@ -1028,8 +1043,10 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         reduction. Fused: `u4` composes as a separate Tdot, the fused
         sweep's reduction set being fixed at four. The squared moment is
         computed from the loaded values, for 0/1 blocks too (where it
-        equals X'u3). One vector each, or k chains' rows (one read for up
-        to 8 chains, ``kernels.layout.batched_plan``)."""
+        equals X'u3), except over a packed int4 block of 0/1 values, whose
+        binary mode takes X'u3 for it (sparse.py:1359-1360, there for a
+        binary design). One vector each, or k chains' rows (one read for
+        up to 8 chains, ``kernels.layout.batched_plan``)."""
         us = [self._as_tensor(u) for u in (u1, u2, u3)]
         if u4 is not None:
             us.append(self._as_tensor(u4))
@@ -1040,7 +1057,8 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         fused = self.fused_ne_mode('presolve') is not None
         fold = u4 is not None and not fused
         outs = tdots_sweep_k(*self._hybrid_Xs(), *us[:3],
-                             us[3] if fold else None)
+                             us[3] if fold else None,
+                             binary=self.int4_binary)
         sums = [rsum(u)[:, None] for u in us]
         offset = self.column_offset
 
@@ -1105,7 +1123,8 @@ class SparseDesignMatrix(AbstractDesignMatrix):
             diag = per_chain(lambda w: squared_col_moment(X, w), weight)
             col_sum = weight @ X
         elif self.backend == 'hybrid':
-            outs = tdots_sweep_k(*self._hybrid_Xs(), weight, weight, weight)
+            outs = tdots_sweep_k(*self._hybrid_Xs(), weight, weight, weight,
+                                 binary=self.int4_binary)
             diag = self._assemble([blk[3] for blk in outs])
             col_sum = self._assemble([blk[2] for blk in outs])
         else:

@@ -74,18 +74,23 @@ def launch_counts():
     'ne_oneread': ... (the CG operator), 'ne_oneread[logit]': ...,
     'ne_oneread[linear]': ..., 'stream_probe[i32]': ..., and the
     nibble modes over a packed int4 block: 'ne_rows_i4', 'colpass_i4',
-    'tdots_i4', 'tdots_i4[u4]' (single-vector launches) and their
-    '...[chains]' counts (one single launch per chain of a chain batch,
-    which has no nibble mode)}."""
+    'tdots_i4', 'tdots_i4[u4]', their binary modes 'tdots_i4[bin]' and
+    'tdots_i4[u4,bin]' (single-vector launches), and their '...[chains]'
+    counts ('tdots_i4[u4,bin,chains]': one single launch per chain of a
+    chain batch, which has no nibble mode)}."""
     counts = {f'ne_sweep[{key}]': k for key, k in _ne.launches.items()
               if not key.endswith('_k') and 'i4' not in key}
     for name, key in (('ne_rows_i4', 'rows_i4'), ('colpass_i4', 'cols_i4')):
         counts[name] = _ne.launches[key]
         counts[f'{name}[chains]'] = _ne.launches[key + '_k']
-    for name, key in (('tdots_i4', 'i4'), ('tdots_i4[u4]', 'u4_i4')):
+    for name, key in (('tdots_i4', 'i4'), ('tdots_i4[u4]', 'u4_i4'),
+                      ('tdots_i4[bin]', 'i4_bin'),
+                      ('tdots_i4[u4,bin]', 'u4_i4_bin'),
+                      ('tdots_i4[chains]', 'i4_k'),
+                      ('tdots_i4[u4,chains]', 'u4_i4_k'),
+                      ('tdots_i4[bin,chains]', 'i4_bin_k'),
+                      ('tdots_i4[u4,bin,chains]', 'u4_i4_bin_k')):
         counts[name] = _td.launches[key]
-    counts['tdots_i4[chains]'] = _td.launches['i4_k']
-    counts['tdots_i4[u4,chains]'] = _td.launches['u4_i4_k']
     counts['ne_rows_k'] = _ne.launches['rows_k']
     counts['colpass_k'] = _ne.launches['cols_k']
     counts['tdots_sweep'] = _td.launches['tdots']

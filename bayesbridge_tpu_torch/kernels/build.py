@@ -47,7 +47,8 @@ _SIGNATURES = {
     'bb_colpass': [_I, _P, _L, _I, _I, _P, _L, _I, _L, _P, _I, _L, _P, _P,
                    _P],
     'bb_tdots_sweep': [_I, _P, _L, _I, _I, _P, _L, _I, _L, _P, _P, _P, _P,
-                       _I, _L, _P, _P, _P],
+                       _I, _I, _L, _P, _P, _P],
+    'bb_tdots_i4_plan': [_I],
     'bb_bitlut': [_P, _L, _L, _P, _I, _I, _I, _P, _P, _P, _I, _P],
     'bb_winell': [_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                   _P],

@@ -85,6 +85,21 @@ def unpack_int4(X, p=None):
     return out if p is None else out[:, :p]
 
 
+def int4_is_binary(X, p):
+    """Whether the first `p` columns of packed int4 block X hold only 0
+    and 1 (each byte's nibbles 0000 or 0001); one pass in row chunks, on
+    X's device."""
+    full = p // 2
+    step = max(1, CHUNK_BYTES // max(1, X.shape[1]))
+    for i in range(0, X.shape[0], step):
+        rows = X[i:i + step]
+        if full and bool((rows[:, :full] & 0xEE).any()):
+            return False
+        if p % 2 and bool((rows[:, full] & 0x0E).any()):
+            return False
+    return True
+
+
 def widen(X, p, dtype=torch.float32):
     """The first `p` logical columns of stored block X in `dtype` (a
     packed int4 block unpacked on the way)."""
@@ -225,10 +240,44 @@ def segments(n, tiles, device):
     `tiles` column tiles times the segments fill the card about four
     blocks deep, none shorter than 256 rows."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return segments_for(n, tiles, sms)
+
+
+def segments_for(n, tiles, sms):
+    """:func:`segments` on a card of `sms` SMs."""
     n_seg = max(1, min(math.ceil(4 * sms / max(tiles, 1)),
                        math.ceil(n / 256)))
     rows = math.ceil(n / n_seg)
     return math.ceil(n / rows), rows
+
+
+# The nibble pre-solve's geometry, as csrc/tdots_sweep.cu sets it (kI4*;
+# bb_tdots_i4_plan reports the C side, and the tests on the card
+# compare): u staged `urows` rows at a time as one float4 a row, tiles of
+# 256 lanes x 8 nibble columns and 256 x 2 f32 columns.
+PRESOLVE_I4 = dict(urows=1024, tile_cols=(2048, 512), min_blocks=2)
+
+# `n_seg` segments of `rows_per_seg` rows, `tiles` (nibble, f32) of
+# `tile_columns` columns each, `smem_bytes` a CTA, `min_blocks` CTAs an
+# SM is compiled for.
+PresolveI4Plan = collections.namedtuple(
+    'PresolveI4Plan',
+    'n_seg rows_per_seg tiles tile_columns smem_bytes min_blocks')
+
+
+def presolve_i4_plan(n, p_int4, p_f32, sms):
+    """The launch geometry of the nibble pre-solve over `n` rows of a
+    packed int4 block of `p_int4` logical columns beside an f32 block of
+    `p_f32` (0: none) on a card of `sms` SMs. The row segments are the
+    int8 mode's, from its 16-column tiling of the same blocks: each column
+    then sums the same rows in the same order, so the two give the same
+    bits; the tiles are the kernel's own."""
+    int8_tiles = math.ceil(p_int4 / (256 * 16)) + math.ceil(p_f32 / (256 * 4))
+    n_seg, rows = segments_for(n, int8_tiles, sms)
+    tc0, tc1 = PRESOLVE_I4['tile_cols']
+    return PresolveI4Plan(
+        n_seg, rows, (math.ceil(p_int4 / tc0), math.ceil(p_f32 / tc1)),
+        (tc0, tc1), 16 * PRESOLVE_I4['urows'], PRESOLVE_I4['min_blocks'])
 
 
 def splits(n_units, tiles, device):

@@ -22,13 +22,18 @@ columns equal to its single-vector launch bit for bit; k = 1 is the
 single-vector launch. The JAX package gets this form from ``vmap`` of
 ``fused_tdots`` over its chains.
 
-A packed int4 first block (``layout.pack_int4``) takes the nibble mode
-of the kernel (``launches['i4']`` / ``['u4_i4']``), which replaces the
-JAX package's multi-RHS dot over its packed-s4 block
+A packed int4 first block (``layout.pack_int4``) beside an f32 block
+takes the nibble pre-solve (``launches['i4']`` / ``['u4_i4']``), which
+replaces the JAX package's multi-RHS dot over its packed-s4 block
 (``sparse.py:1325-1368``); its squares (at most 64) are exact in
-float32. :func:`tdots_sweep_k` has no nibble mode yet: over an int4
-block it runs one single-vector launch per chain (``launches['i4_k']``
-/ ``['u4_i4_k']``).
+float32. With ``binary=True`` (a block of 0/1 values only) it takes the
+binary mode (``launches['i4_bin']`` / ``['u4_i4_bin']``): the square
+row is X'u3, as the JAX package reuses its column 3 for a binary block;
+the plain version ignores the flag (its square equals X'u3 on 0/1
+values). Both give the int8 mode's bits on the same values
+(``layout.presolve_i4_plan``). :func:`tdots_sweep_k` has no
+chain-batched nibble mode: over an int4 block it runs one single-vector
+launch per chain (the keys with ``_k``).
 """
 
 import torch
@@ -38,21 +43,29 @@ from .build import count_launch, load_library
 from .ne_sweep import batched_colpass
 
 launches = {'tdots': 0, 'u4': 0, 'tdots_k': 0, 'u4_k': 0, 'i4': 0,
-            'u4_i4': 0, 'i4_k': 0, 'u4_i4_k': 0}
+            'u4_i4': 0, 'i4_k': 0, 'u4_i4_k': 0, 'i4_bin': 0,
+            'u4_i4_bin': 0, 'i4_bin_k': 0, 'u4_i4_bin_k': 0}
 
 
-def _key(u4, int4, chains=False):
+def _key(u4, int4, chains=False, binary=False):
     """The launch counter: four or five reductions (`u4`), over a packed
-    int4 first block or not, per chain of a batch (`chains`)."""
+    int4 first block or not (in binary mode or not), per chain of a batch
+    (`chains`)."""
     if not int4:
         key = 'tdots' if u4 is None else 'u4'
     else:
-        key = 'i4' if u4 is None else 'u4_i4'
+        key = ('i4' if u4 is None else 'u4_i4') + ('_bin' if binary else '')
     return key + '_k' if chains else key
 
 
-def tdots_sweep_plain(Xs, ps, u1, u2, u3, u4=None):
-    """The reductions in plain PyTorch (float32, row-chunked)."""
+def _check_binary(Xs, binary):
+    if binary and not layout.is_int4(Xs[0]):
+        raise ValueError("binary: the mode of a packed int4 first block")
+
+
+def tdots_sweep_plain(Xs, ps, u1, u2, u3, u4=None, binary=False):
+    """The reductions in plain PyTorch (float32, row-chunked); `binary`
+    is ignored (the square equals X'u3 on 0/1 values)."""
     U = torch.stack((u1, u2, u3) + ((u4,) if u4 is not None else ()),
                     dim=1)
     outs = []
@@ -64,7 +77,7 @@ def tdots_sweep_plain(Xs, ps, u1, u2, u3, u4=None):
     return outs
 
 
-def tdots_sweep(Xs, ps, u1, u2, u3, u4=None):
+def tdots_sweep(Xs, ps, u1, u2, u3, u4=None, binary=False):
     """Per block (X'u1, X'u2, X'u3, (X.X)'u3[, X'u4]); see the module
     docstring.
 
@@ -75,6 +88,7 @@ def tdots_sweep(Xs, ps, u1, u2, u3, u4=None):
     ps : their logical widths p_b <= ld_b
     u1, u2, u3 : (n,) float32
     u4 : (n,) float32 or None
+    binary : the first block is packed int4 and holds only 0/1
     """
     if not 1 <= len(Xs) == len(ps) <= 2:
         raise ValueError("one or two blocks, each with its width")
@@ -86,6 +100,7 @@ def tdots_sweep(Xs, ps, u1, u2, u3, u4=None):
         layout.check_block(X, p, f"X{i}")
     if len(Xs) == 2 and layout.is_int4(Xs[1]):
         raise TypeError("a packed int4 block must be the first")
+    _check_binary(Xs, binary)
     us = (u1, u2, u3) + ((u4,) if u4 is not None else ())
     for i, u in enumerate(us):
         layout.check_vector(u, n, f'u{i + 1}', device)
@@ -93,12 +108,13 @@ def tdots_sweep(Xs, ps, u1, u2, u3, u4=None):
         return tdots_sweep_plain(Xs, ps, u1, u2, u3, u4)
     if device.type != 'cuda':
         raise ValueError(f"no tdots_sweep for device {device}")
-    outs = _tdots_sweep_cuda(Xs, ps, u1, u2, u3, u4)
-    count_launch(launches, _key(u4, layout.is_int4(Xs[0])))
+    outs = _tdots_sweep_cuda(Xs, ps, u1, u2, u3, u4, binary)
+    count_launch(launches, _key(u4, layout.is_int4(Xs[0]), binary=binary))
     return outs
 
 
-def _tdots_sweep_cuda(Xs, ps, u1, u2, u3, u4):
+def _tdots_sweep_cuda(Xs, ps, u1, u2, u3, u4, binary=False):
+    """One launch; `binary` the binary mode of a packed int4 block."""
     kl = load_library()
     device, n = Xs[0].device, Xs[0].shape[0]
     args, tiles = [], 0
@@ -108,7 +124,15 @@ def _tdots_sweep_cuda(Xs, ps, u1, u2, u3, u4):
         tiles += layout.col_tiles(p, X)
     if len(Xs) == 1:
         args += [0, None, 0, 0]
-    n_seg, rows_per_seg = layout.segments(n, tiles, device)
+    if layout.is_int4(Xs[0]):
+        if len(Xs) == 2 and Xs[1].dtype != torch.float32:
+            raise TypeError("the nibble pre-solve takes a float32 second "
+                            "block (the hybrid design's float block)")
+        sms = torch.cuda.get_device_properties(device).multi_processor_count
+        plan = layout.presolve_i4_plan(n, ps[0], sum(ps[1:]), sms)
+        n_seg, rows_per_seg = plan.n_seg, plan.rows_per_seg
+    else:
+        n_seg, rows_per_seg = layout.segments(n, tiles, device)
     p_total = sum(ps)
     k_red = 4 if u4 is None else 5
     out = torch.empty((k_red, p_total), dtype=torch.float32, device=device)
@@ -118,8 +142,8 @@ def _tdots_sweep_cuda(Xs, ps, u1, u2, u3, u4):
     with torch.cuda.device(device):
         rc = kl.lib.bb_tdots_sweep(
             *args, n, u1.data_ptr(), u2.data_ptr(), u3.data_ptr(),
-            None if u4 is None else u4.data_ptr(), n_seg, rows_per_seg,
-            partial.data_ptr(), out.data_ptr(), stream)
+            None if u4 is None else u4.data_ptr(), int(binary), n_seg,
+            rows_per_seg, partial.data_ptr(), out.data_ptr(), stream)
     kl.check(rc, 'tdots_sweep')
     outs, off = [], 0
     for p in ps:
@@ -129,8 +153,9 @@ def _tdots_sweep_cuda(Xs, ps, u1, u2, u3, u4):
     return outs
 
 
-def tdots_sweep_k_plain(Xs, ps, U1, U2, U3, U4=None):
-    """tdots_sweep_k chain by chain with the single plain version."""
+def tdots_sweep_k_plain(Xs, ps, U1, U2, U3, U4=None, binary=False):
+    """tdots_sweep_k chain by chain with the single plain version
+    (`binary` ignored)."""
     per = [tdots_sweep_plain(Xs, ps, U1[i], U2[i], U3[i],
                              None if U4 is None else U4[i])
            for i in range(U1.shape[0])]
@@ -139,9 +164,10 @@ def tdots_sweep_k_plain(Xs, ps, U1, U2, U3, U4=None):
             for b in range(len(Xs))]
 
 
-def tdots_sweep_k(Xs, ps, U1, U2, U3, U4=None):
+def tdots_sweep_k(Xs, ps, U1, U2, U3, U4=None, binary=False):
     """Per block the reductions of :func:`tdots_sweep` for k chains, each
-    (k, p_b): U1..U3 (and U4) (k, n) float32; a second block float32."""
+    (k, p_b): U1..U3 (and U4) (k, n) float32; a second block float32;
+    `binary` as for :func:`tdots_sweep`."""
     if not 1 <= len(Xs) == len(ps) <= 2:
         raise ValueError("one or two blocks, each with its width")
     device, n = Xs[0].device, Xs[0].shape[0]
@@ -150,6 +176,7 @@ def tdots_sweep_k(Xs, ps, U1, U2, U3, U4=None):
             raise ValueError("blocks must share the device and row count")
         layout.check_block(X, p, f"X{i}")
     layout.check_second_block(Xs)
+    _check_binary(Xs, binary)
     Us = [U1, U2, U3] + ([U4] if U4 is not None else [])
     k = U1.shape[0]
     layout.check_chains('tdots_sweep_k', device, k, *Us)
@@ -161,13 +188,14 @@ def tdots_sweep_k(Xs, ps, U1, U2, U3, U4=None):
         raise ValueError(f"no tdots_sweep_k for device {device}")
     if k == 1:
         outs = tdots_sweep(Xs, ps, *(U[0] for U in Us[:3]),
-                           U4[0] if U4 is not None else None)
+                           U4[0] if U4 is not None else None, binary)
         return [tuple(o[None] for o in blk) for blk in outs]
     if layout.is_int4(Xs[0]):  # no chain-batched nibble mode
         per = [_tdots_sweep_cuda(Xs, ps, U1[i], U2[i], U3[i],
-                                 None if U4 is None else U4[i])
+                                 None if U4 is None else U4[i], binary)
                for i in range(k)]
-        count_launch(launches, _key(U4, True, chains=True), k)
+        count_launch(launches, _key(U4, True, chains=True, binary=binary),
+                     k)
         return [tuple(torch.stack([outs[b][r] for outs in per])
                       for r in range(len(per[0][b])))
                 for b in range(len(Xs))]

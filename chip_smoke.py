@@ -64,13 +64,14 @@ Phases, each of which raises on failure (exit code != 0):
    and the two objectives compared) and the two objectives' times in
    turns; then the int4 phase (``BB_HYBRID_INT4=1``): the nibble modes of
    the row pass, the column pass and the pre-solve (four and five
-   reductions) against their plain versions (rtol 1e-4 of max|plain|)
-   at ragged small shapes (values in [-8, 7], widths not a multiple of
-   32, one and two blocks, random padding nibbles) and on the hybrid
-   slices' stored int8 block packed on the card (``with_exact_tier``:
-   100,000 x 45,000 packed beside the f32 block), reruns and the int8
-   modes on the same values bit for bit, each timed in turns with its
-   int8 mode beside its bound; the logit chain on the packed design
+   reductions; its binary mode on 0/1 blocks) against their plain
+   versions (rtol 1e-4 of max|plain|) at ragged small shapes (values in
+   [-8, 7] and 0/1, widths not a multiple of 32, one and two blocks,
+   random padding nibbles) and on the hybrid slices' stored int8 block
+   packed on the card (``with_exact_tier``: 100,000 x 45,000 packed
+   beside the f32 block; the pre-solve in both modes), reruns and the
+   int8 modes on the same values bit for bit, each timed in turns with
+   its int8 mode beside its bound; the logit chain on the packed design
    under 'auto' (``gibbs(10)`` + ``gibbs_resume(10)``, the exact-resume
    check, a profiler window beside the int8 'auto' slice's device ms),
    ``gibbs(5)`` against the int8 design under '0' bit for bit and a
@@ -1443,17 +1444,20 @@ def run_hybrid(X, outcome):
 
 
 INT4_NAMES = {'rows': 'ne_rows_i4', 'cols': 'colpass_i4',
-              'tdots4': 'tdots_i4', 'tdots5': 'tdots_i4[u4]'}
+              'tdots4': 'tdots_i4', 'tdots5': 'tdots_i4[u4]',
+              'tdots4bin': 'tdots_i4[bin]', 'tdots5bin': 'tdots_i4[u4,bin]'}
 
 
-def int4_modes(Xe, Xf, pe, pf, gen):
+def int4_modes(Xe, Xf, pe, pf, gen, binary=False):
     """{mode: (kernel, plain version)} of the row pass, the column pass
-    and the pre-solve with four and five reductions, each a function of
-    the first block X0 (beside Xf where given) returning its outputs as
-    a list, on fresh random operands."""
+    and the pre-solve with four and five reductions (with `binary`, for a
+    0/1 block, also the pre-solve's binary mode), each a function of the
+    first block X0 (beside Xf where given) returning its outputs as a
+    list, on fresh random operands."""
     import torch
     from bayesbridge_tpu_torch.kernels.ne_sweep import (
         colpass, colpass_plain, ne_rows, ne_rows_plain)
+    from bayesbridge_tpu_torch.kernels import layout
     from bayesbridge_tpu_torch.kernels.tdots_sweep import (
         tdots_sweep, tdots_sweep_plain)
     n = Xe.shape[0]
@@ -1468,17 +1472,22 @@ def int4_modes(Xe, Xf, pe, pf, gen):
 
     def flat(r):
         return [o for blk in r for o in blk]
-    return {
+    modes = {
         'rows': (lambda X0: [ne_rows(list(zip(blocks(X0), vs)), c)],
                  lambda X0: [ne_rows_plain(list(zip(blocks(X0), vs)), c)]),
         'cols': (lambda X0: colpass(blocks(X0), ps, us[0]),
                  lambda X0: colpass_plain(blocks(X0), ps, us[0])),
-        'tdots4': (lambda X0: flat(tdots_sweep(blocks(X0), ps, *us[:3])),
-                   lambda X0: flat(tdots_sweep_plain(blocks(X0), ps,
-                                                     *us[:3]))),
-        'tdots5': (lambda X0: flat(tdots_sweep(blocks(X0), ps, *us)),
-                   lambda X0: flat(tdots_sweep_plain(blocks(X0), ps, *us))),
     }
+    for k in (4, 5):
+        u = us[:k - 1]
+        for bin_mode in ((False, True) if binary else (False,)):
+            mode = f'tdots{k}' + ('bin' if bin_mode else '')
+            # Over the int8 block, the same call is the int8 mode.
+            modes[mode] = (
+                lambda X0, u=u, b=bin_mode: flat(tdots_sweep(
+                    blocks(X0), ps, *u, binary=b and layout.is_int4(X0))),
+                lambda X0, u=u: flat(tdots_sweep_plain(blocks(X0), ps, *u)))
+    return modes
 
 
 def same_bits(a, b):
@@ -1489,24 +1498,37 @@ def same_bits(a, b):
 def int4_kernel_checks(design):
     """The int4 phase's kernel checks: (a) each nibble mode against its
     plain version (rtol RTOL of max|plain|) at ragged small shapes (values
-    in [-8, 7], logical widths not a multiple of 32, one and two blocks,
-    random bits in the padding nibbles) and on the flagship's stored 0/1
-    int8 block packed on the card, each call rerun for the same bits; (b)
-    against the int8 mode on the same values, bit for bit; (c) timed in
-    turns with the int8 mode (int8, int4, int4, int8; CUDA events, median
-    of 10 each) beside the bound (bytes over 3,350 GB/s or float32
-    operations over 67 TFLOP/s, the larger) and the plain version. No
-    PyTorch call multiplies packed int4 by float32: no library time.
-    Returns (the kernels line's results, the int4 design, the launch
-    counts of these checks)."""
+    in [-8, 7], and 0/1 blocks whose pre-solve also runs its binary mode;
+    logical widths not a multiple of 32, one and two blocks, random bits
+    in the padding nibbles) and on the flagship's stored 0/1 int8 block
+    packed on the card (the pre-solve in both modes), each call rerun for
+    the same bits; (b) against the int8 mode on the same values, bit for
+    bit; (c) timed in turns with the int8 mode (int8, int4, int4, int8;
+    CUDA events, median of 10 each) beside the bound (bytes over 3,350
+    GB/s or float32 operations over 67 TFLOP/s, the larger) and the plain
+    version. The pre-solve's non-binary mode does the same loads and
+    arithmetic on any values; its times on a [-8, 7] block of the
+    flagship's shape, and those of the first nibble design, come from
+    ``baselines/presolve_i4_variants.py``. No PyTorch call multiplies
+    packed int4 by float32: no library time. Returns (the kernels line's
+    results, the int4 design, the launch counts of these checks)."""
     import torch
     from bayesbridge_tpu_torch.kernels import (
         launch_counts, layout, reset_launch_counts)
     gen = torch.Generator(device='cuda').manual_seed(13)
     reset_launch_counts()
-    for n, pe, pf in ((1037, 4097, 513), (1037, 45, 0), (3001, 8191, 100)):
-        X8 = torch.randint(-8, 8, (n, layout.padded_width(pe, int4=True)),
-                           generator=gen, device='cuda', dtype=torch.int8)
+    for n, pe, pf, binary in ((1037, 4097, 513, False),
+                              (1037, 45, 0, False),
+                              (3001, 8191, 100, False),
+                              (1045, 4097, 513, True), (1045, 45, 0, True),
+                              (2999, 8191, 100, True)):
+        w = layout.padded_width(pe, int4=True)
+        if binary:
+            X8 = (torch.rand((n, w), generator=gen, device='cuda')
+                  < 0.2).to(torch.int8)
+        else:
+            X8 = torch.randint(-8, 8, (n, w), generator=gen, device='cuda',
+                               dtype=torch.int8)
         X4 = layout.pack_int4(X8)  # padding nibbles random
         X8[:, pe:] = torch.randint(-100, 100, (n, X8.shape[1] - pe),
                                    generator=gen, device='cuda',
@@ -1514,8 +1536,10 @@ def int4_kernel_checks(design):
         Xf = random_block('f32', n, pf, layout.padded_width(pf), gen) \
             if pf else None
         log(f"[int4] nibble modes, ragged n={n} p_int4={pe} p_f32={pf} "
-            f"(padding holds garbage)")
-        for mode, (kern, plain) in int4_modes(X4, Xf, pe, pf, gen).items():
+            f"({'0/1' if binary else '[-8, 7]'} values; padding holds "
+            f"garbage)")
+        for mode, (kern, plain) in int4_modes(X4, Xf, pe, pf, gen,
+                                              binary).items():
             got, again, ref = kern(X4), kern(X4), plain(X4)
             i8 = kern(X8)
             torch.cuda.synchronize()
@@ -1539,14 +1563,17 @@ def int4_kernel_checks(design):
         f"{time.perf_counter() - t0:.2f} s: {tuple(Xe8.shape)} int8 -> "
         f"{tuple(Xe4.shape)} uint8 (unpacks to the int8 block exactly); "
         f"{gb4:.4f} GB with the f32 block against "
-        f"{nbytes(Xe8, Xf) / 1e9:.4f} GB")
+        f"{nbytes(Xe8, Xf) / 1e9:.4f} GB; the design takes the binary "
+        f"pre-solve: {d4.int4_binary}")
+    assert d4.int4_binary
     n_elem = N_OBS * (pe + pf)
     vec, row = 4 * (pe + pf), 4 * N_OBS
     work = {'rows': (vec + row, 2 * n_elem), 'cols': (vec + row, 2 * n_elem),
             'tdots4': (4 * vec + 3 * row, 9 * n_elem),
             'tdots5': (5 * vec + 4 * row, 11 * n_elem)}
     results = {}
-    for mode, (kern, plain) in int4_modes(Xe4, Xf, pe, pf, gen).items():
+    for mode, (kern, plain) in int4_modes(Xe4, Xf, pe, pf, gen,
+                                          binary=True).items():
         name = INT4_NAMES[mode]
         got, again, ref, i8 = kern(Xe4), kern(Xe4), plain(Xe4), kern(Xe8)
         torch.cuda.synchronize()
@@ -1558,7 +1585,7 @@ def int4_kernel_checks(design):
                  for X in (Xe8, Xe4, Xe4, Xe8)]
         ms, ms8 = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
         plain_ms = time_ms(lambda: plain(Xe4), reps=3)
-        extra, ops = work[mode]
+        extra, ops = work[mode.replace('bin', '')]
         bound, by = bound_ms(gb4 * 1e9 + extra, ops)
         bound8 = bound_ms(nbytes(Xe8, Xf) + extra, ops)[0]
         log(f"  {name}: in turns (int8, int4, int4, int8) "
@@ -1617,7 +1644,8 @@ def run_int4(design, outcome, int8_auto):
             'ne_sweep[rows]', 'ne_sweep[cols]', 'tdots_sweep[u4]',
             'ne_oneread', 'ne_oneread[logit]', 'ne_sweep[logit]')), c
         assert c['ne_rows_i4'] >= n_cg_sum and c['colpass_i4'] >= n_cg_sum, c
-        assert c['tdots_i4[u4]'] == 10, c
+        # The flagship's exact block is 0/1: the binary pre-solve.
+        assert c['tdots_i4[u4,bin]'] == 10 and c['tdots_i4[u4]'] == 0, c
         dev = 'not measured' if st['dev_ms'] is None or \
             int8_auto['dev_ms'] is None else \
             f"{st['dev_ms']:.2f} against {int8_auto['dev_ms']:.2f} " \
@@ -1663,7 +1691,7 @@ def run_int4(design, outcome, int8_auto):
         log(f"[{label}] launch counts of the 2-chain run and the chains "
             f"alone: {cc}")
         assert cc['ne_rows_i4[chains]'] > 0 and cc['colpass_i4[chains]'] \
-            > 0 and cc['tdots_i4[u4,chains]'] > 0, cc
+            > 0 and cc['tdots_i4[u4,bin,chains]'] > 0, cc
         assert cc['ne_rows_k'] == cc['colpass_k'] == 0, cc
         del model, bridge, d4
         torch.cuda.empty_cache()
@@ -3467,7 +3495,8 @@ def main():
         log(f"kernel build: {kl.build_seconds:.1f} s -> {kl.path.name}")
         for line in kl.ptxas_log.splitlines():
             # The nibble modes' entry names too, beside their registers.
-            if 'registers' in line or 'spill' in line or 'Nib4' in line:
+            if 'registers' in line or 'spill' in line or 'Nib4' in line \
+                    or 'tdots_i4' in line:
                 log('  ptxas: ' + line.strip())
         X, outcome = data.result()
     t0 = phase('build and flagship data', t0)
@@ -3568,12 +3597,14 @@ def main():
                'ell[dot]': 'ell64', 'ell[tdot_win]': 'ell64',
                'ell[dot]@f32': 'ell32', 'ell[tdot_win]@f32': 'ell32',
                'ne_rows_i4': 'hybrid_int4', 'colpass_i4': 'hybrid_int4',
-               'tdots_i4[u4]': 'hybrid_int4'}
-    # The four-reduction nibble mode: the fused pre-solve's, which no int4
-    # design runs (it composes); counted on its checks (check-only) unless
-    # a path ran it.
-    path_of['tdots_i4'] = 'hybrid_int4' if counts['hybrid_int4'][
-        'tdots_i4'] else 'int4_checks'
+               'tdots_i4[u4,bin]': 'hybrid_int4'}
+    # The pre-solve's other nibble modes: the four-reduction ones are the
+    # fused pre-solve's, which no int4 design runs (it composes), and the
+    # flagship's exact block is 0/1; each counted on its checks
+    # (check-only) unless a path ran it.
+    for name in ('tdots_i4', 'tdots_i4[bin]', 'tdots_i4[u4]'):
+        path_of[name] = 'hybrid_int4' if counts['hybrid_int4'][name] \
+            else 'int4_checks'
     # The col-ELL's first traversal: on the ell slices where the dispatch
     # gives it a chain's launches, else counted on their kernel checks
     # (check-only).

@@ -59,7 +59,8 @@ from bayesbridge_tpu_torch.kernels.stream_probe import (
     stream_probe, stream_probe_plain,
 )
 from bayesbridge_tpu_torch.kernels.tdots_sweep import (
-    tdots_sweep, tdots_sweep_k, tdots_sweep_k_plain, tdots_sweep_plain,
+    tdots_sweep, tdots_sweep_k, tdots_sweep_k_plain,
+    tdots_sweep_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -1185,6 +1186,55 @@ def test_nibble_modes_match_plain_and_int8(dev, n, pe, pf, binary):
             assert torch.equal(x, y) and torch.equal(x, z), mode
 
 
+@pytest.mark.parametrize('binary', [False, True])
+@pytest.mark.parametrize('n,pe,pf', [(1045, 4097, 513), (1045, 45, 0),
+                                     (2999, 8191, 100),
+                                     (200_003, 4097, 513)])
+def test_nibble_presolve_modes(dev, n, pe, pf, binary):
+    """The nibble pre-solve, four and five reductions, on values in
+    [-8, 7] and (binary) on 0/1 values in both its modes: against its
+    plain version, a rerun and the int8 mode, the last two bit for bit.
+    Logical widths not a multiple of 32, one and two blocks, row segments
+    not a multiple of the 16 rows a lane loads at once (at 200,003 rows,
+    longer than the 1,024 rows of u staged at a time)."""
+    g = torch.Generator(device=dev).manual_seed(41 + n + pe)
+    X8, X4, Xf = _int4_blocks(g, dev, n, pe, pf, binary)
+    rest = [Xf] if pf else []
+    ps = [pe, pf] if pf else [pe]
+    us = [torch.randn(n, generator=g, device=dev) for _ in range(4)]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = layout.presolve_i4_plan(n, pe, pf, sms)
+    assert plan.rows_per_seg % 16, plan
+
+    def flat(r):
+        return [o for blk in r for o in blk]
+    for k in (4, 5):
+        u = us[:k - 1]
+        i8 = flat(tdots_sweep([X8] + rest, ps, *u))
+        ref = flat(tdots_sweep_plain([X4] + rest, ps, *u))
+        for mode in ((False, True) if binary else (False,)):
+            tag = ','.join(t for t, on in (('u4', k == 5), ('bin', mode))
+                           if on)
+            reset_launch_counts()
+            got = flat(tdots_sweep([X4] + rest, ps, *u, binary=mode))
+            assert launch_counts()['tdots_i4' + (f'[{tag}]' if tag
+                                                 else '')] == 1
+            again = flat(tdots_sweep([X4] + rest, ps, *u, binary=mode))
+            _assert_close(got, ref)
+            for w, x, y in zip(got, again, i8):
+                assert torch.equal(w, x) and torch.equal(w, y), (k, mode)
+
+
+def test_nibble_presolve_plan_matches_library(dev):
+    """kernels.layout's mirror of the nibble pre-solve's geometry equals
+    the library's (bb_tdots_i4_plan)."""
+    lib = load_library().lib
+    mirror = layout.presolve_i4_plan(1, 1, 1, 1)
+    assert [lib.bb_tdots_i4_plan(f) for f in range(6)] == [
+        layout.PRESOLVE_I4['urows'], *mirror.tile_columns,
+        mirror.min_blocks, mirror.smem_bytes, -1]
+
+
 def test_nibble_chain_batches_run_single_launches(dev):
     """ne_rows_k, colpass_k and tdots_sweep_k over an int4 block: one
     single-vector launch per chain, counted apart, each chain its single
@@ -1236,7 +1286,9 @@ def test_int4_design_chain_resumes_exactly_on_card(dev, monkeypatch):
                            params_to_save='all')
     counts = launch_counts()
     assert counts['ne_rows_i4'] > 12 and counts['colpass_i4'] > 12
-    assert counts['tdots_i4[u4]'] == 12
+    # A 0/1 packed block: the pre-solve's binary mode.
+    assert model.design.int4_binary
+    assert counts['tdots_i4[u4,bin]'] == 12 and counts['tdots_i4[u4]'] == 0
     assert counts['ne_sweep[rows]'] == counts['ne_oneread[logit]'] == 0
     part, info = bridge.gibbs(7, seed=0, coef_sampler_type='cg',
                               params_to_save='all')

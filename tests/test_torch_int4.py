@@ -23,8 +23,10 @@ and tests/test_design_matrix.py:141-215 on the port's own seams
 (``design.sparse._int4_supported`` and its cache).
 """
 
+import gc
 import types
 import warnings
+import weakref
 
 import jax
 import jax.numpy as jnp
@@ -137,6 +139,23 @@ def test_pack_unpack_round_trip(p):
     assert two[0, 0].item() == 0x78
     with pytest.raises(ValueError, match=r'\[-8, 7\]'):
         layout.pack_int4(torch.full((2, 4), 8, dtype=torch.int8))
+
+
+@pytest.mark.parametrize('p', [1, 31, 32, 33, 77])
+def test_int4_is_binary(p):
+    """layout.int4_is_binary reads the logical columns only: 0/1 values
+    pass whatever the padding nibbles hold; any other value fails."""
+    rng = np.random.default_rng(p)
+    X8 = torch.from_numpy((rng.uniform(size=(9, p)) < .4).astype(np.int8))
+    X4 = layout.pack_int4(X8)
+    X4[:, -(-p // 2):] = 0xFF
+    if p % 2:
+        X4[:, p // 2] |= 0xF0
+    assert layout.int4_is_binary(X4, p)
+    for value in (-1, 2, 7, -8):
+        Y = X8.clone()
+        Y[4, p - 1] = value
+        assert not layout.int4_is_binary(layout.pack_int4(Y), p)
 
 
 def test_plain_nibble_modes_give_the_int8_bits():
@@ -284,6 +303,91 @@ def test_products_match_jax(int4_on, kind, centered, intercept):
            jd.compute_fisher_info(jnp.asarray(w), diag_only=True))
     _close(td.compute_fisher_info(w).numpy(),
            jd.compute_fisher_info(jnp.asarray(w)))
+
+
+@pytest.mark.parametrize('kind,int4,p_float,want', [
+    ('binary', True, 6, True), ('binary', True, 0, True),
+    ('small', True, 6, False), ('binary', False, 6, False)])
+def test_presolve_passes_binary_for_int4(monkeypatch, kind, int4, p_float,
+                                         want):
+    """presolve_reductions and the Fisher diagonal ask the pre-solve for
+    its binary mode over a packed int4 block of 0/1 values only (beside
+    float columns too, where the design's `exact_is_binary` is False):
+    not over values in [-8, 7], not over an int8 block of 0/1 values."""
+    if int4:
+        monkeypatch.setenv('BB_HYBRID_INT4', '1')
+    else:
+        monkeypatch.delenv('BB_HYBRID_INT4', raising=False)
+    monkeypatch.setattr(sparse_mod, '_INT4_SUPPORTED', {})
+    rng, X = _data(kind, 5, p_float=p_float)
+    td = SparseDesignMatrix(X, device='cpu', backend='hybrid', fused='0')
+    assert _tier(td) == ('int4' if int4 else 'int8')
+    assert td.exact_is_binary == (kind == 'binary' and p_float == 0)
+    seen = []
+    real = sparse_mod.tdots_sweep_k
+
+    def recording(*args, binary=False, **kw):
+        seen.append(binary)
+        return real(*args, binary=binary, **kw)
+    monkeypatch.setattr(sparse_mod, 'tdots_sweep_k', recording)
+    n = td.shape[0]
+    us = [rng.standard_normal(n).astype(np.float32) for _ in range(4)]
+    td.presolve_reductions(*us)
+    td.compute_fisher_diag(np.abs(us[0]))
+    assert seen == [want, want]
+
+
+def test_int8_tier_holds_no_packed_block(int4_on):
+    """with_exact_tier('int8') of a packed 0/1 design whose pre-solve has
+    run keeps no reference to the packed block (its binary flag is a
+    plain bool, set with the block): the block goes with the design that
+    held it. Packing again finds the binary mode again."""
+    rng, X = _data('binary', 29)
+    d4 = SparseDesignMatrix(X, device='cpu', backend='hybrid', fused='0')
+    assert _tier(d4) == 'int4' and d4.int4_binary
+    us = [rng.standard_normal(d4.shape[0]).astype(np.float32)
+          for _ in range(4)]
+    want = d4.presolve_reductions(*us)
+    packed = weakref.ref(d4.X_exact)
+    d8 = d4.with_exact_tier('int8')
+    assert _tier(d8) == 'int8' and d8.int4_binary is False
+    del d4
+    gc.collect()
+    assert packed() is None
+    for g, w in zip(d8.presolve_reductions(*us), want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    again = d8.with_exact_tier('int4')
+    assert again.int4_binary and again.row_block(0, 10).int4_binary
+
+
+@pytest.mark.parametrize('p_float', [0, 6])
+def test_plain_presolve_matches_jax_multirhs(int4_on, p_float):
+    """The plain pre-solve over the packed 0/1 block (binary, as the
+    design asks for it) against the JAX package's _presolve_multirhs over
+    its packed-s4 block, block by block within 2e-6 of max|ref|. On a
+    binary design (no float columns) the JAX square row is its X'u3 (the
+    binary reuse); the port's square row is within the same tolerance of
+    X'u3 either way."""
+    rng, X = _data('binary', 17, p_float=p_float)
+    jd, td = _pair(X)
+    assert _tier(jd) == _tier(td) == 'int4'
+    assert td.int4_binary
+    assert jd.exact_is_binary == td.exact_is_binary == (p_float == 0)
+    np.testing.assert_array_equal(np.asarray(jd.exact_cols),
+                                  td.exact_cols.numpy())
+    n = td.shape[0]
+    us = [rng.standard_normal(n).astype(np.float32) for _ in range(4)]
+    ref, _ = jd._presolve_multirhs(*(jnp.asarray(u) for u in us))
+    got = tdots_sweep_plain(*td._hybrid_Xs(),
+                            *(torch.from_numpy(u) for u in us), binary=True)
+    assert len(got) == len(ref) == (2 if p_float else 1)
+    for g_blk, r_blk in zip(got, ref):
+        for g, r in zip(g_blk, r_blk):
+            _close(g.numpy(), r)
+    if not p_float:
+        np.testing.assert_array_equal(np.asarray(ref[0][3]),
+                                      np.asarray(ref[0][2]))
+    _close(got[0][3].numpy(), ref[0][2])
 
 
 def test_int4_nonbinary_fisher_exact(int4_on):

@@ -22,7 +22,9 @@ import torch
 from bayesbridge_tpu.design import fusedne
 from bayesbridge_tpu_torch.kernels import layout
 from bayesbridge_tpu_torch.kernels.ne_sweep import ne_sweep
-from bayesbridge_tpu_torch.kernels.tdots_sweep import tdots_sweep
+from bayesbridge_tpu_torch.kernels.tdots_sweep import (
+    tdots_sweep, tdots_sweep_k, tdots_sweep_plain,
+)
 
 # One intra-op thread: the suite runs in several worker processes, and a
 # torch thread pool in each would oversubscribe the cores.
@@ -185,3 +187,105 @@ def test_wrappers_validate_inputs():
         tdots_sweep([X.to(torch.int16)], [16], w, w, w)
     with pytest.raises(ValueError, match='length 5'):
         tdots_sweep([X], [16], w, w, torch.ones(4))
+
+
+@pytest.mark.parametrize('n,pe,pf', [
+    (1045, 45, 0), (1045, 4097, 513), (2999, 8191, 100), (7, 45, 1),
+    (200_003, 4097, 513), (100_000, 45_000, 5_000), (1_000_000, 45, 0)])
+@pytest.mark.parametrize('sms', [132, 114])
+def test_presolve_i4_plan_keeps_int8_segments(n, pe, pf, sms):
+    """The nibble pre-solve's plan: the int8 mode's row segments (from
+    the 16-column tiling of the same blocks, as the int8 wrapper computes
+    them), its own tiles of 2,048 nibble and 512 f32 columns, and a
+    CTA's shared memory that fits a CTA's 227 KB, min_blocks times in an
+    SM's 228 KB."""
+    plan = layout.presolve_i4_plan(n, pe, pf, sms)
+    X8 = torch.zeros((1, layout.padded_width(pe)), dtype=torch.int8)
+    X4 = layout.pack_int4(X8, pe)
+    Xf = torch.zeros((1, layout.padded_width(max(pf, 1))))
+    int8_tiles = layout.col_tiles(pe, X8) + (layout.col_tiles(pf, Xf)
+                                             if pf else 0)
+    assert layout.col_tiles(pe, X4) == layout.col_tiles(pe, X8)
+    assert (plan.n_seg, plan.rows_per_seg) == layout.segments_for(
+        n, int8_tiles, sms)
+    assert (plan.n_seg - 1) * plan.rows_per_seg < n \
+        <= plan.n_seg * plan.rows_per_seg
+    assert plan.tiles == (-(-pe // 2048), -(-pf // 512))
+    assert plan.tile_columns == (2048, 512)
+    assert plan.smem_bytes <= layout.SMEM_PER_CTA
+    assert plan.min_blocks * plan.smem_bytes <= 228 * 1024
+
+
+def test_presolve_binary_flag():
+    """The plain pre-solve gives the same result with and without
+    `binary` (which it ignores: its square of a 0/1 block is X'u3, within
+    float32 rounding of the other product); the CPU wrappers dispatch to
+    it either way; `binary` on a block that is not packed int4 raises."""
+    rng = np.random.default_rng(3)
+    n, pe, pf = 301, 77, 9
+    X8 = torch.from_numpy((rng.uniform(size=(n, layout.padded_width(pe)))
+                           < .3).astype(np.int8))
+    X4 = layout.pack_int4(X8, pe)
+    Xf = torch.from_numpy(rng.standard_normal(
+        (n, layout.padded_width(pf))).astype(np.float32))
+    us = [torch.from_numpy(rng.standard_normal(n).astype(np.float32))
+          for _ in range(4)]
+    U = torch.stack(us)[:, None]
+    for k in (3, 4):
+        a = tdots_sweep_plain([X4, Xf], [pe, pf], *us[:k], binary=True)
+        b = tdots_sweep_plain([X4, Xf], [pe, pf], *us[:k])
+        c = tdots_sweep([X4, Xf], [pe, pf], *us[:k], binary=True)
+        d = tdots_sweep_k([X4, Xf], [pe, pf], *U[:k], binary=True)
+        for blk_a, blk_b, blk_c, blk_d in zip(a, b, c, d):
+            for x, y, z, w in zip(blk_a, blk_b, blk_c, blk_d):
+                assert torch.equal(x, y) and torch.equal(x, z) \
+                    and torch.equal(x, w[0])
+        np.testing.assert_allclose(a[0][3].numpy(), a[0][2].numpy(),
+                                   rtol=1e-6, atol=1e-6 * float(
+                                       a[0][2].abs().max()))
+    with pytest.raises(ValueError, match='binary'):
+        tdots_sweep([X8, Xf], [pe, pf], *us[:3], binary=True)
+    with pytest.raises(ValueError, match='binary'):
+        tdots_sweep_k([X8, Xf], [pe, pf], *U[:3], binary=True)
+
+
+def test_presolve_i4_variants_edit_the_sources(tmp_path):
+    """The nibble pre-solve's turns harness: each copy differs from the
+    sources by its edits (every edited text is found once), a baseline
+    directory gives its copy as it is and with one column-pass CTA an SM,
+    and its ptxas log parser labels the pre-solve's kernels with their
+    registers and spills."""
+    from bayesbridge_tpu_torch.baselines import presolve_i4_variants as pv
+    from bayesbridge_tpu_torch.kernels import build
+    copies = pv.variants()
+    assert {'base', 'bytes128', 'minblocks3', 'cut-u', 'cut-x', 'cut-sync',
+            'cut-square'} <= set(copies)
+    for name, files in copies.items():
+        if name != 'base':
+            assert files != copies['base'], name
+    old = tmp_path / 'old'
+    old.mkdir()
+    for f in pv._FILES:
+        (old / f).write_text((build.CSRC / f).read_text())
+    copies = pv.variants(['base'], baseline=str(old))
+    assert set(copies) == {'base', 'baseline:old', 'baseline:old+1cta'}
+    assert copies['baseline:old'] == copies['base']
+    one = copies['baseline:old+1cta']
+    assert one['tdots_sweep.cu'] == copies['base']['tdots_sweep.cu']
+    assert 'cudaFuncSetAttribute(colpass_kernel<T0, T1, K>' \
+        in one['sweep_common.cuh']
+    both = pv.variants(['bytes128+cut-x'])['bytes128+cut-x']['tdots_sweep.cu']
+    assert 'kI4Bytes = 128;' in both and 'load_words<L::unit>(xb, qn[j]);' \
+        in both
+    name = ("_ZN7bbsweep12_GLOBAL__N_115tdots_i4_kernelILi5ELb1EEEvPKhli"
+            "iPKflilS5_S5_S5_S5_Pf")
+    first = ("_ZN7bbsweep12_GLOBAL__N_114colpass_kernelINS0_4Nib4EfLi4EEE"
+             "vPKT_liiPKT0_lil")
+    log = '\n'.join([
+        f"ptxas info    : Compiling entry function '{name}' for 'sm_90a'",
+        "    0 bytes stack frame, 4 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function '{first}' for 'sm_90a'",
+        "ptxas info    : Used 96 registers"])
+    assert pv.ptxas_kernels(log) == [('nibble K=5 binary', 128, 12),
+                                     ('first K=4', 96, 0)]
