@@ -431,6 +431,226 @@ cudaError_t launch_win(const int32_t* idx, const T* val, int64_t m,
 #undef BB_WIN_K
 }
 
+// ---- The staged traversal of a row-ELL at several vectors ------------------
+//
+// A row-ELL's rows each span the whole input axis, so once the k vectors
+// outgrow an SM's L1 (k >= 2 in float64, k >= 4 in float32 at the ell
+// slice's 16,384 inputs) nearly every gather of the first traversal goes
+// to L2 and moves a 32-byte sector: it runs at L2's sector rate, 22-48%
+// of its bound. Here each CTA holds a prefix of the interleaved vectors
+// in its shared memory for the whole launch (as many inputs as its
+// stage takes, n_staged, copied once by bulk copies on an mbarrier), and
+// a slot whose index lies in it gathers from shared memory; the rest go
+// through L2 as in the first traversal, so L2 serves the staged share
+// fewer sectors. The CTAs are persistent (one or two an SM): CTA b owns
+// ELL rows [b rows_cta, (b + 1) rows_cta), one warp a row, and a warp
+// keeps the idx / val of its next kStAhead groups of kStUnroll 32-slot
+// runs (its row's or its next rows') in flight while it gathers and adds
+// the current one, so the stream from device memory stays busy. Lane l adds
+// slots l, l + 32, ... in order with one FMA each, and the lanes meet in
+// the same xor tree as ell_kernel: each vector is the first traversal's
+// bits (and its single launch's).
+//
+// (Spreading the whole vectors over the shared memory of a thread-block
+// cluster instead, every other CTA's inputs gathered over the SM-to-SM
+// network, lost to this traversal on the H100: the network served those
+// gathers at a third of L2's rate. That design is kept for the harness in
+// baselines/ell_cluster.cu.)
+
+constexpr int kStWarps = 16;
+constexpr int kStThreads = kStWarps * 32;
+// The stage a CTA takes at most: the dynamic shared memory less room for
+// the static (its mbarrier).
+constexpr int kStMaxSmem = kMaxSmem - 1024;
+constexpr uint32_t kStCopy = 16384;  // bytes a bulk copy of the stage
+constexpr int kStAhead = 2;  // groups of idx / val a warp has in flight
+// 32-slot runs a warp loads at once, by k = 1..8, float64 and float32
+// (6: a row of the ell slice's 164 slots in one group).
+constexpr int kStUnrollF64[kMaxVectors + 1] = {0, 6, 6, 4, 6, 2, 2, 2, 2};
+constexpr int kStUnrollF32[kMaxVectors + 1] = {0, 6, 6, 6, 6, 4, 4, 4, 6};
+
+template <typename T, int K>
+__host__ __device__ constexpr int st_unroll() {
+  return sizeof(T) == 8 ? kStUnrollF64[K] : kStUnrollF32[K];
+}
+
+// Grid: n_cta CTAs of kStThreads. xt: the interleaved vectors, at least
+// n_staged rows (the wrapper pads them to a whole stage); inputs below
+// n_staged are gathered from this CTA's copy.
+template <typename T, int K, int kPower>
+__global__ void __launch_bounds__(kStThreads, 1) ell_st_kernel(
+    const int32_t* __restrict__ idx, const T* __restrict__ val, int64_t m,
+    int width, const T* __restrict__ xt, int n_staged, int64_t rows_cta,
+    T* __restrict__ out) {
+  using namespace bbasync;
+  constexpr int U = st_unroll<T, K>();
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const T* xs = reinterpret_cast<const T*>(smem_raw);
+  __shared__ uint64_t full;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const uint32_t bytes = (uint32_t)n_staged * K * sizeof(T);
+
+  if (threadIdx.x == 0) {
+    bar_init(&full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (warp == 0) {  // the stage, in copies of kStCopy bytes
+    if (lane == 0) bar_expect(&full, bytes);
+    __syncwarp();
+    for (uint32_t off = lane * kStCopy; off < bytes; off += 32 * kStCopy)
+      bulk_copy(smem_raw + off, reinterpret_cast<const char*>(xt) + off,
+                min(kStCopy, bytes - off), &full);
+  }
+  bar_wait<false>(&full, 0);
+
+  const int64_t r0 = (int64_t)blockIdx.x * rows_cta;
+  const int64_t r1 = min(m, r0 + rows_cta);
+  const int groups = (width + 32 * U - 1) / (32 * U);  // per row
+  // The warp's groups in order: (row, group) to load next and to add
+  // next; kStAhead groups in flight, in a ring of register buffers
+  // (static indices: the ring is walked by an unrolled loop).
+  int64_t ld_row = r0 + warp, pr_row = ld_row;
+  int ld_grp = 0, pr_grp = 0;
+  int32_t ii[kStAhead][U];
+  T vv[kStAhead][U];
+  auto load_group = [&](int32_t (&gi)[U], T (&gv)[U]) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int s = ld_grp * 32 * U + 32 * u + lane;
+      const bool in = ld_row < r1 && s < width;
+      gi[u] = in ? __ldg(idx + ld_row * width + s) : 0;
+      gv[u] = in ? __ldg(val + ld_row * width + s) : T(0);
+    }
+    if (++ld_grp == groups) {
+      ld_grp = 0;
+      ld_row += kStWarps;
+    }
+  };
+#pragma unroll
+  for (int d = 0; d < kStAhead; ++d) load_group(ii[d], vv[d]);
+  T acc[K];
+#pragma unroll
+  for (int c = 0; c < K; ++c) acc[c] = T(0);
+  for (;;) {
+#pragma unroll
+    for (int d = 0; d < kStAhead; ++d) {
+      if (pr_row >= r1) goto done;  // warp-uniform
+      T xj[U][K];
+#pragma unroll
+      for (int u = 0; u < U; ++u)  // the L2 gathers first, then the stage's
+        if (ii[d][u] >= n_staged)
+          load_k<K>(xt + (int64_t)ii[d][u] * K, xj[u]);
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (ii[d][u] < n_staged)
+          load_ks<K>(xs + (int64_t)ii[d][u] * K, xj[u]);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (pr_grp * 32 * U + 32 * u + lane < width) {
+          T a = vv[d][u];
+          if (kPower == 2) a = a * a;
+#pragma unroll
+          for (int c = 0; c < K; ++c) acc[c] = fma_t<T>(a, xj[u][c], acc[c]);
+        }
+      }
+      load_group(ii[d], vv[d]);  // kStAhead groups on, into this buffer
+      if (pr_grp == groups - 1) {  // the row's last group: the lanes meet
+#pragma unroll
+        for (int c = 0; c < K; ++c) {
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1)
+            acc[c] += __shfl_xor_sync(0xffffffffu, acc[c], off);
+        }
+        if (lane == 0) {
+#pragma unroll
+          for (int c = 0; c < K; ++c) out[c * m + pr_row] = acc[c];
+        }
+#pragma unroll
+        for (int c = 0; c < K; ++c) acc[c] = T(0);
+        pr_grp = 0;
+        pr_row += kStWarps;
+      } else {
+        ++pr_grp;
+      }
+    }
+  }
+done:;
+}
+
+template <typename T, int K, int kPower>
+cudaError_t st_attr(size_t smem) {
+  return cudaFuncSetAttribute(ell_st_kernel<T, K, kPower>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+template <typename T, int K>
+cudaError_t launch_st_k(const int32_t* idx, const T* val, int64_t m,
+                        int width, const T* xt, int power, int n_staged,
+                        int n_cta, T* out, cudaStream_t s) {
+  const size_t smem = (size_t)n_staged * K * sizeof(T);
+  if (smem > (size_t)kStMaxSmem || smem % 16 != 0)
+    return cudaErrorInvalidConfiguration;
+  const int64_t rows_cta = (m + n_cta - 1) / n_cta;
+  cudaError_t err = power == 2 ? st_attr<T, K, 2>(smem)
+                               : st_attr<T, K, 1>(smem);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // not left for the next launch's check
+    return err;
+  }
+  if (power == 2)
+    ell_st_kernel<T, K, 2><<<n_cta, kStThreads, smem, s>>>(
+        idx, val, m, width, xt, n_staged, rows_cta, out);
+  else
+    ell_st_kernel<T, K, 1><<<n_cta, kStThreads, smem, s>>>(
+        idx, val, m, width, xt, n_staged, rows_cta, out);
+  return cudaGetLastError();
+}
+
+template <typename T, int K>
+int fit_st(size_t smem) {
+  int fit = 0;
+  if (smem > (size_t)kStMaxSmem || st_attr<T, K, 1>(smem) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &fit, ell_st_kernel<T, K, 1>, kStThreads, smem) != cudaSuccess) {
+    cudaGetLastError();
+    return -1;
+  }
+  return fit;
+}
+
+template <typename T>
+cudaError_t launch_st(const int32_t* idx, const T* val, int64_t m,
+                      int width, const T* xt, int k, int power,
+                      int n_staged, int n_cta, T* out, cudaStream_t s) {
+#define BB_ST_K(KK)                                                     \
+  case KK:                                                              \
+    return launch_st_k<T, KK>(idx, val, m, width, xt, power, n_staged, \
+                              n_cta, out, s);
+  switch (k) {
+    BB_ST_K(1) BB_ST_K(2) BB_ST_K(3) BB_ST_K(4)
+    BB_ST_K(5) BB_ST_K(6) BB_ST_K(7) BB_ST_K(8)
+    default: return cudaErrorInvalidValue;
+  }
+#undef BB_ST_K
+}
+
+template <typename T>
+int fit_st_of(int k, size_t smem) {
+  switch (k) {
+    case 1: return fit_st<T, 1>(smem);
+    case 2: return fit_st<T, 2>(smem);
+    case 3: return fit_st<T, 3>(smem);
+    case 4: return fit_st<T, 4>(smem);
+    case 5: return fit_st<T, 5>(smem);
+    case 6: return fit_st<T, 6>(smem);
+    case 7: return fit_st<T, 7>(smem);
+    case 8: return fit_st<T, 8>(smem);
+    default: return -1;
+  }
+}
+
 template <typename T>
 int win_rows_of(int k) {
   switch (k) {
@@ -500,4 +720,36 @@ extern "C" int bb_ell_win(const int32_t* idx, const void* val, long long m,
 // (kWinWarps * win_rows), 0 for a k it does not take.
 extern "C" int bb_ell_win_rows(int k, int f64) {
   return kWinWarps * (f64 ? win_rows_of<double>(k) : win_rows_of<float>(k));
+}
+
+// The staged traversal (see ell_st_kernel): n_cta CTAs, each staging the
+// first n_staged rows of xt (n_staged * k * itemsize bytes, a multiple of
+// 16, at most kStMaxSmem). Returns the CUDA error
+// of the launch (0 = ok).
+extern "C" int bb_ell_st(const int32_t* idx, const void* val, long long m,
+                         int width, const void* xt, int k, int power,
+                         int f64, int n_staged, int n_cta, void* out,
+                         void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (m <= 0 || width <= 0 || k < 1 || k > kMaxVectors ||
+      (power != 1 && power != 2) || n_staged < 1 || n_cta < 1)
+    return (int)cudaErrorInvalidValue;
+  if (f64)
+    return (int)launch_st<double>(
+        idx, static_cast<const double*>(val), m, width,
+        static_cast<const double*>(xt), k, power, n_staged, n_cta,
+        static_cast<double*>(out), s);
+  return (int)launch_st<float>(
+      idx, static_cast<const float*>(val), m, width,
+      static_cast<const float*>(xt), k, power, n_staged, n_cta,
+      static_cast<float*>(out), s);
+}
+
+// CTAs of the staged traversal an SM holds with a stage of n_staged
+// inputs of k vectors (cudaOccupancyMaxActiveBlocksPerMultiprocessor); 0
+// or less where the stage does not fit.
+extern "C" int bb_ell_st_fit(int k, int f64, int n_staged) {
+  if (k < 1 || k > kMaxVectors || n_staged < 1) return -1;
+  const size_t smem = (size_t)n_staged * k * (f64 ? 8 : 4);
+  return f64 ? fit_st_of<double>(k, smem) : fit_st_of<float>(k, smem);
 }

@@ -168,6 +168,48 @@ def _exact_column_mask(X_csr, bad_entry):
     return np.bincount(X_csr.indices[bad_entry], minlength=p) == 0
 
 
+def _column_masks(X_csr, data, kinds, device):
+    """{kind: _exact_column_mask} for each of `kinds` ('int8', 'bf16',
+    'int4', 'binary': the columns whose every entry fits that tier), on
+    the card where :func:`_on_card` says so, else in numpy."""
+    if kinds and _on_card(X_csr, device):
+        return _column_masks_on(X_csr, kinds, device)
+    bad = {'int8': lambda: ~_int8_exact(data),
+           'bf16': lambda: ~_bf16_exact(data),
+           'int4': lambda: ~_int4_exact(data),
+           'binary': lambda: data != 1.0}
+    return {kind: _exact_column_mask(X_csr, bad[kind]()) for kind in kinds}
+
+
+def _column_masks_on(X_csr, kinds, device):
+    """:func:`_column_masks` on CUDA `device`: the entries go up in chunks
+    of _DENSIFY_CHUNK, each flagged as the numpy tests flag it (round half
+    to even, float32 casts to nearest) and counted per column. Returns
+    numpy masks."""
+    p = X_csr.shape[1]
+    bad = {kind: torch.zeros(p, dtype=torch.int64, device=device)
+           for kind in kinds}
+    for s in range(0, X_csr.nnz, _DENSIFY_CHUNK):
+        e = min(s + _DENSIFY_CHUNK, X_csr.nnz)
+        cols = torch.as_tensor(X_csr.indices[s:e]).to(device).long()
+        d = torch.as_tensor(np.asarray(X_csr.data[s:e], np.float64)) \
+            .to(device)
+        whole = d == torch.round(d)
+        for kind in kinds:
+            if kind == 'int8':
+                ok = whole & (d.abs() <= 127)
+            elif kind == 'int4':
+                ok = whole & (d >= -8) & (d <= 7)
+            elif kind == 'bf16':
+                f32 = d.to(torch.float32)
+                ok = (f32.to(torch.float64) == d) \
+                    & ((f32.view(torch.int32) & 0xFFFF) == 0)
+            else:  # 'binary'
+                ok = d == 1.0
+            bad[kind] += torch.bincount(cols[~ok], minlength=p)
+    return {kind: (n == 0).cpu().numpy() for kind, n in bad.items()}
+
+
 def _bf16_exact(data):
     """Entries that round-trip through bfloat16 exactly: representable
     in float32 with the low 16 mantissa bits zero."""
@@ -274,6 +316,47 @@ def _densify(X_csr, cols, np_dtype, width):
     return out
 
 
+def _densify_on(X_csr, blocks, device):
+    """The blocks of :func:`_densify` built on CUDA `device` in one pass
+    over the CSR: `blocks` is a list of (cols, torch dtype, width); the
+    entries go up in chunks of _DENSIFY_CHUNK (indices and float64
+    values), are cast on the card (round to nearest, as numpy's astype)
+    and scattered into zeroed (n, width) blocks. Returns the tensors. For
+    a CSR in canonical format (no duplicate entries: each element is
+    written once, so the blocks are numpy's bit for bit)."""
+    n, p = X_csr.shape
+    outs = [torch.zeros((n, width), dtype=dtype, device=device)
+            for _, dtype, width in blocks]
+    pos = []
+    for cols, _, _ in blocks:
+        at = torch.full((p,), -1, dtype=torch.int64)
+        at[torch.from_numpy(np.ascontiguousarray(cols, np.int64))] = \
+            torch.arange(len(cols))
+        pos.append(at.to(device))
+    if X_csr.nnz == 0 or not any(len(c) for c, _, _ in blocks):
+        return outs
+    indptr = torch.as_tensor(X_csr.indptr.astype(np.int64)).to(device)
+    for s in range(0, X_csr.nnz, _DENSIFY_CHUNK):
+        e = min(s + _DENSIFY_CHUNK, X_csr.nnz)
+        cols = torch.as_tensor(X_csr.indices[s:e]).to(device).long()
+        data = torch.as_tensor(np.asarray(X_csr.data[s:e], np.float64)) \
+            .to(device)
+        rows = torch.searchsorted(
+            indptr, torch.arange(s, e, device=device), right=True) - 1
+        for out, at, (_, dtype, width) in zip(outs, pos, blocks):
+            k = at[cols]
+            keep = k >= 0
+            out.view(-1)[rows[keep] * width + k[keep]] = \
+                data[keep].to(dtype)
+    return outs
+
+
+def _on_card(X_csr, device):
+    """Whether the hybrid blocks of `X_csr` are built on `device`: a CUDA
+    device and a CSR without duplicate entries."""
+    return torch.device(device).type == 'cuda' and X_csr.has_canonical_format
+
+
 class SparseDesignMatrix(AbstractDesignMatrix):
 
     def __init__(self, X, center_predictor=False, add_intercept=True,
@@ -307,14 +390,17 @@ class SparseDesignMatrix(AbstractDesignMatrix):
             offsets = np.bincount(X.indices, weights=data, minlength=p) / n
         else:
             offsets = np.zeros(p)
-        masks = {'int4': None}
+        kinds = []
         if backend in ('auto', 'hybrid'):
-            masks['int8'] = _exact_column_mask(X, ~_int8_exact(data))
-            masks['bf16'] = _exact_column_mask(X, ~_bf16_exact(data))
+            kinds += ['int8', 'bf16']
             if _int4_opted_in():  # unset, no probe would say yes
-                masks['int4'] = _exact_column_mask(X, ~_int4_exact(data))
+                kinds.append('int4')
         if backend in ('auto', 'bitpack'):
-            masks['binary'] = _exact_column_mask(X, data != 1.0)
+            kinds.append('binary')
+        t0 = time.perf_counter()
+        masks = {'int4': None}
+        masks.update(_column_masks(X, data, kinds, self.device))
+        self.build_seconds['masks'] = time.perf_counter() - t0
         if backend == 'auto':
             backend = choose_backend(X, masks['int8'], masks['bf16'],
                                      masks['binary'], self._dtype,
@@ -386,10 +472,17 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         every column."""
         n, p = X.shape
         binary = bool(np.all((data == 0.0) | (data == 1.0)))
+        on_card = _on_card(X, self.device)
+        t0 = time.perf_counter()
         if self._dtype == torch.float64:
             cols = np.arange(p)
-            Xf = torch.from_numpy(_densify(X, cols, np.float64,
-                                           layout.padded_width(p)))
+            if on_card:
+                Xf, = _densify_on(X, [(cols, torch.float64,
+                                       layout.padded_width(p))], self.device)
+            else:
+                Xf = torch.from_numpy(_densify(X, cols, np.float64,
+                                               layout.padded_width(p)))
+            self.build_seconds['densify'] = time.perf_counter() - t0
             self._set_hybrid(torch.zeros((n, 0), dtype=torch.float64), Xf,
                              cols[:0], cols, offsets, (n, p), X.nnz, binary)
             return
@@ -416,23 +509,27 @@ class SparseDesignMatrix(AbstractDesignMatrix):
                       'bf16': bf16_mask}[pick]
         exact_cols = np.where(exact_mask)[0]
         float_cols = np.where(~exact_mask)[0]
-        if pick in ('int4', 'int8'):
-            # int4 densifies through int8 (numpy has no 4-bit layout)
-            # and is packed on the host.
-            Xe = torch.from_numpy(_densify(
-                X, exact_cols, np.int8, layout.padded_width(len(exact_cols))))
-            if pick == 'int4':
-                Xe = layout.pack_int4(Xe, len(exact_cols))
+        # int4 densifies through int8 (numpy has no 4-bit layout) and is
+        # packed where the block was built; bf16 through float32.
+        ew = layout.padded_width(len(exact_cols))
+        fw = layout.padded_width(len(float_cols))
+        e_dtype = torch.int8 if pick in ('int4', 'int8') else torch.float32
+        if on_card:
+            Xe, Xf = _densify_on(X, [(exact_cols, e_dtype, ew),
+                                     (float_cols, torch.float32, fw)],
+                                 self.device)
         else:
+            Xe = torch.from_numpy(_densify(
+                X, exact_cols, np.int8 if e_dtype == torch.int8
+                else np.float32, ew))
+            Xf = torch.from_numpy(_densify(X, float_cols, np.float32, fw))
+        self.build_seconds['densify'] = time.perf_counter() - t0
+        if pick == 'int4':
+            Xe = layout.pack_int4(Xe, len(exact_cols))
+        elif pick == 'bf16':
             # bf16 bits of bf16-exact values: the top half of their f32.
-            bits = _densify(X, exact_cols, np.float32,
-                            layout.padded_width(len(exact_cols)))
-            Xe = torch.from_numpy(
-                (bits.view(np.uint32) >> 16).astype(np.uint16)
-                .view(np.int16)).view(torch.bfloat16)
-            del bits
-        Xf = torch.from_numpy(_densify(
-            X, float_cols, np.float32, layout.padded_width(len(float_cols))))
+            Xe = (Xe.view(torch.int32) >> 16).to(torch.int16) \
+                .view(torch.bfloat16)
         self._set_hybrid(Xe, Xf, exact_cols, float_cols, offsets,
                          (n, p), X.nnz, binary)
 
@@ -456,7 +553,11 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         bits_col, bits_row = bitlut_mod.pack_csr_bitmaps(
             X, bin_cols, (gcol_pad, n_pad), (grow_pad, pbin_pad))
         t1 = time.perf_counter()
-        X_float = _densify(X, float_cols, np.float32, len(float_cols))
+        if _on_card(X, self.device):
+            X_float, = _densify_on(X, [(float_cols, torch.float32,
+                                        len(float_cols))], self.device)
+        else:
+            X_float = _densify(X, float_cols, np.float32, len(float_cols))
         self.build_seconds.update(pack=t1 - t0,
                                   float_block=time.perf_counter() - t1)
         self._set_bitpack(
@@ -548,8 +649,12 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         self.bin_cols = self._dev(bin_cols, torch.int64)
         self.float_cols = self._dev(float_cols, torch.int64)
         self.n_float = int(self.float_cols.numel())
-        self.X_float = self._dev(
-            np.asarray(X_float, np.float32)[:shape_main[0], :self.n_float])
+        if isinstance(X_float, torch.Tensor):  # built on the card
+            self.X_float = X_float[:shape_main[0], :self.n_float] \
+                .contiguous().to(self.device)
+        else:
+            self.X_float = self._dev(np.asarray(
+                X_float, np.float32)[:shape_main[0], :self.n_float])
 
     def _set_winell(self, widx_dot, wval_dot, widx_tdot, wval_tdot, sd_idx,
                     sd_val, st_idx, st_val, column_offset, shape_main, nnz,

@@ -55,9 +55,10 @@ REGISTRY = {
                        replaces='bayesbridge_tpu/design/sparse.py:1020'),
     'tdots_i4': dict(source='bayesbridge_tpu_torch/csrc/tdots_sweep.cu',
                      replaces='bayesbridge_tpu/design/sparse.py:1356'),
-    # No Pallas kernel: the XLA gathers of the ell backend. Both
-    # traversals of csrc/ell.cu: ell[dot] and ell[tdot] the first,
-    # ell[tdot_win] the col-ELL's windowed one.
+    # No Pallas kernel: the XLA gathers of the ell backend. Every
+    # traversal of csrc/ell.cu: ell[dot] and ell[tdot] the first,
+    # ell[tdot_win] the col-ELL's windowed one, ell[dot_st] and
+    # ell[tdot_st] the staged one.
     'ell': dict(source='bayesbridge_tpu_torch/csrc/ell.cu',
                 replaces='bayesbridge_tpu/design/sparse.py:1006'),
 }
@@ -70,7 +71,8 @@ def launch_counts():
     (launches of k >= 2 chains; k = 1 counts as the single-vector
     kernel), 'bitlut[dot]': ...,
     'winell[tdot]': ..., 'wincsr[dot]': ..., 'ell[dot]': ...,
-    'ell[tdot]': ..., 'ell[tdot_win]': ..., 'ne_onepass': ...,
+    'ell[tdot]': ..., 'ell[tdot_win]': ..., 'ell[dot_st]': ...,
+    'ell[tdot_st]': ..., 'ne_onepass': ...,
     'ne_oneread': ... (the CG operator), 'ne_oneread[logit]': ...,
     'ne_oneread[linear]': ..., 'stream_probe[i32]': ..., and the
     nibble modes over a packed int4 block: 'ne_rows_i4', 'colpass_i4',

@@ -57,6 +57,8 @@ _SIGNATURES = {
     'bb_ell_win': [_P, _P, _L, _I, _P, _I, _I, _P, _I, _I, _I, _I, _I, _I,
                    _P, _P],
     'bb_ell_win_rows': [_I, _I],
+    'bb_ell_st': [_P, _P, _L, _I, _P, _I, _I, _I, _I, _I, _P, _P],
+    'bb_ell_st_fit': [_I, _I, _I],
     'bb_ne_oneread': [_I, _P, _L, _I, _P, _I, _P, _L, _I, _P, _L, _P, _I,
                       _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                       _P, _P],

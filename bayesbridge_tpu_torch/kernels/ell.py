@@ -19,17 +19,21 @@ the kernel interleaved (X' contiguous, one index's values side by side);
 more take ceil(k / 8) launches. Each vector's result is the bits of its
 single-vector launch.
 
-Two traversals give the same bits. The first (``bb_ell``) gathers each
+Three traversals give the same bits. The first (``bb_ell``) gathers each
 slot's values through L2; the windowed one (``bb_ell_win``) stages windows
 of the vectors in shared memory and needs an :class:`EllLayout` of the
 arrays with window pointers (ascending indices within each row), which
 the ell design builds once for its col-ELL on a CUDA device
-(:func:`col_layout`). :func:`ell_matvec_k` takes the windowed traversal
-where such a layout is given and :func:`takes_window` says so for the
-launch, by its bytes; the first one otherwise. ``launches[tag]`` counts
-the first traversal's launches per orientation ('dot' on the row-ELL,
-'tdot' on the col-ELL), ``launches['tdot_win']`` the windowed
-traversal's.
+(:func:`col_layout`); the staged one (``bb_ell_st``) holds a prefix of
+the k vectors in each CTA's shared memory for the whole launch
+(:func:`stage_plan`) and gathers the rest through L2. :func:`ell_matvec_k`
+takes the windowed traversal where such a layout is given and
+:func:`takes_window` says so for the launch, else the staged one where
+:func:`takes_stage` says so, both by the launch's bytes; the first one
+otherwise. ``launches[tag]`` counts the first traversal's launches per
+orientation ('dot' on the row-ELL, 'tdot' on the col-ELL),
+``launches['tdot_win']`` the windowed traversal's, ``launches[tag +
+'_st']`` the staged traversal's.
 """
 
 import math
@@ -39,7 +43,8 @@ import torch
 
 from .build import count_launch, load_library
 
-launches = {'dot': 0, 'tdot': 0, 'tdot_win': 0}
+launches = {'dot': 0, 'tdot': 0, 'tdot_win': 0, 'dot_st': 0,
+            'tdot_st': 0}
 MAX_VECTORS = 8  # vectors per launch (csrc/ell.cu kMaxVectors)
 
 GRAIN = 1024  # inputs per step of a layout's window pointers
@@ -63,6 +68,16 @@ STAGED_PER_SECTOR = 2.0
 SECTOR_BYTES_PER_S = 3.5e12
 ROW_WINDOW_S = 31e-9
 L1_BYTES = 256 * 1024
+# The staged traversal (:func:`takes_stage`), from the timings in turns on
+# the H100 (baselines/ell_variants.py, the row-ELL of 16,384 and 50,000
+# inputs, k = 1..8; PERF.md): it took a launch faster than the first
+# traversal wherever the vectors took more than STAGE_MIN_BYTES (the
+# first traversal's gathers hit L1 below that) and the stage held at
+# least STAGE_SHARE of them. A stage takes at most STAGE_BYTES of a CTA's
+# shared memory (kStMaxSmem: room for the kernel's static shared memory).
+STAGE_MIN_BYTES = 128 * 1024
+STAGE_SHARE = 0.25
+STAGE_BYTES = MAX_SMEM - 1024
 # The share of the col-ELL arrays' bytes the window pointers may take
 # (they grow with m * n_in, not with the nonzeros; a quarter of the col-ELL
 # is an eighth of the design's two orientations): above it the design
@@ -267,6 +282,34 @@ def takes_window(dtype, k, m, n_in, n_valid, n_sm, rows_max):
         and walk_s <= sectors / SECTOR_BYTES_PER_S
 
 
+def stage_plan(dtype, k, n_in, stage_bytes=STAGE_BYTES):
+    """The staged traversal's stage for k vectors of n_in inputs: the
+    first `n_staged` inputs' k values, a multiple of 4 inputs (whole
+    16-byte units) within `stage_bytes` of a CTA's shared memory (at most
+    STAGE_BYTES), or all of them (n_in rounded up to 4). Returns
+    dict(n_staged, smem_bytes, n_pad (rows of the padded interleaved
+    vectors), staged (the share of the inputs staged))."""
+    item = 8 if dtype == torch.float64 else 4
+    cap = min(stage_bytes, STAGE_BYTES) // (k * item) // 4 * 4
+    if cap < 4:
+        raise ValueError(f"no stage of {k} vectors in {stage_bytes} bytes")
+    whole = -(-max(n_in, 1) // 4) * 4
+    n_staged = min(whole, cap)
+    return dict(n_staged=n_staged, smem_bytes=n_staged * k * item,
+                n_pad=max(n_in, n_staged),
+                staged=min(1.0, n_staged / max(n_in, 1)))
+
+
+def takes_stage(dtype, k, n_in):
+    """Whether a launch of k vectors of n_in inputs takes the staged
+    traversal: the vectors take more than STAGE_MIN_BYTES and its stage
+    holds at least STAGE_SHARE of them (:func:`stage_plan`)."""
+    item = 8 if dtype == torch.float64 else 4
+    if k * n_in * item <= STAGE_MIN_BYTES:
+        return False
+    return stage_plan(dtype, k, n_in)['staged'] >= STAGE_SHARE
+
+
 def ell_matvec_k_plain(idx, val, X, power=1):
     """The product in plain PyTorch: gather, multiply, sum over the
     slots. Same arguments as :func:`ell_matvec_k`."""
@@ -336,6 +379,11 @@ def _ell_cuda(idx, val, X, power, tag, layout):
         win_launch(kl, idx, val, layout, X, power, out)
         count_launch(launches, tag + '_win')
         return out
+    if takes_stage(val.dtype, k, n_in):
+        stage_launch(kl, idx, val, X, power, out,
+                     stage_plan(val.dtype, k, n_in))
+        count_launch(launches, tag + '_st')
+        return out
     Xt = X.t().contiguous()  # (n_in, k): one index's values side by side
     stream = torch.cuda.current_stream(X.device).cuda_stream
     with torch.cuda.device(X.device):
@@ -374,3 +422,38 @@ def win_launch(kl, idx, val, layout, X, power, out, win_bytes=None,
             plan['rows_cta'], out.data_ptr(), stream)
     kl.check(rc, 'ell_matvec_k (windowed)')
     return out
+
+
+def stage_launch(kl, idx, val, X, power, out, plan):
+    """One launch of the staged traversal from library `kl` (uncounted)
+    for X (k <= 8, n_in) into out (k, m) with `plan` (:func:`stage_plan`):
+    as many CTAs as the card's SMs hold at once with that stage, rows
+    split evenly among them."""
+    m, width = idx.shape
+    k, n_in = X.shape
+    dev = X.device
+    f64 = int(val.dtype == torch.float64)
+    key = (kl.lib._name, str(dev), k, f64, plan['n_staged'])
+    if key not in _CTAS:
+        with torch.cuda.device(dev):
+            per_sm = kl.lib.bb_ell_st_fit(k, f64, plan['n_staged'])
+            n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        if per_sm < 1:
+            raise RuntimeError(f"ell_matvec_k (staged): a stage of "
+                               f"{plan['smem_bytes']} bytes fits no SM")
+        _CTAS[key] = per_sm * n_sm
+    # The interleaved vectors padded to the whole stage (the tail rows
+    # are copied but never gathered).
+    Xt = torch.empty((plan['n_pad'], k), dtype=X.dtype, device=dev)
+    Xt[:n_in] = X.t()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = kl.lib.bb_ell_st(
+            idx.data_ptr(), val.data_ptr(), m, width, Xt.data_ptr(), k,
+            power, f64, plan['n_staged'], min(_CTAS[key], m), out.data_ptr(),
+            stream)
+    kl.check(rc, 'ell_matvec_k (staged)')
+    return out
+
+
+_CTAS = {}  # (library, device, k, f64, n_staged): CTAs a launch

@@ -1345,8 +1345,11 @@ def run_hybrid(X, outcome):
     torch.cuda.synchronize()
     design = model.design
     gb = design.storage_bytes() / 1e9
+    steps = ', '.join(f"{k} {v:.1f} s"
+                      for k, v in design.build_seconds.items())
     log(f"[hybrid] design build + transfer: {time.perf_counter() - t0:.1f} "
-        f"s; X_exact {design.X_exact.dtype} {tuple(design.X_exact.shape)}, "
+        f"s (steps: {steps}); X_exact {design.X_exact.dtype} "
+        f"{tuple(design.X_exact.shape)}, "
         f"X_float {design.X_float.dtype} {tuple(design.X_float.shape)}, "
         f"{gb:.3f} GB on the device")
     assert design.backend == 'hybrid'
@@ -1803,7 +1806,7 @@ def run_packed(X, outcome, backend, map_ref=None, n_first=15, n_more=10):
     steps = ', '.join(f"{k} {v:.1f} s"
                       for k, v in design.build_seconds.items())
     log(f"[{backend}] design build + transfer: "
-        f"{time.perf_counter() - t0:.1f} s (host {steps}); {shapes}; "
+        f"{time.perf_counter() - t0:.1f} s (steps: {steps}); {shapes}; "
         f"{gb:.3f} GB on the device")
     results, pack_counts = packed_kernel_timings(design, X, backend)
     del design
@@ -2785,20 +2788,24 @@ def ell_kernel_checks(design, X):
     and 2, k = 1, 2, 4, 8 vectors a launch, against its plain version
     (rtol 1e-12 of max|plain| in float64, 1e-4 in float32), each vector
     bit for bit its single launch, each call made twice for the same bits;
-    on the col-ELL both traversals give the same bits for every k (the
-    windowed one launched directly where the dispatch does not take it),
-    and each launch advances its own counter. CUDA-event times of each
-    traversal for each k beside its bound, at k = 1 of the plain version
-    and of cuSPARSE (``torch.sparse_csr_tensor`` of X and of X', the
-    design's dtype, ``torch.mv``; checked against the kernel), and at k =
-    2, 4, 8 of cuSPARSE on the k vectors (``torch.sparse.mm``). Returns
-    {name: result dict} for k = 1, power 1: 'ell[dot]', 'ell[tdot]' (the
-    first traversal on the col-ELL), 'ell[tdot_win]' (the windowed one),
+    every traversal gives the same bits for every k (the first one, the
+    col-ELL's windowed one and the row-ELL's staged one, each launched
+    directly where the dispatch does not take it), and each launch
+    advances its own counter. CUDA-event times of each traversal for each
+    k beside its bound, in turns on the row-ELL (first, staged, staged,
+    first), at k = 1 of the plain version and of cuSPARSE
+    (``torch.sparse_csr_tensor`` of X and of X', the design's dtype,
+    ``torch.mv``; checked against the kernel), and at k = 2, 4, 8 of
+    cuSPARSE on the k vectors (``torch.sparse.mm``). Returns {name: result
+    dict}: 'ell[dot]', 'ell[tdot]' (the first traversal on the col-ELL),
+    'ell[tdot_win]' (the windowed one) at k = 1, power 1, and
+    'ell[dot_st]' (the staged one) at k = MC_CHAINS, the chains' launch,
     with '@f32' for a float32 design."""
     import torch
     from bayesbridge_tpu_torch.kernels import launch_counts, load_library
     from bayesbridge_tpu_torch.kernels.ell import (
-        ell_matvec_k, ell_matvec_k_plain, win_launch, win_plan)
+        ell_matvec_k, ell_matvec_k_plain, stage_launch, stage_plan,
+        takes_stage, win_launch, win_plan)
     f64 = design.dtype == torch.float64
     rtol = 1e-12 if f64 else RTOL
     item = 8 if f64 else 4
@@ -2812,12 +2819,28 @@ def ell_kernel_checks(design, X):
     taken = [k for k in range(1, 9) if lay.windowed(design.dtype, k)]
     assert 1 in taken, "one vector does not take the windowed traversal"
     kl = load_library()
+    stream = torch.cuda.current_stream().cuda_stream
 
     def windowed(V, power):  # the windowed traversal, uncounted
         out = torch.empty((V.shape[0], lay.valid.shape[0]),
                           dtype=V.dtype, device='cuda')
         return win_launch(kl, design.col_idx, design.col_val, lay, V, power,
                           out)
+
+    def first(idx, val, V, power):  # the first traversal, uncounted
+        m, width = idx.shape
+        out = torch.empty((V.shape[0], m), dtype=V.dtype, device='cuda')
+        Vt = V.t().contiguous()
+        kl.check(kl.lib.bb_ell(idx.data_ptr(), val.data_ptr(), m, width,
+                               Vt.data_ptr(), V.shape[0], power, int(f64),
+                               out.data_ptr(), stream), 'bb_ell')
+        return out
+
+    def staged(idx, val, V, power):  # the staged traversal, uncounted
+        out = torch.empty((V.shape[0], idx.shape[0]), dtype=V.dtype,
+                          device='cuda')
+        return stage_launch(kl, idx, val, V, power, out, stage_plan(
+            design.dtype, V.shape[0], V.shape[1]))
 
     results = {}
     for tag, idx, val, mat, layout in (
@@ -2827,17 +2850,26 @@ def ell_kernel_checks(design, X):
         n_in = mat.shape[1]
         assert tuple(mat.shape) == (m, n_in)
         name = f'ell[{tag}]{suffix}'
+        # the row-ELL's staged traversal at every k (the dispatch takes it
+        # where takes_stage says so)
+        plans = {k: stage_plan(design.dtype, k, n_in)
+                 for k in ELL_KS} if layout is None else {}
         V = torch.randn((max(ELL_KS), n_in), generator=gen, device='cuda',
                         dtype=design.dtype)
-        errs = {}
+        errs, picked = {}, {}
         for power in (1, 2):
             for k in ELL_KS:
                 before = launch_counts()
                 got = ell_matvec_k(idx, val, V[:k], power, tag, layout)
                 delta = {key: n - before[key]
                          for key, n in launch_counts().items()}
-                win = layout is not None and layout.windowed(design.dtype, k)
-                key = f'ell[{tag}_win]' if win else f'ell[{tag}]'
+                if layout is not None and layout.windowed(design.dtype, k):
+                    key = f'ell[{tag}_win]'
+                elif takes_stage(design.dtype, k, n_in):
+                    key = f'ell[{tag}_st]'
+                else:
+                    key = f'ell[{tag}]'
+                picked[k] = key
                 assert delta[key] == 1 and sum(delta.values()) == 1, \
                     (name, k, delta)
                 again = ell_matvec_k(idx, val, V[:k], power, tag, layout)
@@ -2858,34 +2890,68 @@ def ell_kernel_checks(design, X):
                         idx, val, V[c], power, tag, layout)), \
                         f"{name} power {power}: vector {c} of {k} differs " \
                         f"from its single launch"
+                # The first traversal: on the col-ELL through the wrapper
+                # without the layout (counted; its inputs are never
+                # staged), on the row-ELL launched directly.
+                once = ell_matvec_k(idx, val, V[:k], power, tag) \
+                    if layout is not None else first(idx, val, V[:k], power)
+                assert torch.equal(once, got), \
+                    f"{name} power {power} k {k}: the first traversal differs"
                 if layout is not None:
-                    first = ell_matvec_k(idx, val, V[:k], power, tag)
-                    assert torch.equal(windowed(V[:k], power), first) \
-                        and torch.equal(got, first), \
+                    assert torch.equal(windowed(V[:k], power), got), \
                         f"{name} power {power} k {k}: the traversals differ"
+                if k in plans:
+                    once = staged(idx, val, V[:k], power)
+                    assert torch.equal(once, got) and torch.equal(
+                        staged(idx, val, V[:k], power), once), \
+                        f"{name} power {power} k {k}: the staged traversal " \
+                        f"differs"
                 del got, again, ref
+        shares = [round(p['staged'], 3) for p in plans.values()]
         log(f"  {name} ({m} x {width} ELL, {design.dtype}): max_abs_err "
             f"against the plain version, power 1 / 2 at k = "
             f"{'/'.join(map(str, ELL_KS))}: "
             f"{[f'{errs[1, k]:.2e}' for k in ELL_KS]} / "
             f"{[f'{errs[2, k]:.2e}' for k in ELL_KS]} (rtol {rtol} of "
             f"max|plain|); every vector its single launch's bits, every "
-            f"call's rerun the same bits"
-            + ("; the windowed traversal the first one's bits at every k, "
-               f"taken at k in {taken} (takes_window)"
-               if layout is not None else ''))
+            f"call's rerun the same bits; the dispatch's traversal at k = "
+            f"{'/'.join(map(str, ELL_KS))}: {[picked[k] for k in ELL_KS]}, "
+            f"every other traversal its bits"
+            + (f" (the windowed one taken at k in {taken}, takes_window)"
+               if layout is not None else '')
+            + (f"; the staged traversal's stage holds {shares} of the "
+               f"vectors" if plans else ''))
         v = V[0].contiguous()
         check(f"{name}: cuSPARSE vs the kernel", [torch.mv(mat, v)],
               [ell_matvec_k(idx, val, v, 1, tag, layout)])
         nnz = mat._nnz()
-        traversals = {name: lambda Vk: ell_matvec_k(idx, val, Vk, 1, tag)}
+        traversals = {name: lambda Vk: first(idx, val, Vk, 1)}
         if layout is not None:
             traversals[f'ell[tdot_win]{suffix}'] = \
                 lambda Vk: windowed(Vk, 1)
-        for label, fn in traversals.items():
-            for k in ELL_KS:
-                Vk = V[:k]
-                ms = time_ms(lambda: fn(Vk), inner=20)
+        if plans:
+            traversals[f'ell[dot_st]{suffix}'] = \
+                lambda Vk: staged(idx, val, Vk, 1)
+        entries = {}
+        for k in ELL_KS:
+            Vk = V[:k]
+            names = list(traversals)
+            turns = {}
+            for label in names + names[::-1]:  # in turns
+                turns.setdefault(label, []).append(time_ms(
+                    lambda fn=traversals[label]: fn(Vk), inner=20))
+            lib_k = None
+            if k > 1:
+                # cuSPARSE on k vectors at once (the same function as
+                # one launch of k), checked against the kernel.
+                VkT = Vk.T.contiguous()
+                check(f"{name}: cuSPARSE on {k} vectors vs the kernel",
+                      [torch.sparse.mm(mat, VkT).T], [first(idx, val, Vk, 1)])
+                lib_k = time_ms(lambda: torch.sparse.mm(mat, VkT), inner=20)
+                log(f"  {name} k={k}: cuSPARSE (torch.sparse.mm, "
+                    f"{k} columns) {lib_k:.4f} ms")
+            for label in names:
+                ms = sum(turns[label]) / len(turns[label])
                 if label.startswith('ell[tdot_win]'):
                     # the valid slots and the window pointers it reads
                     plan = win_plan(design.dtype, k, m, n_in,
@@ -2896,39 +2962,38 @@ def ell_kernel_checks(design, X):
                     work = (nbytes(idx, val) + k * (n_in + m) * item,
                             2 * k * m * width)
                 bound, by = bound_ms(*work, ops_per_s=rate)
-                log(f"  {label} k={k}: {ms:.4f} ms ({ms / k:.4f} per "
-                    f"vector); bound {bound:.4f} ms ({by}), {bound / ms:.0%} "
-                    f"of it; {work[0] / 1e9:.4f} GB at "
+                taken_by = ' (the dispatch\'s)' if picked[k].replace(
+                    ']', ']' + suffix, 1) == label else ''
+                log(f"  {label} k={k}: {ms:.4f} ms{taken_by} ({ms / k:.4f} "
+                    f"per vector; turns {[round(t, 4) for t in turns[label]]}"
+                    f"); bound {bound:.4f} ms ({by}), {bound / ms:.0%} of it; "
+                    f"{work[0] / 1e9:.4f} GB at "
                     f"{work[0] / 1e9 / (ms / 1e3):.1f} GB/s of 3350")
-                if k > 1 and label == name:
-                    # cuSPARSE on k vectors at once (the same function as
-                    # one launch of k), checked against the kernel.
-                    VkT = Vk.T.contiguous()
-                    check(f"{name}: cuSPARSE on {k} vectors vs the kernel",
-                          [torch.sparse.mm(mat, VkT).T], [fn(Vk)])
-                    lib_k = time_ms(lambda: torch.sparse.mm(mat, VkT),
-                                    inner=20)
-                    log(f"  {name} k={k}: cuSPARSE (torch.sparse.mm, "
-                        f"{k} columns) {lib_k:.4f} ms")
-                if k == 1:
-                    entry = dict(max_abs_err=errs[1, 1], ms=ms,
-                                 bound_ms=bound, bound_by=by)
+                want_k = MC_CHAINS if label.startswith('ell[dot_st]') else 1
+                if k == want_k:
+                    entries[label] = dict(
+                        max_abs_err=errs[1, k], ms=ms, bound_ms=bound,
+                        bound_by=by, library_ms=lib_k)
+        for label, entry in entries.items():
+            k = MC_CHAINS if label.startswith('ell[dot_st]') else 1
+            Vk = V[:k] if k > 1 else v
             entry['plain_ms'] = time_ms(
-                lambda: ell_matvec_k_plain(idx, val, v, 1))
-            entry['library_ms'] = time_ms(lambda: torch.mv(mat, v),
-                                          inner=20)
+                lambda: ell_matvec_k_plain(idx, val, Vk, 1))
+            if k == 1:
+                entry['library_ms'] = time_ms(lambda: torch.mv(mat, v),
+                                              inner=20)
             # The bound above counts what the traversal reads (the first:
             # every padded slot); this one counts the nonzeros alone, so
             # that the padding's share of the bytes shows beside it.
-            nnz_bound, _ = bound_ms(nnz * (4 + item) + (n_in + m) * item,
-                                    2 * nnz, ops_per_s=rate)
+            nnz_bound, _ = bound_ms(nnz * (4 + item) + k * (n_in + m) * item,
+                                    2 * k * nnz, ops_per_s=rate)
             over = 'the valid slots and pointers' \
                 if label.startswith('ell[tdot_win]') else 'the padded slots'
-            log(f"  {label}: kernel {entry['ms']:.4f} ms, plain "
+            log(f"  {label} k={k}: kernel {entry['ms']:.4f} ms, plain "
                 f"{entry['plain_ms']:.3f} ms, cuSPARSE "
                 f"{entry['library_ms']:.4f} ms, bound "
-                f"{entry['bound_ms']:.4f} ms ({by}) over {over}, "
-                f"{nnz_bound:.4f} ms over the nonzeros alone "
+                f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}) over "
+                f"{over}, {nnz_bound:.4f} ms over the nonzeros alone "
                 f"({nnz_bound / entry['ms']:.0%} of the kernel's time); the "
                 f"{nbytes(idx, val) / 1e9:.4f} GB ELL arrays hold {nnz} "
                 f"nonzeros in {m * width} slots ({card_line()})")
@@ -2939,17 +3004,87 @@ def ell_kernel_checks(design, X):
     return results
 
 
+def ell_chains(bridge, model):
+    """MC_CHAINS float64 chains on the ell design (its single chain's
+    bridge, no new build): ``gibbs_chains`` with CG from overdispersed
+    starts, the launch counts read right after it (the chain-batched
+    row-ELL products on the staged traversal, ``ell[dot_st]``),
+    ``gibbs_chains_resume`` timed, the exact-resume check, a profiler
+    window (device ms per step of all the chains), then each chain
+    against the chain run alone. Returns ({path: launch counts}'s entry,
+    summary)."""
+    import numpy as np
+    import torch
+    from bayesbridge_tpu_torch import gibbs_chains
+    from bayesbridge_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts)
+    from bayesbridge_tpu_torch.multichain import gibbs_chains_resume
+    label, k = 'ell64_chains', MC_CHAINS
+    inits = overdispersed_inits(model, k)
+    n_first, n_more = 8, 6
+    kw = dict(seed=0, init=inits, coef_sampler_type='cg',
+              params_to_save=('coef', 'logp'))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    samples, info = gibbs_chains(bridge, n_first, k, **kw)
+    torch.cuda.synchronize()
+    c = launch_counts()
+    n_cg = info['_reg_coef_sampling_info']['n_cg_iter']
+    log(f"[{label}] gibbs_chains({n_first}, {k} chains): "
+        f"{time.perf_counter() - t0:.1f} s; n_cg_iter per chain "
+        f"{n_cg.astype(int).tolist()}; launch counts of this path: {c}")
+    assert samples['coef'].shape == (k, model.n_pred, n_first)
+    assert np.all(np.isfinite(samples['coef']))
+    assert np.all(np.isfinite(samples['logp'])), samples['logp']
+    # At least one row-ELL product per CG operator application of the
+    # running chains, up to 8 chains a launch: the staged traversal where
+    # takes_stage gives it the launch, the first one otherwise (a lone
+    # running chain's vector fits L1).
+    apps = int(n_cg.max(0).sum())
+    assert c['ell[dot_st]'] > 0, c
+    assert c['ell[dot]'] + c['ell[dot_st]'] >= apps, (apps, c)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    s_more, i_more = gibbs_chains_resume(bridge, info, n_more)
+    torch.cuda.synchronize()
+    ips = n_more / (time.perf_counter() - t0)
+    cg_more = i_more['_reg_coef_sampling_info']['n_cg_iter']
+    log(f"[{label}] steady state, {n_more} iterations via "
+        f"gibbs_chains_resume: {ips:.4f} iter/s of {k} chains = "
+        f"{k * ips:.4f} chain-iterations/s; mean CG iterations per chain "
+        f"{np.round(cg_more.mean(1), 2).tolist()}")
+    n_a = n_first // 2
+    s_a, i_a = gibbs_chains(bridge, n_a, k, **kw)
+    s_b, _ = gibbs_chains_resume(bridge, i_a, n_first - n_a, merge=True,
+                                 prev_samples=s_a)
+    for key in samples:
+        if not np.array_equal(s_b[key], samples[key]):
+            raise AssertionError(f"[{label}] resume != uninterrupted for "
+                                 f"{key}")
+    log(f"[{label}] resume check: gibbs_chains({n_a}) + "
+        f"gibbs_chains_resume({n_first - n_a}, merge=True) == "
+        f"gibbs_chains({n_first}) exactly")
+    busy, dev_ms = profile_window(
+        bridge, i_more, label,
+        resume=lambda n: gibbs_chains_resume(bridge, i_more, n))
+    chains_against_alone(bridge, inits, label, 3, n_chains=k)
+    return c, dict(ips=ips, chain_ips=k * ips, mean_cg=float(cg_more.mean()),
+                   busy=busy, dev_ms=dev_ms)
+
+
 def run_ell(X, outcome):
     """Phase 9: the ell slice on the 262,144 x 16,384 design. (a) float64
     under ``backend='auto'``, which must pick ell with the JAX package's
     warning: the kernel checks and timings, ``gibbs(20)`` with CG,
     'diag' and bridge exponent 0.5 (launch counts read right after it),
     ``gibbs_resume(10)`` timed, the exact-resume check and a profiler
-    window (``run_chain``), 2 chains against the chains run alone, and 5
-    sweeps of the reference-style loop through the public component
-    methods; (b) the same X in float32 with ``backend='ell'`` forced: the
-    kernel checks and timings, then ``gibbs(10)``. Returns (kernel
-    results, {path: launch counts})."""
+    window (``run_chain``), MC_CHAINS chains on the same design
+    (``ell_chains``: the row-ELL's staged traversal, resume, profiler
+    window, each chain against the chain alone), and 5 sweeps of the
+    reference-style loop through the public component methods; (b) the
+    same X in float32 with ``backend='ell'`` forced: the kernel checks
+    and timings, then ``gibbs(10)``. Returns (kernel results, {path:
+    launch counts})."""
     import warnings
     import numpy as np
     import torch
@@ -2999,7 +3134,8 @@ def run_ell(X, outcome):
     assert c[tdot] >= need + 4 * n_first + n_map, c
     assert sum(c.values()) == c['ell[dot]'] + c[tdot], c
     bridge = stats['chain'][0]
-    chains_against_alone(bridge, overdispersed_inits(model, 2), 'ell64', 3)
+    counts['ell64_chains'], chains = ell_chains(bridge, model)
+    log(f"[ell64_chains] summary: {json.dumps(chains)}")
     errs, traversals = sharded_ell_checks(design)
     log(f"[ell64_sharded] summary: "
         f"{json.dumps(dict(errs=errs, traversals=traversals))}")
@@ -3596,6 +3732,8 @@ def main():
                'ne_oneread[logit]@logit_hmc': 'logit_hmc',
                'ell[dot]': 'ell64', 'ell[tdot_win]': 'ell64',
                'ell[dot]@f32': 'ell32', 'ell[tdot_win]@f32': 'ell32',
+               'ell[dot_st]': 'ell64_chains',
+               'ell[dot_st]@f32': 'ell32_checks',
                'ne_rows_i4': 'hybrid_int4', 'colpass_i4': 'hybrid_int4',
                'tdots_i4[u4,bin]': 'hybrid_int4'}
     # The pre-solve's other nibble modes: the four-reduction ones are the
@@ -3607,7 +3745,9 @@ def main():
             else 'int4_checks'
     # The col-ELL's first traversal: on the ell slices where the dispatch
     # gives it a chain's launches, else counted on their kernel checks
-    # (check-only).
+    # (check-only). The row-ELL's staged traversal runs on the float64
+    # chains (several vectors a launch); the float32 slice runs one chain,
+    # so its staged launches are its kernel checks' (check-only).
     for suffix, path in (('', 'ell64'), ('@f32', 'ell32')):
         path_of[f'ell[tdot]{suffix}'] = \
             path if counts[path]['ell[tdot]'] else path + '_checks'

@@ -22,9 +22,11 @@ and logit models run HMC and NUTS and the Newton MAP searches there. The
 ell backend's gather kernel (``ell_matvec_k``, float32 and float64, 1-8
 vectors a launch) must equal its plain version (rtol 1e-4 / 1e-12 of
 max|plain|), its single launches bit for bit, and itself on a rerun; its
-windowed traversal of a sorted col-ELL must give the first traversal's
-bits. The nibble modes of the row pass, the column pass and the
-pre-solve over a packed int4 block (``layout.pack_int4``) must equal
+windowed traversal of a sorted col-ELL and its staged traversal of a
+row-ELL (whole and partial stages) must give the first traversal's bits;
+the hybrid and bitpack blocks built on the card must equal the host's.
+The nibble modes of the row pass, the column pass and the pre-solve over
+a packed int4 block (``layout.pack_int4``) must equal
 their plain versions to the same tolerance, the int8 modes on the same
 values and themselves on a rerun bit for bit, one and two blocks at
 ragged widths, and a chain on an int4 design must resume exactly.
@@ -712,6 +714,142 @@ def test_ell_windowed_plan_matches_the_kernel(dev):
     assert launch_counts()['ell[tdot]'] == 1
     assert launch_counts()['ell[tdot_win]'] == 0
     assert torch.equal(got, ell_matvec_k(idx, val, X, 1, 'tdot'))
+
+
+def _ragged_row_ell(g, dev, dtype, m, width, n_in):
+    """Row-ELL arrays of m rows over n_in inputs: ragged rows padded with
+    (0, 0.0) (a row of padding only every so often), unsorted indices."""
+    idx = torch.randint(0, n_in, (m, width), generator=g, device=dev,
+                        dtype=torch.int32)
+    val = torch.randn((m, width), generator=g, device=dev, dtype=dtype)
+    lens = torch.randint(0, width + 1, (m,), generator=g, device=dev)
+    lens[50:60] = 0
+    lens[61] = width
+    pad = torch.arange(width, device=dev)[None, :] >= lens[:, None]
+    idx[pad] = 0
+    val[pad] = 0.0
+    return idx, val
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('k', [1, 2, 3, 4, 5, 6, 7, 8, 11])
+@pytest.mark.parametrize('power', [1, 2])
+def test_ell_staged_traversal_gives_the_first_ones_bits(dev, dtype, k,
+                                                        power, monkeypatch):
+    """Ragged row-ELL arrays (333 rows of 45 slots and 1,000 of 300, rows
+    of padding only) over 20,003 inputs: the staged traversal, forced
+    through the dispatch for every k, gives the first traversal's bits,
+    each vector its single launch's, the same bits on a rerun, within rtol
+    of the plain version, with one launch per 8 vectors on its own
+    counter; so does every other stage launched directly (all the
+    vectors, a third of them, 4 KB of them)."""
+    g = torch.Generator(device=dev).manual_seed(k + 10 * power)
+    n_in = 20_003
+    rtol = 1e-4 if dtype == torch.float32 else 1e-12
+    item = 8 if dtype == torch.float64 else 4
+    kl = load_library()
+    for m, width in ((333, 45), (1000, 300)):
+        idx, val = _ragged_row_ell(g, dev, dtype, m, width, n_in)
+        X = torch.randn((k, n_in), generator=g, device=dev, dtype=dtype)
+        monkeypatch.setattr(ell_mod, 'takes_stage', lambda *args: False)
+        reset_launch_counts()
+        first = ell_matvec_k(idx, val, X, power)
+        assert launch_counts()['ell[dot]'] == -(-k // 8)
+        monkeypatch.setattr(ell_mod, 'takes_stage', lambda *args: True)
+        reset_launch_counts()
+        got = ell_matvec_k(idx, val, X, power)
+        counts = launch_counts()
+        assert counts['ell[dot_st]'] == -(-k // 8)
+        assert counts['ell[dot]'] == counts['ell[tdot_st]'] == 0
+        assert torch.equal(got, first)
+        assert torch.equal(got, ell_matvec_k(idx, val, X, power))
+        for c in range(k):
+            assert torch.equal(got[c], ell_matvec_k(idx, val, X[c], power))
+        ref = ell_matvec_k_plain(idx, val, X, power)
+        assert float((got - ref).abs().max()) \
+            <= rtol * float(ref.abs().max())
+        assert torch.all(got[:, 50:60] == 0)
+        kk = min(k, 8)
+        for budget in (ell_mod.STAGE_BYTES, n_in * kk * item // 3, 4096):
+            plan = ell_mod.stage_plan(dtype, kk, n_in, budget)
+            out = torch.empty((kk, m), dtype=dtype, device=dev)
+            ell_mod.stage_launch(kl, idx, val, X[:kk], power, out, plan)
+            assert torch.equal(out, first[:kk]), plan
+            again = torch.full_like(out, float('nan'))
+            ell_mod.stage_launch(kl, idx, val, X[:kk], power, again, plan)
+            assert torch.equal(again, out), plan
+
+
+def test_ell_stage_plan_fits_the_card(dev):
+    """Every stage at the ell slice's 16,384 inputs and at the flagship's
+    50,000 fits an SM, and the kernel refuses a stage past the shared
+    memory a CTA may take or not of whole 16-byte units."""
+    kl = load_library()
+    for dtype in (torch.float32, torch.float64):
+        f64 = int(dtype == torch.float64)
+        for n_in in (16_384, 50_000):
+            for k in range(1, 9):
+                plan = ell_mod.stage_plan(dtype, k, n_in)
+                assert plan['smem_bytes'] <= ell_mod.STAGE_BYTES
+                assert kl.lib.bb_ell_st_fit(k, f64, plan['n_staged']) >= 1
+    too_big = ell_mod.STAGE_BYTES // 8 + 4
+    assert kl.lib.bb_ell_st_fit(1, 1, too_big) < 1
+    idx = torch.zeros((4, 4), dtype=torch.int32, device=dev)
+    val = torch.zeros((4, 4), dtype=torch.float32, device=dev)
+    xt = torch.zeros((too_big * 2, 1), dtype=torch.float32, device=dev)
+    out = torch.empty((1, 4), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream().cuda_stream
+    for n_staged in (too_big * 2, 3):  # too many bytes; 12 bytes
+        assert kl.lib.bb_ell_st(idx.data_ptr(), val.data_ptr(), 4, 4,
+                                xt.data_ptr(), 1, 1, 0, n_staged, 1,
+                                out.data_ptr(), stream) != 0
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize('case', ['int8', 'int4', 'bf16', 'float64',
+                                  'bitpack'])
+def test_blocks_built_on_the_card_equal_the_hosts(dev, case, monkeypatch):
+    """The hybrid design's blocks (int8, packed int4, bf16 and float64
+    tiers) and bitpack's float block, scattered on the card from the CSR
+    after the tiers' column masks were taken there, equal the ones numpy
+    builds on the host bit for bit, as do the column splits; a CSR with
+    duplicate entries is densified on the host."""
+    from bayesbridge_tpu_torch.design import SparseDesignMatrix
+    from bayesbridge_tpu_torch.design import sparse as sparse_mod
+    import scipy.sparse as sps
+    X, _ = _chain_problem()
+    if case == 'bf16':  # bf16-exact values outside int8: the bf16 tier
+        X = X.copy()
+        X.data = X.data * 256.0
+    if case == 'int4':
+        monkeypatch.setenv('BB_HYBRID_INT4', '1')
+    dtype = np.float64 if case == 'float64' else np.float32
+    backend = 'bitpack' if case == 'bitpack' else 'hybrid'
+    assert X.has_canonical_format
+    on = SparseDesignMatrix(X, backend=backend, dtype=dtype, device=dev)
+    host = SparseDesignMatrix(X, backend=backend, dtype=dtype, device='cpu')
+    blocks = ('X_float',) if backend == 'bitpack' else ('X_exact', 'X_float')
+    for name in blocks:
+        a, b = getattr(on, name), getattr(host, name)
+        assert a.device.type == 'cuda', name
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(a.cpu().contiguous().view(torch.uint8),
+                           b.contiguous().view(torch.uint8)), name
+    for name in ('exact_cols', 'float_cols', 'bin_cols'):
+        if hasattr(host, name):  # the tiers' column masks agree
+            assert torch.equal(getattr(on, name).cpu(), getattr(host, name))
+    if backend == 'hybrid':
+        assert 'densify' in on.build_seconds
+        want = {'int8': torch.int8, 'int4': torch.uint8,
+                'bf16': torch.bfloat16, 'float64': torch.float64}[case]
+        block = on.X_float if case == 'float64' else on.X_exact
+        assert block.dtype == want and block.shape[1] > 0
+    # row 0's first entry twice: not canonical, densified on the host
+    dup = sps.csr_matrix(
+        (np.r_[X.data[:1], X.data], np.r_[X.indices[:1], X.indices],
+         np.r_[0, X.indptr[1:] + 1]), shape=X.shape)
+    assert not sparse_mod._on_card(dup, dev)
+    assert sparse_mod._on_card(X, dev) and not sparse_mod._on_card(X, 'cpu')
 
 
 @pytest.mark.parametrize('backend', ['hybrid', 'hybrid_fused', 'bitpack',

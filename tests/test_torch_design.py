@@ -199,3 +199,58 @@ def test_simulate_data_matches_jax_package(kw):
     yp = port_sim.simulate_outcome(Xp, beta, 'logit', seed=5)
     np.testing.assert_array_equal(yj[0], yp[0])
     np.testing.assert_array_equal(yj[1], yp[1])
+
+
+@pytest.mark.parametrize('chunk', [7, 2 ** 25])
+def test_blocks_scattered_by_torch_equal_numpys(monkeypatch, chunk):
+    """The hybrid blocks as the card builds them (``_densify_on``: the
+    CSR's entries scattered in chunks, cast where they land), run here on
+    the CPU, equal ``_densify``'s numpy blocks bit for bit: int8, float32
+    (rounded from float64) and float64, columns in the given order, zero
+    padding, chunks cutting rows."""
+    from bayesbridge_tpu_torch.design import sparse as sparse_mod
+    monkeypatch.setattr(sparse_mod, '_DENSIFY_CHUNK', chunk)
+    X = _design_data(seed=5, n=61)
+    X.data[::3] *= 1.0 / 3.0  # float64 values float32 rounds
+    X.data[1::3] = np.round(X.data[1::3] * 20)
+    p = X.shape[1]
+    cols = [np.array([12, 3, 0, 7]), np.arange(p)[::-1], np.array([], int)]
+    specs = [(c, dt, len(c) + pad) for c, (dt, pad) in zip(
+        cols, ((torch.int8, 12), (torch.float32, 0), (torch.float64, 5)))]
+    np_of = {torch.int8: np.int8, torch.float32: np.float32,
+             torch.float64: np.float64}
+    X8 = X.copy()
+    X8.data = np.clip(np.round(X8.data), -127, 127)
+    for M, spec in ((X8, specs[0]), (X, specs[1]), (X, specs[2])):
+        got, = sparse_mod._densify_on(M, [spec], 'cpu')
+        want = sparse_mod._densify(M, spec[0], np_of[spec[1]], spec[2])
+        assert got.dtype == spec[1] and got.shape == want.shape
+        assert np.array_equal(got.numpy(), want)
+    both = sparse_mod._densify_on(X8, specs[:2], 'cpu')
+    for got, (c, dt, w) in zip(both, specs[:2]):
+        assert np.array_equal(got.numpy(),
+                              sparse_mod._densify(X8, c, np_of[dt], w))
+
+
+def test_column_masks_by_torch_equal_numpys(monkeypatch):
+    """The tiers' column masks as the card computes them (``_column_masks_on``
+    in chunks, run here on the CPU) equal numpy's: integers in and out of
+    int8 and int4 range, halves (round half to even), bf16-exact and
+    inexact values, 0/1 columns, an empty column."""
+    from bayesbridge_tpu_torch.design import sparse as sparse_mod
+    monkeypatch.setattr(sparse_mod, '_DENSIFY_CHUNK', 5)
+    rng = np.random.default_rng(2)
+    cols = [np.ones(20), rng.integers(-8, 8, 20), rng.integers(-127, 128, 20),
+            np.r_[rng.integers(-3, 3, 19), 128.0], np.r_[np.ones(19), 2.5],
+            np.r_[np.ones(19), 0.5], 256.0 * rng.integers(1, 4, 20),
+            rng.standard_normal(20), np.r_[np.ones(19), 1 + 2 ** -20],
+            np.r_[np.ones(19), -9.0], np.zeros(20)]
+    X = sps.csr_matrix(np.column_stack(cols) * (rng.random((20, 11)) < .8))
+    X.data[:3] = 0.0  # explicit zeros stay entries
+    data = np.asarray(X.data, np.float64)
+    kinds = ['int8', 'bf16', 'int4', 'binary']
+    host = sparse_mod._column_masks(X, data, kinds, 'cpu')
+    torch_ = sparse_mod._column_masks_on(X, kinds, 'cpu')
+    assert host['int8'].sum() not in (0, 11) and host['bf16'].any()
+    for kind in kinds:
+        np.testing.assert_array_equal(torch_[kind], host[kind], kind)

@@ -188,6 +188,39 @@ def test_kernel_wrapper_checks_its_arguments():
         ell_matvec_k(td.row_idx.long(), td.row_val, v)
 
 
+@pytest.mark.parametrize('k', [1, 4, 11])
+def test_cpu_tensors_never_reach_a_kernel(monkeypatch, k):
+    """With both shared-memory traversals forced on, CPU tensors still run
+    the plain version: no library is loaded, no stage is launched, no
+    launch counter moves (dot, Tdot through the col-ELL's layout, and the
+    moments)."""
+    from bayesbridge_tpu_torch.kernels import ell as ell_mod
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CPU tensor reached the kernels")
+    monkeypatch.setattr(ell_mod, 'takes_stage', lambda *args: True)
+    monkeypatch.setattr(ell_mod, 'takes_window', lambda *args: True)
+    monkeypatch.setattr(ell_mod, 'load_library', refuse)
+    monkeypatch.setattr(ell_mod, 'stage_launch', refuse)
+    X = _design_data(seed=6)
+    td = SparseDesignMatrix(X, backend='ell', dtype=np.float64,
+                            device='cpu')
+    rng = np.random.default_rng(k)
+    V = torch.from_numpy(rng.standard_normal((k, X.shape[1])))
+    U = torch.from_numpy(rng.standard_normal((k, X.shape[0])))
+    lay = ell_mod.EllLayout.from_numpy(td.col_idx.numpy(),
+                                       td.col_val.numpy(), X.shape[0])
+    before = launch_counts()
+    for power in (1, 2):
+        assert torch.equal(ell_matvec_k(td.row_idx, td.row_val, V, power),
+                           ell_matvec_k_plain(td.row_idx, td.row_val, V,
+                                              power))
+        assert torch.equal(
+            ell_matvec_k(td.col_idx, td.col_val, U, power, 'tdot', lay),
+            ell_matvec_k_plain(td.col_idx, td.col_val, U, power))
+    assert launch_counts() == before
+
+
 def _sparse_normal(n, p, density, seed=0):
     rng = np.random.default_rng(seed)
     return sps.csr_matrix(rng.standard_normal((n, p))

@@ -1,6 +1,7 @@
-"""The ell backend's col-ELL layout and the windowed traversal's host
-side (``kernels.ell.EllLayout``, ``col_layout``, ``win_plan``, the
-dispatch by bytes ``takes_window``), on the CPU.
+"""The ell backend's col-ELL layout, the windowed traversal's host side
+(``kernels.ell.EllLayout``, ``col_layout``, ``win_plan``, the dispatch by
+bytes ``takes_window``), the staged traversal's (``stage_plan``,
+``takes_stage``) and the harness's cluster copy's plan, on the CPU.
 
 * the layout's valid slots, ascending flag and window pointers against
   scipy's CSC of the same matrix: on the fresh build, on the arrays of the
@@ -19,7 +20,14 @@ dispatch by bytes ``takes_window``), on the CPU.
   in the same order as in the first traversal, so the sums are the same
   bits;
 * ``ell_matvec_k`` through the layout against the JAX ell design's `Tdot`
-  and Fisher diagonal (float32 1e-5, float64 1e-12 of max|JAX|).
+  and Fisher diagonal (float32 1e-5, float64 1e-12 of max|JAX|);
+* the staged traversal's stage: whole 16-byte units within the shared
+  memory a CTA may take, at the ell slice's 16,384 inputs, the
+  flagship's 50,000 and ragged counts; the dispatch against the harness's
+  turns; its order, emulated, the first traversal's sums;
+* the harness's cluster copy (``baselines/ell_variants.py``
+  ``cluster_plan``): the smallest cluster whose CTAs hold the vectors,
+  partial stages, every staged input found where that kernel looks.
 """
 
 import re
@@ -37,8 +45,12 @@ from bayesbridge_tpu_torch.design.ell import dual_ell_from_scipy
 from bayesbridge_tpu_torch.design.sparse import PACKED_ARRAYS
 from bayesbridge_tpu_torch.kernels import build
 from bayesbridge_tpu_torch.kernels import ell as ell_mod
+from bayesbridge_tpu_torch.baselines.ell_variants import (
+    CHUNK, CLUSTERS, cluster_plan,
+)
 from bayesbridge_tpu_torch.kernels.ell import (
-    GRAIN, EllLayout, col_layout, ell_matvec_k, takes_window, win_plan,
+    GRAIN, EllLayout, col_layout, ell_matvec_k, stage_plan, takes_stage,
+    takes_window, win_plan,
 )
 
 torch.set_num_threads(1)
@@ -432,3 +444,234 @@ def test_layout_products_match_jax(dtype):
     close(ell_matvec_k(*args, torch.from_numpy(w), 2, 'tdot',
                        lay).numpy(),
           jd.compute_fisher_info(jnp.asarray(w), diag_only=True))
+
+
+_H100_CL = {'n_sm': 132, 'max_cluster': 16}  # as cluster_card gives it
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('k', range(1, 9))
+def test_cluster_plan_holds_the_vectors(dtype, k):
+    """The harness's cluster copy's default plan: the smallest cluster
+    whose CTAs stage every chunk within the shared memory a CTA may take,
+    in bulk copies of whole 16-byte units, the padded vectors covering
+    every CTA's chunks; None past 16 CTAs' shared memory (or 8 where the
+    card allows no more)."""
+    item = 8 if dtype == torch.float64 else 4
+    for n_in in (16_384, 50_000, 20_003, 1000, 1):
+        for card in (_H100_CL, {'n_sm': 132, 'max_cluster': 8}):
+            plan = cluster_plan(dtype, k, n_in, card)
+            n_chunks = -(-n_in // CHUNK)
+            fits = [c for c in CLUSTERS if c <= card['max_cluster']
+                    and -(-n_chunks // c) * CHUNK * k * item
+                    <= ell_mod.STAGE_BYTES]
+            if not fits:
+                assert plan is None
+                assert k * n_in * item > card['max_cluster'] * 200_000
+                continue
+            c = plan['cluster']
+            assert c == fits[0] and plan['log2c'] == c.bit_length() - 1
+            assert plan['chunk_bytes'] == CHUNK * k * item
+            assert plan['chunk_bytes'] % 16 == 0
+            assert plan['smem_bytes'] == plan['chunks_cta'] \
+                * plan['chunk_bytes'] <= ell_mod.STAGE_BYTES
+            assert plan['chunks_cta'] * c >= n_chunks
+            assert (plan['chunks_cta'] - 1) * c < n_chunks
+            assert plan['n_staged'] == n_in and plan['staged'] == 1
+            assert plan['n_pad'] == plan['chunks_cta'] * c * CHUNK >= n_in
+            if c > 1:  # a smaller cluster would not hold the vectors
+                assert -(-n_chunks // (c // 2)) * plan['chunk_bytes'] \
+                    > ell_mod.STAGE_BYTES
+    # the ell slice's row-ELL and the flagship's 50,000 inputs
+    want = {(torch.float64, 16_384): {2: 2, 4: 4, 8: 8},
+            (torch.float32, 16_384): {2: 1, 4: 2, 8: 4},
+            (torch.float64, 50_000): {1: 2, 2: 4, 4: 8, 8: 16}}
+    for (d, n_in), by_k in want.items():
+        if d == dtype and k in by_k:
+            assert cluster_plan(dtype, k, n_in, _H100_CL)['cluster'] \
+                == by_k[k]
+    if dtype == torch.float64 and k == 8:
+        assert cluster_plan(dtype, k, 50_000,
+                            {'n_sm': 132, 'max_cluster': 8}) is None
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_cluster_partial_stages(dtype):
+    """The harness's cluster copy: a forced cluster too small for the
+    vectors stages a prefix of whole chunks within the shared memory a CTA
+    may take; the rest of the inputs is gathered through L2."""
+    item = 8 if dtype == torch.float64 else 4
+    for k, n_in in ((4, 16_384), (8, 16_384), (2, 50_000), (3, 20_003)):
+        for c in CLUSTERS:
+            plan = cluster_plan(dtype, k, n_in, _H100_CL, cluster=c)
+            assert plan['cluster'] == c
+            assert plan['smem_bytes'] <= ell_mod.STAGE_BYTES
+            assert plan['n_staged'] == min(n_in, plan['chunks_cta'] * c
+                                           * CHUNK)
+            assert plan['n_pad'] >= max(n_in, plan['chunks_cta'] * c * CHUNK)
+            assert plan['n_pad'] % CHUNK == 0
+            if plan['staged'] < 1:
+                assert plan['chunks_cta'] == ell_mod.STAGE_BYTES \
+                    // (CHUNK * k * item)
+    with pytest.raises(ValueError, match='cluster'):
+        cluster_plan(torch.float64, 1, 1000, _H100_CL, cluster=3)
+
+
+def _cluster_gather(plan, xt, j):
+    """Where the cluster traversal reads index j's k values: rank and
+    local chunk as ``ell_cl_kernel`` computes them, in CTA-local staged
+    copies built as its bulk copies fill them (chunk t * C + rank at
+    local chunk t); past n_staged, xt itself."""
+    c, k = plan['cluster'], xt.shape[1]
+    if j >= plan['n_staged']:
+        return xt[j]
+    g = j // CHUNK
+    rank, local = g % c, (g // c) * CHUNK + j % CHUNK
+    smem = np.concatenate([xt[(t * c + rank) * CHUNK:
+                              (t * c + rank + 1) * CHUNK]
+                           for t in range(plan['chunks_cta'])])
+    assert smem.shape == (plan['chunks_cta'] * CHUNK, k)
+    return smem[local]
+
+
+def test_cluster_staging_finds_every_input():
+    """Every input's k values lie where the harness's cluster copy gathers
+    them: in its
+    owner CTA's staged chunks, or past the stage in the padded vectors."""
+    rng = np.random.default_rng(0)
+    for n_in, k, kw in ((5000, 3, {}), (20_003, 2, {'cluster': 4}),
+                        (20_003, 8, {'cluster': 2}), (3000, 1, {})):
+        plan = cluster_plan(torch.float64, k, n_in, _H100_CL, **kw)
+        xt = np.full((plan['n_pad'], k), np.nan)
+        xt[:n_in] = rng.standard_normal((n_in, k))
+        for j in list(range(0, n_in, 97)) + [n_in - 1]:
+            assert np.array_equal(_cluster_gather(plan, xt, j), xt[j])
+
+
+def _lane_sums_grouped(idx, val, x, power, unroll):
+    """The staged traversal's row walk, emulated: a row's 32-slot runs in
+    groups of `unroll`, lane l adding slot g 32 unroll + 32 u + l of group
+    g where it lies within the row's width."""
+    m, width = idx.shape
+    acc = np.zeros((m, 32))
+    groups = -(-width // (32 * unroll))
+    for r in range(m):
+        for g in range(groups):
+            for u in range(unroll):
+                for lane in range(32):
+                    s = g * 32 * unroll + 32 * u + lane
+                    if s < width:
+                        acc[r, lane] = acc[r, lane] \
+                            + val[r, s] ** power * x[idx[r, s]]
+    return acc
+
+
+@pytest.mark.parametrize('unroll', [1, 2, 4, 6])
+@pytest.mark.parametrize('power', [1, 2])
+def test_staged_order_gives_the_same_sums(power, unroll):
+    """Each lane's partial sum of the staged traversal's grouped walk is
+    the first traversal's, bit for bit, on a row-ELL of ragged rows."""
+    X = _matrix(seed=9 + power, n=300, p=2000)
+    (ri, rv), _ = dual_ell_from_scipy(X.T.tocsr(), np.float64)
+    x = np.random.default_rng(power).standard_normal(X.shape[0])
+    assert ri.shape[1] > 32 * min(unroll, 4)
+    assert np.array_equal(_lane_sums_grouped(ri, rv, x, power, unroll),
+                          _lane_sums_first(ri, rv, x, power))
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+@pytest.mark.parametrize('k', range(1, 9))
+def test_stage_plan_fits_a_cta(dtype, k):
+    """The staged traversal's stage: a prefix of whole 16-byte units of
+    the interleaved vectors within the shared memory a CTA may take (or
+    within a smaller budget), all of them where they fit, the padded
+    vectors covering the stage; at the ell slice's and the flagship's
+    inputs and ragged counts."""
+    item = 8 if dtype == torch.float64 else 4
+    for n_in in (16_384, 50_000, 20_003, 1001, 1):
+        for budget in (ell_mod.STAGE_BYTES, 114_688, 4096):
+            if budget < 4 * k * item:
+                continue
+            plan = stage_plan(dtype, k, n_in, budget)
+            n_st = plan['n_staged']
+            assert n_st % 4 == 0 and n_st >= 4
+            assert plan['smem_bytes'] == n_st * k * item
+            assert plan['smem_bytes'] % 16 == 0
+            assert plan['smem_bytes'] <= min(budget, ell_mod.STAGE_BYTES)
+            assert ell_mod.STAGE_BYTES <= ell_mod.MAX_SMEM - 1024
+            assert plan['n_pad'] >= max(n_in, n_st)
+            if n_in * k * item <= budget - 4 * k * item:  # it all fits
+                assert plan['staged'] == 1 and n_st < n_in + 4
+            else:  # as much as fits
+                assert (n_st + 4) * k * item \
+                    > min(budget, ell_mod.STAGE_BYTES)
+                assert plan['staged'] == n_st / n_in
+    with pytest.raises(ValueError, match='stage'):
+        stage_plan(dtype, k, 1000, 4 * k * item - 1)
+    # the ell slice's row-ELL: the share each k's stage holds
+    share = stage_plan(dtype, k, 16_384)['staged']
+    assert share == min(1.0, ell_mod.STAGE_BYTES // (k * item) // 4 * 4
+                        / 16_384)
+
+
+def test_harness_copies_edit_the_sources():
+    """``baselines/ell_variants.py`` builds csrc/ell.cu with the cluster
+    copy appended; each named copy changes exactly the line it names (or
+    cuts the one gather it cuts), and plan routes build no copy."""
+    from bayesbridge_tpu_torch.baselines import ell_variants as ev
+    names = ['stwarps32', 'stahead3', 'SU64k4=2', 'CU32k8=4', 'warps24',
+             'cluster-local', 'cut-l1', 'cluster-c4', 'stage-b114688']
+    src = ev.variants(names)
+    base = src['base']
+    assert set(src) == {'base'} | set(names[:-2])
+    assert base == (build.CSRC / 'ell.cu').read_text() + '\n' \
+        + ev.CLUSTER_SRC.read_text()
+    for kernel in ('ell_kernel', 'ell_win_kernel', 'ell_st_kernel',
+                   'ell_cl_kernel'):
+        assert f' {kernel}(' in base
+    want = {'stwarps32': 'constexpr int kStWarps = 32;',
+            'stahead3': 'constexpr int kStAhead = 3;',
+            'SU64k4=2': 'constexpr int kStUnrollF64[kMaxVectors + 1] = '
+                        '{0, 6, 6, 4, 2,',
+            'CU32k8=4': ', 2, 4};',
+            'warps24': 'constexpr int kWinWarps = 24;',
+            'cluster-local': '(uint32_t)rank),',
+            'cut-l1': '& (int)(131072 / '}
+    lines = base.splitlines()
+    for name, text in want.items():
+        assert text in src[name] and text not in base, name
+        changed = [a for a, b in zip(lines, src[name].splitlines()) if a != b]
+        assert len(changed) == 1, (name, changed)
+    with pytest.raises(ValueError, match='no copy'):
+        ev.variants(['SU64k9=2'])
+
+
+# The traversal that ran faster on the row-ELL of the ell slice's design
+# (262,144 rows, 164 draws a row) at 16,384 and 50,000 inputs, k = 1..8
+# ('s' staged, 'f' first; 50,000 inputs timed at k = 1..4 only), in the
+# timings in turns on the H100 (baselines/ell_variants.py; PERF.md).
+_STAGE_FASTER = {(torch.float64, 16_384): 'fssssssf',
+                 (torch.float32, 16_384): 'ffssssss',
+                 (torch.float64, 50_000): 'ssff',
+                 (torch.float32, 50_000): 'ssss'}
+
+
+def test_stage_dispatch_table():
+    """takes_stage picks the traversal that ran faster at each timed
+    dtype, width and k: the first one where the vectors take at most
+    STAGE_MIN_BYTES (its gathers hit L1) or the stage holds less than
+    STAGE_SHARE of them; never at the col-ELL's 262,144 inputs."""
+    for (dtype, n_in), faster in _STAGE_FASTER.items():
+        for k, want in enumerate(faster, 1):
+            assert takes_stage(dtype, k, n_in) == (want == 's'), \
+                (dtype, n_in, k)
+    for dtype in (torch.float32, torch.float64):
+        item = 8 if dtype == torch.float64 else 4
+        n_small = ell_mod.STAGE_MIN_BYTES // item
+        assert not takes_stage(dtype, 1, n_small)
+        assert takes_stage(dtype, 1, n_small + 4)
+        assert not any(takes_stage(dtype, k, 262_144) for k in range(1, 9))
+        for k in range(1, 9):
+            n_in = 10 ** 6 // k
+            assert takes_stage(dtype, k, n_in) == (
+                stage_plan(dtype, k, n_in)['staged'] >= ell_mod.STAGE_SHARE)
