@@ -126,11 +126,12 @@ def row_block_bits(bits_col, bits_row, r0, r1, plan_col, plan_row):
     col[:g, :m] = bits_col[:g, r0:r1]
     g0, shift = divmod(r0, 8)
     g_out = -(-m // 8)
-    src = bits_row.to(torch.int32)
     pbin = min(plan_row[1], bits_row.shape[1])
-    lo = src[g0:g0 + g_out, :pbin]
+    # Only the row groups the block reads are widened.
+    src = bits_row[g0:g0 + g_out + 1, :pbin].to(torch.int32)
+    lo = src[:g_out]
     hi = torch.zeros_like(lo)
-    nxt = src[g0 + 1:g0 + 1 + g_out, :pbin]
+    nxt = src[1:1 + g_out]
     hi[:nxt.shape[0]] = nxt
     rows = ((lo >> shift) | (hi << (8 - shift))) & 0xFF
     if m % 8:

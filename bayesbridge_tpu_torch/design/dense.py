@@ -44,6 +44,7 @@ import torch
 from .abstract import AbstractDesignMatrix, memoized_dot
 from .fusedne import POLICIES, dispatch_mode
 from .gram import chunked_gram, squared_col_moment
+from .pieces import WHOLE, ColumnPiece, split_units
 from ..kernels.ne_sweep import ne_sweep
 from ..kernels.tdots_sweep import tdots_sweep, tdots_sweep_k
 from ..utils.chains import per_chain
@@ -130,6 +131,41 @@ class DenseDesignMatrix(AbstractDesignMatrix):
         AbstractDesignMatrix.__init__(blk)  # fresh counters, no memo
         blk.device = device
         blk.X = self.X[r0:r1].to(device)
+        return blk
+
+    def column_pieces(self, c, device=None):
+        """The stored columns (the intercept column and the centering
+        in them) cut into at most `c` near-equal ranges at 16-byte units
+        (4 float32 or 2 float64 columns) for the predictor axis of a 2-d
+        mesh (:mod:`.pieces`); ``[WHOLE]`` where one range remains.
+        `device` is not used: the pieces are slices."""
+        unit = _ROW_ALIGN_BYTES // self.X.element_size()
+        spans = [s for s in split_units(self._p, c, unit) if s[1] > s[0]]
+        if len(spans) < 2:
+            return [WHOLE]
+        return [ColumnPiece(s, j == 0, slice(*s))
+                for j, s in enumerate(spans)]
+
+    def block(self, r0, r1, piece, device=None):
+        """Rows r0:r1 of the stored columns of `piece` (of
+        :meth:`column_pieces`) as a design of those columns on `device`:
+        a copy, its rows whole 16-byte vectors; ``WHOLE`` gives
+        :meth:`row_block`. A piece never fuses (a sharded dense design
+        composes, the JAX dense design's ``_sharded``)."""
+        if piece.spans is None:
+            return self.row_block(r0, r1, device)
+        c0, c1 = piece.spans
+        blk = copy.copy(self)
+        AbstractDesignMatrix.__init__(blk)  # fresh counters, no memo
+        blk.device = self.device if device is None \
+            else resolve_device(device)
+        blk.fused_policy = '0'
+        blk._p = c1 - c0
+        blk.intercept_added = self.intercept_added and piece.first
+        blk.X = torch.zeros((r1 - r0, stored_width(c1 - c0,
+                                                   self.X.element_size())),
+                            dtype=self.X.dtype, device=blk.device)
+        blk.X[:, :c1 - c0] = self.X[r0:r1, c0:c1]
         return blk
 
     def to_dtype(self, dtype):

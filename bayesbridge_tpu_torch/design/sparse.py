@@ -97,6 +97,8 @@ from . import winell as winell_mod
 from .abstract import AbstractDesignMatrix, memoized_dot
 from .ell import dual_ell_from_scipy
 from .fusedne import POLICIES, dispatch_mode
+from .pieces import (WHOLE, ColumnPiece, indexed_piece, renumber,
+                     split_units)
 from ..kernels import layout
 from ..kernels.bitlut import bitlut
 from ..kernels import ell as ell_kernel
@@ -120,6 +122,9 @@ _DENSIFY_CHUNK = 2 ** 25
 # Largest dense Fisher information (p x p) or densified design (n x p)
 # the Cholesky path builds (sparse.py:74).
 _DENSE_FISHER_MAX_ELEMS = 5e7
+# A float block's column pieces on a 2-d mesh start at multiples of this
+# (one 16-byte unit of float32).
+_FLOAT_PIECE_UNIT = 4
 
 # Whether a device type runs the int4 tier, probed once per type (the
 # JAX package's _INT4_SUPPORTED, sparse.py:83-96): keyed by the device a
@@ -349,6 +354,28 @@ def _densify_on(X_csr, blocks, device):
             out.view(-1)[rows[keep] * width + k[keep]] = \
                 data[keep].to(dtype)
     return outs
+
+
+def _column_copy(X, r0, r1, c0, c1, width, device):
+    """Rows r0:r1 of stored columns c0:c1 of block X as a zero-padded
+    (r1 - r0, width) block of its own on `device` (a column piece)."""
+    out = torch.zeros((r1 - r0, width), dtype=X.dtype, device=device)
+    out[:, :c1 - c0] = X[r0:r1, c0:c1]
+    return out
+
+
+def fisher_from_moments(G, s1, s0, offset, centered, intercept):
+    """X' W X over the full design from the uncentered main columns'
+    (X' W X, X' w) and sum(w) (sparse.py:1571-1596): the centering as
+    rank-one corrections, then the intercept's row and column."""
+    if centered:
+        G = G - torch.outer(offset, s1) - torch.outer(s1, offset) \
+            + s0 * torch.outer(offset, offset)
+        s1 = s1 - s0 * offset
+    if intercept:
+        top = torch.cat((s0.reshape(1), s1))
+        G = torch.cat((top[None, :], torch.cat((s1[:, None], G), 1)), 0)
+    return G
 
 
 def _on_card(X_csr, device):
@@ -716,11 +743,7 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         n, p = self._shape_main
         if not 0 <= r0 < r1 <= n:
             raise ValueError(f"rows {r0}:{r1} of a {n}-row design")
-        device = self.device if device is None else resolve_device(device)
-        blk = copy.copy(self)
-        AbstractDesignMatrix.__init__(blk)  # fresh counters, no memo
-        blk.device = device
-        blk.build_seconds = {}
+        blk = self._copy_to(device)
         whole = (r0, r1) == (0, n)
         getattr(blk, '_rows_' + self.backend)(self, r0, r1, whole)
         blk._shape_main = (r1 - r0, p)
@@ -797,6 +820,175 @@ class SparseDesignMatrix(AbstractDesignMatrix):
                 col_idx, col_val.astype(np_dtype, copy=False), r1 - r0,
                 self._dtype, self.device)
 
+    # -- column pieces of a 2-d mesh (.sharded, .pieces) ------------------ #
+
+    def column_pieces(self, c, device=None):
+        """This design's columns cut into at most `c` pieces for the
+        predictor axis of a 2-d mesh (:class:`.pieces.ColumnPiece`s, the
+        empty ones left out; ``[WHOLE]`` where one piece remains).
+
+        hybrid: each stored block's columns in c near-equal ranges, the
+        exact block's at multiples of 32 columns (whole bytes of a packed
+        int4 block and whole 16-byte units of its rows; an int8 or bf16
+        block is cut where its int4 packing would be, so the two tiers
+        give the same pieces), the float block's at multiples of 4, so
+        that each piece holds about 1/c of either block. bitpack: the
+        binary columns at multiples of 8 (whole byte-groups of
+        bits_col), the float side block split like the hybrid's over the
+        pieces that hold binary columns; the intercept in piece 0
+        (`device`: where the pieces' index tensors live, default the
+        design's). ell: the predictors in c near-equal ranges, for the
+        col-ELL (:meth:`ell_col_piece`). winell is not split."""
+        device = self.device if device is None else device
+        if self.backend == 'ell':
+            d = int(self.intercept_added)
+            spans = [s for s in split_units(self._shape_main[1], c, 1)
+                     if s[1] > s[0]]
+            if len(spans) < 2:
+                return [WHOLE]
+            return [ColumnPiece(s, j == 0, slice(0 if j == 0 else s[0] + d,
+                                                 s[1] + d))
+                    for j, s in enumerate(spans)]
+        if self.backend == 'hybrid':
+            ranges = [
+                (e, f) for e, f in zip(
+                    split_units(self.n_exact, c, layout.INT4_ALIGN),
+                    split_units(self.n_float, c, _FLOAT_PIECE_UNIT))
+                if e[1] > e[0] or f[1] > f[0]]
+        elif self.backend == 'bitpack':
+            bins = [s for s in split_units(self._bitpack_meta[0], c, 8)
+                    if s[1] > s[0]]
+            ranges = list(zip(bins, split_units(self.n_float, len(bins),
+                                                _FLOAT_PIECE_UNIT)))
+        else:
+            return [WHOLE]
+        if len(ranges) < 2:
+            return [WHOLE]
+        return [indexed_piece(r, j == 0, self._piece_cols(r)[0],
+                              self.intercept_added, device)
+                for j, r in enumerate(ranges)]
+
+    def _piece_cols(self, spans):
+        """(main, [local]) of the stored blocks' column ranges `spans`
+        (hybrid: exact, float; bitpack: binary, float): the whole
+        design's main columns they hold, sorted, and each block's
+        columns' positions among them (:func:`.pieces.renumber`)."""
+        first = self.exact_cols if self.backend == 'hybrid' \
+            else self.bin_cols
+        return renumber(*[c[a:b] for c, (a, b)
+                          in zip((first, self.float_cols), spans)])
+
+    def _copy_to(self, device):
+        """A shallow copy on `device` with fresh counters, for a piece."""
+        blk = copy.copy(self)
+        AbstractDesignMatrix.__init__(blk)  # fresh counters, no memo
+        blk.device = self.device if device is None else resolve_device(
+            device)
+        blk.build_seconds = {}
+        return blk
+
+    def block(self, r0, r1, piece, device=None):
+        """Rows r0:r1 of column piece `piece` (of :meth:`column_pieces`)
+        as a design of its own on `device`, of the piece's columns alone
+        in the whole design's order (:mod:`.pieces`); ``WHOLE`` gives
+        :meth:`row_block`. A piece of a hybrid or bitpack design keeps the
+        whole design's column layout restricted to its columns (the
+        exact / float or binary / float split, the centering offsets, the
+        int4 flags); only piece 0 holds the intercept. Its stored blocks
+        are copies, each row whole 16-byte units
+        (``layout.padded_width``); its bitmaps are cut from the design's
+        at whole byte-groups and re-padded to its own plans. A piece
+        composes every product (policy '0')."""
+        if piece.spans is None:
+            return self.row_block(r0, r1, device)
+        if self.backend not in ('hybrid', 'bitpack'):
+            raise ValueError(f"a {self.backend} design has no grid pieces")
+        n = self._shape_main[0]
+        if not 0 <= r0 < r1 <= n:
+            raise ValueError(f"rows {r0}:{r1} of a {n}-row design")
+        blk = self._copy_to(device)
+        blk.fused_policy = '0'
+        main, (first, flt) = self._piece_cols(piece.spans)
+        getattr(blk, '_piece_' + self.backend)(self, r0, r1, piece.spans)
+        if self.backend == 'hybrid':
+            blk.exact_cols = first.to(blk.device)
+        else:
+            blk.bin_cols = first.to(blk.device)
+        blk.float_cols = flt.to(blk.device)
+        blk._shape_main = (r1 - r0, main.numel())
+        blk._nnz = None
+        blk.intercept_added = self.intercept_added and piece.first
+        blk.column_offset = self.column_offset[main].to(blk.device)
+        return blk
+
+    def _piece_hybrid(self, src, r0, r1, spans):
+        (e0, e1), (f0, f1) = spans
+        Xe = src.X_exact
+        if layout.is_int4(Xe):  # e0 is a multiple of 32: whole bytes
+            self.X_exact = _column_copy(
+                Xe, r0, r1, e0 // 2, -(-e1 // 2),
+                layout.padded_width(e1 - e0, int4=True) // 2, self.device)
+        else:
+            self.X_exact = _column_copy(Xe, r0, r1, e0, e1,
+                                        layout.padded_width(e1 - e0),
+                                        self.device)
+        self.X_float = _column_copy(src.X_float, r0, r1, f0, f1,
+                                    layout.padded_width(f1 - f0),
+                                    self.device)
+        self.n_exact, self.n_float = e1 - e0, f1 - f0
+        self.int4_binary = src.int4_binary and self.n_exact > 0
+
+    def _piece_bitpack(self, src, r0, r1, spans):
+        (b0, b1), (f0, f1) = spans
+        m, p_bin = r1 - r0, b1 - b0
+        plan_col = bitlut_mod.plan_blocks(p_bin, m)
+        plan_row = bitlut_mod.plan_blocks(m, p_bin)
+        bits_col, bits_row = bitlut_mod.row_block_bits(
+            src.bits_col[b0 // 8:-(-b1 // 8)], src.bits_row[:, b0:b1], r0,
+            r1, plan_col[:2], plan_row[:2])
+        self.bits_col = bits_col.to(self.device)
+        self.bits_row = bits_row.to(self.device)
+        self._bitpack_meta = (p_bin,) + plan_col + plan_row
+        self.X_float = src.X_float[r0:r1, f0:f1].contiguous().to(self.device)
+        self.n_float = f1 - f0
+
+    def ell_row_piece(self, r0, r1, device=None):
+        """Rows r0:r1 of an ell design's row-ELL alone, every column, as
+        a design on `device` that serves X v and the Gram (the 2-d mesh's
+        row pieces; its col-ELL is not built)."""
+        blk = self._copy_to(device)
+        blk.row_idx = self.row_idx[r0:r1].to(blk.device)
+        blk.row_val = self.row_val[r0:r1].to(blk.device)
+        blk.col_idx = blk.col_val = blk.col_layout = None
+        blk._shape_main = (r1 - r0, self._shape_main[1])
+        blk._nnz = None
+        blk.column_offset = self.column_offset.to(blk.device)
+        return blk
+
+    def ell_col_piece(self, piece, device=None):
+        """The col-ELL rows of an ell design's predictors of `piece` (of
+        :meth:`column_pieces`), over every row, as a design on `device`
+        of those predictors that serves X' u and the Fisher diagonal (the
+        2-d mesh's column pieces), with its own layout for the windowed
+        traversal, so the dispatch decides on the piece's shape. Only
+        piece 0 holds the intercept."""
+        j0, j1 = piece.spans
+        blk = self._copy_to(device)
+        blk.col_idx = self.col_idx[j0:j1].to(blk.device)
+        blk.col_val = self.col_val[j0:j1].to(blk.device)
+        np_dtype = np.float64 if self._dtype == torch.float64 \
+            else np.float32
+        blk.col_layout = ell_kernel.col_layout(
+            self.col_idx[j0:j1].cpu().numpy(),
+            self.col_val[j0:j1].cpu().numpy().astype(np_dtype, copy=False),
+            self._shape_main[0], self._dtype, blk.device)
+        blk.row_idx = blk.row_val = None
+        blk._shape_main = (self._shape_main[0], j1 - j0)
+        blk._nnz = None
+        blk.intercept_added = self.intercept_added and piece.first
+        blk.column_offset = self.column_offset[j0:j1].to(blk.device)
+        return blk
+
     def winell_packing(self):
         """The JAX package's windowed-ELL arrays of this winell design (by
         the names of ``PACKED_ARRAYS['winell']``, numpy, element for
@@ -860,9 +1052,12 @@ class SparseDesignMatrix(AbstractDesignMatrix):
             return (self.X_exact, self.X_float)
         if self.backend == 'bitpack':
             return (self.bits_col, self.bits_row, self.X_float)
-        if self.backend == 'ell':
-            return (self.row_idx, self.row_val, self.col_idx, self.col_val) \
-                + (self.col_layout.tensors() if self.col_layout is not None else ())
+        if self.backend == 'ell':  # a 2-d mesh's piece lacks one side
+            return tuple(t for t in (self.row_idx, self.row_val,
+                                     self.col_idx, self.col_val)
+                         if t is not None) \
+                + (self.col_layout.tensors() if self.col_layout is not None
+                   else ())
         return self.wc_dot.tensors() + self.wc_tdot.tensors()
 
     def storage_bytes(self):
@@ -1271,37 +1466,47 @@ class SparseDesignMatrix(AbstractDesignMatrix):
             with full_float32():
                 G = X.T @ (weight[:, None] * X)
             s1 = X.T @ weight
-        s0 = weight.sum()
-        if self.centered:
-            c = self.column_offset
-            G = G - torch.outer(c, s1) - torch.outer(s1, c) \
-                + s0 * torch.outer(c, c)
-            s1 = s1 - s0 * c
-        if self.intercept_added:
-            top = torch.cat((s0.reshape(1), s1))
-            G = torch.cat((top[None, :], torch.cat((s1[:, None], G), 1)), 0)
-        return G
+        return fisher_from_moments(G, s1, weight.sum(), self.column_offset,
+                                   self.centered, self.intercept_added)
+
+    def _own_cols(self):
+        """Main column indices of the stored blocks' columns, in block
+        order (hybrid and bitpack)."""
+        return torch.cat(self._block_cols())
+
+    def _main_panel(self, start, size):
+        """Rows start:start+size of the stored blocks' columns (hybrid
+        and bitpack, in the order of :meth:`_own_cols`), uncentered, in
+        the working dtype: a packed int4 block unpacked, bits expanded."""
+        if self.backend == 'bitpack':
+            p_bin = self._bitpack_meta[0]
+            groups = -(-p_bin // 8)
+            B = self.bits_col[:groups, start:start + size].to(torch.int32)
+            bits = (B[:, :, None] >> torch.arange(8, device=B.device)) & 1
+            parts = [bits.permute(1, 0, 2).reshape(size, 8 * groups)
+                     [:, :p_bin].to(self._dtype)]
+            if self.n_float:
+                parts.append(self.X_float[start:start + size]
+                             .to(self._dtype))
+            return torch.cat(parts, 1)
+        return torch.cat([layout.widen(X[start:start + size], k,
+                                       self._dtype)
+                          for X, k in self._stored()], 1)
 
     def _gram_main(self, weight):
         """(X' W X, X' w) over the uncentered main columns (sparse.py
         :1598-1648): row chunks of the stored blocks, up-converted to the
         working dtype side by side, through :func:`.gram.chunked_gram`,
         then put in column order."""
-        stored = self._stored()
         n, p_main = self._shape_main
-        if not stored:
+        if not self._stored():
             return (torch.zeros((p_main, p_main), dtype=self._dtype,
                                 device=self.device),
                     torch.zeros(p_main, dtype=self._dtype,
                                 device=self.device))
-
-        def chunk(start, size):  # a packed int4 block unpacked
-            return torch.cat([layout.widen(X[start:start + size], k,
-                                           self._dtype)
-                              for X, k in stored], 1)
-
-        G, s1 = chunked_gram(chunk, n, p_main, weight, self._dtype)
-        inv = torch.argsort(torch.cat(self._block_cols()))
+        G, s1 = chunked_gram(self._main_panel, n, p_main, weight,
+                             self._dtype)
+        inv = torch.argsort(self._own_cols())
         return G[inv][:, inv], s1[inv]
 
     def _ell_gram_main(self, weight):
@@ -1357,20 +1562,10 @@ class SparseDesignMatrix(AbstractDesignMatrix):
         dtype, uncentered (sparse.py:1691-1752)."""
         n, p = self._shape_main
         X = torch.zeros((n, p), dtype=self._dtype)
-        if self.backend == 'hybrid':
-            for (blk, k), cols in zip(self._stored(), self._block_cols()):
-                X[:, cols.cpu()] = layout.widen(blk, k, self._dtype).cpu()
-            return X
-        if self.backend == 'bitpack':
-            p_bin = self._bitpack_meta[0]
-            if p_bin:
-                groups = -(-p_bin // 8)
-                bytes_gn = self.bits_col[:groups, :n].cpu().to(torch.int32)
-                bits = (bytes_gn[:, :, None] >> torch.arange(8)) & 1
-                X_bin = bits.permute(1, 0, 2).reshape(n, 8 * groups)
-                X[:, self.bin_cols.cpu()] = X_bin[:, :p_bin].float()
-            if self.n_float:
-                X[:, self.float_cols.cpu()] = self.X_float.cpu()
+        if self.backend == 'bitpack' or (self.backend == 'hybrid'
+                                         and self._stored()):
+            X[:, self._own_cols().cpu()] = self._main_panel(0, n).cpu()
+        if self.backend in ('hybrid', 'bitpack'):
             return X
         if self.backend == 'ell':
             rows = torch.arange(n)[:, None].expand(-1, self.row_idx.shape[1])

@@ -21,8 +21,9 @@ their exact final states. Cross-chain diagnostics (split R-hat, pooled
 ESS) live in :mod:`.utils.mcmc_summarizer`.
 
 With ``mesh=`` (a :class:`.parallel.Mesh`) the chains are split into
-contiguous groups over the mesh's devices (multichain.py:146-155,
-178-256, where the JAX package shards the vmapped chain axis): each
+contiguous groups over the mesh's rows, each on the first device of its
+row (every device of a 1-d mesh; multichain.py:146-155, 178-256, where
+the JAX package shards the vmapped chain axis, ``P(chain_axis)``): each
 group runs the chain-batched step on its device, over a copy of the
 model placed there (``parallel.place_model``: replicated, as the JAX
 ``P()``), in its own host thread, so that several cards work at once;
@@ -181,9 +182,10 @@ def _execute(bridge, cfg, gens, carry, n_iter, n_burnin, thin,
                                              *args, save_keys=save_keys)
         return carry, outputs, gens
     k = len(gens)
-    size = -(-k // mesh.size)
+    heads = mesh.row_devices  # one group a mesh row
+    size = -(-k // len(heads))
     groups = []
-    for dev, r0 in zip(mesh.devices, range(0, k, size)):
+    for dev, r0 in zip(heads, range(0, k, size)):
         idx = list(range(r0, min(k, r0 + size)))
         groups.append((dev, idx, [generator_from_state(
             generator_state(gens[c]), dev) for c in idx]))
@@ -243,7 +245,8 @@ def gibbs_chains(bridge, n_iter, n_chains, n_burnin=0, thin=1, seed=None,
         identical starts can leave a shared basin of a multimodal
         posterior undetected.
     mesh : a :class:`.parallel.Mesh`, or None: the chains split into
-        contiguous groups over its devices (a device may repeat), each
+        contiguous groups over its rows' first devices (every device of
+        a 1-d mesh; a device may repeat), each
         group on a copy of the model placed there, in its own thread
         (module docstring); the model's design must not be sharded
 

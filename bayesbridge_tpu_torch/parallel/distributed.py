@@ -38,7 +38,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from .sharding import PRED_AXIS, SHARD_AXIS, Mesh, _TWO_D, make_mesh
+from .sharding import PRED_AXIS, SHARD_AXIS, Mesh, make_mesh
 from ..design.abstract import AbstractDesignMatrix
 from ..design.sharded import ShardedDesignMatrix, row_bounds
 from ..utils.dtypes import resolve_device
@@ -94,15 +94,23 @@ def initialize_multihost(coordinator_address=None, num_processes=None,
 
 def global_mesh(pred_shards=1, axis_name=SHARD_AXIS, pred_axis=PRED_AXIS,
                 local_devices=None):
-    """The 1-d mesh over every process's devices, in rank order
-    (distributed.py:77-94); `local_devices` are this process's (default:
-    the device :func:`initialize_multihost` took). Outside a process
-    group, :func:`.make_mesh` over `local_devices` (default every CUDA
-    device). ``pred_shards > 1`` (the 2-d mesh) raises."""
-    if pred_shards != 1:
-        raise NotImplementedError(_TWO_D)
+    """The mesh over every process's devices, in rank order
+    (distributed.py:77-94): with ``pred_shards`` = 1 the 1-d mesh, with k
+    > 1 the 2-d obs x pred mesh of the devices as (-1, k), which raises
+    where k does not divide their number. `local_devices` are this
+    process's (default: the device :func:`initialize_multihost` took).
+    Outside a process group, :func:`.make_mesh` over `local_devices`
+    (default every CUDA device). A design sharded over the 2-d mesh of a
+    process group needs each process's entries to be whole mesh rows
+    (``host_local_to_global`` says so where they are not)."""
     if not dist.is_initialized():
-        return make_mesh(devices=local_devices, axis_name=axis_name)
+        devices = list(local_devices) if local_devices is not None else None
+        if pred_shards == 1:
+            return make_mesh(devices=devices, axis_name=axis_name)
+        if devices is None:
+            devices = make_mesh().devices
+        return make_mesh(_grid(len(devices), pred_shards), devices,
+                         axis_name, pred_axis)
     local = [str(d) for d in (local_devices or [_STATE['device']])]
     everyone = [None] * dist.get_world_size()
     dist.all_gather_object(everyone, local)
@@ -110,7 +118,18 @@ def global_mesh(pred_shards=1, axis_name=SHARD_AXIS, pred_axis=PRED_AXIS,
         raise ValueError("every process must bring as many devices")
     devices = [d for devs in everyone for d in devs]
     ranks = [r for r, devs in enumerate(everyone) for _ in devs]
-    return Mesh(devices, (axis_name,), ranks, group=dist.group.WORLD)
+    if pred_shards == 1:
+        return Mesh(devices, (axis_name,), ranks, group=dist.group.WORLD)
+    r, c = _grid(len(devices), pred_shards)
+    return Mesh([devices[i * c:(i + 1) * c] for i in range(r)],
+                (axis_name, pred_axis), ranks, group=dist.group.WORLD)
+
+
+def _grid(n_devices, pred_shards):
+    if pred_shards < 1 or n_devices % pred_shards:
+        raise ValueError(f"{n_devices} devices do not divide into "
+                         f"{pred_shards} predictor shards.")
+    return n_devices // pred_shards, pred_shards
 
 
 def _gather_rows(rows, group):
@@ -144,9 +163,13 @@ def host_local_to_global(local_rows, mesh, axis_name=SHARD_AXIS):
 
     A design (this process's rows, with the whole design's column layout)
     becomes the :class:`ShardedDesignMatrix` over `mesh`: this process's
-    rows cut into its mesh entries' blocks, on its devices; the others'
-    shards stay with them. The processes' layouts are compared, and a
-    difference raises.
+    rows cut into its mesh rows' blocks, and on a 2-d mesh each of those
+    into its column pieces, on its devices; the others' pieces stay with
+    them. On a 2-d mesh each process's entries must be whole mesh rows
+    (a row block's pieces are cut from the rows one process holds), and
+    an ell design, whose col-ELL pieces hold every row, raises: hand the
+    whole design to ``shard_design`` on every process. The processes'
+    layouts are compared, and a difference raises.
 
     An array or tensor of per-observation values (an outcome vector)
     becomes the whole of it, every process's rows gathered in rank order
@@ -162,8 +185,23 @@ def host_local_to_global(local_rows, mesh, axis_name=SHARD_AXIS):
     if isinstance(local_rows, AbstractDesignMatrix):
         if isinstance(local_rows, ShardedDesignMatrix):
             raise ValueError("the design is sharded already")
+        r, c = mesh.grid
         if group is None:
-            return ShardedDesignMatrix.from_design(local_rows, mesh.devices)
+            return ShardedDesignMatrix.from_design(local_rows, mesh.devices,
+                                                   grid=mesh.grid)
+        local = mesh.local_indices()
+        rows = sorted({i // c for i in local})
+        if sorted(local) != [i * c + j for i in rows for j in range(c)]:
+            raise ValueError(
+                "host_local_to_global: on a 2-d mesh each process's "
+                "entries must be whole mesh rows, since a process cuts "
+                "its own rows into their column pieces; bring a multiple "
+                f"of {c} devices a process (global_mesh(pred_shards={c}))")
+        if c > 1 and local_rows.is_sparse and local_rows.backend == 'ell':
+            raise ValueError(
+                "host_local_to_global: an ell design's col-ELL pieces on "
+                "a 2-d mesh hold every row; pass the whole design to "
+                "shard_design on every process")
         # Each process's (layout, rows, stored entries).
         keys = [None] * dist.get_world_size(group)
         nnz = local_rows.nnz if local_rows.is_sparse else None
@@ -173,22 +211,23 @@ def host_local_to_global(local_rows, mesh, axis_name=SHARD_AXIS):
         if len({k[0] for k in keys}) != 1:
             raise ValueError("the processes' row blocks have different "
                              "column layouts")
-        local = mesh.local_indices()
         part = ShardedDesignMatrix.from_design(
-            local_rows, [mesh.devices[i] for i in local])
+            local_rows, [mesh.devices[i] for i in local],
+            grid=(len(rows), c))
+        row_ranks = list(mesh.process_ids[::c])
         bounds, start = [], 0
-        for r, (_, count, _) in enumerate(keys):
+        for rank, (_, count, _) in enumerate(keys):
             bounds += [(start + a, start + b) for a, b in
-                       row_bounds(count, mesh.process_ids.count(r))]
+                       row_bounds(count, row_ranks.count(rank))]
             start += count
-        shards = [None] * mesh.size
-        for j, i in enumerate(local):
-            shards[i] = part.shards[j]
+        live = len(part.col_pieces)
+        shards = [None] * (r * live)
+        shards[rows[0] * live:(rows[-1] + 1) * live] = part.shards
         counts = [k[2] for k in keys]
         return ShardedDesignMatrix(
             shards, bounds, mesh.home, local_rows,
-            None if None in counts else sum(counts), group,
-            list(mesh.process_ids))
+            None if None in counts else sum(counts), group, row_ranks,
+            part.col_pieces)
     if group is None:
         return local_rows
     as_numpy = not torch.is_tensor(local_rows)

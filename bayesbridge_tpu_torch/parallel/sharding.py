@@ -1,26 +1,30 @@
-"""Scaling over several devices on a 1-d observation mesh.
+"""Scaling over several devices: the 1-d observation mesh and the 2-d
+obs x pred mesh.
 
-Port of ``bayesbridge_tpu/parallel/sharding.py`` for its 1-d mesh: the
+Port of ``bayesbridge_tpu/parallel/sharding.py``. On the 1-d mesh the
 design's rows are split over the mesh's devices and the p-length chain
 state stays whole on the home device, so X v is row-local and X' u ends
-in a sum of the shards' partials. The JAX package gets the sum from
-GSPMD; here :class:`..design.sharded.ShardedDesignMatrix` makes it,
-below the design's interface, in a fixed shard order (that module's
-docstring). Rows are split into blocks of ceil(n / s) rows, the last
-shorter: an uneven count needs no zero padding (the JAX ``_put_pad`` is
-a ``device_put`` artefact).
+in a sum of the shards' partials. On the 2-d mesh (``make_mesh((r,
+c))``, ``shard_design(..., pred_axis='pred')``) mesh row i holds row
+block i and mesh column j column piece j of the design: X v sums its
+pieces' partials over ``pred``, X' u over ``obs``. The JAX package gets
+the sums from GSPMD; here :class:`..design.sharded.ShardedDesignMatrix`
+makes them, below the design's interface, in a fixed order, and holds
+the pieces' layout per backend (that module's docstring). Rows are split
+into blocks of ceil(n / r) rows, the last shorter, and columns into
+near-equal pieces at each backend's storage unit: an uneven count needs
+no zero padding (the JAX ``_put_pad`` is a ``device_put`` artefact).
 
-A :class:`Mesh` may repeat a device (``[cuda:0] * 4``; ``[cpu] * 4`` in
-the tests, the counterpart of the JAX suite's virtual CPU devices): its
-shards then share the card, each a row view of the stored blocks.
+A :class:`Mesh` may repeat a device (``[cuda:0] * 4``, as 4 x 1 or 2 x
+2; ``[cpu] * 8`` in the tests, the counterpart of the JAX suite's
+virtual CPU devices): its pieces then share the card; a row block of the
+1-d mesh is a row view of the stored blocks, a column piece a copy.
 
 A hybrid design's packed int4 block placed on a device that cannot run
 the int4 tier is widened to int8 first (``_demote_unsupported``, the
 JAX package's, with its warning): the same values at twice the bytes.
-An int4 design's row-block shards are row views of the packed block.
-
-Not ported: the 2-d obs x pred mesh (``make_mesh((r, c))``,
-``pred_axis=``; ROADMAP item 15b), which raises.
+An int4 design's row-block shards are row views of the packed block;
+its column pieces start at multiples of 32 columns (whole bytes).
 """
 
 import copy
@@ -35,10 +39,6 @@ from ..kernels import layout
 SHARD_AXIS = 'shard'
 PRED_AXIS = 'pred'
 
-_TWO_D = ("the 2-d obs x pred mesh is not ported (ROADMAP.md item 15b); "
-          "the 1-d observation mesh is")
-
-
 def _rank():
     dist = torch.distributed
     return dist.get_rank() if dist.is_available() and dist.is_initialized() \
@@ -46,31 +46,55 @@ def _rank():
 
 
 class Mesh:
-    """A 1-d array of devices with an axis name.
+    """A 1-d or 2-d array of devices with axis names.
 
-    devices : the mesh's devices in shard order (a device may repeat;
-        another process's entries are labels, for ``distributed``)
-    axis_names : (name,)
-    process_ids : the process of each entry (default: all this one's)
+    Its entries are kept in one order, row-major: entry i * c + j is mesh
+    row i, column j, and mesh row i holds the design's row block i (a
+    1-d mesh of s devices is the s x 1 grid).
+
+    devices : the devices in shard order (1-d), or r rows of c devices
+        each (2-d); a device may repeat, and another process's entries
+        are labels, for ``distributed``
+    axis_names : (name,), or (obs name, pred name) for the 2-d mesh
+    process_ids : the process of each entry, row-major (default: all
+        this one's)
     group : the process group over the entries' processes, or None
     """
 
     def __init__(self, devices, axis_names=(SHARD_AXIS,), process_ids=None,
                  group=None):
-        if len(axis_names) != 1:
-            raise NotImplementedError(_TWO_D)
-        self.devices = tuple(torch.device(d) for d in devices)
-        if not self.devices:
+        if len(axis_names) not in (1, 2):
+            raise ValueError(f"a mesh has 1 or 2 axes, not {axis_names}")
+        rows = [list(r) for r in devices] if len(axis_names) == 2 \
+            else [[d] for d in devices]
+        if not rows or not rows[0]:
             raise ValueError("a mesh needs a device")
+        if len({len(r) for r in rows}) != 1:
+            raise ValueError("the rows of a 2-d mesh must be as long")
+        self.grid = (len(rows), len(rows[0]))
+        self.devices = tuple(torch.device(d) for r in rows for d in r)
         self.axis_names = tuple(axis_names)
         self.process_ids = tuple(process_ids) if process_ids is not None \
             else (_rank(),) * len(self.devices)
+        if len(self.process_ids) != len(self.devices):
+            raise ValueError("one process id an entry")
         self.group = group
 
     @property
     def shape(self):
         """{axis name: size}, as ``mesh.shape[axis]`` reads in JAX."""
-        return {self.axis_names[0]: len(self.devices)}
+        return dict(zip(self.axis_names, self.grid))
+
+    @property
+    def row_devices(self):
+        """The first device of each mesh row (of the ``obs`` axis)."""
+        return self.devices[::self.grid[1]]
+
+    def column(self, j=0):
+        """Mesh column j as a 1-d mesh over the ``obs`` axis."""
+        c = self.grid[1]
+        return Mesh(self.devices[j::c], self.axis_names[:1],
+                    self.process_ids[j::c], self.group)
 
     @property
     def size(self):
@@ -88,19 +112,19 @@ class Mesh:
 
     def __repr__(self):
         return (f"Mesh({[str(d) for d in self.devices]}, "
-                f"axis_names={self.axis_names})")
+                f"axis_names={self.axis_names}, grid={self.grid})")
 
 
-def make_mesh(n_devices=None, devices=None, axis_name=SHARD_AXIS):
-    """The 1-d device mesh (sharding.py:52-69).
+def make_mesh(n_devices=None, devices=None, axis_name=SHARD_AXIS,
+              pred_axis=PRED_AXIS):
+    """The device mesh (sharding.py:52-69).
 
-    n_devices : int or None (every device of `devices`); a tuple (the 2-d
-        mesh) raises
+    n_devices : int or None (every device of `devices`): the 1-d mesh; an
+        (r, c) tuple: the 2-d obs x pred mesh of the first r * c devices,
+        row-major (r observation blocks, c predictor pieces)
     devices : the devices, by default every visible CUDA device (none
         raises); a device may repeat
     """
-    if isinstance(n_devices, tuple):
-        raise NotImplementedError(_TWO_D)
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("make_mesh: no CUDA device is visible; pass "
@@ -108,6 +132,13 @@ def make_mesh(n_devices=None, devices=None, axis_name=SHARD_AXIS):
         devices = [torch.device('cuda', i)
                    for i in range(torch.cuda.device_count())]
     devices = list(devices)
+    if isinstance(n_devices, tuple):
+        r, c = n_devices
+        if r < 1 or c < 1 or r * c > len(devices):
+            raise ValueError(f"a {r} x {c} mesh needs {r * c} devices, "
+                             f"{len(devices)} given")
+        return Mesh([devices[i * c:(i + 1) * c] for i in range(r)],
+                    (axis_name, pred_axis))
     if n_devices is not None:
         if n_devices > len(devices):
             raise ValueError(f"{n_devices} devices asked, {len(devices)} "
@@ -117,10 +148,10 @@ def make_mesh(n_devices=None, devices=None, axis_name=SHARD_AXIS):
 
 
 def _check_axes(mesh, axis_name, pred_axis):
-    if pred_axis is not None:
-        raise NotImplementedError(_TWO_D)
-    if axis_name not in mesh.axis_names:
-        raise ValueError(f"no axis {axis_name!r} in {mesh}")
+    if axis_name != mesh.axis_names[0]:
+        raise ValueError(f"no observation axis {axis_name!r} in {mesh}")
+    if pred_axis is not None and pred_axis not in mesh.axis_names[1:]:
+        raise ValueError(f"no predictor axis {pred_axis!r} in {mesh}")
 
 
 def _demote_unsupported(design, device):
@@ -142,21 +173,32 @@ def _demote_unsupported(design, device):
 
 
 def shard_design(design, mesh, axis_name=SHARD_AXIS, pred_axis=None):
-    """The design split by rows over `mesh` (sharding.py:120-191): a
-    :class:`ShardedDesignMatrix` whose shards are the design's row blocks
-    on the mesh's devices (this process's entries only, in a process
-    group), a packed int4 block widened first where a mesh device cannot
-    run it. Works for every backend; `pred_axis` (the 2-d mesh)
-    raises."""
+    """The design split over `mesh` (sharding.py:120-191): a
+    :class:`ShardedDesignMatrix` whose pieces are the design's row blocks
+    on a 1-d mesh, and with `pred_axis` (the 2-d mesh's second axis) its
+    rows over ``obs`` and its columns over ``pred``; on this process's
+    entries only, in a process group; a packed int4 block widened first
+    where a mesh device cannot run it. Works for every backend. A 2-d
+    mesh without `pred_axis` splits the rows over its first column, as
+    does the winell backend, which warns (sharding.py:146-149)."""
     _check_axes(mesh, axis_name, pred_axis)
     if isinstance(design, ShardedDesignMatrix):
         raise ValueError("the design is sharded already")
+    if pred_axis is not None and getattr(design, 'backend', None) \
+            == 'winell':
+        warnings.warn("shard_design: the 'winell' backend shards along "
+                      "the observation axis only; the predictor mesh "
+                      "axis replicates its arrays.")
+        pred_axis = None
+    if pred_axis is None and mesh.grid[1] > 1:
+        mesh = mesh.column(0)
     for i in mesh.local_indices():
         design = _demote_unsupported(design, mesh.devices[i])
-    ranks = mesh.process_ids if mesh.group is not None else None
+    ranks = mesh.process_ids[::mesh.grid[1]] if mesh.group is not None \
+        else None
     return ShardedDesignMatrix.from_design(
         design, mesh.devices, local=mesh.local_indices(), group=mesh.group,
-        ranks=ranks)
+        ranks=ranks, grid=mesh.grid)
 
 
 def _move_outcomes(model, source, device):
@@ -168,10 +210,13 @@ def _move_outcomes(model, source, device):
 
 
 def shard_model(model, mesh, axis_name=SHARD_AXIS, pred_axis=None):
-    """Shard the model's design over `mesh` (sharding.py:234-249); its
-    outcome vectors (and the Cox model's risk-set index arrays) stay
-    whole on the mesh's home device, as the JAX package keeps the Cox
-    arrays replicated. Returns the model, changed in place."""
+    """Shard the model's design over `mesh` (sharding.py:234-249; with
+    `pred_axis` over the 2-d mesh's rows and columns); its outcome
+    vectors (and the Cox model's risk-set index arrays) stay whole on the
+    mesh's home device, as the JAX package keeps the Cox arrays
+    replicated. `model.design` is replaced: on a predictor split the
+    pieces are copies, and the source design can be dropped. Returns the
+    model, changed in place."""
     model.design = shard_design(model.design, mesh, axis_name, pred_axis)
     _move_outcomes(model, model, mesh.home)
     return model

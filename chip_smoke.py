@@ -134,7 +134,20 @@ Phases, each of which raises on failure (exit code != 0):
    state sharded and unsharded; 4 chains on the mesh against the chains
    alone; and an NCCL process group of one (``initialize_multihost``,
    ``host_local_to_global``), whose 2 iterations must equal the one-shard
-   single-process run bit for bit; (b) a dense logit
+   single-process run bit for bit; then the 2-d phase on the same
+   stored blocks under 'auto': a 2 x 2 obs x pred grid (four cards
+   where the machine has them, else ``[cuda:0] * 4``, each piece a copy
+   cut at 32 exact and 4 float columns), the products (dot, Tdot, the
+   composed CG operator, the Fisher diagonal, the five-reduction
+   pre-solve, their 4-chain forms) against the unsharded design's (rtol
+   1e-4 of max), each rerun for the same bits and launching its kernel
+   once a piece; the row pass, column pass and pre-solve timed on a
+   piece (the kernels line's ``@mesh2d`` entries); the same products on
+   1 x 4 and 4 x 1, the latter equal to the 1-d mesh of 4 bit for bit;
+   ``gibbs(10)`` + ``gibbs_resume(10)`` with the exact-resume check and
+   a profiler window beside the unsharded and 1-d slices' device ms;
+   one CG solve sharded and unsharded; the block packed as int4 on the
+   same grid, equal to the int8 pieces bit for bit; (b) a dense logit
    design, X standard normal, 100,000 x 4,000, made on the card and
    stored as 4,004 float32 columns: ``ne_oneread``, its logit mode and
    ``tdots_sweep`` on the lone block against their plain versions, the
@@ -145,7 +158,9 @@ Phases, each of which raises on failure (exit code != 0):
    Cholesky factor timed in float32 and float64 beside their bounds,
    ``gibbs(10)`` in float64 (no kernel launched), and the CG sampler
    under ``fused='1'`` (the kernels on the lone block) and ``'auto'``
-   (the cuBLAS pair), ``gibbs(20)`` each;
+   (the cuBLAS pair), ``gibbs(20)`` each; before the chains, the design
+   on the 2 x 2 grid (its stored columns cut at 4), the products and the
+   float32 Gram against the unsharded ones;
 7. the bitpack slice: the same X with ``backend='bitpack'`` (bitmaps of
    5,632 x 106,496 and 12,512 x 49,152 bytes plus a 100,000 x 5,000 f32
    block); bitlut against its plain version on the design's bitmaps,
@@ -153,9 +168,11 @@ Phases, each of which raises on failure (exit code != 0):
    @ v``) on the binary columns' CSR, and every mode of its source in
    turns (``baselines/bitlut_ablation.py``: the design's nibble tables,
    the first design's byte tables, nibble tables from L2, no lookups);
-   the f32 side block's GEMV pair timed beside its bound; then a
-   15-iteration chain on the composed CG path, and its MAP search against
-   the hybrid's;
+   the f32 side block's GEMV pair timed beside its bound; the design on
+   the 2 x 2 grid (binary columns cut at 8, each piece its own bitmaps),
+   the products with bitlut launched once a piece, bitlut timed on a
+   piece; then a 15-iteration chain on the composed CG path, and its MAP
+   search against the hybrid's;
 8. the winell slice: a 131,072 x 16,384 design with 164 standard-normal
    entries per row (``backend='auto'`` picks winell, which stores a
    windowed CSR on the card); wincsr against its plain version on the
@@ -164,8 +181,10 @@ Phases, each of which raises on failure (exit code != 0):
    more, on the JAX package's packings (packed on the host on demand,
    copied to the card here), its products run once right after the
    counters are zeroed (the launches the kernels line reports, marked
-   ``"path": "check-only"``), then checked and timed the same way; then
-   the same chain, on wincsr;
+   ``"path": "check-only"``), then checked and timed the same way; the
+   design on the 2 x 2 grid, which warns and splits rows only, every
+   product equal to the 1-d mesh of 2's bit for bit; then the same
+   chain, on wincsr;
 9. the ell slice: 262,144 x 16,384 with 164 standard-normal entries per
    row (``utils.simulate_data.normal_design``, as
    ``baselines/bench_sparse_matvec.py`` ``build_sparse`` builds it at its
@@ -188,7 +207,11 @@ Phases, each of which raises on failure (exit code != 0):
    exponent 0.5
    (launch counts read right after it), ``gibbs_resume(10)`` timed, the
    exact-resume check, a profiler window, 2 chains against the chains
-   run alone, and 5 sweeps of the public component updates with finite
+   run alone, the design on the 2 x 2 grid (the row-ELL cut by rows,
+   the col-ELL by predictors, each col-ELL piece's traversal logged),
+   its products against the unsharded design's at 1e-12 of max,
+   ``gibbs(5)`` on it and the kernel timed on a row and a col-ELL piece,
+   and 5 sweeps of the public component updates with finite
    log densities, the last above the first; (b) the same X in float32 with
    ``backend='ell'`` forced: the kernel checks and timings, ``gibbs(10)``;
    both slices' chains must run the col-ELL on the traversal the
@@ -1761,12 +1784,14 @@ def ab_segments(chains, n_iter=10, rounds=2):
     return {label: statistics.median(v) for label, v in ips.items()}
 
 
-def run_packed(X, outcome, backend, map_ref=None, n_first=15, n_more=10):
+def run_packed(X, outcome, backend, m2d, map_ref=None, n_first=15,
+               n_more=10):
     """Phases 7 and 8: build, kernel timings at the design's shapes, the
-    chain on the composed path; with `map_ref` (the hybrid's MAP witness
-    on the same X), the MAP witness. Returns (kernel results, the chain's
-    launch counts, the winell kernel's launch counts on the timing phase
-    or None)."""
+    design on the 2-d phase's (2, 2) grid (``mesh2d_packed``, into `m2d`),
+    the chain on the composed path; with `map_ref` (the hybrid's MAP
+    witness on the same X), the MAP witness. Returns (kernel results, the
+    chain's launch counts, the winell kernel's launch counts on the timing
+    phase or None)."""
     import numpy as np
     import torch
     from bayesbridge_tpu_torch import RegressionModel
@@ -1809,6 +1834,7 @@ def run_packed(X, outcome, backend, map_ref=None, n_first=15, n_more=10):
         f"{time.perf_counter() - t0:.1f} s (steps: {steps}); {shapes}; "
         f"{gb:.3f} GB on the device")
     results, pack_counts = packed_kernel_timings(design, X, backend)
+    mesh2d_packed(design, backend, m2d)
     del design
     # Per iteration: dot + Tdot per CG operator application (k + 1), two
     # pre-solve Tdots and the Fisher diagonal's two moments.
@@ -2663,7 +2689,7 @@ def dense_block_checks(design, label):
     return results
 
 
-def run_dense():
+def run_dense(m2d):
     """Phase 6 (b): dense logit, X standard normal, n = 100,000 and
     p = 4,000 (BASELINE.json configs 0-1's family at the flagship's n),
     made on the card, on one stored X: the Cholesky sampler in float32
@@ -2673,7 +2699,8 @@ def run_dense():
     beside the FP64 tensor-core peak); the CG sampler in float32 under
     fused='1' (the one-read kernel and tdots_sweep on the lone block) and
     under 'auto' (the cuBLAS pair), gibbs(20) each; each kernel on the
-    block against its plain version. Returns ({path: launch counts},
+    block against its plain version; the design on the 2-d phase's (2, 2)
+    grid (``mesh2d_backend``, into `m2d`). Returns ({path: launch counts},
     {kernel: result})."""
     import numpy as np
     import torch
@@ -2700,6 +2727,11 @@ def run_dense():
         f"{design.dtype}, {gb:.4f} GB ({design.shape[1]} columns)")
     results = dense_block_checks(design, 'dense')
     counts = {}
+    # The 2-d phase: the design's stored columns on the (2, 2) grid, the
+    # float32 Gram among its products.
+    sd = mesh2d_backend('mesh2d_dense', design, RTOL, m2d, gram=True)
+    del sd
+    torch.cuda.empty_cache()
 
     # The Cholesky path: per iteration the design is read by the score's
     # Tdot, the Fisher diagonal, the Gram and the linear predictor's dot.
@@ -3072,7 +3104,61 @@ def ell_chains(bridge, model):
                    busy=busy, dev_ms=dev_ms)
 
 
-def run_ell(X, outcome):
+def mesh2d_ell(model, m2d):
+    """The ell float64 design on the (2, 2) grid: row-ELL pieces by rows,
+    col-ELL pieces by predictors; products within 1e-12 of max of the
+    unsharded design's, each row piece's X v and each col-ELL piece's X' u
+    and Fisher diagonal launched once (``ell_grid_launches``); ``gibbs(5)`` on the grid (launch counts for the
+    kernels line) with each col-ELL piece's traversal logged; the kernel
+    timed on a row piece and a col-ELL piece."""
+    import copy
+    import numpy as np
+    import torch
+    from bayesbridge_tpu_torch import BayesBridge, RegressionCoefPrior
+    from bayesbridge_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts)
+    sd = mesh2d_backend('mesh2d_ell', model.design, 1e-12, m2d,
+                        ell_grid_launches)
+    log(f"[mesh2d_ell] col-ELL pieces' traversal for 1 vector "
+        f"{sd.traversals(1)}, for 4 {sd.traversals(4)}")
+    grid_model = copy.copy(model)
+    grid_model.design = sd
+    bridge = BayesBridge(grid_model, RegressionCoefPrior(bridge_exponent=0.5))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    samples, info = bridge.gibbs(5, seed=0, coef_sampler_type='cg',
+                                 params_to_save='all')
+    torch.cuda.synchronize()
+    m2d['counts']['mesh2d_ell'] = c = launch_counts()
+    n_cg = info['_reg_coef_sampling_info']['n_cg_iter']
+    log(f"[mesh2d_ell] gibbs(5) on the grid incl. MAP search: "
+        f"{time.perf_counter() - t0:.1f} s; n_cg_iter "
+        f"{n_cg.astype(int).tolist()}; launch counts "
+        f"{ {k: n for k, n in c.items() if n} }")
+    assert np.all(np.isfinite(samples['logp']))
+    assert np.all(np.isfinite(samples['coef']))
+    assert c['ell[dot]'] >= 2 * int(np.sum(n_cg + 1)), c
+    m2d['results'].update(ell_piece_timings(sd))
+    del sd, grid_model, bridge
+    torch.cuda.empty_cache()
+
+
+def ell_grid_launches(sd):
+    """{product: {counters: launches}} of the ell grid `sd`: X v once a
+    row-ELL piece, X' u once a col-ELL piece (up to 8 chains a launch),
+    on whichever traversal each launch takes; the Fisher diagonal once a
+    col-ELL piece for the squares and, centred, once for the sums."""
+    rows, cols = len(sd.local_shards()), len(sd.col_shards)
+    dot = ('ell[dot]', 'ell[dot_st]')
+    tdot = ('ell[tdot]', 'ell[tdot_win]', 'ell[tdot_st]')
+    diag = cols * (1 + int(sd.centered))
+    return {'dot': {dot: rows}, 'dot 4 chains': {dot: rows},
+            'Tdot': {tdot: cols}, 'Tdot 4 chains': {tdot: cols},
+            'quad': {dot: rows, tdot: cols},
+            'fisher diag': {tdot: diag}, 'fisher diag 4 chains': {tdot: diag}}
+
+
+def run_ell(X, outcome, m2d):
     """Phase 9: the ell slice on the 262,144 x 16,384 design. (a) float64
     under ``backend='auto'``, which must pick ell with the JAX package's
     warning: the kernel checks and timings, ``gibbs(20)`` with CG,
@@ -3081,10 +3167,11 @@ def run_ell(X, outcome):
     window (``run_chain``), MC_CHAINS chains on the same design
     (``ell_chains``: the row-ELL's staged traversal, resume, profiler
     window, each chain against the chain alone), and 5 sweeps of the
-    reference-style loop through the public component methods; (b) the
-    same X in float32 with ``backend='ell'`` forced: the kernel checks
-    and timings, then ``gibbs(10)``. Returns (kernel results, {path:
-    launch counts})."""
+    reference-style loop through the public component methods, and the
+    design on the 2-d phase's (2, 2) grid (``mesh2d_ell``, into `m2d`);
+    (b) the same X in float32 with ``backend='ell'`` forced: the kernel
+    checks and timings, then ``gibbs(10)``. Returns (kernel results,
+    {path: launch counts})."""
     import warnings
     import numpy as np
     import torch
@@ -3139,6 +3226,7 @@ def run_ell(X, outcome):
     errs, traversals = sharded_ell_checks(design)
     log(f"[ell64_sharded] summary: "
         f"{json.dumps(dict(errs=errs, traversals=traversals))}")
+    mesh2d_ell(model, m2d)
 
     # The reference-style loop through the public component methods.
     alpha = bridge.prior.bridge_exp
@@ -3233,7 +3321,9 @@ def sharded_checks(label, pairs, tol, launches=None):
     the sharded one (fn(True)): the sharded result within `tol` of max
     |unsharded|, the same bits on a rerun (each shard's product again).
     `launches` {name: {counter: launches per call}} are asserted on the
-    counts of the first sharded call. Returns {name: relative error}."""
+    counts of the first sharded call (a tuple of counters: their sum, one
+    launch on whichever traversal the dispatch took). Returns {name:
+    relative error}."""
     import torch
     from bayesbridge_tpu_torch.kernels import (
         launch_counts, reset_launch_counts)
@@ -3254,9 +3344,17 @@ def sharded_checks(label, pairs, tol, launches=None):
             f"{'same bits' if same else 'DIFFERENT BITS'}; launches {counts}")
         assert err <= tol, (name, err)
         assert same, name
-        for counter, n in (launches or {}).get(name, {}).items():
-            assert counts.get(counter, 0) == n, (name, counter, counts)
+        assert_launches(name, counts, (launches or {}).get(name, {}))
     return errs
+
+
+def assert_launches(name, counts, want):
+    """Each {counter (or tuple of counters, summed): launches} of `want`
+    holds in `counts`."""
+    for counter, n in want.items():
+        keys = counter if isinstance(counter, tuple) else (counter,)
+        assert sum(counts.get(k, 0) for k in keys) == n, (name, counter,
+                                                           counts)
 
 
 def sharded_flagship_checks(design, sd_f, sd_c):
@@ -3366,10 +3464,11 @@ def sharded_chain(model, label, check_resume=True):
                 combines=combines, samples=samples)
 
 
-def sharded_cg_solve(design, sd):
+def sharded_cg_solve(design, sd, label='sharded'):
     """One CG solve from the same state on the unsharded and the sharded
-    composed design (the block-ordered operator): both n_cg_iter and the
-    solutions' relative error. Returns the error."""
+    composed design (the block-ordered operator on the 1-d mesh, dot and
+    Tdot on a 2-d one): both n_cg_iter and the solutions' relative error.
+    Returns the error."""
     import torch
     from bayesbridge_tpu_torch.ops.cg import sample_gaussian_cg
     g = torch.Generator(device='cuda').manual_seed(12)
@@ -3388,7 +3487,7 @@ def sharded_cg_solve(design, sd):
             precond_scale=precond, atol=1e-5 * p ** .5, perturbation=pert)
         out[name] = (coef, info['n_cg_iter'])
     err = rel_err([out['sharded'][0]], [out['unsharded'][0]])
-    log(f"[sharded] one CG solve from the same state: n_cg_iter unsharded "
+    log(f"[{label}] one CG solve from the same state: n_cg_iter unsharded "
         f"{out['unsharded'][1]}, sharded {out['sharded'][1]}; solutions' "
         f"relative error {err:.3e}")
     assert abs(out['sharded'][1] - out['unsharded'][1]) <= 2, out
@@ -3568,6 +3667,418 @@ def sharded_ell_checks(design):
     return errs, traversals
 
 
+MESH2D = (2, 2)
+
+
+def mesh2d_mesh(grid=MESH2D):
+    """A mesh of the 2-d phase: four cards as `grid` where the machine
+    has them, else ``[cuda:0] * 4`` as `grid` (every piece a copy on card
+    0)."""
+    import torch
+    from bayesbridge_tpu_torch.parallel import make_mesh
+    r, c = grid
+    if torch.cuda.device_count() >= r * c:
+        devices = [torch.device('cuda', i) for i in range(r * c)]
+    else:
+        devices = [torch.device('cuda', 0)] * (r * c)
+    return make_mesh(grid, devices=devices)
+
+
+def mesh2d_pairs(design, sd, seed=21, scale=1.0, gram=False):
+    """(name, fn) of the 2-d phase's products, fn(False) on the unsharded
+    `design`, fn(True) on the sharded `sd`: dot, Tdot, the composed CG
+    operator, the Fisher diagonal, the five-reduction pre-solve where the
+    design has one, their 4-chain forms, and with `gram` the Fisher
+    information (``compute_fisher_info``)."""
+    import torch
+    g = torch.Generator(device='cuda').manual_seed(seed)
+    n, p = design.shape
+    kw = dict(generator=g, device='cuda', dtype=design.dtype)
+    v, u = torch.randn(p, **kw) * scale, torch.randn(n, **kw)
+    w = torch.rand(n, **kw) + .1
+    V, U = torch.randn((4, p), **kw) * scale, torch.randn((4, n), **kw)
+    W = torch.rand((4, n), **kw) + .1
+    d = {False: design, True: sd}
+    pairs = [('dot', lambda s: d[s].dot(v)),
+             ('Tdot', lambda s: d[s].Tdot(u)),
+             ('quad', lambda s: d[s].quad_matvec(v, w)),
+             ('fisher diag', lambda s: d[s].compute_fisher_diag(w)),
+             ('dot 4 chains', lambda s: d[s].dot(V)),
+             ('Tdot 4 chains', lambda s: d[s].Tdot(U)),
+             ('fisher diag 4 chains', lambda s: d[s].compute_fisher_diag(W))]
+    if design.has_presolve_reductions():
+        pairs += [('presolve', lambda s: d[s].presolve_reductions(
+                      u, u * w, w, w * u)),
+                  ('presolve 4 chains', lambda s: d[s].presolve_reductions(
+                      U, U * W, W, W * U))]
+    if gram:
+        pairs.append(('gram', lambda s: d[s].compute_fisher_info(w)))
+    return pairs
+
+
+def hybrid_launches(n_pieces, int4=False):
+    """{product: {counter: launches}} of a hybrid grid of `n_pieces`
+    pieces: each product's kernel once a piece (the int8 or the nibble
+    modes; the flagship's packed block is 0/1, the pre-solve's binary
+    mode)."""
+    if int4:
+        rows, cols, tdots, u4 = ('ne_rows_i4', 'colpass_i4',
+                                 'tdots_i4[bin]', 'tdots_i4[u4,bin]')
+        rows_k, cols_k, u4_k = ('ne_rows_i4[chains]', 'colpass_i4[chains]',
+                                'tdots_i4[u4,bin,chains]')
+    else:
+        rows, cols, tdots, u4 = ('ne_sweep[rows]', 'ne_sweep[cols]',
+                                 'tdots_sweep', 'tdots_sweep[u4]')
+        rows_k, cols_k, u4_k = 'ne_rows_k', 'colpass_k', 'tdots_sweep_k[u4]'
+    each = {'dot': {rows: 1}, 'Tdot': {cols: 1}, 'quad': {rows: 1, cols: 1},
+            'fisher diag': {tdots: 1}, 'presolve': {u4: 1},
+            'dot 4 chains': {rows_k: 1}, 'Tdot 4 chains': {cols_k: 1},
+            'fisher diag 4 chains': {'tdots_sweep_k': 1},
+            'presolve 4 chains': {'tdots_sweep_k[u4]': 1}}
+    if int4:  # the nibble modes take a chain a launch
+        each.update({'dot 4 chains': {rows_k: 4},
+                     'Tdot 4 chains': {cols_k: 4},
+                     'fisher diag 4 chains': {'tdots_i4[bin,chains]': 4},
+                     'presolve 4 chains': {u4_k: 4}})
+    return {name: {k: n * n_pieces for k, n in c.items()}
+            for name, c in each.items()}
+
+
+def mesh2d_layout(label, sd, mesh, t0, before):
+    """Log the grid's layout: rows, each column piece's columns, bytes."""
+    import torch
+    torch.cuda.synchronize()
+    r, c = mesh.grid
+    how = ('four cards' if len(set(mesh.devices)) > 1
+           else '[cuda:0] * 4, each piece a copy on card 0')
+    if sd.col_shards is not None:
+        what = (f"col-ELL pieces "
+                f"{[tuple(p.col_idx.shape) for p in sd.col_shards]}")
+    else:
+        what = f"columns of row 0's pieces {[piece_columns(p) for p in sd.shards[:len(sd.col_pieces)]]}"
+    log(f"[{label}] shard_design on {r} x {c} ({how}): "
+        f"{time.perf_counter() - t0:.2f} s; rows "
+        f"{[b - a for a, b in sd.bounds]}, {len(sd.col_pieces)} column "
+        f"piece(s), {what}; "
+        f"pieces' stored bytes {sd.storage_bytes() / 1e9:.3f} GB, new "
+        f"device bytes {(torch.cuda.memory_allocated() - before) / 1e9:.3f} "
+        f"GB")
+
+
+def piece_columns(piece):
+    """A piece's columns: (exact, float) of a hybrid piece, (binary,
+    float) of a bitpack one, else its width."""
+    backend = getattr(piece, 'backend', None)
+    if backend == 'hybrid':
+        return piece.n_exact, piece.n_float
+    if backend == 'bitpack':
+        return piece._bitpack_meta[0], piece.n_float
+    return piece.shape[1]
+
+
+def timed_case(name, kern, plain, work, rate=None):
+    """A kernel against its plain version (rtol of `check`), timed beside
+    it and its bound. Returns the result dict of the kernels line."""
+    import torch
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    err = max(check(f"{name} [{i}]", [g], [r])
+              for i, (g, r) in enumerate(zip(got, ref)))
+    del got, ref
+    ms, plain_ms = time_ms(kern), time_ms(plain)
+    bound, by = bound_ms(*work) if rate is None else bound_ms(*work, rate)
+    log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+        f"{bound:.4f} ms ({by}), {100 * bound / ms:.1f}% of it")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                bound_by=by, library_ms=None)
+
+
+def hybrid_piece_timings(sd):
+    """The 2-d path's kernels on piece (0, 0) of the flagship grid: the
+    row pass, the column pass and the five-reduction pre-solve over the
+    piece's copies, against their plain versions, timed beside their
+    bounds. Returns {name@mesh2d: result}."""
+    import torch
+    from bayesbridge_tpu_torch.kernels.ne_sweep import (
+        colpass, colpass_plain, ne_rows, ne_rows_plain)
+    from bayesbridge_tpu_torch.kernels.tdots_sweep import (
+        tdots_sweep, tdots_sweep_plain)
+    piece = sd.shards[0]
+    Xs, ps = piece._hybrid_Xs()
+    m = piece.shape[0]
+    g = torch.Generator(device='cuda').manual_seed(23)
+    vs = [torch.randn(p, generator=g, device='cuda') for p in ps]
+    blocks = list(zip(Xs, vs))
+    c = torch.randn((), generator=g, device='cuda')
+    us = [torch.randn(m, generator=g, device='cuda') for _ in range(4)]
+    log(f"[mesh2d] the path's kernels on piece (0, 0): {m} rows, blocks "
+        f"{[(tuple(X.shape), str(X.dtype)) for X in Xs]}")
+    n_elem, vec, row = m * sum(ps), 4 * sum(ps), 4 * m
+    X_b = nbytes(*Xs)
+
+    def flat(r):
+        return [o for blk in r for o in blk]
+    cases = {
+        'ne_sweep[rows]': (lambda: [ne_rows(blocks, c)],
+                           lambda: [ne_rows_plain(blocks, c)],
+                           (X_b + vec + row, 2 * n_elem)),
+        'ne_sweep[cols]': (lambda: colpass(Xs, ps, us[0]),
+                           lambda: colpass_plain(Xs, ps, us[0]),
+                           (X_b + vec + row, 2 * n_elem)),
+        'tdots_sweep[u4]': (lambda: flat(tdots_sweep(Xs, ps, *us)),
+                            lambda: flat(tdots_sweep_plain(Xs, ps, *us)),
+                            (X_b + 5 * vec + 4 * row, 11 * n_elem))}
+    return {f'{name}@mesh2d': timed_case(f'{name}@mesh2d', *case)
+            for name, case in cases.items()}
+
+
+def run_mesh2d(design, outcome, sharded, m2d):
+    """The 2-d phase on the flagship's stored blocks ('auto', composed):
+    the (2, 2) grid's products against the unsharded design's with one
+    launch per piece and a rerun's bits; the path's kernels timed on a
+    piece; the same products on (1, 4) and (4, 1), the latter equal to
+    the 1-d mesh of 4 bit for bit; ``gibbs(10)`` + ``gibbs_resume(10)``
+    with the exact-resume check and a profiler window, beside the
+    unsharded and the 1-d slices' device ms from the sharded phase
+    (`sharded`, its summary); one CG solve sharded and unsharded; the
+    packed int4 block on the same grid, equal to the int8 pieces bit for
+    bit. Writes its counts, kernel results and summary into `m2d`."""
+    import os
+    import torch
+    from bayesbridge_tpu_torch.models import LogisticModel
+    from bayesbridge_tpu_torch.parallel import shard_design
+    comp = design.with_policy('auto')
+    mesh = mesh2d_mesh()
+    torch.cuda.reset_peak_memory_stats()
+    t0, before = time.perf_counter(), torch.cuda.memory_allocated()
+    sd = shard_design(comp, mesh, pred_axis='pred')
+    mesh2d_layout('mesh2d', sd, mesh, t0, before)
+    assert sd.fused_ne_mode('quad') is None and sd.cg_blockorder_ctx() is None
+    n_pieces = len(sd.local_shards())
+    summary = {'errs': sharded_checks(
+        'mesh2d', mesh2d_pairs(comp, sd, scale=.01), RTOL,
+        hybrid_launches(n_pieces))}
+    m2d['results'].update(hybrid_piece_timings(sd))
+
+    for grid in ((1, 4), (4, 1)):
+        t0, before = time.perf_counter(), torch.cuda.memory_allocated()
+        other = shard_design(comp, mesh2d_mesh(grid), pred_axis='pred')
+        label = f'mesh2d_{grid[0]}x{grid[1]}'
+        mesh2d_layout(label, other, mesh2d_mesh(grid), t0, before)
+        pairs = mesh2d_pairs(comp, other, scale=.01)
+        summary[label] = sharded_checks(label, pairs, RTOL, hybrid_launches(
+            len(other.local_shards())))
+        if grid == (4, 1):
+            one_d = mesh2d_pairs(comp, shard_design(comp, sharded_mesh()),
+                                 scale=.01)
+            for (name, fn), (_, fn1) in zip(pairs, one_d):
+                a, b = fn(True), fn1(True)
+                a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+                assert all(torch.equal(x, y) for x, y in zip(a, b)), name
+            log(f"[{label}] every product equals the 1-d mesh of 4's bit "
+                f"for bit")
+        del other, pairs
+        torch.cuda.empty_cache()
+
+    res = sharded_chain(LogisticModel(*outcome, sd), 'mesh2d_auto')
+    c = res['counts']
+    assert c['ne_oneread'] == c['ne_oneread[logit]'] == 0, c
+    assert c['ne_sweep[rows]'] > 0 and c['ne_sweep[cols]'] > 0, c
+    assert c['tdots_sweep[u4]'] >= 10 * n_pieces, c
+    m2d['counts']['mesh2d'] = c
+    dev = {'mesh2d': res['dev_ms'],
+           '1-d of 4': sharded['auto']['dev_ms'],
+           'unsharded': sharded['auto']['unsharded']['dev_ms']}
+    busy = {'mesh2d': res['busy'], '1-d of 4': sharded['auto']['busy'],
+            'unsharded': sharded['auto']['unsharded']['busy']}
+    log(f"[mesh2d_auto] device ms per iteration {dev} (busy share {busy}); "
+        f"iter/s {res['ips']:.4f} against the 1-d {sharded['auto']['ips']:.4f}"
+        f" and unsharded {sharded['auto']['unsharded']['ips']:.4f} (the "
+        f"sharded phase, this run); on one card the grid's cost, not a "
+        f"speed-up")
+    summary['chain'] = dict(dev_ms=dev, busy=busy, ips=res['ips'],
+                            mean_cg=res['mean_cg'],
+                            combines=res['combines'])
+    summary['cg_err'] = sharded_cg_solve(comp, sd, label='mesh2d')
+
+    # The packed int4 block on the same grid: the int8 pieces' bits.
+    t0 = time.perf_counter()
+    os.environ['BB_HYBRID_INT4'] = '1'
+    try:
+        d4 = comp.with_exact_tier('int4')
+        s4 = shard_design(d4, mesh, pred_axis='pred')
+    finally:
+        del os.environ['BB_HYBRID_INT4']
+    torch.cuda.synchronize()
+    assert all(s.X_exact.dtype == torch.uint8 and s.int4_binary
+               for _, s in s4.local_shards())
+    log(f"[mesh2d_int4] the flagship's block packed on the card and put on "
+        f"{mesh.grid}: {time.perf_counter() - t0:.1f} s; pieces' stored "
+        f"bytes {s4.storage_bytes() / 1e9:.3f} GB")
+    from bayesbridge_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts)
+    want = hybrid_launches(n_pieces, int4=True)
+    for (name, f8), (_, f4) in zip(mesh2d_pairs(comp, sd, scale=.01),
+                                   mesh2d_pairs(d4, s4, scale=.01)):
+        a = f8(True)
+        reset_launch_counts()
+        b = f4(True)
+        torch.cuda.synchronize()
+        counts = {k: n for k, n in launch_counts().items() if n}
+        a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), name
+        for counter, n in want.get(name, {}).items():
+            assert counts.get(counter, 0) == n, (name, counter, counts)
+        log(f"[mesh2d_int4] {name}: equal to the int8 pieces bit for bit; "
+            f"launches {counts}")
+    log(f"[mesh2d] peak device memory in the phase "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+    del s4, d4, sd
+    torch.cuda.empty_cache()
+    m2d['summary']['hybrid'] = summary
+
+
+def mesh2d_backend(label, design, tol, m2d, launches=None, gram=False):
+    """`design` on the (2, 2) grid: its products against the unsharded
+    design's within `tol` of max, a rerun's bits, launches(sd) {product:
+    {counter: launches}} asserted. Returns the sharded design (the caller
+    frees it)."""
+    import torch
+    from bayesbridge_tpu_torch.parallel import shard_design
+    mesh = mesh2d_mesh()
+    t0, before = time.perf_counter(), torch.cuda.memory_allocated()
+    sd = shard_design(design, mesh, pred_axis='pred')
+    mesh2d_layout(label, sd, mesh, t0, before)
+    m2d['summary'][label] = sharded_checks(
+        label, mesh2d_pairs(design, sd, gram=gram), tol,
+        None if launches is None else launches(sd))
+    return sd
+
+
+def mesh2d_packed(design, backend, m2d):
+    """The 2-d phase on a packed design. bitpack: the (2, 2) grid's
+    products within rtol 1e-4 of max with bitlut launched once a piece
+    (the checks' launch counts kept for the kernels line, check-only) and
+    bitlut timed on a piece. winell: the grid warns and shards over
+    ``obs`` only, wincsr launched once a row block per vector, every
+    product equal to the 1-d mesh of 2's bit for bit."""
+    import warnings
+    import torch
+    from bayesbridge_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts)
+    from bayesbridge_tpu_torch.parallel import make_mesh, shard_design
+    if backend == 'bitpack':
+        sd = mesh2d_backend(
+            'mesh2d_bitpack', design, RTOL, m2d, lambda sd: {
+                'dot': {'bitlut[dot]': len(sd.local_shards())},
+                'Tdot': {'bitlut[tdot]': len(sd.local_shards())}})
+        # The launches of one X v and one X' u on the grid.
+        n, p = design.shape
+        reset_launch_counts()
+        sd.dot(torch.ones(p, device='cuda'))
+        sd.Tdot(torch.ones(n, device='cuda'))
+        torch.cuda.synchronize()
+        m2d['counts']['mesh2d_bitpack_checks'] = launch_counts()
+        m2d['results'].update(bitpack_piece_timings(sd))
+        del sd
+        torch.cuda.empty_cache()
+        return
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        sd = shard_design(design, mesh2d_mesh(), pred_axis='pred')
+    said = [str(w.message) for w in caught]
+    assert any('observation axis only' in w for w in said), said
+    one_d = shard_design(design, make_mesh(devices=[
+        mesh2d_mesh().devices[0]] * MESH2D[0]))
+    assert sd.n_shards == MESH2D[0] and len(sd.col_pieces) == 1
+    # wincsr once a row block per vector (the Fisher diagonal: squares,
+    # and centred the sums).
+    r, diag = MESH2D[0], 1 + int(design.centered)
+    want = {'dot': {'wincsr[dot]': r}, 'Tdot': {'wincsr[tdot]': r},
+            'quad': {'wincsr[dot]': r, 'wincsr[tdot]': r},
+            'fisher diag': {'wincsr[tdot]': diag * r},
+            'dot 4 chains': {'wincsr[dot]': 4 * r},
+            'Tdot 4 chains': {'wincsr[tdot]': 4 * r},
+            'fisher diag 4 chains': {'wincsr[tdot]': 4 * diag * r}}
+    for (name, fn), (_, fn1) in zip(mesh2d_pairs(design, sd),
+                                    mesh2d_pairs(design, one_d)):
+        reset_launch_counts()
+        a = fn(True)
+        torch.cuda.synchronize()
+        assert_launches(name, launch_counts(), want[name])
+        b = fn1(True)
+        a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), name
+    log(f"[mesh2d_winell] the {MESH2D} grid warns (\"{said[0][:70]}...\") "
+        f"and shards over obs only: {sd.n_shards} row blocks, wincsr "
+        f"launched once a row block per vector, every product equal to "
+        f"the 1-d mesh of {MESH2D[0]}'s bit for bit")
+    del sd, one_d
+    torch.cuda.empty_cache()
+
+
+def bitpack_piece_timings(sd):
+    """bitlut on piece (0, 0)'s bitmaps of the bitpack grid, both
+    orientations, against its plain version, timed beside its bound.
+    Returns {name@mesh2d: result}."""
+    import torch
+    from bayesbridge_tpu_torch.kernels.bitlut import bitlut, bitlut_plain
+    piece = sd.shards[0]
+    p_bin, gcol_pad, _, _, grow_pad, _, _ = piece._bitpack_meta
+    m = piece.shape[0]
+    g = torch.Generator(device='cuda').manual_seed(24)
+    results = {}
+    for tag, bits, g_pad, n_in, n_out in (
+            ('dot', piece.bits_col, gcol_pad, p_bin, m),
+            ('tdot', piece.bits_row, grow_pad, m, p_bin)):
+        v = torch.zeros(8 * g_pad, device='cuda')
+        v[:n_in] = torch.randn(n_in, generator=g, device='cuda')
+        g_live = -(-n_in // 8)
+        name = f'bitlut[{tag}]@mesh2d'
+        log(f"[mesh2d_bitpack] {name} on piece (0, 0): "
+            f"{tuple(bits.shape)} bitmap, n_out {n_out}")
+        results[name] = timed_case(
+            name, lambda b=bits, v=v, k=n_out, t=tag: [bitlut(b, v, k, t)],
+            lambda b=bits, v=v, k=n_out: [bitlut_plain(b, v, k)],
+            (g_live * n_out + 4 * n_in + 4 * n_out,
+             g_live * n_out + 256 * 8 * g_live))
+    return results
+
+
+def ell_piece_timings(sd):
+    """``ell_matvec_k`` on the ell grid's row piece 0 (X v) and col-ELL
+    piece 0 (X' u, on the traversal the dispatch gives one vector),
+    against its plain version, timed beside its bound over the nonzeros.
+    Returns {name@mesh2d: result}."""
+    import torch
+    from bayesbridge_tpu_torch.kernels.ell import (
+        ell_matvec_k, ell_matvec_k_plain)
+    row, col = sd.shards[0], sd.col_shards[0]
+    f64 = sd.dtype == torch.float64
+    item = 8 if f64 else 4
+    g = torch.Generator(device='cuda').manual_seed(25)
+    results = {}
+    for tag, idx, val, lay, n_in in (
+            ('dot', row.row_idx, row.row_val, None, sd.shape[1] - 1),
+            ('tdot', col.col_idx, col.col_val, col.col_layout, sd.shape[0])):
+        V = torch.randn((1, n_in), generator=g, device='cuda',
+                        dtype=sd.dtype)
+        key = 'ell[tdot_win]' if lay is not None \
+            and lay.windowed(sd.dtype, 1) else f'ell[{tag}]'
+        nnz = int((val != 0).sum())
+        m = idx.shape[0]
+        log(f"[mesh2d_ell] {key}@mesh2d on {'row' if lay is None else 'col'}"
+            f"-ELL piece 0: {tuple(idx.shape)}, {nnz} nonzeros")
+        results[f'{key}@mesh2d'] = timed_case(
+            f'{key}@mesh2d',
+            lambda i=idx, v=val, l=lay, t=tag: [ell_matvec_k(i, v, V, 1, t,
+                                                             l)],
+            lambda i=idx, v=val: [ell_matvec_k_plain(i, v, V, 1)],
+            (nnz * (4 + item) + (n_in + m) * item, 2 * nnz),
+            FP64_OPS_PER_S if f64 else F32_OPS_PER_S)
+    return results
+
+
 def run_harness():
     """Phase 10: the sweep A/B harness at the flagship block shape, with the
     launch counts of its run. Returns the counts."""
@@ -3668,30 +4179,39 @@ def main():
     counts.update(sh_counts)
     log(f"[sharded] summary: {json.dumps(sharded)}")
     t0 = phase('sharded', t0)
+    # The 2-d phase's record: its launch counts by path, its kernel
+    # results and its summary, filled by the slices that hold each design.
+    m2d = {'counts': {}, 'results': {}, 'summary': {}}
+    run_mesh2d(design, outcome, sharded, m2d)
+    t0 = phase('mesh2d (flagship, int4)', t0)
     del design
     torch.cuda.empty_cache()
-    dense_counts, res = run_dense()
+    dense_counts, res = run_dense(m2d)
     counts.update(dense_counts)
     results.update(res)
     t0 = phase('dense slice', t0)
-    res, counts['bitpack'], _ = run_packed(X, outcome, 'bitpack', witness)
+    res, counts['bitpack'], _ = run_packed(X, outcome, 'bitpack', m2d,
+                                           witness)
     results.update(res)
     del X, outcome
     t0 = phase('bitpack slice', t0)
     X, outcome = build_normal_data(WINELL_N)
     res, counts['winell'], counts['winell_packing'] = run_packed(
-        X, outcome, 'winell')
+        X, outcome, 'winell', m2d)
     results.update(res)
     del X, outcome
     t0 = phase('winell slice', t0)
     X, outcome = build_normal_data(ELL_N)
-    res, ell_counts = run_ell(X, outcome)
+    res, ell_counts = run_ell(X, outcome, m2d)
     results.update(res)
     counts.update(ell_counts)
     del X, outcome
     t0 = phase('ell slice', t0)
     counts['harness'] = run_harness()
     phase('harness', t0)
+    log(f"[mesh2d] summary: {json.dumps(m2d['summary'])}")
+    counts.update(m2d['counts'])
+    results.update(m2d['results'])
 
     # The path whose run each kernel's launch count is read from. The
     # linear model's MAP search runs the one-read kernel's 'linear' mode
@@ -3751,6 +4271,13 @@ def main():
     for suffix, path in (('', 'ell64'), ('@f32', 'ell32')):
         path_of[f'ell[tdot]{suffix}'] = \
             path if counts[path]['ell[tdot]'] else path + '_checks'
+    # The 2-d phase's kernels, each under the 2-d path that ran it: the
+    # flagship grid's chain, the ell grid's chain, the bitpack grid's
+    # product checks (check-only: no chain runs on that grid).
+    for name in m2d['results']:
+        path_of[name] = {'ell': 'mesh2d_ell',
+                         'bitlut': 'mesh2d_bitpack_checks'}.get(
+            name.split('[')[0], 'mesh2d')
     kernels = []
     for name, res in results.items():
         counter = name.split('@')[0]
@@ -3767,7 +4294,8 @@ def main():
             replaces=REGISTRY[base]['replaces'], launches=launches, **res,
             path='check-only' if path in ('winell_packing', 'link_turns',
                                           'ell64_checks', 'ell32_checks',
-                                          'int4_checks')
+                                          'int4_checks',
+                                          'mesh2d_bitpack_checks')
             else path))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({'kernels': kernels}))

@@ -29,7 +29,11 @@ The nibble modes of the row pass, the column pass and the pre-solve over
 a packed int4 block (``layout.pack_int4``) must equal
 their plain versions to the same tolerance, the int8 modes on the same
 values and themselves on a rerun bit for bit, one and two blocks at
-ragged widths, and a chain on an int4 design must resume exactly.
+ragged widths, and a chain on an int4 design must resume exactly. On a
+(2, 2) obs x pred mesh of one card, each backend's pieces (int8 and int4
+cut at 32 columns, bitpack at 8, the ell row and column pieces) must
+give the CPU grid's products, their own bits on a rerun, and the int4
+pieces the int8 pieces' bits.
 """
 
 import numpy as np
@@ -1260,6 +1264,110 @@ def test_sharded_products_on_card(dev, case):
         lo = sd.presolve_reductions(u, u * w, w)
         for got, ref in zip(lo, design.presolve_reductions(u, u * w, w)):
             close(got, ref)
+
+
+def _ragged_2d_design(case, device):
+    """A 1,037-row design of ragged widths for the 2-d mesh: 70 columns
+    of values in [-8, 7] (0/1 for bitpack: 37 columns, so its pieces cut
+    at 8 leave a ragged last byte-group) beside 13 normal ones; the
+    hybrid's exact pieces cut at 32 columns, the last 6 wide."""
+    from bayesbridge_tpu_torch.design import (
+        DenseDesignMatrix, SparseDesignMatrix,
+    )
+    import scipy.sparse as sps
+    rng = np.random.default_rng(3)
+    n = 1037
+    if case == 'bitpack':
+        exact = (rng.uniform(size=(n, 37)) < .3) * 1.
+    else:
+        exact = rng.integers(-8, 8, size=(n, 70)) * (rng.uniform(
+            size=(n, 70)) < .4)
+    X = np.hstack([exact, rng.standard_normal((n, 13)) * (rng.uniform(
+        size=(n, 13)) < .5)])
+    dtype = np.float64 if case == 'ell64' else np.float32
+    if case == 'dense':
+        return DenseDesignMatrix(X, center_predictor=True, device=device)
+    backend = {'ell32': 'ell', 'ell64': 'ell', 'int4': 'hybrid',
+               'int8': 'hybrid'}.get(case, case)
+    return SparseDesignMatrix(sps.csr_matrix(X), center_predictor=True,
+                              backend=backend, fused='0', dtype=dtype,
+                              device=device)
+
+
+@pytest.mark.parametrize('case', ['int8', 'int4', 'bitpack', 'dense',
+                                  'ell32', 'ell64'])
+def test_2d_pieces_on_card(dev, case, monkeypatch):
+    """The design on a (2, 2) mesh of [dev] * 4 (each piece a copy at
+    ragged widths): every product equals the same grid's on the CPU (the
+    kernels' plain versions) within rtol 1e-4 of max (float64 1e-12),
+    the same bits on a rerun, each piece's kernel launched once a call;
+    the int4 pieces equal the int8 pieces bit for bit."""
+    from bayesbridge_tpu_torch.design import sparse as sparse_mod
+    from bayesbridge_tpu_torch.parallel import make_mesh, shard_design
+    if case == 'int4':
+        monkeypatch.setenv('BB_HYBRID_INT4', '1')
+        monkeypatch.setattr(sparse_mod, '_INT4_SUPPORTED', {})
+    on = {}
+    for where in ('cpu', dev):
+        design = _ragged_2d_design(case, where)
+        if case in ('int8', 'int4'):
+            assert layout.is_int4(design.X_exact) == (case == 'int4')
+        on[str(where)] = shard_design(
+            design, make_mesh((2, 2), devices=[torch.device(where)] * 4),
+            pred_axis='pred')
+    plain, sd = on['cpu'], on[str(dev)]
+    assert len(sd.col_pieces) == 2
+    tdt = sd.dtype
+    tol = 1e-12 if tdt == torch.float64 else 1e-4
+    g = torch.Generator().manual_seed(6)
+    n, p = sd.shape
+    v, u = torch.randn(p, generator=g, dtype=tdt), torch.randn(
+        n, generator=g, dtype=tdt)
+    w = torch.rand(n, generator=g, dtype=tdt) + .5
+    V = torch.randn((3, p), generator=g, dtype=tdt)
+    calls = {'dot': lambda d, t: d.dot(t(v)), 'Tdot': lambda d, t: d.Tdot(
+        t(u)), 'quad': lambda d, t: d.quad_matvec(t(v), t(w)),
+        'diag': lambda d, t: d.compute_fisher_diag(t(w)),
+        'dot3': lambda d, t: d.dot(t(V))}
+    if sd.has_presolve_reductions():
+        calls['presolve'] = lambda d, t: d.presolve_reductions(
+            t(u), t(u * w), t(w), t(w * v[0]))
+    kern = {'int8': ('ne_sweep[rows]', 'ne_sweep[cols]'),
+            'int4': ('ne_rows_i4', 'colpass_i4'),
+            'bitpack': ('bitlut[dot]', 'bitlut[tdot]')}.get(case)
+    got = {}
+    for name, fn in calls.items():
+        ref = fn(plain, lambda x: x)
+        reset_launch_counts()
+        out = fn(sd, lambda x: x.to(dev))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        ref, out = (ref, out) if isinstance(ref, tuple) else ((ref,), (out,))
+        scale = max(float(r.abs().max()) for r in ref)
+        for a, b in zip(out, ref):
+            assert float((a.cpu() - b).abs().max()) <= tol * scale, name
+        again = fn(sd, lambda x: x.to(dev))
+        again = again if isinstance(again, tuple) else (again,)
+        assert all(torch.equal(a, b) for a, b in zip(out, again)), name
+        if kern and name == 'dot':
+            assert counts[kern[0]] == 4, counts
+        if kern and name == 'Tdot':
+            assert counts[kern[1]] == 4, counts
+        if case.startswith('ell') and name == 'dot':
+            assert counts['ell[dot]'] + counts['ell[dot_st]'] == 2, counts
+        if case.startswith('ell') and name == 'Tdot':
+            assert counts['ell[tdot]'] + counts['ell[tdot_win]'] == 2, counts
+        got[name] = out
+    if case == 'int4':
+        monkeypatch.delenv('BB_HYBRID_INT4')
+        s8 = shard_design(
+            _ragged_2d_design('int8', dev),
+            make_mesh((2, 2), devices=[dev] * 4), pred_axis='pred')
+        for name, fn in calls.items():
+            out = fn(s8, lambda x: x.to(dev))
+            out = out if isinstance(out, tuple) else (out,)
+            assert all(torch.equal(a, b) for a, b in zip(out, got[name])), \
+                name
 
 
 def _int4_blocks(g, dev, n, pe, pf, binary):

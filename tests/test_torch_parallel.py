@@ -23,8 +23,9 @@ on the CPU, on meshes of 1-4 repeated CPU devices.
 * ``gibbs_chains(mesh=)`` on a 2-device mesh: each chain equals the chain
   alone bit for bit, and resume is exact.
 * Row views, ``place_model``, the launch counters from several threads,
-  and the errors (2-d mesh, ``pred_axis``, ``mesh=`` on a sharded
-  model).
+  and the errors (a mesh larger than its devices, a ``pred_axis`` the
+  mesh lacks, winell's warning on a 2-d mesh, ``mesh=`` on a sharded
+  model). The 2-d mesh: tests/test_torch_mesh2d.py.
 """
 
 import os
@@ -281,10 +282,17 @@ def test_sharded_cg_matches_jax_sharded_cg():
     """Same b, preconditioner, warm start and perturbation: the port's
     4-shard float64 CG solve and the JAX package's solve on its sharded
     design take as many iterations and agree within 1e-10."""
+    check_cg_against_jax(4, cpu_mesh(4))
+
+
+def check_cg_against_jax(grid, mesh, pred_axis=None):
+    """The float64 CG solve of a 120-row hybrid design sharded on `mesh`
+    against the JAX package's on its design sharded on the JAX mesh of
+    `grid` (both with `pred_axis`)."""
     X = _data(120, seed=9)
     jd, td = _pair('hybrid', np.float64, X, True, True)
-    jax_shard_design(jd, jax_make_mesh(4))
-    sd = shard_design(td, cpu_mesh(4))
+    jax_shard_design(jd, jax_make_mesh(grid), pred_axis=pred_axis)
+    sd = shard_design(td, mesh, pred_axis=pred_axis)
     rng = np.random.default_rng(9)
     n, p = td.shape
     dense = td.toarray()
@@ -339,9 +347,15 @@ def _chain_model(case):
 
 @pytest.mark.parametrize('case', ['hybrid', 'ell', 'cox'])
 def test_sharded_chain_matches_unsharded(case):
+    check_sharded_chain(case, cpu_mesh(3))
+
+
+def check_sharded_chain(case, mesh, pred_axis=None):
+    """The float64 chain of `case` sharded on `mesh` within 1e-9 of the
+    unsharded chain over 5 iterations, and its exact resume."""
     model, sampler = _chain_model(case)
     sharded, _ = _chain_model(case)
-    shard_model(sharded, cpu_mesh(3))
+    shard_model(sharded, mesh, pred_axis=pred_axis)
     kw = dict(seed=4, coef_sampler_type=sampler, params_to_save='all')
     ref, _ = BayesBridge(model, RegressionCoefPrior(**PRIOR_KW)).gibbs(5,
                                                                        **kw)
@@ -356,12 +370,20 @@ def test_sharded_chain_matches_unsharded(case):
                                   prev_samples=first)
     for key in got:
         np.testing.assert_array_equal(more[key], got[key])
+    return sharded
 
 
 def test_chains_on_mesh_equal_chains_alone():
     """Three chains over a 2-device mesh (groups of 2 and 1, each on its
     own thread): chain c equals the chain run alone from its start and
     generator, bit for bit; the resumed run equals the longer one."""
+    check_chains_on_mesh(cpu_mesh(2))
+
+
+def check_chains_on_mesh(mesh):
+    """Three chains over `mesh`, a group a mesh row: each chain equal to
+    the chain alone, the resumed run to the longer one, and the chains
+    without a mesh to the same."""
     X = _data(120, seed=21)
     beta = np.zeros(X.shape[1])
     beta[:3] = 1.
@@ -373,7 +395,6 @@ def test_chains_on_mesh_equal_chains_alone():
               'local_scale': np.ones(bridge.n_pred - 1)} for c in range(3)]
     kw = dict(seed=8, init=inits, coef_sampler_type='cg',
               params_to_save='all')
-    mesh = cpu_mesh(2)
     samples, info = gibbs_chains(bridge, 4, 3, mesh=mesh, **kw)
     opts = bridge._resolve_options('cg', None)
     cfg = bridge._step_config(opts)
@@ -457,11 +478,16 @@ def test_launch_counts_from_threads_add_up():
 
 
 def test_mesh_errors():
-    with pytest.raises(NotImplementedError, match='15b'):
-        make_mesh((2, 2), devices=[CPU] * 4)
+    with pytest.raises(ValueError, match='needs 6 devices, 4 given'):
+        make_mesh((2, 3), devices=[CPU] * 4)
     model, _ = _chain_model('hybrid')
-    with pytest.raises(NotImplementedError, match='15b'):
+    with pytest.raises(ValueError, match="no predictor axis 'pred'"):
         shard_design(model.design, cpu_mesh(2), pred_axis='pred')
+    winell = SparseDesignMatrix(_data(40, seed=1), backend='winell',
+                                device='cpu')
+    with pytest.warns(UserWarning, match='observation axis only'):
+        shard_design(winell, make_mesh((2, 2), devices=[CPU] * 4),
+                     pred_axis='pred')
     mesh = cpu_mesh(2)
     assert mesh.shape['shard'] == 2 and mesh.home == CPU
     if not torch.cuda.is_available():
