@@ -343,7 +343,7 @@ class BayesBridge:
             resid = (self.model.y - lin_pred).double().cpu().numpy()
             return float(self.rg.gamma(self.n_obs / 2)) \
                 / (np.sum(resid ** 2) / 2)
-        return self.rg.polya_gamma(self.model.n_trial_np, lin_pred)
+        return self.rg.polya_gamma(self.model.pg_shape, lin_pred)
 
     def _draw_local_scale(self, gscale, coef_shrunk, bridge_exp):
         """Eager one-time local-scale draw (bayesbridge.py:458-478)."""

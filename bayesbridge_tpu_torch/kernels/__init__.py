@@ -2,8 +2,10 @@
 
 Counterparts of the Pallas kernels of ``bayesbridge_tpu/design/``
 (``fusedne.py``, ``bitlut.py``, ``winell.py``) and of the sweep A/B
-harness ``baselines/dev_ne_variants.py``, and the ell backend's gather
-product, which the JAX package left to XLA. One dispatch point
+harness ``baselines/dev_ne_variants.py``, the ell backend's gather
+product, which the JAX package left to XLA, and the Polya-Gamma and
+tilted-stable rejection loops that it runs as device loops
+(:mod:`.draws`). One dispatch point
 per kernel: each wrapper launches its CUDA kernel for CUDA tensors and
 runs its plain version (beside it in the same module) for CPU tensors;
 no call site branches on the device. ``REGISTRY`` names each kernel's
@@ -11,6 +13,7 @@ source and the TPU kernel it replaces, for the chip smoke's report.
 """
 
 from . import bitlut as _bl
+from . import draws as _dr
 from . import ell as _el
 from . import ne_onepass as _op
 from . import ne_oneread as _or
@@ -61,6 +64,12 @@ REGISTRY = {
     # ell[tdot_st] the staged one.
     'ell': dict(source='bayesbridge_tpu_torch/csrc/ell.cu',
                 replaces='bayesbridge_tpu/design/sparse.py:1006'),
+    # No Pallas kernel: the device loops of the two rejection samplers
+    # (lax.while_loops under jit, run_rejection at rejection.py:76).
+    'pg_draw': dict(source='bayesbridge_tpu_torch/csrc/polya_gamma.cu',
+                    replaces='bayesbridge_tpu/random/polya_gamma.py:225'),
+    'ts_draw': dict(source='bayesbridge_tpu_torch/csrc/tilted_stable.cu',
+                    replaces='bayesbridge_tpu/random/tilted_stable.py:311'),
 }
 
 
@@ -79,7 +88,8 @@ def launch_counts():
     'tdots_i4', 'tdots_i4[u4]', their binary modes 'tdots_i4[bin]' and
     'tdots_i4[u4,bin]' (single-vector launches), and their '...[chains]'
     counts ('tdots_i4[u4,bin,chains]': one single launch per chain of a
-    chain batch, which has no nibble mode)}."""
+    chain batch, which has no nibble mode), and the draws 'pg_draw' and
+    'ts_draw'}."""
     counts = {f'ne_sweep[{key}]': k for key, k in _ne.launches.items()
               if not key.endswith('_k') and 'i4' not in key}
     for name, key in (('ne_rows_i4', 'rows_i4'), ('colpass_i4', 'cols_i4')):
@@ -103,6 +113,8 @@ def launch_counts():
                       ('ell', _el), ('stream_probe', _sp)):
         counts.update({f'{name}[{tag}]': k
                        for tag, k in mod.launches.items()})
+    counts['pg_draw'] = _dr.launches['pg']
+    counts['ts_draw'] = _dr.launches['ts']
     counts['ne_onepass'] = _op.launches['onepass']
     counts['ne_oneread'] = _or.launches['ne']
     counts.update({f'ne_oneread[{mid}]': _or.launches[mid]
@@ -113,7 +125,7 @@ def launch_counts():
 def reset_launch_counts():
     for counter in (_ne.launches, _td.launches, _bl.launches, _we.launches,
                     _wc.launches, _el.launches, _op.launches, _or.launches,
-                    _sp.launches):
+                    _sp.launches, _dr.launches):
         for key in counter:
             counter[key] = 0
 

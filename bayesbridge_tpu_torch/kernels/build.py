@@ -31,8 +31,9 @@ CSRC = _PKG / 'csrc'
 BUILD_ROOT = _PKG / '_build'
 SOURCES = ('ne_oneread.cu', 'ne_sweep.cu', 'tdots_sweep.cu', 'bitlut.cu',
            'winell.cu', 'wincsr.cu', 'ne_onepass.cu', 'stream_probe.cu',
-           'ell.cu')
-HEADERS = ('sweep_common.cuh', 'mbarrier.cuh')
+           'ell.cu', 'polya_gamma.cu', 'tilted_stable.cu',
+           'philox_check.cu')
+HEADERS = ('sweep_common.cuh', 'mbarrier.cuh', 'philox.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC')
 
@@ -77,6 +78,11 @@ _SIGNATURES = {
     'bb_batched_occupancy': [_I, _I, _I],
     'bb_rows_per_block': [],
     'bb_has_int4': [],
+    'bb_pg_draw': [_I, _P, _P, _P, _I, _L, _I, _P, _P, _P, _P],
+    'bb_ts_draw': [_I, _P, _P, _I, _L, ctypes.c_double, _I, _I, _I, _I, _P,
+                   _P, _P, _P, _P],
+    'bb_philox_check': [_P, _P, _P, _P, _I, _P],
+    'bb_philox_stream': [_I, _L, _L, _P, _I, _P, _P, _I, _P],
 }
 
 

@@ -29,10 +29,15 @@ class LogisticModel(AbstractModel):
             n_trial = np.ones(len(n_success))
             warn("The numbers of trials were not specified. The binary "
                  "outcome is assumed.")
-        # Host copy of the trial counts: the Polya-Gamma draw expands
-        # each row into n_trial unit-shape draws.
+        # The trial counts as the Polya-Gamma draw's shapes: on the host
+        # (the CPU's rounds expand each row into n_trial unit-shape
+        # draws), and on the model's device once as int32, or None where
+        # every count is 1 (the kernel then takes no shapes).
         self.n_trial_np = np.asarray(n_trial, dtype=np.int64)
         dev = design.device
+        self.pg_shape = None if np.all(self.n_trial_np == 1) \
+            else torch.as_tensor(self.n_trial_np, dtype=torch.int32,
+                                 device=dev)
         self.n_trial = torch.as_tensor(np.asarray(n_trial, np.float64),
                                        dtype=design.dtype, device=dev)
         self.n_success = torch.as_tensor(

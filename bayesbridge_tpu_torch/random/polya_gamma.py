@@ -8,13 +8,16 @@ left-truncated exponential (right piece) and a right-truncated
 inverse-Gaussian (left piece), split at 2/pi, and an alternating-series
 acceptance test truncated at 100 terms.
 
-The scalar nested loops are flattened into one lane-parallel state
-machine run by :func:`.rejection.run_rejection` on a ``torch.Generator``:
-each round advances every unfinished lane by one attempt of whatever
-stage it is in. Integer shapes > 1 expand each lane into ``shape``
-unit-shape lanes and sum back. :func:`sample_polya_gamma_chains` draws
-for several Markov chains at once, each chain's lanes from its own
-generator, and equals the chains drawn one at a time.
+:func:`sample_polya_gamma_chains` draws for several Markov chains at
+once, each chain's lanes from its own generator, and equals the chains
+drawn one at a time. It is the one dispatch point: on the card the
+hand-written kernel ``csrc/polya_gamma.cu`` runs each lane's rejection
+chain in a thread (:mod:`..kernels.draws`); on the CPU the plain version
+(:func:`sample_polya_gamma_plain`) flattens the scalar nested loops into
+one lane-parallel state machine run by :func:`.rejection.run_rejection`
+on a ``torch.Generator``: each round advances every unfinished lane by
+one attempt of whatever stage it is in. Integer shapes > 1 expand each
+lane into ``shape`` unit-shape lanes and sum back.
 """
 
 import math
@@ -22,11 +25,12 @@ import math
 import numpy as np
 import torch
 
+from ..kernels.draws import PG_MAX_ROUNDS as _MAX_REJECTION_ROUNDS
+from ..kernels.draws import polya_gamma_draw
 from .rejection import normal, run_rejection, uniform_open
 
 THRESHOLD = 2.0 / math.pi  # proposal split point (polya_gamma.pyx:26)
 MAX_SERIES_TERMS = 100     # series truncation (polya_gamma.pyx:27)
-_MAX_REJECTION_ROUNDS = 512
 
 
 def _log_series_term(n, x):
@@ -166,17 +170,14 @@ def sample_unit_shape_polya_gamma(gen, tilt,
                               max_rounds).reshape(tilt.shape)
 
 
-def sample_polya_gamma_chains(gens, shape, tilt,
-                              max_rounds=_MAX_REJECTION_ROUNDS):
-    """PG(shape, tilt) draws for k Markov chains: tilt (k, n), `shape`
-    the (n,) integer shapes (host data) shared by the chains, row c drawn
-    from gens[c] as :func:`sample_polya_gamma` would draw it alone."""
+def sample_polya_gamma_plain(gens, shape, tilt,
+                             max_rounds=_MAX_REJECTION_ROUNDS):
+    """The plain version of :func:`sample_polya_gamma_chains`: the rounds
+    on each chain's generator, on a tensor on any device. `shape` is
+    host data (the (n,) integer shapes) or None (all ones)."""
+    if shape is None:
+        return _unit_shape_chains(gens, tilt, max_rounds)
     shape = np.asarray(shape)
-    if not np.issubdtype(shape.dtype, np.integer):
-        raise ValueError('Shape parameter must be integers.')
-    if tilt.dim() != 2 or shape.size != tilt.shape[1] \
-            or len(gens) != tilt.shape[0]:
-        raise ValueError('Input arrays must be of the same length.')
     if np.all(shape == 1):
         return _unit_shape_chains(gens, tilt, max_rounds)
     seg = torch.as_tensor(np.repeat(np.arange(shape.size), shape),
@@ -192,10 +193,43 @@ def sample_polya_gamma_chains(gens, shape, tilt,
         shape, device=tilt.device)]).to(tilt.dtype)
 
 
-def sample_polya_gamma(gen, shape, tilt, max_rounds=_MAX_REJECTION_ROUNDS):
-    """PG(shape, tilt) draws for integer `shape` (host data), as the sum
-    of `shape[i]` unit-shape draws per lane (polya_gamma.pyx:61-74)."""
-    if np.asarray(shape).size != tilt.numel():
+def sample_polya_gamma_chains(gens, shape, tilt,
+                              max_rounds=_MAX_REJECTION_ROUNDS):
+    """PG(shape, tilt) draws for k Markov chains: tilt (k, n), `shape`
+    the (n,) integer shapes shared by the chains, row c drawn from gens[c]
+    as :func:`sample_polya_gamma` would draw it alone.
+
+    `shape` is host data, None (all ones) or an integer tensor on tilt's
+    device (the model's ``pg_shape``, moved to the card once). The one
+    dispatch point: a CUDA tensor launches the kernel
+    (:func:`..kernels.draws.polya_gamma_draw`, one thread a lane, no host
+    sync), a CPU tensor runs :func:`sample_polya_gamma_plain`."""
+    on_device = torch.is_tensor(shape)
+    if shape is not None:
+        if not on_device:
+            shape = np.asarray(shape)
+        if (shape.is_floating_point() if on_device
+                else not np.issubdtype(shape.dtype, np.integer)):
+            raise ValueError('Shape parameter must be integers.')
+        n = shape.numel() if on_device else shape.size
+    if tilt.dim() != 2 or len(gens) != tilt.shape[0] or (
+            shape is not None and n != tilt.shape[1]):
         raise ValueError('Input arrays must be of the same length.')
+    if tilt.device.type == 'cpu':
+        return sample_polya_gamma_plain(
+            gens, shape.cpu().numpy() if on_device else shape, tilt,
+            max_rounds)
+    if on_device:
+        shape = shape.to(device=tilt.device, dtype=torch.int32).contiguous()
+    elif shape is not None:
+        shape = None if np.all(shape == 1) else torch.as_tensor(
+            shape, dtype=torch.int32, device=tilt.device)
+    return polya_gamma_draw(gens, tilt, shape, max_rounds)
+
+
+def sample_polya_gamma(gen, shape, tilt, max_rounds=_MAX_REJECTION_ROUNDS):
+    """PG(shape, tilt) draws for integer `shape` (as
+    :func:`sample_polya_gamma_chains` takes it), as the sum of `shape[i]`
+    unit-shape draws per lane (polya_gamma.pyx:61-74)."""
     return sample_polya_gamma_chains(
         [gen], shape, tilt.reshape(1, -1), max_rounds).reshape(tilt.shape)

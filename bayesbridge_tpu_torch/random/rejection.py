@@ -1,12 +1,16 @@
 """Per-lane rejection loops in PyTorch, for one chain or several side by
-side.
+side: the plain route of the Polya-Gamma and tilted-stable samplers.
 
 The JAX package runs its rejection samplers through a lane-compaction
 loop (``bayesbridge_tpu/random/rejection.py``) shaped by the TPU's
-lane width. Eager PyTorch compacts for free: each round draws only for
-the lanes still running, picked by boolean indexing, so the straggler
-tail costs what it draws. The host syncs a fixed number of times per
-round, however many chains run.
+lane width, one device program per draw. On the card the port runs them
+as hand-written kernels, one thread a lane (``csrc/polya_gamma.cu``,
+``csrc/tilted_stable.cu``, :mod:`..kernels.draws`); the rounds here are
+their plain versions, which the CPU runs (and the chip smoke calls on
+the card to compare). Eager PyTorch compacts for free: each round draws
+only for the lanes still running, picked by boolean indexing, so the
+straggler tail costs what it draws. The host syncs a fixed number of
+times per round, however many chains run.
 
 Every lane runs its own chain to its own acceptance (no replicas, the
 ``tail_replicas=1`` semantics of the JAX loop): a first-finisher pick

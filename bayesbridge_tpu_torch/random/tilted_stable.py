@@ -9,8 +9,11 @@ Two algorithms, chosen lane-wise like the reference by the
 ``tilt**char_exp < 2`` crossover (tilted_stable.pyx:103-112):
 divide-and-conquer (Hofert 2011), cheap while ``tilt**char_exp`` is
 small, and double rejection (Devroye 2009), O(1) expected cost in the
-tilt. Each runs as a lane-parallel rejection loop on a
-``torch.Generator`` (:func:`.rejection.run_rejection`).
+tilt. On the card the hand-written kernel ``csrc/tilted_stable.cu``
+runs each lane's chain in a thread (:mod:`..kernels.draws`); on the CPU
+the plain version (:func:`sample_tilted_stable_plain`) runs each as a
+lane-parallel rejection loop on a ``torch.Generator``
+(:func:`.rejection.run_rejection`).
 """
 
 import math
@@ -18,11 +21,14 @@ import math
 import numpy as np
 import torch
 
+from ..kernels.draws import TS_MAX_ROUNDS as _MAX_REJECTION_ROUNDS
+from ..kernels.draws import (
+    TILT_POWER_THRESHOLD, TS_MAX_PARTITION, tilted_stable_draw,
+    ts_dc_rounds,
+)
 from ..utils.chains import pow_pos
 from .rejection import normal, run_rejection, uniform_open
 
-TILT_POWER_THRESHOLD = 2.0  # same crossover as tilted_stable.pyx:52
-_MAX_REJECTION_ROUNDS = 256
 # Memoryless chains (double rejection; divide-and-conquer with one
 # partition) run several iid attempts per lane per round once fewer lanes
 # than this remain (see run_rejection).
@@ -67,15 +73,46 @@ def _sample_non_tilted(gen, alpha):
     return pow_pos(ratio, (1.0 - alpha) / alpha)
 
 
+def _partitions(tilt, alpha, max_partition):
+    """Divide-and-conquer's m = max(1, floor(tilt^alpha)), capped at
+    `max_partition`, per lane (int32)."""
+    # Clamp in float before the integer cast.
+    return torch.clamp_min(torch.floor(torch.clamp_max(
+        pow_pos(tilt, alpha), float(max_partition))).to(torch.int32), 1)
+
+
+def _use_divide_conquer(tilt, alpha, method):
+    """Lanes on divide-and-conquer: by the ``tilt**alpha < 2`` crossover,
+    or all or none for a forced method."""
+    if method is None:
+        return pow_pos(tilt, alpha) < TILT_POWER_THRESHOLD
+    return torch.full_like(tilt, method == 'divide-conquer',
+                           dtype=torch.bool)
+
+
+def _clamp_tilt(tilt):
+    return torch.clamp_min(tilt, float(np.finfo(np.float32).tiny))
+
+
+def lane_plan(char_exponent, tilt, method=None,
+              max_partition=TS_MAX_PARTITION):
+    """Each lane's method as the plain version picks it, and as the
+    kernel reports it (its ``plan`` output): (k, m) int32, the partitions
+    of a divide-and-conquer lane, 0 for a double-rejection lane."""
+    tilt = _clamp_tilt(tilt)
+    alpha = torch.full_like(tilt, char_exponent)
+    m = _partitions(tilt, alpha, max_partition)
+    return torch.where(_use_divide_conquer(tilt, alpha, method), m,
+                       torch.zeros_like(m))
+
+
 def _sample_divide_conquer(gens, counts, alpha, tilt, max_partition,
                            max_rounds):
     """X = sum over `m = max(1, floor(tilt^alpha))` partitions of scaled
     stable draws, each accepted with probability exp(-tilt * S)
     (tilted_stable.pyx:137-155); a lane finishes once it has `m`
     accepted partition draws."""
-    # Clamp in float before the integer cast.
-    m = torch.clamp_min(torch.floor(torch.clamp_max(
-        pow_pos(tilt, alpha), float(max_partition))).to(torch.int32), 1)
+    m = _partitions(tilt, alpha, max_partition)
     c = pow_pos(1.0 / m.to(tilt.dtype), 1.0 / alpha)
 
     if bool((m == 1).all()):
@@ -217,7 +254,7 @@ def _sample_double_rejection(gens, counts, alpha, tilt, max_rounds):
 
 def sample_tilted_stable(gen, char_exponent, tilt, method=None,
                          max_rounds=_MAX_REJECTION_ROUNDS,
-                         max_partition=4096):
+                         max_partition=TS_MAX_PARTITION):
     """Draw one exponentially tilted stable variate per element of `tilt`.
 
     Parameters
@@ -239,11 +276,13 @@ def sample_tilted_stable(gen, char_exponent, tilt, method=None,
 
 def sample_tilted_stable_chains(gens, char_exponent, tilt, method=None,
                                 max_rounds=_MAX_REJECTION_ROUNDS,
-                                max_partition=4096):
+                                max_partition=TS_MAX_PARTITION):
     """:func:`sample_tilted_stable` for k Markov chains: tilt (k, m), row
-    c drawn from gens[c] as it would be drawn alone. (The forced
-    divide-and-conquer method takes its one-partition shortcut only when
-    every chain's lanes allow it; the automatic choice always does.)"""
+    c drawn from gens[c] as it would be drawn alone.
+
+    The one dispatch point: a CUDA tensor launches the kernel
+    (:func:`..kernels.draws.tilted_stable_draw`, one thread a lane, no
+    host sync), a CPU tensor runs :func:`sample_tilted_stable_plain`."""
     if not 0.0 < char_exponent < 1.0:
         raise ValueError(
             "char_exponent must lie in (0, 1); got "
@@ -254,19 +293,27 @@ def sample_tilted_stable_chains(gens, char_exponent, tilt, method=None,
     if tilt.dim() != 2 or tilt.shape[0] != len(gens):
         raise ValueError("tilt must be (n_chains, m), one row per "
                          "generator")
-    tilt = torch.clamp_min(tilt, float(np.finfo(np.float32).tiny))
-    alpha = torch.full_like(tilt, char_exponent)
-    if method is None:
-        use_dc = pow_pos(tilt, alpha) < TILT_POWER_THRESHOLD
-    elif method == 'divide-conquer':
-        use_dc = torch.ones_like(tilt, dtype=torch.bool)
-    elif method == 'double-rejection':
-        use_dc = torch.zeros_like(tilt, dtype=torch.bool)
-    else:
+    if method not in (None, 'divide-conquer', 'double-rejection'):
         raise ValueError("Unrecognized method name.")
-    # Forced divide-conquer can need ~e*m accepted rounds for m partitions.
-    dc_rounds = max_rounds if method is None \
-        else max(max_rounds, 3 * max_partition + 64)
+    if tilt.device.type == 'cpu':
+        return sample_tilted_stable_plain(gens, char_exponent, tilt, method,
+                                          max_rounds, max_partition)
+    return tilted_stable_draw(gens, char_exponent, tilt, method, max_rounds,
+                              max_partition)
+
+
+def sample_tilted_stable_plain(gens, char_exponent, tilt, method=None,
+                               max_rounds=_MAX_REJECTION_ROUNDS,
+                               max_partition=TS_MAX_PARTITION):
+    """The plain version of :func:`sample_tilted_stable_chains`: the
+    rounds on each chain's generator, on a float tensor (k, m) on any
+    device. (The forced divide-and-conquer method takes its one-partition
+    shortcut only when every chain's lanes allow it; the automatic choice
+    always does.)"""
+    tilt = _clamp_tilt(tilt)
+    alpha = torch.full_like(tilt, char_exponent)
+    use_dc = _use_divide_conquer(tilt, alpha, method)
+    dc_rounds = ts_dc_rounds(method, max_rounds, max_partition)
     n_dc = use_dc.sum(1).tolist()
     n_dr = [tilt.shape[1] - c for c in n_dc]
     out = torch.empty_like(tilt)

@@ -98,7 +98,7 @@ def update_obs_precision_chains(cfg, model, gens, lin_pred):
         rate = rsum(resid * resid) / 2.0
         draw = _gamma(gens, cfg.n_obs / 2.0, cfg.dtype, lin_pred.device)
         return (draw / rate).to(cfg.dtype)
-    return sample_polya_gamma_chains(gens, model.n_trial_np,
+    return sample_polya_gamma_chains(gens, model.pg_shape,
                                      lin_pred).to(cfg.dtype)
 
 

@@ -62,7 +62,19 @@ Phases, each of which raises on failure (exit code != 0):
    MAP search's witness (the search with the fused objective, on
    ``ne_oneread[logit]``, and with the composed one on the same design,
    and the two objectives compared) and the two objectives' times in
-   turns; then the int4 phase (``BB_HYBRID_INT4=1``): the nibble modes of
+   turns; then the draws phase: ``pg_draw`` at the composed chain's
+   linear predictor (n = 100,000) and ``ts_draw`` at its (coef /
+   gscale)^2 (p = 50,000, alpha 0.25), then at fixed-tilt grids of
+   100,000 lanes (PG z in 0, 0.1, 1, 4, 20, 40; tilted stable at alpha
+   0.25 and 0.5, tilts 1e-30 to 1e4 and 16, the crossover's edge), in
+   float32 and float64, each against its plain rounds by KS (p > 1e-4)
+   and the closed-form moments, with the rounds a lane took and no
+   capped lane; both timed at the flagship shapes (each kernel alone
+   from a profiler trace, the wrapper by CUDA events and the host clock)
+   beside the plain rounds, and run under
+   ``torch.cuda.set_sync_debug_mode('error')`` (every chain phase of
+   the smoke asserts ``ts_draw``, and on logit ``pg_draw``, at least
+   once an iteration); then the int4 phase (``BB_HYBRID_INT4=1``): the nibble modes of
    the row pass, the column pass and the pre-solve (four and five
    reductions; its binary mode on 0/1 blocks) against their plain
    versions (rtol 1e-4 of max|plain|) at ragged small shapes (values in
@@ -156,7 +168,8 @@ Phases, each of which raises on failure (exit code != 0):
    (``gibbs(20)``, its MAP search on ``ne_oneread[logit]``, 10 resumed
    iterations, the resume check, a profiler window), the Gram and the
    Cholesky factor timed in float32 and float64 beside their bounds,
-   ``gibbs(10)`` in float64 (no kernel launched), and the CG sampler
+   ``gibbs(10)`` in float64 (no product kernel launched, only the
+   draws), and the CG sampler
    under ``fused='1'`` (the kernels on the lone block) and ``'auto'``
    (the cuBLAS pair), ``gibbs(20)`` each; before the chains, the design
    on the 2 x 2 grid (its stored columns cut at 4), the products and the
@@ -954,16 +967,50 @@ def device_csr_pair(X, col_map=None, dtype='float32'):
         m = int(col_map.max()) + 1
         del jb, keep
 
-    def csr(r, c, v, shape):
-        crow = torch.zeros(shape[0] + 1, dtype=torch.int64, device=dev)
-        crow[1:] = torch.cumsum(torch.bincount(r, minlength=shape[0]), 0)
-        return torch.sparse_csr_tensor(crow.int(), c.int(), v, size=shape,
-                                       check_invariants=False)
-
-    A = csr(rows, cols, vals, (n, m))
+    A = csr_tensor(rows, cols, vals, (n, m))
     order = torch.argsort(cols, stable=True)
-    At = csr(cols[order], rows[order], vals[order], (m, n))
+    At = csr_tensor(cols[order], rows[order], vals[order], (m, n))
     return A, At
+
+
+def csr_tensor(r, c, v, shape):
+    """A torch sparse CSR matrix on r's device from entries sorted by row
+    (int32 indices)."""
+    import torch
+    crow = torch.zeros(shape[0] + 1, dtype=torch.int64, device=r.device)
+    crow[1:] = torch.cumsum(torch.bincount(r, minlength=shape[0]), 0)
+    return torch.sparse_csr_tensor(crow.int(), c.int(), v, size=shape,
+                                   check_invariants=False)
+
+
+def bitmap_csr(bits, n_in, n_out):
+    """The (n_out, n_in) 0/1 matrix of a bitlut bitmap (byte bits[g, m]
+    bit b = entry (m, 8g + b)) as a float32 CSR on the card, for the
+    library yardstick."""
+    import torch
+    rows, cols = [], []
+    for b in range(8):
+        g, m = torch.nonzero((bits >> b) & 1, as_tuple=True)
+        keep = (m < n_out) & (8 * g + b < n_in)
+        rows.append(m[keep])
+        cols.append(8 * g[keep] + b)
+    rows, cols = torch.cat(rows), torch.cat(cols)
+    order = torch.argsort(rows * n_in + cols)
+    return csr_tensor(rows[order], cols[order],
+                      torch.ones(order.numel(), device=bits.device),
+                      (n_out, n_in))
+
+
+def ell_csr(idx, val, n_in):
+    """The (rows, n_in) matrix of ELL arrays (row i's entries val[i, s] at
+    column idx[i, s], zero values padding) as a CSR in val's dtype, for
+    the library yardstick."""
+    import torch
+    rows = torch.arange(idx.shape[0], device=idx.device)[:, None] \
+        .expand_as(idx)
+    keep = val != 0
+    return csr_tensor(rows[keep], idx[keep].long(), val[keep],
+                      (idx.shape[0], n_in))
 
 
 def packed_kernel_timings(design, X, kind):
@@ -1186,6 +1233,7 @@ def run_chain(model, label, step_bytes, n_first=30, n_more=20,
     samples, info = bridge.gibbs(n_iter=n_first, **kw)
     torch.cuda.synchronize()
     counts = launch_counts()
+    assert_draws(label, counts, n_first, model.name)
     wall = time.perf_counter() - t0
     n_cg = info['_reg_coef_sampling_info'].get('n_cg_iter',
                                                np.zeros(n_first))
@@ -1448,6 +1496,10 @@ def run_hybrid(X, outcome):
         log(f"[{label}] steady state {st['ips']:.4f} iter/s, mean CG "
             f"iterations {st['mean_cg']:.2f}, device busy {busy}, signal "
             f"mean coef[1:11] {st['signal']:.4f}")
+    # The composed chain's state after its timed iterations, for the
+    # draws phase.
+    chain_state = stats['hybrid_composed']['chain'][1][
+        '_markov_chain_state_raw']
     ab_segments({label: st.pop('chain') for label, st in stats.items()})
 
     beta = torch.as_tensor(witness['coef'], dtype=torch.float32,
@@ -1466,7 +1518,277 @@ def run_hybrid(X, outcome):
     torch.cuda.empty_cache()
     composed = stats['hybrid_composed']
     composed.pop('chain', None)
+    composed['state'] = chain_state
     return counts, witness, design, composed
+
+
+# The draws phase's fixed-tilt grids, 100,000 lanes each: Polya-Gamma at
+# these z; tilted stable at these (alpha, tilt), both sides of the
+# tilt**alpha < 2 crossover (16 at alpha 0.25 is its edge).
+DRAW_LANES = 100_000
+PG_GRID = (0.0, 0.1, 1.0, 4.0, 20.0, 40.0)
+TS_GRID = ((0.25, 16.0),) + tuple((a, t) for a in (0.25, 0.5)
+                                  for t in (1e-30, 1e-6, 0.1, 1.0, 100.0,
+                                            1e4))
+# Floating-point operations of one rejection round, counted loosely from
+# csrc/polya_gamma.cu and csrc/tilted_stable.cu (a transcendental as one):
+# the operations side of the draws' bound, with the rounds the lanes took.
+DRAW_OPS_PER_ROUND = {'pg': 60, 'ts': 120}
+
+
+def pg_moments(z):
+    """Closed-form mean and variance of PG(1, z), elementwise (z = 0: 1/4
+    and 1/24)."""
+    import numpy as np
+    z = np.abs(np.asarray(z, np.float64))
+    safe = np.where(z < 1e-4, 1.0, z)
+    mean = np.where(z < 1e-4, 0.25, np.tanh(safe / 2) / (2 * safe))
+    var = np.where(z < 1e-4, 1 / 24, (np.tanh(safe / 2) - (safe / 2)
+                                      / np.cosh(safe / 2) ** 2)
+                   / (2 * safe ** 3))
+    return mean, var
+
+
+def ts_moments(alpha, tilt):
+    """Closed-form mean, variance and Var(r^2) of the standardized
+    residual r of the tilted stable with Laplace transform exp(-s^alpha),
+    elementwise (its cumulants are alpha (1-alpha)...(m-1-alpha)
+    t^(alpha-m), so Var(r^2) = 2 + (2-alpha)(3-alpha) / (alpha (1-alpha))
+    t^-alpha)."""
+    import numpy as np
+    t = np.maximum(np.asarray(tilt, np.float64), np.finfo(np.float32).tiny)
+    return alpha * t ** (alpha - 1), alpha * (1 - alpha) * t ** (alpha - 2), \
+        2 + (2 - alpha) * (3 - alpha) / (alpha * (1 - alpha)) * t ** -alpha
+
+
+def draw_check(name, kern, plain, moments, attempts, var_from):
+    """A draw of the kernel against its plain version: KS (p > 1e-4), the
+    kernel's standardized residuals r = (x - mean) / sd (mean of r within
+    6 / sqrt(n); mean of r^2 within 6 of its standard errors of 1 over
+    the lanes where `var_from` holds, the standard error from Var(r^2)
+    where `moments` gives it, else 10% + 6 / sqrt(n) as in
+    tests/test_torch_random.py), and its rounds per lane. Returns (KS
+    statistic, KS p, mean and max rounds)."""
+    import numpy as np
+    from scipy.stats import ks_2samp
+    k = kern.double().cpu().numpy().reshape(-1)
+    p = plain.double().cpu().numpy().reshape(-1)
+    assert np.all(np.isfinite(k)) and np.all(k > 0), name
+    ks = ks_2samp(k, p)
+    mean, var = moments[:2]
+    r = (k - mean) / np.sqrt(var)
+    n, n_sel = r.size, max(1, int(var_from.sum()))
+    r2 = float(np.mean(r[var_from] ** 2)) if var_from.any() else 1.0
+    r2_tol = 6 * np.sqrt(np.mean(moments[2][var_from]) / n_sel) \
+        if len(moments) > 2 and var_from.any() else 0.1 + 6 / np.sqrt(n_sel)
+    att = attempts.double()
+    mean_att, max_att = float(att.mean()), int(attempts.max())
+    ok = ks.pvalue > 1e-4 and abs(r.mean()) < 6 / np.sqrt(n) \
+        and abs(r2 - 1) < r2_tol
+    log(f"  {name}: KS D {ks.statistic:.5f} p {ks.pvalue:.3g}; kernel "
+        f"mean residual {r.mean():+.5f} (6/sqrt(n) {6 / np.sqrt(n):.5f}), "
+        f"mean r^2 {r2:.4f} (tolerance {r2_tol:.4f}, {n_sel} lanes); "
+        f"rounds a lane mean {mean_att:.3f}, max {max_att}  "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: the kernel's draws disagree with "
+                             f"the plain version or the closed form")
+    return float(ks.statistic), float(ks.pvalue), mean_att, max_att
+
+
+def draw_kernel_ms(lin_pred, tilt, alpha, gens, calls=20):
+    """Device ms per launch of the Polya-Gamma and tilted-stable kernels
+    alone, from a profiler trace of `calls` draws of each at the flagship
+    shapes, float32 and float64: {('pg' | 'ts', dtype tag): ms}."""
+    import shutil
+    import tempfile
+    import torch
+    from bayesbridge_tpu_torch.kernels import draws
+    from bayesbridge_tpu_torch.utils.profiling import (
+        op_stats_from_trace, trace)
+    out = {}
+    for dtype, tag, ctype in ((torch.float32, 'float32', 'float'),
+                              (torch.float64, 'float64', 'double')):
+        z = lin_pred.to(dtype)[None].contiguous()
+        t = tilt.to(dtype)[None].contiguous()
+        g = gens()
+        draws.polya_gamma_draw(g, z)
+        draws.tilted_stable_draw(g, alpha, t)
+        torch.cuda.synchronize()
+        log_dir = tempfile.mkdtemp(prefix='bb-draws-')
+        try:
+            with trace(log_dir):
+                for _ in range(calls):
+                    draws.polya_gamma_draw(g, z)
+                    draws.tilted_stable_draw(g, alpha, t)
+                torch.cuda.synchronize()
+            rows = op_stats_from_trace(log_dir, device_only=True)
+        finally:
+            shutil.rmtree(log_dir, ignore_errors=True)
+        for kind in ('pg', 'ts'):
+            row = [r for r in rows
+                   if f'{kind}_kernel<{ctype}>' in r['name']]
+            assert row and row[0]['occurrences'] == calls, (kind, tag, rows)
+            out[(kind, tag)] = row[0]['self_us'] / 1e3 / calls
+    return out
+
+
+def run_draws(design, state):
+    """The draws phase on the hybrid slice's stored flagship blocks and
+    its composed chain's state: Polya-Gamma draws at its linear predictor
+    (n = 100,000) and tilted-stable draws at its (coef / gscale)^2
+    (p = 50,000, alpha 0.25), then the fixed-tilt grids at 100,000 lanes,
+    in float32 and float64: each kernel against its plain version (KS)
+    and the closed form, rounds per lane, capped lanes (none allowed);
+    each kernel's ms from a profiler trace, the wrapper's by CUDA events
+    and by the host clock, against the plain version's; both draws under
+    torch.cuda.set_sync_debug_mode('error').
+    Returns {'pg_draw': result, 'ts_draw': result} (float32, the flagship
+    chain's dtype) and a summary."""
+    import numpy as np
+    import torch
+    from bayesbridge_tpu_torch.kernels import draws
+    from bayesbridge_tpu_torch.random.polya_gamma import (
+        sample_polya_gamma_chains, sample_polya_gamma_plain)
+    from bayesbridge_tpu_torch.random.tilted_stable import (
+        sample_tilted_stable_chains, sample_tilted_stable_plain)
+    dev = torch.device('cuda')
+    coef = torch.as_tensor(state['coef'], dtype=torch.float32, device=dev)
+    gscale = float(state['global_scale'])
+    lin_pred = design.dot(coef)
+    tilt_f = (coef[1:] / gscale) ** 2
+    alpha = 0.25  # bridge exponent 0.5
+    tn = tilt_f.double().cpu().numpy()
+    log(f"[draws] flagship state: lin_pred {tuple(lin_pred.shape)} "
+        f"(|z| median {float(lin_pred.abs().median()):.3f}, max "
+        f"{float(lin_pred.abs().max()):.3f}); tilt (coef/gscale)^2 "
+        f"{tuple(tilt_f.shape)}, gscale {gscale:.4g}, tilt quantiles "
+        f"(0, .01, .5, .99, 1) "
+        f"{np.quantile(tn, [0, .01, .5, .99, 1]).tolist()}, share on "
+        f"divide-and-conquer (tilt**alpha < 2) "
+        f"{np.mean(np.maximum(tn, 1.1754944e-38) ** alpha < 2):.4f}")
+    seed = iter(range(1000, 2000))
+
+    def gens(k=1):
+        return [torch.Generator(device=dev).manual_seed(next(seed))
+                for _ in range(k)]
+
+    def pg_pair(z):
+        att = torch.empty(z.shape, dtype=torch.int32, device=dev)
+        kern = draws.polya_gamma_draw(gens(), z, None, attempts=att)
+        return kern, sample_polya_gamma_plain(gens(), None, z), att
+
+    def ts_pair(a, t):
+        att = torch.empty(t.shape, dtype=torch.int32, device=dev)
+        kern = draws.tilted_stable_draw(gens(), a, t, attempts=att)
+        return kern, sample_tilted_stable_plain(gens(), a, t), att
+
+    draws.reset_capped(dev)
+    summary, results = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        tag = str(dtype).split('.')[-1]
+        z = lin_pred.to(dtype)[None].contiguous()
+        t = tilt_f.to(dtype)[None].contiguous()
+        zn, tn = z.double().cpu().numpy()[0], t.double().cpu().numpy()[0]
+        kern, plain, att = pg_pair(z)
+        summary[f'pg flagship {tag}'] = draw_check(
+            f"pg_draw flagship {tag}", kern, plain, pg_moments(zn), att,
+            np.ones(zn.size, bool))
+        kern, plain, att = ts_pair(alpha, t)
+        summary[f'ts flagship {tag}'] = draw_check(
+            f"ts_draw flagship {tag}", kern, plain, ts_moments(alpha, tn),
+            att, tn >= 0.1)
+        zg = torch.tensor(np.repeat(PG_GRID, DRAW_LANES), dtype=dtype,
+                          device=dev)[None]
+        kern, plain, att = pg_pair(zg)
+        for i, zi in enumerate(PG_GRID):
+            sl = slice(i * DRAW_LANES, (i + 1) * DRAW_LANES)
+            summary[f'pg z={zi} {tag}'] = draw_check(
+                f"pg_draw z={zi} {tag}", kern[:, sl], plain[:, sl],
+                pg_moments(np.full(DRAW_LANES, zi)), att[:, sl],
+                np.ones(DRAW_LANES, bool))
+        for a in (0.25, 0.5):
+            grid = [tt for aa, tt in TS_GRID if aa == a]
+            tg = torch.tensor(np.repeat(grid, DRAW_LANES), dtype=dtype,
+                              device=dev)[None]
+            kern, plain, att = ts_pair(a, tg)
+            for i, ti in enumerate(grid):
+                sl = slice(i * DRAW_LANES, (i + 1) * DRAW_LANES)
+                summary[f'ts alpha={a} tilt={ti:g} {tag}'] = draw_check(
+                    f"ts_draw alpha={a} tilt={ti:g} {tag}", kern[:, sl],
+                    plain[:, sl], ts_moments(a, np.full(DRAW_LANES, ti)),
+                    att[:, sl], np.full(DRAW_LANES, ti >= 0.1))
+    torch.cuda.synchronize()
+    capped = draws.capped_lanes(dev)
+    log(f"[draws] capped lanes (Polya-Gamma, tilted stable) over the "
+        f"phase's kernel draws: {capped}")
+    assert capped == (0, 0), capped
+
+    # Timings at the flagship shapes: each kernel alone from a profiler
+    # trace of 20 calls (a call's host work, some 40-90 us, is longer
+    # than the Polya-Gamma kernel, so events over back-to-back calls time
+    # the host); the wrapper (the key draw and the kernel) by CUDA events
+    # and by the host clock, the plain rounds by both (they sync with the
+    # host every round).
+    kernel_ms = draw_kernel_ms(lin_pred, tilt_f, alpha, gens)
+    for dtype in (torch.float32, torch.float64):
+        tag = str(dtype).split('.')[-1]
+        z = lin_pred.to(dtype)[None].contiguous()
+        t = tilt_f.to(dtype)[None].contiguous()
+        g1, g2 = gens(), gens()
+        for name, kern, plain, x, kind in (
+                ('pg_draw', lambda: sample_polya_gamma_chains(g1, None, z),
+                 lambda: sample_polya_gamma_plain(g2, None, z), z, 'pg'),
+                ('ts_draw',
+                 lambda: sample_tilted_stable_chains(g1, alpha, t),
+                 lambda: sample_tilted_stable_plain(g2, alpha, t), t,
+                 'ts')):
+            ms = time_ms(kern, reps=10, inner=10)
+            plain_ms = time_ms(plain, reps=3)
+            walls = []
+            for fn, reps in ((kern, 20), (plain, 3)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3 / reps)
+            rounds = summary[f"{kind} flagship {tag}"][2] * x.numel()
+            bound, by = bound_ms(2 * nbytes(x) + 8,
+                                 rounds * DRAW_OPS_PER_ROUND[kind])
+            k_ms = kernel_ms[(kind, tag)]
+            log(f"  {name} {tag} at {tuple(x.shape)}: kernel {k_ms:.4f} ms "
+                f"(profiler); wrapper {ms:.4f} ms "
+                f"(events), {walls[0]:.4f} ms (host clock, 20 calls); "
+                f"plain {plain_ms:.2f} ms (events), {walls[1]:.2f} ms (host "
+                f"clock); bound {bound:.5f} ms ({by}; bounded in fact by "
+                f"the longest lane of a warp: rounds a lane mean "
+                f"{summary[f'{kind} flagship {tag}'][2]:.3f}, max "
+                f"{summary[f'{kind} flagship {tag}'][3]})")
+            if dtype == torch.float32:
+                ks_d = summary[f'{kind} flagship {tag}'][0]
+                results[name] = dict(
+                    max_abs_err=ks_d, ms=k_ms, plain_ms=plain_ms,
+                    bound_ms=bound, bound_by=by, library_ms=None,
+                    wrapper_ms=ms, wall_ms=walls[0],
+                    plain_wall_ms=walls[1],
+                    rounds_mean=summary[f'{kind} flagship {tag}'][2],
+                    rounds_max=summary[f'{kind} flagship {tag}'][3])
+
+    # No host sync in either draw, through the dispatch points the chain
+    # step calls.
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        sample_polya_gamma_chains(gens(), None, lin_pred[None])
+        sample_tilted_stable_chains(gens(), alpha, tilt_f[None])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    log("[draws] both draws ran under torch.cuda.set_sync_debug_mode("
+        "'error')")
+    return results, {k: [round(x, 5) for x in v[:3]] + [v[3]]
+                     for k, v in summary.items()}
 
 
 INT4_NAMES = {'rows': 'ne_rows_i4', 'cols': 'colpass_i4',
@@ -1714,6 +2036,7 @@ def run_int4(design, outcome, int8_auto):
                              2)
         torch.cuda.synchronize()
         counts['int4_chains'] = cc = launch_counts()
+        assert_draws(label + ' chains', cc, 2)
         log(f"[{label}] launch counts of the 2-chain run and the chains "
             f"alone: {cc}")
         assert cc['ne_rows_i4[chains]'] > 0 and cc['colpass_i4[chains]'] \
@@ -2142,6 +2465,7 @@ def run_multichain(design, outcome, single_ips):
     samples, info = gibbs_chains(bridge, n_first, k, **kw)
     torch.cuda.synchronize()
     counts = {label: launch_counts()}
+    assert_draws(label, counts[label], n_first)
     n_cg = info['_reg_coef_sampling_info']['n_cg_iter']
     log(f"[{label}] gibbs_chains({n_first}, {k} chains): "
         f"{time.perf_counter() - t0:.1f} s; n_cg_iter per chain "
@@ -2223,6 +2547,7 @@ def run_multichain(design, outcome, single_ips):
                             coef_sampler_type='cg', params_to_save=('coef',))
     torch.cuda.synchronize()
     counts['multichain_fused'] = cf = launch_counts()
+    assert_draws('multichain_fused', cf, n_x)
     n_cg_f = i_f['_reg_coef_sampling_info']['n_cg_iter']
     log(f"[{label}_fused] gibbs_chains({n_x}, 2 chains, fused='1'): "
         f"n_cg_iter {n_cg_f.astype(int).tolist()}; launch counts {cf}")
@@ -2433,6 +2758,7 @@ def run_cox(X, logit_outcome, logit_design):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts[label] = c = launch_counts()
+    assert_draws(label, c, n_first, 'cox')
     log(f"[{label}] gibbs({n_first}) incl. MAP search: {secs:.1f} s; MAP "
         f"{info['_init_optim_info']}; launch counts {c}")
     n_grad = hmc_iteration_log(label, info, n_first, secs, dict(LOCKSTEP))
@@ -2491,6 +2817,7 @@ def run_cox(X, logit_outcome, logit_design):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts[label] = launch_counts()
+    assert_draws(label, counts[label], 4, 'cox')
     hmc_iteration_log(label, i_n, 4, secs, dict(LOCKSTEP))
     assert np.all(np.isfinite(s_n['coef']))
     assert counts[label]['ne_sweep[cols]'] > 0, counts[label]
@@ -2510,6 +2837,7 @@ def run_cox(X, logit_outcome, logit_design):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts[label] = c = launch_counts()
+    assert_draws(label, c, 4)
     log(f"[{label}] gibbs(4) incl. MAP search: {secs:.1f} s; MAP "
         f"{i_l['_init_optim_info']}; launch counts {c}")
     n_grad_l = hmc_iteration_log(label, i_l, 4, secs, dict(LOCKSTEP))
@@ -2569,6 +2897,7 @@ def run_cox(X, logit_outcome, logit_design):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts[label] = c = launch_counts()
+    assert_draws(label, c, 2, 'cox')
     log(f"[{label}] gibbs_chains(2, {k} chains): {secs:.1f} s; n_grad_evals "
         f"per chain {i_c['_reg_coef_sampling_info']['n_grad_evals'].astype(int).tolist()}; "
         f"lockstep host syncs {LOCKSTEP['host']}, target calls "
@@ -2775,12 +3104,16 @@ def run_dense(m2d):
     s64, _ = bridge.gibbs(10, seed=0, params_to_save=('coef', 'logp'))
     torch.cuda.synchronize()
     c64 = launch_counts()
+    assert_draws('dense f64', c64, 10)
     assert s64['coef'].dtype == np.float64 and np.all(
         np.isfinite(s64['logp'])), s64['logp']
-    assert not any(c64.values()), c64  # float64 reaches no kernel
+    # A float64 dense design reaches no product kernel, only the draws.
+    assert not any(n for k, n in c64.items()
+                   if k not in ('pg_draw', 'ts_draw')), c64
     log(f"[dense_cholesky_f64] gibbs(10) incl. MAP search: "
         f"{time.perf_counter() - t1:.1f} s; mean coef[1:11] "
-        f"{s64['coef'][1:11].mean():.4f}; no kernel launched")
+        f"{s64['coef'][1:11].mean():.4f}; no product kernel launched, "
+        f"draws {c64['pg_draw']} pg_draw, {c64['ts_draw']} ts_draw")
     del bridge, model64, d
     torch.cuda.empty_cache()
 
@@ -2793,6 +3126,7 @@ def run_dense(m2d):
                             params_to_save=('coef', 'logp'))
         torch.cuda.synchronize()
         counts[label] = c = launch_counts()
+        assert_draws(label, c, 20)
         n_cg = i['_reg_coef_sampling_info']['n_cg_iter']
         assert np.all(np.isfinite(s['logp'])), s['logp']
         if policy == '1':
@@ -3061,6 +3395,7 @@ def ell_chains(bridge, model):
     samples, info = gibbs_chains(bridge, n_first, k, **kw)
     torch.cuda.synchronize()
     c = launch_counts()
+    assert_draws(label, c, n_first)
     n_cg = info['_reg_coef_sampling_info']['n_cg_iter']
     log(f"[{label}] gibbs_chains({n_first}, {k} chains): "
         f"{time.perf_counter() - t0:.1f} s; n_cg_iter per chain "
@@ -3130,6 +3465,7 @@ def mesh2d_ell(model, m2d):
                                  params_to_save='all')
     torch.cuda.synchronize()
     m2d['counts']['mesh2d_ell'] = c = launch_counts()
+    assert_draws('mesh2d_ell', c, 5)
     n_cg = info['_reg_coef_sampling_info']['n_cg_iter']
     log(f"[mesh2d_ell] gibbs(5) on the grid incl. MAP search: "
         f"{time.perf_counter() - t0:.1f} s; n_cg_iter "
@@ -3219,7 +3555,9 @@ def run_ell(X, outcome, m2d):
         else 'ell[tdot]'
     assert c['ell[dot]'] >= need + n_map, c
     assert c[tdot] >= need + 4 * n_first + n_map, c
-    assert sum(c.values()) == c['ell[dot]'] + c[tdot], c
+    # Beside the draws, every launch is one of the two traversals.
+    assert sum(c.values()) - c['pg_draw'] - c['ts_draw'] \
+        == c['ell[dot]'] + c[tdot], c
     bridge = stats['chain'][0]
     counts['ell64_chains'], chains = ell_chains(bridge, model)
     log(f"[ell64_chains] summary: {json.dumps(chains)}")
@@ -3274,6 +3612,7 @@ def run_ell(X, outcome, m2d):
                                    params_to_save='all')
     torch.cuda.synchronize()
     counts['ell32'] = c = launch_counts()
+    assert_draws('ell32', c, 10)
     n_cg = info32['_reg_coef_sampling_info']['n_cg_iter']
     log(f"[ell32] gibbs(10) incl. MAP search: "
         f"{time.perf_counter() - t0:.1f} s; dtype {samples['coef'].dtype}; "
@@ -3287,7 +3626,9 @@ def run_ell(X, outcome, m2d):
         else 'ell[tdot]'
     assert c['ell[dot]'] >= int(np.sum(n_cg + 1)), c
     assert c[tdot] >= int(np.sum(n_cg + 1)) + 4 * 10, c
-    assert sum(c.values()) == c['ell[dot]'] + c[tdot], c
+    # Beside the draws, every launch is one of the two traversals.
+    assert sum(c.values()) - c['pg_draw'] - c['ts_draw'] \
+        == c['ell[dot]'] + c[tdot], c
     del model, design, bridge
     torch.cuda.empty_cache()
     return results, counts
@@ -3355,6 +3696,17 @@ def assert_launches(name, counts, want):
         keys = counter if isinstance(counter, tuple) else (counter,)
         assert sum(counts.get(k, 0) for k in keys) == n, (name, counter,
                                                            counts)
+
+
+def assert_draws(label, counts, n_iter, family='logit'):
+    """Every chain phase draws on the kernels: ``ts_draw`` (the local
+    scales) and, for logit, ``pg_draw`` (the observation precisions) at
+    least once an iteration."""
+    want = {'ts_draw': n_iter}
+    if family == 'logit':
+        want['pg_draw'] = n_iter
+    short = {k: counts[k] for k, n in want.items() if counts[k] < n}
+    assert not short, (label, short, 'want at least', want)
 
 
 def sharded_flagship_checks(design, sd_f, sd_c):
@@ -3429,6 +3781,7 @@ def sharded_chain(model, label, check_resume=True):
     samples, info = bridge.gibbs(10, **kw)
     torch.cuda.synchronize()
     counts = launch_counts()
+    assert_draws(label, counts, 10)
     n_cg = info['_reg_coef_sampling_info']['n_cg_iter']
     log(f"[{label}] gibbs(10) incl. MAP search: "
         f"{time.perf_counter() - t0:.1f} s; n_cg_iter "
@@ -3776,21 +4129,27 @@ def piece_columns(piece):
     return piece.shape[1]
 
 
-def timed_case(name, kern, plain, work, rate=None):
+def timed_case(name, kern, plain, work, rate=None, lib=None):
     """A kernel against its plain version (rtol of `check`), timed beside
-    it and its bound. Returns the result dict of the kernels line."""
+    it and its bound, and beside `lib` (one PyTorch call of the same
+    function, checked against the kernel) where given. Returns the result
+    dict of the kernels line."""
     import torch
     got, ref = kern(), plain()
     torch.cuda.synchronize()
     err = max(check(f"{name} [{i}]", [g], [r])
               for i, (g, r) in enumerate(zip(got, ref)))
+    if lib is not None:
+        check(f"{name}: cuSPARSE vs the kernel", [lib()], [got[0]])
     del got, ref
     ms, plain_ms = time_ms(kern), time_ms(plain)
+    lib_ms = None if lib is None else time_ms(lib)
     bound, by = bound_ms(*work) if rate is None else bound_ms(*work, rate)
     log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{bound:.4f} ms ({by}), {100 * bound / ms:.1f}% of it")
+        f"{bound:.4f} ms ({by}), {100 * bound / ms:.1f}% of it"
+        + ("" if lib is None else f"; cuSPARSE {lib_ms:.4f} ms"))
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                bound_by=by, library_ms=None)
+                bound_by=by, library_ms=lib_ms)
 
 
 def hybrid_piece_timings(sd):
@@ -4037,11 +4396,14 @@ def bitpack_piece_timings(sd):
         name = f'bitlut[{tag}]@mesh2d'
         log(f"[mesh2d_bitpack] {name} on piece (0, 0): "
             f"{tuple(bits.shape)} bitmap, n_out {n_out}")
+        mat = bitmap_csr(bits, n_in, n_out)
         results[name] = timed_case(
             name, lambda b=bits, v=v, k=n_out, t=tag: [bitlut(b, v, k, t)],
             lambda b=bits, v=v, k=n_out: [bitlut_plain(b, v, k)],
             (g_live * n_out + 4 * n_in + 4 * n_out,
-             g_live * n_out + 256 * 8 * g_live))
+             g_live * n_out + 256 * 8 * g_live),
+            lib=lambda a=mat, v=v[:n_in]: torch.mv(a, v))
+        del mat
     return results
 
 
@@ -4069,13 +4431,16 @@ def ell_piece_timings(sd):
         m = idx.shape[0]
         log(f"[mesh2d_ell] {key}@mesh2d on {'row' if lay is None else 'col'}"
             f"-ELL piece 0: {tuple(idx.shape)}, {nnz} nonzeros")
+        mat = ell_csr(idx, val, n_in)
         results[f'{key}@mesh2d'] = timed_case(
             f'{key}@mesh2d',
             lambda i=idx, v=val, l=lay, t=tag: [ell_matvec_k(i, v, V, 1, t,
                                                              l)],
             lambda i=idx, v=val: [ell_matvec_k_plain(i, v, V, 1)],
             (nnz * (4 + item) + (n_in + m) * item, 2 * nnz),
-            FP64_OPS_PER_S if f64 else F32_OPS_PER_S)
+            FP64_OPS_PER_S if f64 else F32_OPS_PER_S,
+            lib=lambda a=mat, v=V[0]: torch.mv(a, v)[None])
+        del mat
     return results
 
 
@@ -4143,7 +4508,8 @@ def main():
         for line in kl.ptxas_log.splitlines():
             # The nibble modes' entry names too, beside their registers.
             if 'registers' in line or 'spill' in line or 'Nib4' in line \
-                    or 'tdots_i4' in line:
+                    or 'tdots_i4' in line or 'pg_kernel' in line \
+                    or 'ts_kernel' in line:
                 log('  ptxas: ' + line.strip())
         X, outcome = data.result()
     t0 = phase('build and flagship data', t0)
@@ -4158,6 +4524,11 @@ def main():
     counts['link_turns'] = link_turns
     composed_ips = composed['ips']
     t0 = phase('hybrid slices', t0)
+    res, dr = run_draws(design, composed.pop('state'))
+    results.update(res)
+    log(f"[draws] summary (KS D, KS p, rounds mean, rounds max): "
+        f"{json.dumps(dr)}")
+    t0 = phase('draws', t0)
     res, i4_counts, i4 = run_int4(design, outcome, composed)
     results.update(res)
     counts.update(i4_counts)
@@ -4229,6 +4600,7 @@ def main():
     # winell timing phase, whose packings' products it computes once
     # before its checks (check-only).
     path_of = {'ne_sweep[ne]': 'harness',
+               'pg_draw': 'hybrid_composed', 'ts_draw': 'hybrid_composed',
                'ne_oneread': 'hybrid_fused',
                'ne_oneread[logit]': 'hybrid_fused',
                'ne_sweep[logit]': 'link_turns',

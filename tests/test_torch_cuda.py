@@ -33,7 +33,12 @@ ragged widths, and a chain on an int4 design must resume exactly. On a
 (2, 2) obs x pred mesh of one card, each backend's pieces (int8 and int4
 cut at 32 columns, bitpack at 8, the ell row and column pieces) must
 give the CPU grid's products, their own bits on a rerun, and the int4
-pieces the int8 pieces' bits.
+pieces the int8 pieces' bits. The Polya-Gamma and tilted-stable kernels
+(``pg_draw``, ``ts_draw``) must match their plain rounds in law (KS, p >
+1e-4) and the closed-form moments at fixed-tilt grids in float32 and
+float64, report the plain version's per-lane method, give a rerun's bits
+and each chain's bits alone, run with no host sync, and carry a logit
+chain whose resumes stay exact; their Philox4x32-10 must equal curand's.
 """
 
 import numpy as np
@@ -1541,3 +1546,326 @@ def test_int4_design_chain_resumes_exactly_on_card(dev, monkeypatch):
     merged, _ = bridge.gibbs_resume(info, 5, merge=True, prev_samples=part)
     for key in full:
         np.testing.assert_array_equal(merged[key], full[key])
+
+
+# The rejection draws on the card (csrc/polya_gamma.cu,
+# csrc/tilted_stable.cu): the kernels against the plain rounds in law.
+# The closed forms are those of tests/test_torch_random.py (which imports
+# jax, so they are restated here): tilted stable with Laplace transform
+# exp(-s^alpha), E = alpha t^(alpha-1), Var = alpha (1-alpha) t^(alpha-2);
+# PG(b, z), E = b tanh(z/2) / (2z), Var = b (tanh(z/2) - (z/2) /
+# cosh(z/2)^2) / (2 z^3) (at z = 0: b / 4 and b / 24).
+
+DRAW_N = 100_000
+
+
+def _ts_moments(alpha, tilt):
+    return alpha * tilt ** (alpha - 1.0), \
+        alpha * (1.0 - alpha) * tilt ** (alpha - 2.0)
+
+
+def _pg_moments(b, z):
+    if z == 0:
+        return b / 4.0, b / 24.0
+    mean = b * np.tanh(z / 2.0) / (2.0 * z)
+    var = b * (np.tanh(z / 2.0) - (z / 2.0) / np.cosh(z / 2.0) ** 2) \
+        / (2.0 * z ** 3)
+    return mean, var
+
+
+def _check_mean_var(draws, mean, var, check_var=True):
+    """Mean within 6 standard errors, variance within 10% + 6 var /
+    sqrt(n) (tests/test_torch_random.py's limits)."""
+    n = draws.size
+    assert np.all(np.isfinite(draws)) and np.all(draws > 0)
+    assert abs(draws.mean() - mean) < 6 * np.sqrt(var / n), \
+        f"mean {draws.mean():.6g} vs expected {mean:.6g}"
+    if check_var:
+        assert abs(draws.var() - var) < 0.1 * var + 6 * var / np.sqrt(n), \
+            f"var {draws.var():.6g} vs expected {var:.6g}"
+
+
+def _gens(dev, seeds):
+    return [torch.Generator(device=dev).manual_seed(s) for s in seeds]
+
+
+def test_philox_matches_curand_and_plain(dev):
+    """csrc/philox.cuh's Philox4x32-10 equals curand_Philox4x32_10 and
+    the plain torch version on random counters and keys; a lane's stream
+    takes the words of counters (lane, 0, block, 0) in order, its
+    uniforms are (k + 1/2) 2^-23 of the top 23 bits (float) or 53 bits
+    of two words times 2^-53 (double), and its normals Box-Muller's
+    cosine branch."""
+    from bayesbridge_tpu_torch.kernels.draws import philox_plain
+    kl = load_library()
+    stream = torch.cuda.current_stream().cuda_stream
+    rng = np.random.default_rng(0)
+    n = 4096
+    ctr = rng.integers(0, 2 ** 32, (n, 4), dtype=np.uint64)
+    ctr[:2] = [[0, 0, 0, 0], [2 ** 32 - 1] * 4]
+    key = rng.integers(0, 2 ** 32, (n, 2), dtype=np.uint64)
+    key[:2] = [[0, 0], [2 ** 32 - 1] * 2]
+    as32 = lambda a: torch.from_numpy(a.astype(np.uint32).view(np.int32))
+    c32, k32 = as32(ctr).to(dev), as32(key).to(dev)
+    ours = torch.empty((n, 4), dtype=torch.int32, device=dev)
+    theirs = torch.empty_like(ours)
+    kl.check(kl.lib.bb_philox_check(c32.data_ptr(), k32.data_ptr(),
+                                    ours.data_ptr(), theirs.data_ptr(), n,
+                                    stream), 'philox_check')
+    assert torch.equal(ours, theirs)
+    plain = philox_plain(torch.from_numpy(ctr.astype(np.int64)).to(dev),
+                         torch.from_numpy(key.astype(np.int64)).to(dev))
+    assert torch.equal(ours.to(torch.int64) & 0xFFFFFFFF, plain)
+    # ours[0] is Random123's known answer for zero counter and key.
+    assert [hex(int(w) & 0xFFFFFFFF) for w in ours[0]] == [
+        '0x6627e8d5', '0xe169c58d', '0xbc57ac4c', '0x9b00dbd8']
+    key64, lane, n_words, n_draws = 0x243F6A8885A308D3, 77, 40, 64
+    for dtype in (torch.float32, torch.float64):
+        words = torch.empty(n_words, dtype=torch.int32, device=dev)
+        unif = torch.empty(n_draws, dtype=dtype, device=dev)
+        norm = torch.empty(n_draws, dtype=dtype, device=dev)
+        kl.check(kl.lib.bb_philox_stream(
+            int(dtype == torch.float64), key64, lane, words.data_ptr(),
+            n_words, unif.data_ptr(), norm.data_ptr(), n_draws, stream),
+            'philox_stream')
+
+        def stream_words(ln, count):
+            blocks = torch.tensor([[ln, 0, b, 0] for b in range(
+                -(-count // 4))], dtype=torch.int64)
+            k = torch.tensor([[key64 & 0xFFFFFFFF, key64 >> 32]] *
+                             blocks.shape[0], dtype=torch.int64)
+            return philox_plain(blocks, k).reshape(-1)[:count]
+        assert torch.equal(words.cpu().to(torch.int64) & 0xFFFFFFFF,
+                           stream_words(lane, n_words))
+        def uniforms(ln, count):
+            if dtype == torch.float32:
+                w = stream_words(ln, count)
+                return (((w >> 9).double() + 0.5) * 2.0 ** -23).float()
+            w = stream_words(ln, 2 * count).view(-1, 2)
+            u = ((w[:, 0] << 21) | (w[:, 1] >> 11)).double() * 2.0 ** -53
+            return u.clamp_min(torch.finfo(dtype).tiny)
+        ref = uniforms(lane + 1, n_draws)
+        assert torch.equal(unif.cpu(), ref)
+        assert 0 < float(ref.min()) and float(ref.max()) < 1
+        g = uniforms(lane + 2, 2 * n_draws).double().view(-1, 2)
+        box = torch.sqrt(-2 * torch.log(g[:, 0])) * torch.cos(
+            2 * np.pi * g[:, 1])
+        tol = 1e-5 if dtype == torch.float32 else 1e-12
+        assert float((norm.cpu().double() - box).abs().max()) < tol
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_polya_gamma_kernel_matches_plain(dev, dtype):
+    """PG(1, z) at z in {0, 0.1, 1, 4, 20, 40} (100,000 lanes each, one
+    launch): the kernel against the plain rounds by KS (p > 1e-4) and
+    against the closed-form moments; integer shapes 1, 2, 5 against
+    theirs; no capped lane."""
+    from scipy.stats import ks_2samp
+    from bayesbridge_tpu_torch.kernels import draws
+    from bayesbridge_tpu_torch.random.polya_gamma import (
+        sample_polya_gamma_chains, sample_polya_gamma_plain,
+    )
+    zs = [0.0, 0.1, 1.0, 4.0, 20.0, 40.0]
+    z = torch.tensor(np.repeat(zs, DRAW_N), dtype=dtype, device=dev)[None]
+    before = draws.capped_lanes(dev)
+    reset_launch_counts()
+    kern = sample_polya_gamma_chains(_gens(dev, [1]), None, z)
+    assert launch_counts()['pg_draw'] == 1
+    plain = sample_polya_gamma_plain(_gens(dev, [2]), None, z)
+    assert launch_counts()['pg_draw'] == 1
+    assert kern.dtype == dtype
+    kern = kern.double().cpu().numpy().reshape(len(zs), DRAW_N)
+    plain = plain.double().cpu().numpy().reshape(len(zs), DRAW_N)
+    for i, zi in enumerate(zs):
+        assert ks_2samp(kern[i], plain[i]).pvalue > 1e-4, zi
+        _check_mean_var(kern[i], *_pg_moments(1.0, zi))
+    shapes = np.tile(np.array([1, 2, 5], dtype=np.int64), 30_000)
+    b = torch.as_tensor(shapes, dtype=torch.int32, device=dev)
+    tilt = torch.full((1, shapes.size), 1.3, dtype=dtype, device=dev)
+    got = sample_polya_gamma_chains(_gens(dev, [3]), b, tilt)
+    got = got.double().cpu().numpy()[0]
+    for bi in (1, 2, 5):
+        sel = got[shapes == bi]
+        mean, var = _pg_moments(float(bi), 1.3)
+        assert abs(sel.mean() - mean) < 6 * np.sqrt(var / sel.size)
+    assert draws.capped_lanes(dev)[0] == before[0]
+
+
+TS_CASES = [(0.25, 16.0)] + [(a, t) for a in (0.25, 0.5)
+                             for t in (1e-30, 1e-6, 0.1, 1.0, 100.0, 1e4)]
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_tilted_stable_kernel_matches_plain(dev, dtype):
+    """Tilted stable at alpha 0.25 and 0.5 with tilts on both sides of the
+    crossover (16 at alpha = 0.25, its edge; 1e-30 to 1e4), 100,000 lanes
+    each: the kernel against the plain rounds by KS (p > 1e-4), its mean
+    against the closed form (its variance from a tilt of 0.1 up: below
+    it the sample variance is too heavy-tailed to test at this size); the
+    forced methods against each other; no capped lane. (The moments are
+    the kernel's: the plain rounds' float32 uniform is torch.rand's,
+    clamped at zero once in 2^24 draws, where divide-and-conquer accepts
+    a partition draw however large: a rare outlier that KS does not see
+    but a mean can, csrc/philox.cuh.)"""
+    from scipy.stats import ks_2samp
+    from bayesbridge_tpu_torch.kernels import draws
+    from bayesbridge_tpu_torch.random.tilted_stable import (
+        sample_tilted_stable_chains, sample_tilted_stable_plain,
+    )
+    before = draws.capped_lanes(dev)
+    for alpha in (0.25, 0.5):
+        tilts = [t for a, t in TS_CASES if a == alpha]
+        x = torch.tensor(np.repeat(tilts, DRAW_N), dtype=dtype,
+                         device=dev)[None]
+        kern = sample_tilted_stable_chains(_gens(dev, [4]), alpha, x)
+        plain = sample_tilted_stable_plain(_gens(dev, [5]), alpha, x)
+        assert kern.dtype == dtype
+        kern = kern.double().cpu().numpy().reshape(len(tilts), DRAW_N)
+        plain = plain.double().cpu().numpy().reshape(len(tilts), DRAW_N)
+        for i, t in enumerate(tilts):
+            assert ks_2samp(kern[i], plain[i]).pvalue > 1e-4, (alpha, t)
+            _check_mean_var(kern[i], *_ts_moments(alpha, t),
+                            check_var=t >= 0.1)
+    x = torch.full((1, DRAW_N), 2.5, dtype=dtype, device=dev)
+    dc = sample_tilted_stable_chains(_gens(dev, [6]), 0.4, x,
+                                     method='divide-conquer')
+    dr = sample_tilted_stable_chains(_gens(dev, [7]), 0.4, x,
+                                     method='double-rejection')
+    dc, dr = (d.double().cpu().numpy()[0] for d in (dc, dr))
+    assert ks_2samp(dc, dr).pvalue > 1e-4
+    for d in (dc, dr):
+        _check_mean_var(d, *_ts_moments(0.4, 2.5))
+    assert draws.capped_lanes(dev)[1] == before[1]
+
+
+def test_tilted_stable_kernel_plan_and_forced_partitions(dev):
+    """The kernel's per-lane plan (m partitions, 0 for double rejection)
+    equals the plain version's (``lane_plan``), for each method, on tilts
+    whose tilt**alpha lies away from an integer; forced
+    divide-and-conquer with 50 partitions gives the full sum (mean
+    against the closed form)."""
+    from bayesbridge_tpu_torch.kernels.draws import tilted_stable_draw
+    from bayesbridge_tpu_torch.random.tilted_stable import lane_plan
+    alpha = 0.5
+    rng = np.random.default_rng(3)
+    tp = np.floor(rng.uniform(0, 40, 20_000)) + rng.uniform(0.05, 0.95,
+                                                             20_000)
+    x = torch.tensor(tp ** (1 / alpha), dtype=torch.float32,
+                     device=dev)[None]
+    for method in (None, 'divide-conquer', 'double-rejection'):
+        plan = torch.empty(x.shape, dtype=torch.int32, device=dev)
+        tilted_stable_draw(_gens(dev, [8]), alpha, x, method, plan=plan)
+        assert torch.equal(plan, lane_plan(alpha, x, method)), method
+    n, tilt = 30_000, 2500.0
+    x = torch.full((1, n), tilt, device=dev)
+    plan = torch.empty(x.shape, dtype=torch.int32, device=dev)
+    d = tilted_stable_draw(_gens(dev, [9]), alpha, x, 'divide-conquer',
+                           plan=plan)
+    assert int(plan.min()) == int(plan.max()) == 50
+    d = d.double().cpu().numpy()[0]
+    mean, var = _ts_moments(alpha, tilt)
+    assert np.all(d > 0)
+    assert abs(d.mean() - mean) < 6 * np.sqrt(var / n) + 0.02 * mean
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_draws_rerun_and_chains_alone_bit_for_bit(dev, dtype):
+    """Both kernels: a rerun from the same generator states gives the same
+    bits, and for k = 1, 3, 8 chains row c equals chain c drawn alone
+    (one key per chain, lane j of chain c on the stream (key_c, j))."""
+    from bayesbridge_tpu_torch.random.polya_gamma import (
+        sample_polya_gamma_chains,
+    )
+    from bayesbridge_tpu_torch.random.tilted_stable import (
+        sample_tilted_stable_chains,
+    )
+    g = torch.Generator(device=dev).manual_seed(10)
+    n = 5_000
+    for k in (1, 3, 8):
+        z = torch.randn((k, n), generator=g, device=dev, dtype=dtype) * 4
+        t = torch.exp(torch.randn((k, n), generator=g, device=dev,
+                                  dtype=dtype) * 6)
+        b = torch.randint(1, 4, (n,), generator=g, device=dev,
+                          dtype=torch.int32)
+        seeds = [100 * k + c for c in range(k)]
+        cases = [
+            (lambda gs, x, b=b: sample_polya_gamma_chains(gs, b, x), z),
+            (lambda gs, x: sample_polya_gamma_chains(gs, None, x), z),
+            (lambda gs, x: sample_tilted_stable_chains(gs, 0.25, x), t)]
+        for draw, x in cases:
+            gens = _gens(dev, seeds)
+            first = draw(gens, x)
+            assert torch.equal(first, draw(_gens(dev, seeds), x))
+            for c in range(k):
+                alone = draw(_gens(dev, [seeds[c]]), x[c:c + 1])
+                assert torch.equal(first[c:c + 1], alone)
+            # The generators moved on: the next call differs.
+            assert not torch.equal(first, draw(gens, x))
+
+
+def test_draws_take_no_host_sync(dev):
+    """Both dispatch points on the card complete under
+    torch.cuda.set_sync_debug_mode('error') (after a warm-up call that
+    builds the library and makes the capped-lane counter)."""
+    from bayesbridge_tpu_torch.random.polya_gamma import (
+        sample_polya_gamma_chains,
+    )
+    from bayesbridge_tpu_torch.random.tilted_stable import (
+        sample_tilted_stable_chains,
+    )
+    z = torch.randn((2, 10_000), device=dev)
+    b = torch.full((10_000,), 2, dtype=torch.int32, device=dev)
+    gens = _gens(dev, [11, 12])
+    sample_polya_gamma_chains(gens, None, z)
+    sample_tilted_stable_chains(gens, 0.5, z * z)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        for method in (None, 'divide-conquer', 'double-rejection'):
+            sample_tilted_stable_chains(gens, 0.5, z * z, method)
+        sample_polya_gamma_chains(gens, None, z)
+        sample_polya_gamma_chains(gens, b, z.double())
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+
+def test_logit_chain_draws_on_the_kernels_and_resumes(dev):
+    """A logit chain on the card draws every Polya-Gamma and local-scale
+    variate on the kernels (pg_draw and ts_draw at least once an
+    iteration), with trial counts above 1 held on the card, and
+    gibbs_resume and gibbs_chains_resume stay exact."""
+    from bayesbridge_tpu_torch import (
+        BayesBridge, RegressionCoefPrior, RegressionModel, gibbs_chains,
+    )
+    from bayesbridge_tpu_torch.multichain import gibbs_chains_resume
+    from bayesbridge_tpu_torch.utils.simulate_data import (
+        simulate_design, simulate_outcome,
+    )
+    X = simulate_design(500, 40, binary_frac=.8, seed=1)
+    beta = np.zeros(40)
+    beta[:3] = 1.0
+    n_trial = 1 + np.random.default_rng(2).binomial(4, .5, 500)
+    outcome = simulate_outcome(X, beta, 'logit', n_trial=n_trial, seed=3)
+    model = RegressionModel(outcome, X, family='logit')
+    assert model.pg_shape.device.type == 'cuda'
+    assert torch.equal(model.pg_shape.cpu(),
+                       torch.as_tensor(n_trial, dtype=torch.int32))
+    bridge = BayesBridge(model, RegressionCoefPrior(bridge_exponent=.5))
+    reset_launch_counts()
+    full, _ = bridge.gibbs(8, seed=0, coef_sampler_type='cg',
+                           params_to_save='all')
+    counts = launch_counts()
+    assert counts['pg_draw'] >= 8 and counts['ts_draw'] >= 8, counts
+    part, info = bridge.gibbs(5, seed=0, coef_sampler_type='cg',
+                              params_to_save='all')
+    merged, _ = bridge.gibbs_resume(info, 3, merge=True, prev_samples=part)
+    for key in full:
+        np.testing.assert_array_equal(merged[key], full[key])
+    chains, _ = gibbs_chains(bridge, 6, 3, seed=4, coef_sampler_type='cg')
+    part, p_info = gibbs_chains(bridge, 4, 3, seed=4,
+                                coef_sampler_type='cg')
+    merged, _ = gibbs_chains_resume(bridge, p_info, 2, merge=True,
+                                    prev_samples=part)
+    for key in chains:
+        np.testing.assert_array_equal(merged[key], chains[key])
