@@ -120,6 +120,15 @@ class AbstractDesignMatrix(abc.ABC):
     def n_matvec(self):
         return self.dot_count + self.Tdot_count
 
+    def counters(self):
+        """[(object, attribute)] of the counters its products advance."""
+        return [(self, 'dot_count'), (self, 'Tdot_count')]
+
+    def devices(self):
+        """The devices its products run on, all in this process; None
+        where other processes take part."""
+        return {self.device}
+
     def get_dot_count(self):
         return self.dot_count, self.Tdot_count
 

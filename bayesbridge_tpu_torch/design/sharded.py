@@ -283,11 +283,25 @@ class ShardedDesignMatrix(AbstractDesignMatrix):
         `col_shards`)."""
         return [(i, s) for i, s in enumerate(self.shards) if s is not None]
 
+    def _pieces(self):
+        """This process's pieces, the col-ELL pieces included."""
+        return [s for _, s in self.local_shards()] + (self.col_shards or [])
+
     def storage_bytes(self):
         """Device bytes of this process's pieces' stored arrays (a row
         view counts its rows' bytes)."""
-        return sum(s.storage_bytes() for s in [
-            s for _, s in self.local_shards()] + (self.col_shards or []))
+        return sum(s.storage_bytes() for s in self._pieces())
+
+    def counters(self):
+        """Its own counters, `combine_count` and its pieces'."""
+        return super().counters() + [(self, 'combine_count')] + [
+            c for s in self._pieces() for c in s.counters()]
+
+    def devices(self):
+        """Its pieces' devices; None with a process group."""
+        if self.group is not None:
+            return None
+        return set().union(*(s.devices() for s in self._pieces()))
 
     def traversals(self, k=1):
         """Per local piece that holds a col-ELL (the row blocks of a 1-d

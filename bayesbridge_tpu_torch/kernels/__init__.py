@@ -3,9 +3,9 @@
 Counterparts of the Pallas kernels of ``bayesbridge_tpu/design/``
 (``fusedne.py``, ``bitlut.py``, ``winell.py``) and of the sweep A/B
 harness ``baselines/dev_ne_variants.py``, the ell backend's gather
-product, which the JAX package left to XLA, and the Polya-Gamma and
-tilted-stable rejection loops that it runs as device loops
-(:mod:`.draws`). One dispatch point
+product, which the JAX package left to XLA, and the device loops that
+it runs on the TPU: the Polya-Gamma and tilted-stable rejection loops
+(:mod:`.draws`) and the CG solve's (:mod:`.cg_loop`). One dispatch point
 per kernel: each wrapper launches its CUDA kernel for CUDA tensors and
 runs its plain version (beside it in the same module) for CPU tensors;
 no call site branches on the device. ``REGISTRY`` names each kernel's
@@ -13,6 +13,7 @@ source and the TPU kernel it replaces, for the chip smoke's report.
 """
 
 from . import bitlut as _bl
+from . import cg_loop as _cg
 from . import draws as _dr
 from . import ell as _el
 from . import ne_onepass as _op
@@ -70,6 +71,13 @@ REGISTRY = {
                     replaces='bayesbridge_tpu/random/polya_gamma.py:225'),
     'ts_draw': dict(source='bayesbridge_tpu_torch/csrc/tilted_stable.cu',
                     replaces='bayesbridge_tpu/random/tilted_stable.py:311'),
+    # No Pallas kernel: the CG solve's lax.while_loop (ops/cg.py:196 and
+    # :209), its vector updates as cg_start and cg_update (three kernels
+    # an iteration), looped on the card as one CUDA graph.
+    'cg_start': dict(source='bayesbridge_tpu_torch/csrc/cg_loop.cu',
+                     replaces='bayesbridge_tpu/ops/cg.py:196'),
+    'cg_update': dict(source='bayesbridge_tpu_torch/csrc/cg_loop.cu',
+                      replaces='bayesbridge_tpu/ops/cg.py:196'),
 }
 
 
@@ -88,8 +96,9 @@ def launch_counts():
     'tdots_i4', 'tdots_i4[u4]', their binary modes 'tdots_i4[bin]' and
     'tdots_i4[u4,bin]' (single-vector launches), and their '...[chains]'
     counts ('tdots_i4[u4,bin,chains]': one single launch per chain of a
-    chain batch, which has no nibble mode), and the draws 'pg_draw' and
-    'ts_draw'}."""
+    chain batch, which has no nibble mode), the draws 'pg_draw' and
+    'ts_draw', and the CG loop's 'cg_start' and 'cg_update' (one call:
+    an iteration's three update kernels)}."""
     counts = {f'ne_sweep[{key}]': k for key, k in _ne.launches.items()
               if not key.endswith('_k') and 'i4' not in key}
     for name, key in (('ne_rows_i4', 'rows_i4'), ('colpass_i4', 'cols_i4')):
@@ -115,6 +124,8 @@ def launch_counts():
                        for tag, k in mod.launches.items()})
     counts['pg_draw'] = _dr.launches['pg']
     counts['ts_draw'] = _dr.launches['ts']
+    counts['cg_start'] = _cg.launches['start']
+    counts['cg_update'] = _cg.launches['update']
     counts['ne_onepass'] = _op.launches['onepass']
     counts['ne_oneread'] = _or.launches['ne']
     counts.update({f'ne_oneread[{mid}]': _or.launches[mid]
@@ -125,7 +136,7 @@ def launch_counts():
 def reset_launch_counts():
     for counter in (_ne.launches, _td.launches, _bl.launches, _we.launches,
                     _wc.launches, _el.launches, _op.launches, _or.launches,
-                    _sp.launches, _dr.launches):
+                    _sp.launches, _dr.launches, _cg.launches):
         for key in counter:
             counter[key] = 0
 

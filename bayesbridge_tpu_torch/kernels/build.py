@@ -24,6 +24,7 @@ import subprocess
 import tempfile
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -32,7 +33,7 @@ BUILD_ROOT = _PKG / '_build'
 SOURCES = ('ne_oneread.cu', 'ne_sweep.cu', 'tdots_sweep.cu', 'bitlut.cu',
            'winell.cu', 'wincsr.cu', 'ne_onepass.cu', 'stream_probe.cu',
            'ell.cu', 'polya_gamma.cu', 'tilted_stable.cu',
-           'philox_check.cu')
+           'philox_check.cu', 'cg_loop.cu')
 HEADERS = ('sweep_common.cuh', 'mbarrier.cuh', 'philox.cuh')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-Xcompiler', '-fPIC')
@@ -83,6 +84,14 @@ _SIGNATURES = {
                    _P, _P, _P, _P],
     'bb_philox_check': [_P, _P, _P, _P, _I, _P],
     'bb_philox_stream': [_I, _L, _L, _P, _I, _P, _P, _I, _P],
+    'bb_cg_blocks': [_L],
+    'bb_cg_start': [_I, _P, _P],
+    'bb_cg_update': [_I, _P, _P],
+    'bb_cg_versions': [_P],
+    'bb_cg_graph_new': [_P, _P],
+    'bb_cg_graph_finish': [_P, ctypes.c_ulonglong, _P, _P, _P],
+    'bb_cg_graph_launch': [_P, _P],
+    'bb_cg_graph_free': [_P, _P],
 }
 
 
@@ -106,13 +115,33 @@ class KernelLibrary:
 _LOADED = None  # the process's one KernelLibrary, built on first use
 _LOAD_LOCK = threading.Lock()
 _COUNT_LOCK = threading.Lock()
+_RECORDING = threading.local()
 
 
 def count_launch(launches, key, n=1):
     """Advance a wrapper's launch counter `launches[key]` by `n` (a
-    read-modify-write that two threads must not interleave)."""
+    read-modify-write that two threads must not interleave); inside
+    :func:`recording`, keep the count aside instead."""
+    rec = getattr(_RECORDING, 'counts', None)
+    if rec is not None:
+        rec.append((launches, key, n))
+        return
     with _COUNT_LOCK:
         launches[key] += n
+
+
+@contextmanager
+def recording():
+    """Within the block, this thread's :func:`count_launch` calls leave
+    the counters as they are and go to the yielded list as (launches,
+    key, n): the launches of a graph capture, which the card runs only
+    when the graph does."""
+    prev = getattr(_RECORDING, 'counts', None)
+    _RECORDING.counts = rec = []
+    try:
+        yield rec
+    finally:
+        _RECORDING.counts = prev
 
 
 def _nvcc():

@@ -17,26 +17,47 @@ block-ordered (``design.cg_blockorder_ctx``), and a caller-supplied warm
 start (`warm_tdot` / `lin_pred0`) saves the initial residual's operator
 application.
 
-The JAX loop is a ``lax.while_loop`` with no host round-trips. Here the
-loop runs eagerly and reads the stopping test ``rs > atol^2`` on the
-host once per iteration; the rule, including the float32 floor on the
-tolerance, is the reference's, so ``n_cg_iter`` matches it on the same
-inputs.
-
+The JAX loop is a ``lax.while_loop`` with no host round-trips.
 :func:`sample_gaussian_cg_chains` solves for k Markov chains at once (the
 JAX loop under ``vmap``): each chain has its own step sizes, residual,
-threshold and iteration count, one host read per iteration says which
-chains still run, and a chain that has converged is compacted out of
-the batch (its state frozen, as ``vmap`` of a while loop masks it) so
-that the operator reads X only for the running chains. The sums over a
-chain's vector run per chain (:mod:`..utils.chains`), so chain c takes
-the iterations and the values it takes alone.
+threshold and iteration count, and a chain whose residual has met its
+threshold (or whose count has reached `maxiter`) keeps its state while the
+others run on, as ``vmap`` of a while loop masks it. One iteration is one
+function of a static-shaped state (:class:`..kernels.cg_loop.CgState`):
+the design's operator at s p for all k chains, then
+:func:`..kernels.cg_loop.cg_update`. Two loops run it:
+
+* the device loop, on a CUDA device wherever the design's products all
+  run on that device in this process (:func:`takes_device_loop`): the
+  prologue and the iteration are captured once per design and shape
+  into one CUDA graph whose conditional WHILE node loops the iteration
+  while any chain runs (:class:`..kernels.cg_loop.SolveGraph`); a solve
+  copies its inputs into the graph's buffers, launches it once and
+  reads the iteration counts and convergence flags once at the end;
+* the host loop, elsewhere (the CPU, and a mesh over several devices
+  or processes): a Python loop while any chain runs, one host read an
+  iteration.
+
+The stopping rule, the float32 floor on the tolerance included, is the
+reference's, so ``n_cg_iter`` matches it on the same inputs. The sums
+over a chain's vector run per chain (:mod:`..utils.chains` on the CPU,
+in an order fixed by the vector's length in ``csrc/cg_loop.cu``), so
+chain c takes the iterations and the values it takes alone. A chain that
+has stopped rides along in the operator's products until the last one
+stops; the design reads X once for up to 8 chains where its kernels take
+chain batches, else once per chain.
 """
+
+import functools
+import threading
+import weakref
 
 import numpy as np
 import torch
 
-from ..utils.chains import rdot, rnorm
+from ..kernels.cg_loop import (
+    CgState, SolveGraph, cg_start, cg_update, indexed,
+)
 
 
 def choose_preconditioner(prior_prec_sqrt, n_unshrunk, coef_scaled_sd,
@@ -96,6 +117,20 @@ def sample_gaussian_cg(gen, design, obs_prec, prior_prec_sqrt, z,
     return tuple(r[0] for r in res[:-1]) + (info,)
 
 
+def takes_device_loop(design, device):
+    """Whether the solve runs as the device loop: on a CUDA device, for a
+    design whose products all run on that device in this process
+    (``design.devices()``: any backend, and a 1-d or 2-d mesh whose pieces
+    all sit on it). A mesh over several devices, or one with other
+    processes (a process group), keeps the host loop (ROADMAP, Queue
+    2)."""
+    device = indexed(device)
+    if device.type != 'cuda':
+        return False
+    devices = design.devices()
+    return devices is not None and {indexed(d) for d in devices} == {device}
+
+
 def sample_gaussian_cg_chains(gens, design, obs_prec, prior_prec_sqrt, z,
                               coef_cg_init, precond_scale, maxiter=500,
                               atol=1e-6, perturbation=None, warm_tdot=None,
@@ -105,115 +140,240 @@ def sample_gaussian_cg_chains(gens, design, obs_prec, prior_prec_sqrt, z,
     generator per chain (read only without `perturbation`). Returns
     (coef (k, p)[, lin_pred (k, n)], info) with info['n_cg_iter'] (k,)
     ints and info['cg_converged'] (k,) bools, numpy arrays."""
-    dtype = z.dtype
-    k = z.shape[0]
     n_obs, n_pred = design.shape
     if perturbation is None:
         eps_obs, eps_prior = [], []
         for g in gens:
-            eps_obs.append(torch.randn(n_obs, generator=g, dtype=dtype,
+            eps_obs.append(torch.randn(n_obs, generator=g, dtype=z.dtype,
                                        device=z.device))
-            eps_prior.append(torch.randn(n_pred, generator=g, dtype=dtype,
+            eps_prior.append(torch.randn(n_pred, generator=g, dtype=z.dtype,
                                          device=z.device))
         perturbation = design.Tdot(torch.sqrt(obs_prec)
                                    * torch.stack(eps_obs)) \
             + prior_prec_sqrt * torch.stack(eps_prior)
-    b = precond_scale * (z + perturbation)
-    precond_prior_prec = (precond_scale * prior_prec_sqrt) ** 2
-
-    # Block-ordered solve on the hybrid composed path: conjugating the
-    # whole solve by the block permutation turns the operator's
-    # per-iteration gather and scatter into slices (ops/cg.py:110-147).
-    bo_ctx = design.cg_blockorder_ctx()
-    if bo_ctx is not None:
-        perm, unperm, offset_bo = bo_ctx
-        b = b[:, perm]
-        precond_scale = precond_scale[:, perm]
-        precond_prior_prec = precond_prior_prec[:, perm]
-        coef_cg_init = coef_cg_init[:, perm]
-        if warm_tdot is not None:
-            warm_tdot = warm_tdot[:, perm]
-
-        def quad(x, w, return_t=False):
-            return design.quad_matvec_blockorder(x, w, offset_bo,
-                                                 return_t=return_t)
-    else:
-        def quad(x, w, return_t=False):
-            return design.quad_matvec(x, w, return_t=return_t)
-
-    def matvec_t(x, rows):
-        # Phi-tilde x = D P D x + s X' (omega X (s x)), s the
-        # preconditioner scale (cg_sampler.py:104-113), for the chains
-        # `rows` (None: all), with X (s x) when the loop keeps the linear
-        # predictor.
-        s, w, d = precond_scale, obs_prec, precond_prior_prec
-        if rows is not None:
-            s, w, d = s[rows], w[rows], d[rows]
-        if return_lin_pred:
-            out, t = quad(s * x, w, return_t=True)
-        else:
-            out, t = quad(s * x, w), None
-        return d * x + s * out, t
-
-    x = coef_cg_init / precond_scale
-    yhat = None
+    if warm_tdot is not None and return_lin_pred and lin_pred0 is None:
+        raise ValueError("return_lin_pred with warm_tdot requires "
+                         "lin_pred0 (= X coef_cg_init)")
+    inp = {'z': z, 'pert': perturbation, 'pps': prior_prec_sqrt,
+           's': precond_scale, 'w': obs_prec, 'coef': coef_cg_init}
     if warm_tdot is not None:
-        if return_lin_pred and lin_pred0 is None:
-            raise ValueError("return_lin_pred with warm_tdot requires "
-                             "lin_pred0 (= X coef_cg_init)")
-        # s * x0 = coef_cg_init up to one rounding, so the design part of
-        # matvec(x0) is the caller-supplied reduction.
-        r = b - (precond_prior_prec * x + precond_scale * warm_tdot)
-        yhat = lin_pred0
-    else:
-        Ax, yhat = matvec_t(x, None)
-        r = b - Ax
-    # Stop when ||r|| <= atol (scipy's cg with tol = atol/||b||,
-    # cg_sampler.py:74-80); in float32 the achievable residual is
-    # floored at ~50 eps ||b||, so the threshold rises to meet it.
-    atol = torch.maximum(
-        torch.tensor(atol, dtype=dtype, device=z.device),
-        50.0 * torch.finfo(dtype).eps * rnorm(b))
-    thresh = atol ** 2
-    p = r
-    rs = rdot(r, r)
-    n_iter = np.zeros(k, dtype=np.int64)
-    running = (rs > thresh).cpu().numpy()
-    while True:
-        act = np.flatnonzero(running & (n_iter < maxiter))
-        if act.size == 0:
-            break
-        # The running chains, compacted; all of them index nothing.
-        rows = None if act.size == k else torch.as_tensor(act,
-                                                          device=z.device)
-
-        def sub(t):
-            return t if rows is None else t[rows]
-
-        p_a, rs_a = sub(p), sub(rs)
-        Ap, t_p = matvec_t(p_a, rows)
-        alpha = rs_a / rdot(p_a, Ap)
-        x_a = sub(x) + alpha[:, None] * p_a
-        r_a = sub(r) - alpha[:, None] * Ap
-        rs_new = rdot(r_a, r_a)
-        p_new = r_a + (rs_new / rs_a)[:, None] * p_a
+        inp['warm'] = warm_tdot
         if return_lin_pred:
-            y_a = sub(yhat) + alpha[:, None] * t_p
-        if rows is None:
-            x, r, p, rs = x_a, r_a, p_new, rs_new
-            if return_lin_pred:
-                yhat = y_a
-        else:
-            x, r, p, rs = (t.index_copy(0, rows, a) for t, a in
-                           ((x, x_a), (r, r_a), (p, p_new), (rs, rs_new)))
-            if return_lin_pred:
-                yhat = yhat.index_copy(0, rows, y_a)
-        n_iter[act] += 1
-        running[act] = (rs_new > sub(thresh)).cpu().numpy()
-    coef = precond_scale * x
-    if bo_ctx is not None:
-        coef = coef[:, unperm]
-    info = {'n_cg_iter': n_iter, 'cg_converged': ~running}
+            inp['lin0'] = lin_pred0
+    solve = device_solve if takes_device_loop(design, z.device) \
+        else host_solve
+    coef, yhat, info = solve(design, inp, maxiter, atol, return_lin_pred)
     if return_lin_pred:
         return coef, yhat, info
     return coef, info
+
+
+def _state_shape(design, inp, return_lin_pred):
+    """(k, n, dtype) of the loop's state: the chains, the linear
+    predictor's length (0 without it) and the type the inputs promote
+    to, in which the loop computes (ops/cg.py:190-192: the
+    preconditioner's can be wider than the design's)."""
+    dtype = functools.reduce(torch.promote_types, [
+        v.dtype for key, v in inp.items() if key != 'w'] + [design.dtype])
+    return inp['z'].shape[0], design.shape[0] if return_lin_pred else 0, \
+        dtype
+
+
+def host_solve(design, inp, maxiter, atol, return_lin_pred):
+    """The solve driven from the host: the prologue, then one iteration
+    at a time while any chain runs (one host read an iteration). `inp`
+    holds the (k, .) inputs 'z', 'pert' (the b-vector noise), 'pps'
+    (prior_prec_sqrt), 's' (precond_scale), 'w' (obs_prec), 'coef'
+    (coef_cg_init) and, with a warm start, 'warm' (warm_tdot) and
+    'lin0' (lin_pred0). Returns (coef, linear predictor or None,
+    info)."""
+    k, n, dtype = _state_shape(design, inp, return_lin_pred)
+    st = CgState(k, design.shape[1], n, dtype, inp['z'].device, maxiter,
+                 _floor_eps(inp))
+    st.atol.fill_(_atol(atol, inp))
+    bo_ctx = design.cg_blockorder_ctx()
+    quad = _operator(design, bo_ctx)
+    _setup(st, inp, quad, bo_ctx)
+    cg_start(st)
+    while bool(st.running.any()):
+        _iterate(st, inp['w'], quad)
+    return _finish(st, bo_ctx)[:3]
+
+
+def _floor_eps(inp):
+    """The eps of the float32 floor on the tolerance: z's type's, as the
+    atol's type (ops/cg.py:98, 169-171), also where the loop computes
+    wider (a float64 chain over a float32-stored design)."""
+    return torch.finfo(inp['z'].dtype).eps
+
+
+def _atol(atol, inp):
+    """`atol` rounded to z's type, as the reference takes it."""
+    return torch.tensor(float(atol), dtype=inp['z'].dtype).item()
+
+
+def _operator(design, bo_ctx):
+    """The operator's design part, X' (w (X v)) (with X v where
+    `return_t`), in block order on the hybrid composed path: conjugating
+    the whole solve by the block permutation turns the operator's
+    per-iteration gather and scatter into slices (ops/cg.py:110-147)."""
+    if bo_ctx is None:
+        return design.quad_matvec
+    offset_bo = bo_ctx[2]
+
+    def quad(v, w, return_t=False):
+        return design.quad_matvec_blockorder(v, w, offset_bo,
+                                             return_t=return_t)
+    return quad
+
+
+def _setup(st, inp, quad, bo_ctx):
+    """The solve's prologue into the state: b = s (z + perturbation), the
+    operator's diagonal d = (s prior_prec_sqrt)^2, both in block order
+    where `bo_ctx`, the warm start x0 = coef_cg_init / s and the initial
+    residual r0 = b - Phi-tilde x0, whose design part is `warm` where the
+    caller gave it (its linear predictor then `lin0`), else one operator
+    application (ops/cg.py:149-163)."""
+    s = inp['s']
+    b = s * (inp['z'] + inp['pert'])
+    d = (s * inp['pps']) ** 2
+    coef, warm = inp['coef'], inp.get('warm')
+    if bo_ctx is not None:
+        perm = bo_ctx[0]
+        b, s, d, coef = b[:, perm], s[:, perm], d[:, perm], coef[:, perm]
+        if warm is not None:
+            warm = warm[:, perm]
+    x = coef / s
+    if warm is not None:
+        # s * x0 = coef_cg_init up to one rounding, so the design part of
+        # the operator at x0 is the caller-supplied reduction.
+        r = b - (d * x + s * warm)
+        y = inp.get('lin0')
+    else:
+        if st.y is not None:
+            out, y = quad(s * x, inp['w'], return_t=True)
+        else:
+            out = quad(s * x, inp['w'])
+        r = b - (d * x + s * out)
+    for dst, src in ((st.b, b), (st.s, s), (st.d, d), (st.x, x),
+                     (st.r, r)):
+        dst.copy_(src)
+    if st.y is not None:
+        st.y.copy_(y)
+
+
+def _iterate(st, w, quad):
+    """One iteration for every chain: the operator's design part at
+    s p = st.sp (with the forward intermediate X (s p) where the loop
+    keeps the linear predictor), then the update (Phi-tilde p = d p +
+    s out; cg_sampler.py:104-113)."""
+    if st.y is not None:
+        out, t = quad(st.sp, w, return_t=True)
+    else:
+        out, t = quad(st.sp, w), None
+    cg_update(st, out, t)
+
+
+def _finish(st, bo_ctx):
+    """(coef, linear predictor or None, info, the iterations the loop
+    ran) of a finished solve; info and the iteration count read to the
+    host in one transfer. The loop runs while any chain runs, so it ran
+    the iteration max(n_iter) times."""
+    coef = st.s * st.x
+    if bo_ctx is not None:
+        coef = coef[:, bo_ctx[1]]
+    host = torch.cat((st.n_iter, st.converged().to(torch.int32),
+                      st.iters)).cpu().numpy()
+    k, iters = st.k, int(host[-1])
+    info = {'n_cg_iter': host[:k].astype(np.int64),
+            'cg_converged': host[k:2 * k].astype(bool)}
+    if iters != int(info['n_cg_iter'].max()):
+        raise RuntimeError(f"CG loop: the iteration ran {iters} times, "
+                           f"the chains' counts are {info['n_cg_iter']}")
+    return coef, st.y, info, iters
+
+
+class _DeviceLoop:
+    """The device loop of one design at one key (chains, types, the
+    options, `maxiter`, the device): static input buffers, the state and
+    its :class:`SolveGraph`."""
+
+    def __init__(self, design, inp, k, n, dtype, maxiter):
+        device = indexed(inp['z'].device)
+        m = design.shape[1]
+        self.bo_ctx = design.cg_blockorder_ctx()
+        quad = _operator(design, self.bo_ctx)
+        self.inp = {key: torch.zeros(
+            v.shape, dtype=v.dtype if key == 'w' else dtype, device=device)
+            for key, v in inp.items()}
+        feps = _floor_eps(inp)
+        self.st = st = CgState(k, m, n, dtype, device, maxiter, feps)
+        # Warm-up before the captures: the same work once on scratch
+        # copies, never on the chain's state.
+        scratch_inp = {key: torch.ones_like(v) for key, v in
+                       self.inp.items()}
+        scratch = CgState(k, m, n, dtype, device, maxiter, feps)
+
+        def warm():
+            _setup(scratch, scratch_inp, quad, self.bo_ctx)
+            cg_start(scratch)
+            _iterate(scratch, scratch_inp['w'], quad)
+
+        memo, design.memoized = design.memoized, False
+        try:
+            self.graph = SolveGraph(
+                st, lambda: _setup(st, self.inp, quad, self.bo_ctx),
+                lambda: _iterate(st, self.inp['w'], quad), warm,
+                design.counters())
+        finally:
+            design.memoized = memo
+
+    def solve(self, inp, atol):
+        """Copy the inputs in, launch the graph once, read the info once:
+        (coef, linear predictor or None, info)."""
+        st = self.st
+        with self.graph.lock:
+            for key, v in inp.items():
+                self.inp[key].copy_(v)
+            st.atol.fill_(_atol(atol, inp))
+            self.graph.launch()
+            coef, yhat, info, iters = _finish(st, self.bo_ctx)
+            if yhat is not None:
+                yhat = yhat.clone()
+        self.graph.count(iters)
+        return coef, yhat, info
+
+
+_LOOPS_ATTR = '_cg_device_loops'
+_BUILD_LOCK = threading.Lock()
+
+
+def _loops_of(design):
+    """The design's graphs by key. They are kept on the design with a
+    weak reference to it: a shallow copy of the design (``with_policy``,
+    ``with_exact_tier``, ``row_block``) shares its attributes, and its
+    first solve replaces the entry with its own, since a graph reads the
+    buffers of the design it was captured on."""
+    owner, loops = design.__dict__.get(_LOOPS_ATTR, (None, None))
+    if owner is None or owner() is not design:
+        loops = {}
+        design.__dict__[_LOOPS_ATTR] = (weakref.ref(design), loops)
+    return loops
+
+
+def device_solve(design, inp, maxiter, atol, return_lin_pred):
+    """:func:`host_solve` as the device loop: one launch of the solve's
+    graph, captured on the first call of its key (the design, the
+    chains, the types, the options, `maxiter`, the device) and kept on
+    the design (:func:`_loops_of`), and one host read at the end."""
+    k, n, dtype = _state_shape(design, inp, return_lin_pred)
+    device = indexed(inp['z'].device)
+    key = (k, n, dtype, inp['z'].dtype, inp['w'].dtype, 'warm' in inp,
+           int(maxiter), device)
+    with _BUILD_LOCK:
+        loops = _loops_of(design)
+        loop = loops.get(key)
+        if loop is None:
+            loop = loops[key] = _DeviceLoop(design, inp, k, n, dtype,
+                                            maxiter)
+    return loop.solve(inp, atol)

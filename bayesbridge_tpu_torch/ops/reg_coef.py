@@ -24,6 +24,7 @@ from .summarizer import (
     extrapolate_coef_condmean, summarizer_update,
 )
 from ..utils.chains import rsum, take
+from ..utils.profiling import annotate
 
 
 def sample_gaussian_posterior(
@@ -89,38 +90,43 @@ def sample_gaussian_posterior(
         return (torch.stack([e for e, _ in eps]),
                 torch.stack([e for _, e in eps]))
 
-    lin_pred0 = warm_tdot = None
-    if cg_precond_by == 'diag' and design.has_presolve_reductions():
-        eps_obs, eps_prior = draw_eps()
-        if design.fused_ne_mode('presolve') is None:  # fold the warm start
-            lin_pred0 = design.dot(coef_init)
-            v, pert, fisher_diag, warm_tdot = design.presolve_reductions(
-                obs_prec * y_gauss, torch.sqrt(obs_prec) * eps_obs,
-                obs_prec, obs_prec * lin_pred0)
+    with annotate('gibbs:cg_presolve'):
+        lin_pred0 = warm_tdot = None
+        if cg_precond_by == 'diag' and design.has_presolve_reductions():
+            eps_obs, eps_prior = draw_eps()
+            if design.fused_ne_mode('presolve') is None:
+                # Fold the warm start into the pre-solve.
+                lin_pred0 = design.dot(coef_init)
+                v, pert, fisher_diag, warm_tdot = \
+                    design.presolve_reductions(
+                        obs_prec * y_gauss, torch.sqrt(obs_prec) * eps_obs,
+                        obs_prec, obs_prec * lin_pred0)
+            else:
+                v, pert, fisher_diag = design.presolve_reductions(
+                    obs_prec * y_gauss, torch.sqrt(obs_prec) * eps_obs,
+                    obs_prec)
+            precond_scale = 1.0 / torch.sqrt(prior_prec_sqrt ** 2
+                                             + fisher_diag)
         else:
-            v, pert, fisher_diag = design.presolve_reductions(
-                obs_prec * y_gauss, torch.sqrt(obs_prec) * eps_obs,
-                obs_prec)
-        precond_scale = 1.0 / torch.sqrt(prior_prec_sqrt ** 2 + fisher_diag)
-    else:
-        v = design.Tdot(obs_prec * y_gauss)
-        eps_obs, eps_prior = draw_eps()
-        pert = design.Tdot(torch.sqrt(obs_prec) * eps_obs)
-        if cg_precond_by == 'diag':
-            precond_scale = choose_diag_preconditioner(design, obs_prec,
-                                                       prior_prec_sqrt)
-        else:
-            precond_scale = choose_preconditioner(
-                prior_prec_sqrt, n_unshrunk,
-                estimate_coef_precond_scale_sd(summ_state))
-    res = sample_gaussian_cg_chains(
-        gens, design, obs_prec, prior_prec_sqrt, v,
-        coef_cg_init=coef_init, precond_scale=precond_scale,
-        maxiter=cg_maxiter,
-        atol=cg_atol_multiplier * 1e-5 * np.sqrt(n_pred),
-        perturbation=pert + prior_prec_sqrt * eps_prior,
-        warm_tdot=warm_tdot, lin_pred0=lin_pred0,
-        return_lin_pred=want_lin_pred)
+            v = design.Tdot(obs_prec * y_gauss)
+            eps_obs, eps_prior = draw_eps()
+            pert = design.Tdot(torch.sqrt(obs_prec) * eps_obs)
+            if cg_precond_by == 'diag':
+                precond_scale = choose_diag_preconditioner(design, obs_prec,
+                                                           prior_prec_sqrt)
+            else:
+                precond_scale = choose_preconditioner(
+                    prior_prec_sqrt, n_unshrunk,
+                    estimate_coef_precond_scale_sd(summ_state))
+    with annotate('gibbs:cg_solve'):
+        res = sample_gaussian_cg_chains(
+            gens, design, obs_prec, prior_prec_sqrt, v,
+            coef_cg_init=coef_init, precond_scale=precond_scale,
+            maxiter=cg_maxiter,
+            atol=cg_atol_multiplier * 1e-5 * np.sqrt(n_pred),
+            perturbation=pert + prior_prec_sqrt * eps_prior,
+            warm_tdot=warm_tdot, lin_pred0=lin_pred0,
+            return_lin_pred=want_lin_pred)
     if want_lin_pred:
         coef, lin_pred, info = res
         info = {**info, 'lin_pred': lin_pred}

@@ -35,6 +35,7 @@ from .random.polya_gamma import sample_polya_gamma_chains
 from .random.tilted_stable import sample_tilted_stable_chains
 from .utils.chains import pow_pos, rsum
 from .utils.dtypes import full_float32
+from .utils.profiling import annotate
 
 SAMPLE_KEYS = ('coef', 'local_scale', 'global_scale', 'obs_prec', 'logp')
 
@@ -230,7 +231,16 @@ def gibbs_step_chains(cfg, model, gens, carry):
     chain axis, gens one generator per chain): returns (carry, outputs),
     outputs with the same leading axis (the sampler's host counts, such
     as 'n_cg_iter', (k,) numpy arrays)."""
-    coef, carry, info = update_regress_coef_chains(cfg, model, gens, carry)
+    with annotate('gibbs:step'):
+        return _gibbs_step_chains(cfg, model, gens, carry)
+
+
+def _gibbs_step_chains(cfg, model, gens, carry):
+    # Each phase in a profiler span of its own (utils.profiling.span_stats
+    # reads their host and device time).
+    with annotate('gibbs:coef'):
+        coef, carry, info = update_regress_coef_chains(cfg, model, gens,
+                                                       carry)
     if cfg.hmc:
         # The reference raises on a non-positive curvature estimate
         # (reg_coef_sampler.py:233-239); the step counts it, and the run
@@ -244,14 +254,18 @@ def gibbs_step_chains(cfg, model, gens, carry):
     # none for Cox, whose log density takes its own pass.
     lin_pred = info.pop('lin_pred', None)
     if lin_pred is None and model.name != 'cox':
-        lin_pred = model.design.dot(coef)
-    obs_prec = update_obs_precision_chains(cfg, model, gens, lin_pred)
-    gscale, clamped = update_global_scale(cfg, gens, carry['gscale'],
-                                          coef[:, cfg.n_unshrunk:])
-    lscale, n_under, n_over = update_local_scale(
-        cfg, gens, gscale, coef[:, cfg.n_unshrunk:])
-    logp = compute_posterior_logprob(cfg, model, coef, gscale, obs_prec,
-                                     lin_pred)
+        with annotate('gibbs:lin_pred'):
+            lin_pred = model.design.dot(coef)
+    with annotate('gibbs:obs_prec'):
+        obs_prec = update_obs_precision_chains(cfg, model, gens, lin_pred)
+    with annotate('gibbs:scales'):
+        gscale, clamped = update_global_scale(cfg, gens, carry['gscale'],
+                                              coef[:, cfg.n_unshrunk:])
+        lscale, n_under, n_over = update_local_scale(
+            cfg, gens, gscale, coef[:, cfg.n_unshrunk:])
+    with annotate('gibbs:logp'):
+        logp = compute_posterior_logprob(cfg, model, coef, gscale, obs_prec,
+                                         lin_pred)
     carry = {
         **carry,
         'coef': coef, 'obs_prec': obs_prec,

@@ -58,7 +58,9 @@ Phases, each of which raises on failure (exit code != 0):
    through ``gibbs_resume`` timed, resume on the card (``gibbs(13)`` +
    ``gibbs_resume(7, merge=True)`` must equal the ``gibbs(20)`` run
    exactly) and a profiler window (busy share, device ms per
-   iteration); then the alternating A/B segments (2 rounds); then the
+   iteration; the same iterations again on the host-driven CG loop,
+   whose trace holds every kernel the graphs launch); then the
+   alternating A/B segments (2 rounds); then the
    MAP search's witness (the search with the fused objective, on
    ``ne_oneread[logit]``, and with the composed one on the same design,
    and the two objectives compared) and the two objectives' times in
@@ -235,6 +237,26 @@ Phases, each of which raises on failure (exit code != 0):
    variants of ne_onepass, then ``--probe`` and ``--presolve``, its
    launch counters read right after it.
 
+Every CG solve on one card runs as the device loop (``ops/cg.py``: one
+launch of a CUDA graph whose conditional WHILE node loops the captured
+iteration, the design's products and ``cg_update``, csrc/cg_loop.cu).
+The cg_loop phase runs inside the slices, after each chain, on its
+design at full width: the hybrid slices fused and composed, int4, the
+dense CG slices, bitpack, winell, ell float64 and float32 and the 4-shard
+mesh: one solve of 4 chains (different iteration counts, one that starts
+converged) both ways, the host-driven loop and the device loop, with the
+same n_cg_iter, coef within RTOL (1e-12 in float64), a rerun's bits from
+the cached graph with one host read, the launch counters at the captured
+iteration's launches times max(n_iter), each chain equal to the chain
+alone bit for bit, each way's wall ms, the graph pool's bytes and the
+CUDA versions; ``cg_start`` and ``cg_update`` are checked against their
+plain versions and timed at the composed flagship chain's state and the
+ell float64 one's (the device's time by CUDA events, median of 10, beside
+the bound: each vector read or written once over 3,350 GB/s). Every
+profiler window also splits each iteration's host wall ms and device ms
+between the CG solve and the rest of the step (``utils.profiling.
+span_stats`` over the step's ``gibbs:*`` spans), summarized at the end.
+
 The line before the last is ``nvidia-smi``'s name and power limit, the
 one before it a JSON summary of the kernels (each with the ``path``
 its launches were counted on, ``check-only`` where no path of the
@@ -243,6 +265,7 @@ package runs it), and the last line
 prints no result.
 """
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -1286,47 +1309,430 @@ def run_chain(model, label, step_bytes, n_first=30, n_more=20,
     return counts, n_cg, info, stats
 
 
-def profile_window(bridge, info, label, n_iter=3, resume=None):
-    """A profiler window (``utils.profiling.trace``, read back by
-    ``op_stats_from_trace``) over `n_iter` more iterations
-    (``resume(n_iter)``, by default ``bridge.gibbs_resume(info,
-    n_iter)``): (the device's busy share of the window's wall clock,
-    profiler overhead included; device ms per iteration), both None where
-    the profiler saw no device events, logged with the kernels that took
-    the most device time."""
+def _traced_window(label, n_iter, run):
+    """One profiler window (``utils.profiling.trace``) over ``run()``:
+    (wall ms, the device events by kernel from ``op_stats_from_trace``,
+    the spans from ``span_stats``, the ms of each CG graph launch by CUDA
+    events)."""
     import shutil
     import tempfile
     import torch
+    from bayesbridge_tpu_torch.kernels.cg_loop import timed_launches
     from bayesbridge_tpu_torch.utils.profiling import (
-        annotate, op_stats_from_trace, trace)
+        annotate, op_stats_from_trace, span_stats, trace)
     torch.cuda.synchronize()
     log_dir = tempfile.mkdtemp(prefix='bb-profile-')
     try:
-        with trace(log_dir):
+        with timed_launches() as graphs, trace(log_dir):
             t0 = time.perf_counter()
             with annotate(f'{label} window'):
-                if resume is None:
-                    bridge.gibbs_resume(info, n_iter)
-                else:
-                    resume(n_iter)
+                run()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         rows = op_stats_from_trace(log_dir, device_only=True)
+        spans = span_stats(log_dir, 'gibbs:')
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
-    busy = sum(r['self_us'] for r in rows) / 1e3
+    return wall, rows, spans, [a.elapsed_time(b) for a, b in graphs]
+
+
+@contextlib.contextmanager
+def host_loop():
+    """Within the block every CG solve takes the host-driven loop
+    (``ops.cg.host_solve``): the same body, one host read an
+    iteration."""
+    from bayesbridge_tpu_torch.ops import cg
+    saved = cg.takes_device_loop
+    cg.takes_device_loop = lambda design, device: False
+    try:
+        yield
+    finally:
+        cg.takes_device_loop = saved
+
+
+def profile_window(bridge, info, label, n_iter=3, resume=None):
+    """A profiler window over `n_iter` more iterations (``resume(n_iter)``,
+    by default ``bridge.gibbs_resume(info, n_iter)``): (the device's busy
+    share of the window's wall clock, profiler overhead included; device
+    ms per iteration), both None where the profiler saw no device events,
+    logged with the kernels that took the most device time and with the
+    split of each iteration between the CG solve and the rest of the step
+    (:func:`log_split`).
+
+    The device ms is the sum of the device events of the trace, as in
+    the windows before the device loop. The trace misses some kernels a
+    CUDA graph launches, so where the CG loop's graphs ran, the window is
+    run again from the same state with every solve on the host loop
+    (:func:`host_loop`; a resume replays the same draws, the same
+    kernels), and that run's trace gives the device ms of both. Logged
+    beside it: the device loop's own measure, the work the host launched
+    (``span_stats``) plus the graphs' time by CUDA events, which also
+    holds the gaps between a graph's nodes; and the host loop's wall."""
+    if resume is None:
+        def resume(n):
+            return bridge.gibbs_resume(info, n)
+    wall, rows, spans, graphs = _traced_window(label, n_iter,
+                                               lambda: resume(n_iter))
+    host = None
+    if graphs:
+        with host_loop():
+            host = _traced_window(label, n_iter, lambda: resume(n_iter))
+        rows = host[1]
     if not rows:
         log(f"[{label}] profiler: no device events (busy share not "
             f"measured)")
         return None, None
+    busy = sum(r['self_us'] for r in rows) / 1e3
+    graph_ms = sum(graphs)
     log(f"[{label}] profiler over {n_iter} iterations: device busy "
         f"{busy:.1f} ms of {wall:.1f} ms wall ({100 * busy / wall:.1f}%, "
         f"idle {100 - 100 * busy / wall:.1f}%); device "
         f"{busy / n_iter:.2f} ms per iteration")
+    if host is not None:
+        events = spans['']['device_ms'] + graph_ms
+        log(f"[{label}] the same iterations on the host loop: {host[0]:.1f} "
+            f"ms wall, busy {100 * busy / host[0]:.1f}% (device ms from "
+            f"this run's trace, above); the device loop by its own measure: "
+            f"{events:.1f} ms ({len(graphs)} CG graph launches, "
+            f"{graph_ms:.2f} ms by CUDA events, gaps between nodes "
+            f"included), {100 * events / wall:.1f}% busy")
     for r in rows[:8]:
         log(f"    {r['self_us'] / 1e3:9.2f} ms  {r['occurrences']:6d} x  "
             f"{r['name'][:90]}")
+    if len(spans) > 1:
+        log_split(label, spans, n_iter, graph_ms,
+                  None if host is None else host[2])
     return busy / wall, busy / n_iter
+
+
+# The per-iteration split of every profiler window between the CG solve
+# and the rest of the Gibbs step (utils.profiling.span_stats), by label.
+SPLITS = {}
+
+
+def log_split(label, spans, n_iter, graph_ms=0.0, host_spans=None):
+    """Log (and keep in SPLITS) a window's spans per iteration: the step's
+    host wall and device ms, the CG solve's, the pre-solve's, and the rest
+    of the step's. Where the CG loop's graphs ran (`graph_ms`, their time
+    by CUDA events), the device ms come from `host_spans`, the same
+    iterations on the host loop, whose walls are kept beside
+    (``host_*_wall_ms``), and ``cg_event_ms`` is the device loop's own
+    measure of the CG solve (the graphs' events and the work the host
+    launched in the span)."""
+    dev = spans if host_spans is None else host_spans
+
+    def per(table, name, key):
+        return table.get(name, {}).get(key, 0.0) / n_iter
+
+    split = {key: round(per(table, name, field), 4)
+             for key, table, name, field in (
+                 ('step_wall_ms', spans, 'gibbs:step', 'wall_ms'),
+                 ('step_device_ms', dev, 'gibbs:step', 'device_ms'),
+                 ('cg_wall_ms', spans, 'gibbs:cg_solve', 'wall_ms'),
+                 ('cg_device_ms', dev, 'gibbs:cg_solve', 'device_ms'),
+                 ('presolve_wall_ms', spans, 'gibbs:cg_presolve', 'wall_ms'),
+                 ('presolve_device_ms', dev, 'gibbs:cg_presolve',
+                  'device_ms'))}
+    split['rest_wall_ms'] = round(split['step_wall_ms']
+                                  - split['cg_wall_ms'], 4)
+    split['rest_device_ms'] = round(split['step_device_ms']
+                                    - split['cg_device_ms'], 4)
+    if host_spans is not None:
+        split['cg_event_ms'] = round(
+            per(spans, 'gibbs:cg_solve', 'device_ms') + graph_ms / n_iter, 4)
+        for key, name in (('host_step_wall_ms', 'gibbs:step'),
+                          ('host_cg_wall_ms', 'gibbs:cg_solve')):
+            split[key] = round(per(host_spans, name, 'wall_ms'), 4)
+    SPLITS[label] = split
+    log(f"[{label}] per iteration: step {split['step_wall_ms']:.2f} ms wall "
+        f"/ {split['step_device_ms']:.2f} ms device; CG solve "
+        f"{split['cg_wall_ms']:.2f} / {split['cg_device_ms']:.2f}; pre-solve "
+        f"{split['presolve_wall_ms']:.2f} / "
+        f"{split['presolve_device_ms']:.2f}; the rest of the step "
+        f"{split['rest_wall_ms']:.2f} / {split['rest_device_ms']:.2f}"
+        + ("" if host_spans is None else
+           f"; on the host loop step {split['host_step_wall_ms']:.2f} / CG "
+           f"solve {split['host_cg_wall_ms']:.2f} ms wall; the device "
+           f"loop's CG solve by CUDA events {split['cg_event_ms']:.2f} ms"))
+
+
+# The cg_loop phase: CG_K chains a solve, the summary of each backend's
+# solve both ways by label.
+CG_K = 4
+CG_LOOP = {}
+CG_SEED = 31
+# The kernels line's entries of cg_start and cg_update, filled where the
+# slices hold their designs.
+CG_RESULTS = {}
+
+
+def cg_inputs(design, k, seed, lin):
+    """The (k, .) inputs of ``ops.cg.host_solve`` / ``device_solve`` at
+    the design's full width, made on the card from `seed`: exponential
+    weights, prior scales in [0.3, 3] (the intercept's 1e-3), right-hand
+    sides X'(w eps), the perturbation, starts, the Jacobi preconditioner,
+    and with `lin` the warm start's reductions; the last chain's residual
+    starts at 0 (it takes no iteration)."""
+    import torch
+    n, p = design.shape
+    dt, dev = design.dtype, design.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, dtype=dt, device=dev)
+
+    w = torch.empty((k, n), dtype=dt, device=dev).exponential_(
+        generator=g) * .25 + .05
+    pps = torch.rand((k, p), generator=g, dtype=dt, device=dev) * 2.7 + .3
+    pps[:, 0] = 1e-3
+    z = design.Tdot(rnd(k, n) * w)
+    pert, coef = rnd(k, p) * 2, rnd(k, p) * .1
+    for v in (z, pert, coef):
+        v[-1] = 0
+    s = 1 / torch.sqrt(pps ** 2 + design.compute_fisher_diag(w))
+    inp = {'z': z, 'pert': pert, 'pps': pps, 's': s, 'w': w, 'coef': coef}
+    if lin:
+        inp['lin0'] = design.dot(coef)
+        inp['warm'] = design.Tdot(w * inp['lin0'])
+    return inp
+
+
+class HostReads:
+    """Counts reads from the card to the host (Tensor.cpu, .item,
+    .tolist, .numpy, bool/int/float of a CUDA tensor) inside the block."""
+
+    NAMES = ('cpu', 'item', 'tolist', 'numpy', '__bool__', '__int__',
+             '__float__')
+
+    def __enter__(self):
+        import torch
+        self.n, self.saved = 0, {}
+        for name in self.NAMES:
+            orig = self.saved[name] = getattr(torch.Tensor, name)
+
+            def wrap(t, *args, _orig=orig, **kw):
+                if t.device.type == 'cuda':
+                    self.n += 1
+                return _orig(t, *args, **kw)
+            setattr(torch.Tensor, name, wrap)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        for name, orig in self.saved.items():
+            setattr(torch.Tensor, name, orig)
+
+
+def cg_loop_case(design, label):
+    """The cg_loop phase on one design: one solve of CG_K chains (chains
+    of different iteration counts, one that starts converged) at the
+    design's full width both ways, the host-driven loop
+    (``ops.cg.host_solve``) and the device loop (``device_solve``: one
+    graph launch), with the chain's options (the warm start and the
+    linear predictor where the CG operator composes). Checks: the same
+    n_cg_iter and convergence, coef and the linear predictor within RTOL
+    of max|host| (1e-12 in float64); a rerun's bits with the graph taken
+    from the cache and one host read; the launch counters at the
+    captured iteration's launches times the card's count of its runs,
+    max(n_iter) of the host loop; each chain equal to
+    the chain alone bit for bit. Logs each way's wall ms (median of 3;
+    the device loop's first call with its capture), the graph pool's
+    bytes and the CUDA versions."""
+    import numpy as np
+    import torch
+    from bayesbridge_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts)
+    from bayesbridge_tpu_torch.kernels.cg_loop import cuda_versions
+    from bayesbridge_tpu_torch.ops import cg
+    lin = design.fused_ne_mode('quad') is None
+    inp = cg_inputs(design, CG_K, CG_SEED, lin)
+    atol = 1e-5 * np.sqrt(design.shape[1])
+    tol = 1e-12 if design.dtype == torch.float64 else RTOL
+    assert cg.takes_device_loop(design, design.device), label
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def host():
+        return cg.host_solve(design, inp, 500, atol, lin)
+
+    def device(one=inp):
+        return cg.device_solve(design, one, 500, atol, lin)
+
+    ref, _ = timed(host)
+    before = set(cg._loops_of(design))
+    got, first_ms = timed(device)
+    (key,) = set(cg._loops_of(design)) - before
+    loop = cg._loops_of(design)[key]
+    n_iter = ref[2]['n_cg_iter']
+    for name in ('n_cg_iter', 'cg_converged'):
+        assert np.array_equal(got[2][name], ref[2][name]), (label, name)
+    assert n_iter[-1] == 0 and (n_iter[:-1] > 0).all(), (label, n_iter)
+    err, scale = max_err([g for g in got[:2] if g is not None],
+                         [r for r in ref[:2] if r is not None])
+    assert err <= tol * scale, (label, err, scale)
+    same = all(g is None or torch.equal(g, r)
+               for g, r in zip(got[:2], ref[:2]))
+    reset_launch_counts()
+    with HostReads() as reads:
+        again, _ = timed(device)
+    counts = launch_counts()
+    assert reads.n == 1, (label, reads.n)
+    assert cg._loops_of(design)[key] is loop
+    assert all(g is None or torch.equal(g, a)
+               for g, a in zip(got[:2], again[:2])), label
+    iters = int(n_iter.max())
+    assert counts['cg_update'] == iters and counts['cg_start'] == 1, counts
+    want = {}
+    for rec, times in zip(loop.graph.counts, (1, iters)):
+        for counter, name, n in rec:
+            cell = want.setdefault((id(counter), name), [counter, name, 0])
+            cell[2] += n * times
+    for counter, name, n in want.values():
+        assert counter[name] == n, (label, name, counter[name], n)
+    host_ms = statistics.median(timed(host)[1] for _ in range(3))
+    dev_ms = statistics.median(timed(device)[1] for _ in range(3))
+    for c in range(CG_K):
+        alone = device({k: v[c:c + 1] for k, v in inp.items()})
+        assert alone[2]['n_cg_iter'][0] == n_iter[c], (label, c)
+        assert all(g is None or torch.equal(a[0], g[c])
+                   for g, a in zip(got[:2], alone[:2])), (label, c)
+    per_iteration = {}
+    for _, name, n in loop.graph.counts[1]:
+        per_iteration[name] = per_iteration.get(name, 0) + n
+    built, runtime, driver = cuda_versions()
+    CG_LOOP[label] = dict(
+        n_cg_iter=n_iter.astype(int).tolist(), host_ms=host_ms,
+        device_ms=dev_ms, first_ms=first_ms, pool_bytes=loop.graph.pool_bytes,
+        same_bits_as_host=same, rel_err=err / max(scale, 1e-300),
+        launches_per_iteration=per_iteration)
+    log(f"[{label}] cg_loop: {CG_K} chains, n_cg_iter "
+        f"{n_iter.astype(int).tolist()}, host-driven {host_ms:.2f} ms, "
+        f"device loop {dev_ms:.2f} ms (first call, its capture included, "
+        f"{first_ms:.1f} ms); one host read; the same bits as the host "
+        f"loop: {same} (rel err {err / max(scale, 1e-300):.2e}); each "
+        f"chain equal to the chain alone bit for bit; the iteration's "
+        f"launches {CG_LOOP[label]['launches_per_iteration']}; graph pool "
+        f"{loop.graph.pool_bytes / 1e6:.2f} MB; CUDA built {built}, runtime "
+        f"{runtime}, driver {driver}, torch {torch.version.cuda}")
+    del inp, ref, got, again
+
+
+def device_ms(fn, reps=10, inner=20):
+    """Median of `reps` CUDA-event timings of `inner` back-to-back calls
+    of fn() (per call), the stream first held by a spin kernel so that
+    the host's launches queue up behind it and the events time the
+    device's work alone, not the host's launch rate."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(50_000_000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(inner):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / inner)
+    return statistics.median(times)
+
+
+def cg_kernel_results(design, suffix=''):
+    """cg_start and cg_update at one chain's state of the design's shape
+    (the main path's: the linear predictor where the CG operator
+    composes), against their plain versions from the same state (RTOL of
+    max|plain|, 1e-12 in float64), each timed by CUDA events (median of
+    10, the device's time: :func:`device_ms`) beside its bound (bytes:
+    each input vector read once, each output written once, over the HBM
+    rate) and the plain version; no PyTorch call computes either.
+    Timing runs CG on the diagonal part (out = 0), every call a step."""
+    import torch
+    from bayesbridge_tpu_torch.kernels.cg_loop import (
+        CgState, cg_start, cg_start_plain, cg_update, cg_update_plain)
+    n, p = design.shape
+    lin = design.fused_ne_mode('quad') is None
+    dt, dev = design.dtype, design.device
+    tol = 1e-12 if dt == torch.float64 else RTOL
+    g = torch.Generator(device=dev).manual_seed(CG_SEED)
+    names = ('x', 'r', 'p', 'sp', 'b', 's', 'd', 'y', 'rs', 'thresh',
+             'atol', 'n_iter', 'running')
+
+    def state():
+        st = CgState(1, p, n if lin else 0, dt, dev, maxiter=1 << 30)
+        for name in ('x', 'r', 'b') + (('y',) if lin else ()):
+            t = getattr(st, name)
+            t.copy_(torch.randn(t.shape, generator=g, dtype=dt, device=dev))
+        st.s.copy_(torch.rand((1, p), generator=g, dtype=dt, device=dev)
+                   + .5)
+        st.d.copy_(torch.rand((1, p), generator=g, dtype=dt, device=dev)
+                   + .5)
+        return st
+
+    def twin(st):
+        other = CgState(1, p, n if lin else 0, dt, dev, maxiter=1 << 30)
+        for name in names:
+            v = getattr(st, name)
+            if v is not None:
+                getattr(other, name).copy_(v)
+        return other
+
+    def agree(name, a, b):
+        got = [getattr(a, v) for v in ('x', 'r', 'p', 'sp', 'y', 'rs')
+               if getattr(a, v) is not None]
+        ref = [getattr(b, v) for v in ('x', 'r', 'p', 'sp', 'y', 'rs')
+               if getattr(b, v) is not None]
+        err, scale = max_err(got, ref)
+        assert err <= tol * scale, (name, err, scale)
+        assert torch.equal(a.running, b.running)
+        assert torch.equal(a.n_iter, b.n_iter)
+        return err
+
+    out = torch.randn((1, p), generator=g, dtype=dt, device=dev)
+    t = torch.randn((1, n), generator=g, dtype=dt, device=dev) if lin \
+        else None
+    st = state()
+    plain = twin(st)
+    cg_start(st)
+    cg_start_plain(plain)
+    err_start = agree('cg_start', st, plain)
+    plain = twin(st)
+    cg_update(st, out, t)
+    cg_update_plain(plain, out, t)
+    err_update = agree('cg_update', st, plain)
+    item = torch.empty((), dtype=dt).element_size()
+    zero_out = torch.zeros_like(out)
+    zero_t = None if t is None else torch.zeros_like(t)
+    results = {}
+    for name, err, kern, plain_fn, vectors in (
+            ('cg_start', err_start, lambda s: cg_start(s),
+             lambda s: cg_start_plain(s), 5 * p),
+            ('cg_update', err_update,
+             lambda s: cg_update(s, zero_out, zero_t),
+             lambda s: cg_update_plain(s, zero_out, zero_t),
+             10 * p + (3 * n if lin else 0))):
+        a, b = state(), state()
+        cg_start(a)
+        cg_start(b)
+        a.thresh.zero_()  # every timed call a step
+        b.thresh.zero_()
+        ms = device_ms(lambda: kern(a))
+        plain_ms = device_ms(lambda: plain_fn(b), inner=5)
+        bound, by = bound_ms(vectors * item, 0)
+        results[name + suffix] = dict(
+            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+            bound_by=by, library_ms=None)
+        log(f"  {name}{suffix} ({dt}, p = {p}"
+            + (f", n = {n}" if lin else "") + f"): kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+            f"{100 * bound / ms:.1f}% of it; max_abs_err {err:.3e}")
+    return results
 
 
 def map_search(model):
@@ -1486,6 +1892,9 @@ def run_hybrid(X, outcome):
             assert c['ne_oneread[logit]'] == 0, c
             assert c['ne_sweep[cols]'] >= n_map + (
                 0 if fused['quad'] else n_cg_sum), c
+        cg_loop_case(m.design, label)
+        if label == 'hybrid_composed':
+            CG_RESULTS.update(cg_kernel_results(m.design))
         if label == 'hybrid_fused':
             witness = map_witness(m, label)
         del m
@@ -1618,6 +2027,11 @@ def draw_kernel_ms(lin_pred, tilt, alpha, gens, calls=20):
         log_dir = tempfile.mkdtemp(prefix='bb-draws-')
         try:
             with trace(log_dir):
+                # One untimed pair first: in the smoke (torch 2.11) the
+                # trace misses the first launch of its window, every time.
+                draws.polya_gamma_draw(g, z)
+                draws.tilted_stable_draw(g, alpha, t)
+                torch.cuda.synchronize()
                 for _ in range(calls):
                     draws.polya_gamma_draw(g, z)
                     draws.tilted_stable_draw(g, alpha, t)
@@ -1628,8 +2042,12 @@ def draw_kernel_ms(lin_pred, tilt, alpha, gens, calls=20):
         for kind in ('pg', 'ts'):
             row = [r for r in rows
                    if f'{kind}_kernel<{ctype}>' in r['name']]
-            assert row and row[0]['occurrences'] == calls, (kind, tag, rows)
-            out[(kind, tag)] = row[0]['self_us'] / 1e3 / calls
+            # The timed calls' launches, and the first pair's where the
+            # trace holds it.
+            assert row and row[0]['occurrences'] in (calls, calls + 1), \
+                (kind, tag, rows)
+            out[(kind, tag)] = row[0]['self_us'] / 1e3 \
+                / row[0]['occurrences']
     return out
 
 
@@ -1994,6 +2412,7 @@ def run_int4(design, outcome, int8_auto):
         assert c['ne_rows_i4'] >= n_cg_sum and c['colpass_i4'] >= n_cg_sum, c
         # The flagship's exact block is 0/1: the binary pre-solve.
         assert c['tdots_i4[u4,bin]'] == 10 and c['tdots_i4[u4]'] == 0, c
+        cg_loop_case(d4, label)
         dev = 'not measured' if st['dev_ms'] is None or \
             int8_auto['dev_ms'] is None else \
             f"{st['dev_ms']:.2f} against {int8_auto['dev_ms']:.2f} " \
@@ -2171,6 +2590,7 @@ def run_packed(X, outcome, backend, m2d, map_ref=None, n_first=15,
     assert counts[f'{kern}[tdot]'] >= need + 4 * n_first + n_map, counts
     assert counts['ne_sweep[ne]'] == counts['tdots_sweep'] == 0, counts
     assert counts['winell[dot]'] == counts['winell[tdot]'] == 0, counts
+    cg_loop_case(model.design, backend)
     if map_ref is not None:
         map_witness(model, backend, map_ref)
     del model
@@ -2552,9 +2972,16 @@ def run_multichain(design, outcome, single_ips):
     log(f"[{label}_fused] gibbs_chains({n_x}, 2 chains, fused='1'): "
         f"n_cg_iter {n_cg_f.astype(int).tolist()}; launch counts {cf}")
     assert np.all(np.isfinite(s_f['coef']))
-    # Each chain: its CG iterations plus the initial residual's
-    # application per draw.
-    assert cf['ne_oneread'] == int(n_cg_f.sum()) + 2 * n_x, cf
+    # Each chain: one application per iteration of the solve (a chain
+    # that has stopped rides along until the last one stops: the fused
+    # operator launches once per chain) plus the initial residual's per
+    # draw.
+    ridden = 2 * int(n_cg_f.max(0).sum())
+    assert cf['ne_oneread'] == ridden + 2 * n_x, cf
+    log(f"[{label}_fused] the one-read CG operator launched {ridden} times "
+        f"for {int(n_cg_f.sum())} chain-iterations: "
+        f"{ridden - int(n_cg_f.sum())} launches for chains that had "
+        f"stopped")
     assert cf['tdots_sweep_k'] == n_x and cf['ne_rows_k'] == n_x, cf
     del model, bridge, fused
     torch.cuda.empty_cache()
@@ -3015,6 +3442,22 @@ def dense_block_checks(design, label):
         f"one-read {(ts[1] + ts[2]) / 2:.4f} against the pair {lib:.4f} ms, "
         f"bound {results['ne_oneread@dense']['bound_ms']:.4f} ms")
     results['ne_oneread@dense']['library_ms'] = lib
+
+    # The pre-solve's library time: one torch.matmul X' U over the three
+    # linear reductions (the squared-column moment, the fourth, has no
+    # one-call counterpart: it reads X once more).
+    U = torch.stack(us, 1)
+
+    def matmul():
+        return Xm.T @ U
+    got = tdots_sweep([X], [p], *us)[0]
+    check("torch.matmul X' U vs tdots_sweep@dense's X'u1..u3",
+          [matmul().T.contiguous()], [torch.stack(got[:3])])
+    results['tdots_sweep@dense']['library_ms'] = time_ms(matmul)
+    log(f"  torch.matmul X' [u1 u2 u3] (the pre-solve's three linear "
+        f"reductions): {results['tdots_sweep@dense']['library_ms']:.4f} "
+        f"ms against tdots_sweep@dense's "
+        f"{results['tdots_sweep@dense']['ms']:.4f} ms (four)")
     return results
 
 
@@ -3138,6 +3581,7 @@ def run_dense(m2d):
             f"{time.perf_counter() - t1:.1f} s; mean CG iterations "
             f"{n_cg.mean():.2f}; mean coef[1:11] "
             f"{s['coef'][1:11].mean():.4f}; launch counts {c}")
+        cg_loop_case(m.design, label)
         del bridge, m
     del model, design
     torch.cuda.empty_cache()
@@ -3555,10 +3999,13 @@ def run_ell(X, outcome, m2d):
         else 'ell[tdot]'
     assert c['ell[dot]'] >= need + n_map, c
     assert c[tdot] >= need + 4 * n_first + n_map, c
-    # Beside the draws, every launch is one of the two traversals.
-    assert sum(c.values()) - c['pg_draw'] - c['ts_draw'] \
-        == c['ell[dot]'] + c[tdot], c
+    # Beside the draws and the CG loop's update kernels, every launch is
+    # one of the two traversals.
+    assert sum(c.values()) - c['pg_draw'] - c['ts_draw'] - c['cg_start'] \
+        - c['cg_update'] == c['ell[dot]'] + c[tdot], c
     bridge = stats['chain'][0]
+    cg_loop_case(design, 'ell64')
+    CG_RESULTS.update(cg_kernel_results(design, '@ell64'))
     counts['ell64_chains'], chains = ell_chains(bridge, model)
     log(f"[ell64_chains] summary: {json.dumps(chains)}")
     errs, traversals = sharded_ell_checks(design)
@@ -3626,9 +4073,11 @@ def run_ell(X, outcome, m2d):
         else 'ell[tdot]'
     assert c['ell[dot]'] >= int(np.sum(n_cg + 1)), c
     assert c[tdot] >= int(np.sum(n_cg + 1)) + 4 * 10, c
-    # Beside the draws, every launch is one of the two traversals.
-    assert sum(c.values()) - c['pg_draw'] - c['ts_draw'] \
-        == c['ell[dot]'] + c[tdot], c
+    # Beside the draws and the CG loop's update kernels, every launch is
+    # one of the two traversals.
+    assert sum(c.values()) - c['pg_draw'] - c['ts_draw'] - c['cg_start'] \
+        - c['cg_update'] == c['ell[dot]'] + c[tdot], c
+    cg_loop_case(design, 'ell32')
     del model, design, bridge
     torch.cuda.empty_cache()
     return results, counts
@@ -3823,7 +4272,8 @@ def sharded_cg_solve(design, sd, label='sharded'):
     Tdot on a 2-d one): both n_cg_iter and the solutions' relative error.
     Returns the error."""
     import torch
-    from bayesbridge_tpu_torch.ops.cg import sample_gaussian_cg
+    from bayesbridge_tpu_torch.ops.cg import (
+        sample_gaussian_cg, takes_device_loop)
     g = torch.Generator(device='cuda').manual_seed(12)
     n, p = design.shape
     obs_prec = torch.rand(n, generator=g, device='cuda') * .25 + .05
@@ -3845,6 +4295,8 @@ def sharded_cg_solve(design, sd, label='sharded'):
         f"relative error {err:.3e}")
     assert abs(out['sharded'][1] - out['unsharded'][1]) <= 2, out
     assert err < 1e-3, err
+    if takes_device_loop(sd, sd.device):  # the mesh's pieces on one card
+        cg_loop_case(sd, label)
     return err
 
 
@@ -4509,7 +4961,7 @@ def main():
             # The nibble modes' entry names too, beside their registers.
             if 'registers' in line or 'spill' in line or 'Nib4' in line \
                     or 'tdots_i4' in line or 'pg_kernel' in line \
-                    or 'ts_kernel' in line:
+                    or 'ts_kernel' in line or 'cg_loop' in line:
                 log('  ptxas: ' + line.strip())
         X, outcome = data.result()
     t0 = phase('build and flagship data', t0)
@@ -4583,6 +5035,9 @@ def main():
     log(f"[mesh2d] summary: {json.dumps(m2d['summary'])}")
     counts.update(m2d['counts'])
     results.update(m2d['results'])
+    results.update(CG_RESULTS)
+    log(f"[cg_loop] summary: {json.dumps(CG_LOOP)}")
+    log(f"[splits] per iteration: {json.dumps(SPLITS)}")
 
     # The path whose run each kernel's launch count is read from. The
     # linear model's MAP search runs the one-read kernel's 'linear' mode
@@ -4627,7 +5082,9 @@ def main():
                'ell[dot_st]': 'ell64_chains',
                'ell[dot_st]@f32': 'ell32_checks',
                'ne_rows_i4': 'hybrid_int4', 'colpass_i4': 'hybrid_int4',
-               'tdots_i4[u4,bin]': 'hybrid_int4'}
+               'tdots_i4[u4,bin]': 'hybrid_int4',
+               'cg_start': 'hybrid_composed', 'cg_update': 'hybrid_composed',
+               'cg_update@ell64': 'ell64', 'cg_start@ell64': 'ell64'}
     # The pre-solve's other nibble modes: the four-reduction ones are the
     # fused pre-solve's, which no int4 design runs (it composes), and the
     # flagship's exact block is 0/1; each counted on its checks

@@ -39,6 +39,15 @@ pieces the int8 pieces' bits. The Polya-Gamma and tilted-stable kernels
 float64, report the plain version's per-lane method, give a rerun's bits
 and each chain's bits alone, run with no host sync, and carry a logit
 chain whose resumes stay exact; their Philox4x32-10 must equal curand's.
+The CG loop's kernels (``cg_start``, ``cg_update``) must match their
+plain versions (rtol 1e-4 of max|plain|, 1e-12 in float64), leave a
+chain whose flag is clear untouched and give each chain its bits alone;
+on every backend the device loop serves, the solve as one graph launch
+must give the host-driven loop's n_cg_iter and, within the same
+tolerance, its coef, a rerun's bits from the cached graph with one host
+read, launch counters at the captured iteration's launches times
+max(n_iter), and each chain's bits alone; a Gibbs run on the card takes
+one graph for all its solves.
 """
 
 import numpy as np
@@ -1869,3 +1878,320 @@ def test_logit_chain_draws_on_the_kernels_and_resumes(dev):
                                     prev_samples=part)
     for key in chains:
         np.testing.assert_array_equal(merged[key], chains[key])
+
+
+# -- the CG solve's device loop ------------------------------------------- #
+
+CG_CASES = ['hybrid', 'hybrid_auto', 'hybrid_fused', 'int4', 'dense',
+            'dense_fused', 'bitpack', 'winell', 'ell32', 'ell64', 'sharded']
+
+
+def _cg_design(case, dev, monkeypatch):
+    """_chain_problem's X as `case`'s design on the card: the hybrid
+    block-ordered ('0'), under 'auto' and fused ('1'), its int4 tier, the
+    dense design composed and fused, bitpack, winell, ell in float32 and
+    float64, and the hybrid on a 4-shard mesh of the one card."""
+    from bayesbridge_tpu_torch.design import (
+        DenseDesignMatrix, SparseDesignMatrix,
+    )
+    from bayesbridge_tpu_torch.parallel import make_mesh, shard_design
+    X, _ = _chain_problem()
+    if case.startswith('dense'):
+        return DenseDesignMatrix(X.toarray(), center_predictor=True,
+                                 fused='1' if case == 'dense_fused' else None,
+                                 device=dev)
+    if case == 'int4':
+        monkeypatch.setenv('BB_HYBRID_INT4', '1')
+    backend = {'ell32': 'ell', 'ell64': 'ell', 'bitpack': 'bitpack',
+               'winell': 'winell'}.get(case, 'hybrid')
+    fused = {'hybrid': '0', 'hybrid_fused': '1', 'sharded': '0'}.get(case)
+    design = SparseDesignMatrix(
+        X, center_predictor=True, backend=backend, fused=fused,
+        dtype=np.float64 if case == 'ell64' else np.float32, device=dev)
+    if case == 'sharded':
+        design = shard_design(design, make_mesh(devices=[dev] * 4))
+    return design
+
+
+def _cg_inputs(design, k, seed, warm=False, lin=False):
+    """The (k, .) inputs of ops.cg.host_solve / device_solve: random
+    weights, prior scales, right-hand sides and starts, the Jacobi
+    preconditioner; the last chain's residual starts at 0 (0
+    iterations)."""
+    n, p = design.shape
+    rng = np.random.default_rng(seed)
+
+    def t(a):
+        return torch.as_tensor(a, dtype=design.dtype, device=design.device)
+
+    w = t(rng.exponential(size=(k, n)) * .25 + .05)
+    pps = rng.uniform(.3, 3., size=(k, p))
+    pps[:, 0] = 1e-3
+    pps = t(pps)
+    z = design.Tdot(t(rng.standard_normal((k, n))) * w)
+    pert = t(rng.standard_normal((k, p)) * 2)
+    coef = t(rng.standard_normal((k, p)) * .1)
+    for v in (z, pert, coef):
+        v[-1] = 0
+    s = 1 / torch.sqrt(pps ** 2 + design.compute_fisher_diag(w))
+    inp = {'z': z, 'pert': pert, 'pps': pps, 's': s, 'w': w, 'coef': coef}
+    if warm:
+        lin0 = design.dot(coef)
+        inp['warm'] = design.Tdot(w * lin0)
+        if lin:
+            inp['lin0'] = lin0
+    return inp
+
+
+def _count_reads(mp):
+    """Count reads from the card to the host (Tensor.cpu, .item, .tolist,
+    .numpy, bool/int/float of a CUDA tensor) while `mp` holds."""
+    reads = [0]
+    for name in ('cpu', 'item', 'tolist', 'numpy', '__bool__', '__int__',
+                 '__float__'):
+        def wrap(self, *args, _orig=getattr(torch.Tensor, name), **kw):
+            if self.device.type == 'cuda':
+                reads[0] += 1
+            return _orig(self, *args, **kw)
+        mp.setattr(torch.Tensor, name, wrap)
+    return reads
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_cg_update_kernels_match_plain(dev, dtype):
+    """cg_start and cg_update against their plain versions one step at a
+    time from the same state (rtol 1e-4 of max|plain|, 1e-12 in float64;
+    the flags and counts equal), a chain whose flag is clear untouched bit
+    for bit, each chain of the batch equal to the chain alone bit for bit,
+    and a rerun's bits."""
+    from bayesbridge_tpu_torch.kernels.cg_loop import (
+        CgState, cg_start, cg_start_plain, cg_update, cg_update_plain,
+    )
+    k, m, n = 5, 3001, 1777
+    tol = 1e-12 if dtype == torch.float64 else 1e-4
+    g = torch.Generator(device=dev).manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev, dtype=dtype)
+
+    names = ('x', 'r', 'p', 'sp', 'b', 's', 'd', 'y', 'rs', 'thresh',
+             'atol', 'n_iter', 'running')
+
+    def copy(dst, src, rows=slice(None)):
+        for name in names:
+            s = getattr(src, name)
+            getattr(dst, name).copy_(s if name == 'atol' else s[rows])
+
+    st = CgState(k, m, n, dtype, dev, maxiter=9)
+    for name in ('x', 'r', 'b', 'y'):
+        getattr(st, name).copy_(rnd(*getattr(st, name).shape))
+    st.s.copy_(rnd(k, m).abs() + .1)
+    st.d.copy_(rnd(k, m).abs() + .1)
+    st.atol.fill_(1e-3)
+    plain = CgState(k, m, n, dtype, dev, maxiter=9)
+    copy(plain, st)
+    cg_start(st)
+    cg_start_plain(plain)
+    vec = ('x', 'r', 'p', 'sp', 'y', 'rs', 'thresh')
+
+    def agree():
+        for name in vec:
+            got, ref = getattr(st, name), getattr(plain, name)
+            assert float((got - ref).abs().max()) \
+                <= tol * float(ref.abs().max()), name
+        assert torch.equal(st.n_iter, plain.n_iter)
+        assert torch.equal(st.running, plain.running)
+
+    agree()
+    assert int(st.running.sum()) == k
+    st.running[1] = 0
+    for _ in range(3):
+        copy(plain, st)
+        out, t = rnd(k, m), rnd(k, n)
+        frozen = {name: getattr(st, name)[1].clone() for name in vec}
+        start = CgState(k, m, n, dtype, dev, maxiter=9)
+        copy(start, st)
+        cg_update(st, out, t)
+        cg_update_plain(plain, out, t)
+        agree()
+        for name in vec:
+            assert torch.equal(getattr(st, name)[1], frozen[name]), name
+        again = CgState(k, m, n, dtype, dev, maxiter=9)
+        copy(again, start)
+        cg_update(again, out, t)
+        for c in range(k):
+            one = CgState(1, m, n, dtype, dev, maxiter=9)
+            copy(one, start, slice(c, c + 1))
+            cg_update(one, out[c:c + 1], t[c:c + 1])
+            for name in vec:
+                assert torch.equal(getattr(one, name)[0],
+                                   getattr(st, name)[c]), (name, c)
+                assert torch.equal(getattr(again, name),
+                                   getattr(st, name)), name
+    assert torch.equal(st.n_iter[[0, 2, 3, 4]],
+                       torch.full((4,), 3, dtype=torch.int32, device=dev))
+
+
+@pytest.mark.parametrize('warm,lin', [(False, False), (False, True),
+                                      (True, True)])
+@pytest.mark.parametrize('case', CG_CASES)
+def test_cg_device_loop_matches_host_loop(dev, case, warm, lin,
+                                            monkeypatch):
+    """The solve as one graph launch against the host-driven loop on the
+    card, for every backend the device loop serves: the same n_cg_iter
+    (chains of different counts, one that starts converged) and
+    convergence flags, coef and the linear predictor within rtol 1e-4 of
+    max|host| (1e-12 in float64); a rerun's bits, with the graph taken
+    from the cache (no recapture) and one host read; the launch counters
+    at the captured iteration's launches times max(n_iter); each chain
+    of the batch equal to the chain alone bit for bit; maxiter stops
+    both loops alike."""
+    from bayesbridge_tpu_torch.ops import cg
+    design = _cg_design(case, dev, monkeypatch)
+    assert cg.takes_device_loop(design, dev)
+    tol = 1e-12 if design.dtype == torch.float64 else 1e-4
+    inp = _cg_inputs(design, 4, 11, warm, lin)
+    atol = 1e-5 * np.sqrt(design.shape[1])
+    ref = cg.host_solve(design, inp, 500, atol, lin)
+    got = cg.device_solve(design, inp, 500, atol, lin)
+    for key in ('n_cg_iter', 'cg_converged'):
+        np.testing.assert_array_equal(got[2][key], ref[2][key])
+    n_iter = ref[2]['n_cg_iter']
+    assert n_iter[-1] == 0 and (n_iter[:-1] > 2).all(), n_iter
+    assert ref[2]['cg_converged'].all()
+    assert (ref[1] is None) == (not lin)
+    for g_, r_ in zip(got[:2], ref[:2]):
+        if r_ is not None:
+            assert float((g_ - r_).abs().max()) \
+                <= tol * float(r_.abs().max())
+    loops = dict(cg._loops_of(design))
+    assert len(loops) == 1
+    (loop,) = loops.values()
+    reset_launch_counts()
+    with monkeypatch.context() as mp:
+        reads = _count_reads(mp)
+        again = cg.device_solve(design, inp, 500, atol, lin)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert reads[0] <= 1, reads[0]
+    assert cg._loops_of(design) == loops
+    for g_, a_ in zip(got[:2], again[:2]):
+        assert g_ is None or torch.equal(g_, a_)
+    iters = int(n_iter.max())
+    assert counts['cg_update'] == iters and counts['cg_start'] == 1
+    want = {}
+    for rec, times in zip(loop.graph.counts, (1, iters)):
+        for counter, key, n in rec:
+            cell = want.setdefault((id(counter), key), [counter, key, 0])
+            cell[2] += n * times
+    # The dense design composes on torch.matmul (no kernel of ours).
+    cublas = case == 'dense' or case == 'dense_fused' and lin
+    assert len(want) >= (2 if cublas else 3), want
+    for counter, key, n in want.values():
+        assert counter[key] == n, (key, counter[key], n)
+    for c in range(4):
+        one = {key: v[c:c + 1] for key, v in inp.items()}
+        alone = cg.device_solve(design, one, 500, atol, lin)
+        assert alone[2]['n_cg_iter'][0] == n_iter[c]
+        for g_, a_ in zip(got[:2], alone[:2]):
+            assert g_ is None or torch.equal(a_[0], g_[c]), c
+    capped = cg.device_solve(design, inp, 3, atol, lin)
+    ref3 = cg.host_solve(design, inp, 3, atol, lin)
+    np.testing.assert_array_equal(capped[2]['n_cg_iter'], [3, 3, 3, 0])
+    np.testing.assert_array_equal(capped[2]['cg_converged'],
+                                  ref3[2]['cg_converged'])
+    assert not capped[2]['cg_converged'][:3].any()
+
+
+def test_cg_device_loop_on_a_copy_of_the_design(dev, monkeypatch):
+    """A copy of a design that has run a solve captures its own graph
+    under the same key: the int8 design's int4 tier (with_exact_tier, a
+    shallow copy under the same policy), solved after the int8 design is
+    dropped, launches the nibble kernels and none of int8's, and agrees
+    with the host loop."""
+    import gc
+    from bayesbridge_tpu_torch.ops import cg
+    monkeypatch.delenv('BB_HYBRID_INT4', raising=False)
+    d8 = _cg_design('hybrid', dev, monkeypatch)
+    inp = _cg_inputs(d8, 4, 11)
+    atol = 1e-5 * np.sqrt(d8.shape[1])
+    cg.device_solve(d8, inp, 500, atol, False)
+    (first,) = cg._loops_of(d8).values()
+    d4 = d8.with_exact_tier('int4')
+    del d8
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = cg.host_solve(d4, inp, 500, atol, False)
+    reset_launch_counts()
+    got = cg.device_solve(d4, inp, 500, atol, False)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    (loop,) = cg._loops_of(d4).values()
+    assert loop is not first
+    nibble = sum(n for key, n in counts.items() if '_i4' in key)
+    assert nibble > 0, counts
+    assert counts['ne_rows_k'] == counts['colpass_k'] == 0, counts
+    np.testing.assert_array_equal(got[2]['n_cg_iter'], ref[2]['n_cg_iter'])
+    assert float((got[0] - ref[0]).abs().max()) \
+        <= 1e-4 * float(ref[0].abs().max())
+
+
+def test_gibbs_takes_the_device_loop(dev):
+    """A logit chain on the card runs every CG solve as the device loop:
+    one graph for the run (captured on the first iteration, then taken
+    from the cache), cg_update launched max(n_cg_iter) times a solve, and
+    at most one host read in each solve."""
+    from bayesbridge_tpu_torch import (
+        BayesBridge, RegressionCoefPrior, RegressionModel,
+    )
+    from bayesbridge_tpu_torch.ops import cg
+    X, outcome = _chain_problem()
+    model = RegressionModel(outcome, X, family='logit')
+    bridge = BayesBridge(model, RegressionCoefPrior(bridge_exponent=.5))
+    _, info = bridge.gibbs(3, seed=0, coef_sampler_type='cg')
+    assert len(cg._loops_of(model.design)) == 1
+    reset_launch_counts()
+    reads = []
+    solve = cg.device_solve
+
+    def counted(*args, **kw):
+        with pytest.MonkeyPatch.context() as mp:
+            r = _count_reads(mp)
+            out = solve(*args, **kw)
+        reads.append(r[0])
+        return out
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cg, 'device_solve', counted)
+        _, more = bridge.gibbs_resume(info, 4)
+    n_cg = more['_reg_coef_sampling_info']['n_cg_iter']
+    assert reads == [1] * 4, reads
+    assert launch_counts()['cg_update'] == int(np.sum(n_cg))
+    assert len(cg._loops_of(model.design)) == 1
+
+
+def test_cg_device_loop_from_threads(dev):
+    """Threads solving on one design at once (gibbs_chains(mesh=) drives a
+    chain group a thread, several on one card) get the serial solves'
+    bits: one capture of the key's graph, each solve under its lock."""
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+    from bayesbridge_tpu_torch.ops import cg
+    design = _cg_design('hybrid', dev, None)
+    inps = [_cg_inputs(design, 2, seed, True, True) for seed in range(6)]
+    atol = 1e-5 * np.sqrt(design.shape[1])
+    serial = [cg.device_solve(design, inp, 500, atol, True) for inp in inps]
+    fresh = _cg_design('hybrid', dev, None)
+    switch = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(8) as pool:
+            futures = [pool.submit(cg.device_solve, fresh, inp, 500, atol,
+                                   True) for inp in inps * 2]
+            got = [f.result(timeout=300) for f in futures]
+    finally:
+        sys.setswitchinterval(switch)
+    assert len(cg._loops_of(fresh)) == 1
+    for g, s in zip(got, serial * 2):
+        assert torch.equal(g[0], s[0]) and torch.equal(g[1], s[1])
+        np.testing.assert_array_equal(g[2]['n_cg_iter'], s[2]['n_cg_iter'])
