@@ -40,6 +40,15 @@
 // itself does). One launch of the instantiated graph runs the whole solve;
 // the host reads nothing until it ends.
 //
+// Inside the capture of a whole Gibbs step (kernels/step_graph.py) the loop
+// is built in the graph being captured instead (bb_cg_capture_handle,
+// bb_cg_capture_while, bb_cg_capture_end): the condition handle is made on
+// that graph, the prologue is captured inline, then a WHILE node is added
+// after everything captured so far, made the capture's only dependency,
+// and a second stream captures the iteration into the node's body graph
+// (cudaStreamBeginCaptureToGraph). The WHILE node sits in the step's graph
+// itself, never in a child graph.
+//
 // What bounds it on the H100: bytes. Per iteration cg_ap reads p, d, s,
 // out and writes Ap; cg_step reads x, p, r, Ap (and yhat, t) and writes x,
 // r (and yhat); cg_dir reads r, p, s and writes p, sp: 17 vectors of p
@@ -325,7 +334,7 @@ cudaError_t check_args(const CgArgs* a) {
 
 #if BB_HAS_WHILE
 cudaError_t add_while_node(cudaGraphNode_t* node, cudaGraph_t graph,
-                           cudaGraphNode_t dep,
+                           const cudaGraphNode_t* deps, size_t n_deps,
                            cudaGraphConditionalHandle handle,
                            cudaGraph_t* body) {
   cudaGraphNodeParams np = {};
@@ -334,11 +343,29 @@ cudaError_t add_while_node(cudaGraphNode_t* node, cudaGraph_t graph,
   np.conditional.type = cudaGraphCondTypeWhile;
   np.conditional.size = 1;
 #if CUDART_VERSION >= 13000
-  cudaError_t err = cudaGraphAddNode(node, graph, &dep, nullptr, 1, &np);
+  cudaError_t err = cudaGraphAddNode(node, graph, deps, nullptr, n_deps,
+                                     &np);
 #else
-  cudaError_t err = cudaGraphAddNode(node, graph, &dep, 1, &np);
+  cudaError_t err = cudaGraphAddNode(node, graph, deps, n_deps, &np);
 #endif
   if (err == cudaSuccess) *body = np.conditional.phGraph_out[0];
+  return err;
+}
+
+// The graph `st` is capturing and the nodes the next captured work would
+// depend on.
+cudaError_t capture_info(cudaStream_t st, cudaGraph_t* graph,
+                         const cudaGraphNode_t** deps, size_t* n_deps) {
+  cudaStreamCaptureStatus status = cudaStreamCaptureStatusNone;
+#if CUDART_VERSION >= 13000
+  cudaError_t err = cudaStreamGetCaptureInfo(st, &status, nullptr, graph,
+                                             deps, nullptr, n_deps);
+#else
+  cudaError_t err = cudaStreamGetCaptureInfo(st, &status, nullptr, graph,
+                                             deps, n_deps);
+#endif
+  if (err == cudaSuccess && status != cudaStreamCaptureStatusActive)
+    err = cudaErrorIllegalState;
   return err;
 }
 #endif
@@ -414,7 +441,7 @@ extern "C" int bb_cg_graph_finish(void* graph, unsigned long long handle,
   cudaError_t err = cudaGraphAddChildGraphNode(
       &n_pro, g, nullptr, 0, static_cast<cudaGraph_t>(prologue));
   if (err == cudaSuccess)
-    err = add_while_node(&n_while, g, n_pro,
+    err = add_while_node(&n_while, g, &n_pro, 1,
                          (cudaGraphConditionalHandle)handle, &loop);
   if (err == cudaSuccess)
     err = cudaGraphAddChildGraphNode(&n_body, loop, nullptr, 0,
@@ -430,6 +457,95 @@ extern "C" int bb_cg_graph_finish(void* graph, unsigned long long handle,
   (void)graph; (void)handle; (void)prologue; (void)body; (void)exec_out;
   return int(cudaErrorNotSupported);
 #endif
+}
+
+// A condition handle (default 0 at each launch) on the graph that `stream`
+// is capturing.
+extern "C" int bb_cg_capture_handle(void* stream,
+                                    unsigned long long* handle_out) {
+#if BB_HAS_WHILE
+  cudaGraph_t graph = nullptr;
+  const cudaGraphNode_t* deps = nullptr;
+  size_t n_deps = 0;
+  cudaGraphConditionalHandle handle;
+  cudaError_t err = capture_info(static_cast<cudaStream_t>(stream), &graph,
+                                 &deps, &n_deps);
+  if (err == cudaSuccess)
+    err = cudaGraphConditionalHandleCreate(&handle, graph, 0,
+                                           cudaGraphCondAssignDefault);
+  if (err == cudaSuccess) *handle_out = (unsigned long long)handle;
+  return int(err);
+#else
+  (void)stream; (void)handle_out;
+  return int(cudaErrorNotSupported);
+#endif
+}
+
+// Append WHILE(handle) to the graph `stream` is capturing, after the
+// capture's current dependencies; make the node its only dependency; begin
+// capturing `body_stream` into the node's body graph.
+extern "C" int bb_cg_capture_while(void* stream, unsigned long long handle,
+                                   void* body_stream) {
+#if BB_HAS_WHILE
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaGraph_t graph = nullptr, body = nullptr;
+  const cudaGraphNode_t* deps = nullptr;
+  size_t n_deps = 0;
+  cudaGraphNode_t node;
+  cudaError_t err = capture_info(st, &graph, &deps, &n_deps);
+  if (err == cudaSuccess)
+    err = add_while_node(&node, graph, deps, n_deps,
+                         (cudaGraphConditionalHandle)handle, &body);
+  if (err == cudaSuccess)
+#if CUDART_VERSION >= 13000
+    err = cudaStreamUpdateCaptureDependencies(
+        st, &node, nullptr, 1, cudaStreamSetCaptureDependencies);
+#else
+    err = cudaStreamUpdateCaptureDependencies(
+        st, &node, 1, cudaStreamSetCaptureDependencies);
+#endif
+  if (err == cudaSuccess)
+    err = cudaStreamBeginCaptureToGraph(
+        static_cast<cudaStream_t>(body_stream), body, nullptr, nullptr, 0,
+        cudaStreamCaptureModeThreadLocal);
+  return int(err);
+#else
+  (void)stream; (void)handle; (void)body_stream;
+  return int(cudaErrorNotSupported);
+#endif
+}
+
+// Whether a graph that holds a conditional WHILE node can be another's
+// child graph node: the error cudaGraphAddChildGraphNode returns (0: it
+// can), or minus the error of the probe's own set-up.
+extern "C" int bb_cg_child_while_probe(void) {
+#if BB_HAS_WHILE
+  cudaGraph_t inner = nullptr, outer = nullptr, body = nullptr;
+  cudaGraphConditionalHandle handle;
+  cudaGraphNode_t node, child;
+  cudaError_t err = cudaGraphCreate(&inner, 0);
+  if (err == cudaSuccess)
+    err = cudaGraphConditionalHandleCreate(&handle, inner, 0,
+                                           cudaGraphCondAssignDefault);
+  if (err == cudaSuccess)
+    err = add_while_node(&node, inner, nullptr, 0, handle, &body);
+  if (err == cudaSuccess) err = cudaGraphCreate(&outer, 0);
+  cudaError_t probe = err == cudaSuccess
+      ? cudaGraphAddChildGraphNode(&child, outer, nullptr, 0, inner) : err;
+  cudaGetLastError();
+  if (outer != nullptr) cudaGraphDestroy(outer);
+  if (inner != nullptr) cudaGraphDestroy(inner);
+  return err == cudaSuccess ? int(probe) : -int(err);
+#else
+  return -int(cudaErrorNotSupported);
+#endif
+}
+
+// End the capture of a WHILE node's body (the graph stays the node's).
+extern "C" int bb_cg_capture_end(void* body_stream) {
+  cudaGraph_t body = nullptr;
+  return int(cudaStreamEndCapture(static_cast<cudaStream_t>(body_stream),
+                                  &body));
 }
 
 extern "C" int bb_cg_graph_launch(void* exec, void* stream) {

@@ -5,7 +5,9 @@ Counterparts of the Pallas kernels of ``bayesbridge_tpu/design/``
 harness ``baselines/dev_ne_variants.py``, the ell backend's gather
 product, which the JAX package left to XLA, and the device loops that
 it runs on the TPU: the Polya-Gamma and tilted-stable rejection loops
-(:mod:`.draws`) and the CG solve's (:mod:`.cg_loop`). One dispatch point
+(:mod:`.draws`) and the CG solve's (:mod:`.cg_loop`); and the Gibbs
+chain's runner, one captured step an iteration (:mod:`.step_graph`,
+no kernel of its own). One dispatch point
 per kernel: each wrapper launches its CUDA kernel for CUDA tensors and
 runs its plain version (beside it in the same module) for CPU tensors;
 no call site branches on the device. ``REGISTRY`` names each kernel's

@@ -92,6 +92,10 @@ _SIGNATURES = {
     'bb_cg_graph_finish': [_P, ctypes.c_ulonglong, _P, _P, _P],
     'bb_cg_graph_launch': [_P, _P],
     'bb_cg_graph_free': [_P, _P],
+    'bb_cg_capture_handle': [_P, _P],
+    'bb_cg_capture_while': [_P, ctypes.c_ulonglong, _P],
+    'bb_cg_capture_end': [_P],
+    'bb_cg_child_while_probe': [],
 }
 
 

@@ -19,6 +19,14 @@ the design products and ``cg_update``), each captured with
 iteration inside a conditional WHILE node while any chain runs. The
 kernels that set the node's condition take its handle from the state.
 
+Inside the capture of a whole Gibbs step (``kernels.step_graph``) the
+loop is built in the graph being captured instead: :func:`capture_handle`
+makes the WHILE node's condition on that graph, and, once the prologue is
+captured, :func:`capture_while` appends the node after it and starts
+capturing a second stream (:func:`body_stream`) into the node's body,
+which :func:`end_body_capture` ends (``bb_cg_capture_handle``,
+``bb_cg_capture_while``, ``bb_cg_capture_end``; ``ops.cg.LoopCapture``).
+
 Launch counters: ``launches['start']`` and ``launches['update']`` (one
 call, that is one iteration of the three update kernels). A wrapper
 counts where Python calls it; inside a capture that is once, so
@@ -232,6 +240,60 @@ def _raise_graph(rc, what):
         f"{torch.version.cuda})")
 
 
+_BODY_STREAMS = {}
+_BODY_LOCK = threading.Lock()
+
+
+def body_stream(device):
+    """The stream that captures the CG loop's body inside a step graph's
+    capture, one per device (made on first use; the captures take turns,
+    ``kernels.step_graph``)."""
+    device = indexed(device)
+    key = device.index
+    with _BODY_LOCK:
+        if key not in _BODY_STREAMS:
+            _BODY_STREAMS[key] = torch.cuda.Stream(device=device)
+        return _BODY_STREAMS[key]
+
+
+def capture_handle(stream):
+    """A condition handle made on the graph that `stream` (a
+    torch.cuda.Stream) is capturing, default 0 at each launch."""
+    handle = ctypes.c_ulonglong()
+    rc = load_library().lib.bb_cg_capture_handle(
+        ctypes.c_void_p(stream.cuda_stream), ctypes.byref(handle))
+    if rc:
+        _raise_graph(rc, 'the condition handle in a capture')
+    return handle.value
+
+
+def capture_while(stream, handle, body):
+    """Append WHILE(`handle`) to the graph `stream` is capturing, after
+    everything captured so far, and begin capturing the stream `body`
+    into the node's body graph."""
+    rc = load_library().lib.bb_cg_capture_while(
+        ctypes.c_void_p(stream.cuda_stream), ctypes.c_ulonglong(handle),
+        ctypes.c_void_p(body.cuda_stream))
+    if rc:
+        _raise_graph(rc, 'the WHILE node in a capture')
+
+
+def end_body_capture(body):
+    """End the capture of the WHILE node's body on the stream `body`."""
+    rc = load_library().lib.bb_cg_capture_end(
+        ctypes.c_void_p(body.cuda_stream))
+    if rc:
+        _raise_graph(rc, 'the end of the WHILE body\'s capture')
+
+
+def child_while_error():
+    """The CUDA error with which a graph holding a WHILE node is refused
+    as another graph's child node (0 where it is taken; negative where
+    the probe itself failed): why the step graph adds its WHILE node
+    during the capture rather than the CG solve's graph as a child."""
+    return load_library().lib.bb_cg_child_while_probe()
+
+
 class SolveGraph:
     """One solve's graph over the state `st`: ``setup()`` (torch ops
     and design products that fill st.x, st.r, st.b, st.s, st.d and st.y
@@ -340,7 +402,8 @@ _TIMED = None  # the (start, end) events of the graph launches, or None
 
 @contextmanager
 def timed_launches():
-    """Within the block, every solve graph's launch (in any thread) is
+    """Within the block, every graph launch (in any thread: a solve
+    graph's, and a step graph's replay, ``kernels.step_graph``) is
     bracketed by CUDA events, collected in the yielded list as (start,
     end) pairs: after a synchronize, ``start.elapsed_time(end)`` is the
     graph's time on the card, which a profiler trace does not always

@@ -93,15 +93,16 @@ def _to_host(carry):
 
 def _to_device(carry, device):
     """A `_chain_carry` back on the device: the tensors as they were (so
-    the continuation is exact), the CG counter a host array."""
+    the continuation is exact), the CG counter an int32 per chain (a
+    carry saved as int64 host counts converts)."""
     out = {}
     for key, val in carry.items():
         if isinstance(val, dict):
             out[key] = _to_device(val, device)
-        elif key == 'n_cg_unconverged':
-            out[key] = np.array(val, dtype=np.int64)
         else:
             out[key] = torch.as_tensor(np.array(val), device=device)
+            if key == 'n_cg_unconverged':
+                out[key] = out[key].to(torch.int32)
     return out
 
 

@@ -38,6 +38,12 @@ the design's operator at s p for all k chains, then
   or processes): a Python loop while any chain runs, one host read an
   iteration.
 
+Inside the capture of a Gibbs step graph (``kernels.step_graph``) a
+solve is neither: :class:`LoopCapture` captures its prologue inline,
+appends a conditional WHILE node to the step's graph and captures the
+iteration into the node's body, and the iteration counts and flags stay
+on the card as tensors of the step.
+
 The stopping rule, the float32 floor on the tolerance included, is the
 reference's, so ``n_cg_iter`` matches it on the same inputs. The sums
 over a chain's vector run per chain (:mod:`..utils.chains` on the CPU,
@@ -51,13 +57,18 @@ chain batches, else once per chain.
 import functools
 import threading
 import weakref
+from contextlib import contextmanager
 
 import numpy as np
 import torch
 
+from ..kernels.build import recording
 from ..kernels.cg_loop import (
-    CgState, SolveGraph, cg_start, cg_update, indexed,
+    CgState, SolveGraph, body_stream, capture_handle, capture_while,
+    cg_start, cg_update, end_body_capture, indexed,
 )
+
+_NUMPY_FLOAT = {torch.float32: np.float32, torch.float64: np.float64}
 
 
 def choose_preconditioner(prior_prec_sqrt, n_unshrunk, coef_scaled_sd,
@@ -139,7 +150,9 @@ def sample_gaussian_cg_chains(gens, design, obs_prec, prior_prec_sqrt, z,
     carries a leading chain axis ((k, n) or (k, p)), `gens` is one
     generator per chain (read only without `perturbation`). Returns
     (coef (k, p)[, lin_pred (k, n)], info) with info['n_cg_iter'] (k,)
-    ints and info['cg_converged'] (k,) bools, numpy arrays."""
+    ints and info['cg_converged'] (k,) bools, numpy arrays (tensors on
+    the card, and info['cg_runs'], inside a step graph's capture:
+    :class:`LoopCapture`)."""
     n_obs, n_pred = design.shape
     if perturbation is None:
         eps_obs, eps_prior = [], []
@@ -160,9 +173,8 @@ def sample_gaussian_cg_chains(gens, design, obs_prec, prior_prec_sqrt, z,
         inp['warm'] = warm_tdot
         if return_lin_pred:
             inp['lin0'] = lin_pred0
-    solve = device_solve if takes_device_loop(design, z.device) \
-        else host_solve
-    coef, yhat, info = solve(design, inp, maxiter, atol, return_lin_pred)
+    coef, yhat, info = _solver(design, z.device)(
+        design, inp, maxiter, atol, return_lin_pred)
     if return_lin_pred:
         return coef, yhat, info
     return coef, info
@@ -179,6 +191,29 @@ def _state_shape(design, inp, return_lin_pred):
         dtype
 
 
+_SOLVING = threading.local()
+
+
+@contextmanager
+def solving(how):
+    """Within the block this thread's solves go to ``how.solve`` (a step
+    graph's :class:`LoopCapture`, or its warm-up)."""
+    prev = getattr(_SOLVING, 'how', None)
+    _SOLVING.how = how
+    try:
+        yield
+    finally:
+        _SOLVING.how = prev
+
+
+def _solver(design, device):
+    how = getattr(_SOLVING, 'how', None)
+    if how is not None:
+        return how.solve
+    return device_solve if takes_device_loop(design, device) \
+        else host_solve
+
+
 def host_solve(design, inp, maxiter, atol, return_lin_pred):
     """The solve driven from the host: the prologue, then one iteration
     at a time while any chain runs (one host read an iteration). `inp`
@@ -187,6 +222,12 @@ def host_solve(design, inp, maxiter, atol, return_lin_pred):
     (coef_cg_init) and, with a warm start, 'warm' (warm_tdot) and
     'lin0' (lin_pred0). Returns (coef, linear predictor or None,
     info)."""
+    st, quad, bo_ctx = _host_loop(design, inp, maxiter, atol,
+                                  return_lin_pred)
+    return _finish(st, bo_ctx)[:3]
+
+
+def _host_loop(design, inp, maxiter, atol, return_lin_pred):
     k, n, dtype = _state_shape(design, inp, return_lin_pred)
     st = CgState(k, design.shape[1], n, dtype, inp['z'].device, maxiter,
                  _floor_eps(inp))
@@ -197,7 +238,7 @@ def host_solve(design, inp, maxiter, atol, return_lin_pred):
     cg_start(st)
     while bool(st.running.any()):
         _iterate(st, inp['w'], quad)
-    return _finish(st, bo_ctx)[:3]
+    return st, quad, bo_ctx
 
 
 def _floor_eps(inp):
@@ -207,9 +248,16 @@ def _floor_eps(inp):
     return torch.finfo(inp['z'].dtype).eps
 
 
+def round_atol(atol, dtype):
+    """`atol` rounded to `dtype` (z's), as the reference takes it, on the
+    host (``GibbsStepConfig.cg_atol`` is rounded once a run; rounding it
+    again gives it back)."""
+    return float(np.asarray(atol, dtype=_NUMPY_FLOAT.get(dtype,
+                                                         np.float64)))
+
+
 def _atol(atol, inp):
-    """`atol` rounded to z's type, as the reference takes it."""
-    return torch.tensor(float(atol), dtype=inp['z'].dtype).item()
+    return round_atol(atol, inp['z'].dtype)
 
 
 def _operator(design, bo_ctx):
@@ -377,3 +425,92 @@ def device_solve(design, inp, maxiter, atol, return_lin_pred):
             loop = loops[key] = _DeviceLoop(design, inp, k, n, dtype,
                                             maxiter)
     return loop.solve(inp, atol)
+
+
+class WarmUp:
+    """The solves of a step graph's warm-up: the host loop, then one more
+    run of the iteration (every chain stopped, so it changes nothing but
+    the count of runs) on the stream that captures the loop's body, so
+    that lazy per-stream work (a library's workspace) happens before the
+    capture."""
+
+    def solve(self, design, inp, maxiter, atol, return_lin_pred):
+        st, quad, bo_ctx = _host_loop(design, inp, maxiter, atol,
+                                      return_lin_pred)
+        res = _finish(st, bo_ctx)[:3]
+        if st.device.type == 'cuda':
+            here = torch.cuda.current_stream(st.device)
+            body = body_stream(st.device)
+            body.wait_stream(here)
+            with torch.cuda.stream(body):
+                _iterate(st, inp['w'], quad)
+            here.wait_stream(body)
+        return res
+
+
+class LoopCapture:
+    """The CG solves of a Gibbs step captured as one CUDA graph (see
+    ``kernels.step_graph``), on `device`. A solve captures its prologue
+    (the warm start, the initial residual, ``cg_start``) inline, then
+    appends a conditional WHILE node to the graph being captured and
+    captures one iteration (the design's operator, ``cg_update``) into
+    the node's body on a second stream, whose allocations go to a private
+    memory pool of their own (``pool``; the capture's pool routes only
+    the capturing stream). The kernels take the condition's handle, made
+    on the graph being captured. The solve returns its iteration counts
+    ``n_cg_iter``, flags ``cg_converged`` and the runs of the iteration
+    ``cg_runs`` as tensors of the step. `counters` gives the (object,
+    attribute) pairs of the design's counters; the bodies' launches
+    (``counts``) and counter steps (``matvecs``) are kept aside, a run
+    adds them times the runs the card counted."""
+
+    def __init__(self, device, counters=()):
+        self.device = indexed(device)
+        self.stream = body_stream(self.device)
+        self.pool = torch.cuda.graph_pool_handle()
+        self.counters = list(counters)
+        self.counts, self.matvecs, self.states = [], [], []
+
+    def solve(self, design, inp, maxiter, atol, return_lin_pred):
+        k, n, dtype = _state_shape(design, inp, return_lin_pred)
+        here = torch.cuda.current_stream(self.device)
+        st = CgState(k, design.shape[1], n, dtype, self.device, maxiter,
+                     _floor_eps(inp))
+        st.atol.fill_(_atol(atol, inp))
+        st.handle = capture_handle(here)
+        bo_ctx = design.cg_blockorder_ctx()
+        quad = _operator(design, bo_ctx)
+        _setup(st, inp, quad, bo_ctx)
+        cg_start(st)
+        capture_while(here, st.handle, self.stream)
+        mark = [getattr(o, a) for o, a in self.counters]
+        try:
+            with torch.cuda.stream(self.stream), _pool_of_stream(
+                    self.device, self.pool), recording() as rec:
+                _iterate(st, inp['w'], quad)
+        finally:
+            end_body_capture(self.stream)
+        self.counts.append(rec)
+        self.matvecs.append([getattr(o, a) - v for (o, a), v
+                             in zip(self.counters, mark)])
+        self.states.append(st)
+        coef = st.s * st.x
+        if bo_ctx is not None:
+            coef = coef[:, bo_ctx[1]]
+        info = {'n_cg_iter': st.n_iter, 'cg_converged': st.converged(),
+                'cg_runs': st.iters}
+        return coef, st.y, info
+
+
+@contextmanager
+def _pool_of_stream(device, pool):
+    """Within the block, allocations on the current stream come from the
+    private memory pool `pool` (a capture on that stream)."""
+    idx = indexed(device).index
+    begin = getattr(torch._C, '_cuda_beginAllocateCurrentStreamToPool',
+                    None) or torch._C._cuda_beginAllocateCurrentThreadToPool
+    begin(idx, pool)
+    try:
+        yield
+    finally:
+        torch._C._cuda_endAllocateToPool(idx, pool)

@@ -30,14 +30,19 @@ from ..utils.profiling import annotate
 def sample_gaussian_posterior(
         gens, design, y_gauss, obs_prec, gscale, lscale,
         prior_sd_for_unshrunk, slab_size, summ_state, method='cg',
-        cg_maxiter=500, cg_precond_by='diag', cg_atol_multiplier=1.0):
+        cg_maxiter=500, cg_precond_by='diag', cg_atol_multiplier=1.0,
+        cg_atol=None):
     """One draw of coef | obs_prec, gscale, lscale (reg_coef.py:25-133)
     for each of k chains: `gens` one generator per chain, y_gauss and
     obs_prec (k, n), gscale (k,), lscale (k, p_shrunk), `summ_state` the
     chains' summarizer states (leading chain axis). Returns (coef (k, p),
     summ_state, info), coef in y_gauss's dtype (the chain's; the
     products compute in the design's), info's 'n_cg_iter' and
-    'cg_converged' (k,) numpy arrays on the CG path.
+    'cg_converged' (k,) numpy arrays on the CG path (device tensors
+    where a step graph's capture solves). `prior_sd_for_unshrunk` a host
+    array or a tensor on the chain's device; `cg_atol` the CG tolerance,
+    by default cg_atol_multiplier * 1e-5 * sqrt(p) (the step computes it
+    once a run, ``GibbsStepConfig.cg_atol``).
 
     'cholesky': the direct draw from the design's Fisher information,
     chain by chain (each chain has its own weights).
@@ -77,6 +82,8 @@ def sample_gaussian_posterior(
     coef_init = extrapolate_coef_condmean(summ_state, gscale, lscale,
                                           n_unshrunk, slab_size)
     n_obs, n_pred = design.shape
+    if cg_atol is None:
+        cg_atol = cg_atol_multiplier * 1e-5 * np.sqrt(n_pred)
     want_lin_pred = design.fused_ne_mode('quad') is None
 
     # The b-vector noise is drawn here, each chain's eps_obs then its
@@ -122,8 +129,7 @@ def sample_gaussian_posterior(
         res = sample_gaussian_cg_chains(
             gens, design, obs_prec, prior_prec_sqrt, v,
             coef_cg_init=coef_init, precond_scale=precond_scale,
-            maxiter=cg_maxiter,
-            atol=cg_atol_multiplier * 1e-5 * np.sqrt(n_pred),
+            maxiter=cg_maxiter, atol=cg_atol,
             perturbation=pert + prior_prec_sqrt * eps_prior,
             warm_tdot=warm_tdot, lin_pred0=lin_pred0,
             return_lin_pred=want_lin_pred)

@@ -20,6 +20,21 @@ the checkpoint and chain c of a batch is the chain run alone
 (:func:`gibbs_step_chains`, :func:`run_chains`). One chain is the batch
 of one: :func:`gibbs_step` and :func:`run_chain` take and return a
 single chain's carry.
+
+The runner (:func:`run_chains`, the JAX package's ``run_chain``, a
+``lax.scan`` of ``lax.fori_loop`` over the step, step.py:320-376) keeps
+the chain in fixed buffers (:class:`StepState`) and advances it with
+:func:`step_into`, which writes the next state and the iteration's
+outputs in place and reads nothing to the host. Where
+:func:`takes_step_graph` holds (the CG sampler of the linear and logit
+models, a design whose products all run on one CUDA device, 1-8 chains)
+the card captures that same function once as a CUDA graph
+(``kernels.step_graph.StepGraph``: the CG solve a conditional WHILE node
+inside it) and each iteration is one replay; elsewhere (the CPU, HMC and
+NUTS, Cholesky, a design over several devices or processes) the step
+runs eagerly. The saved iterations' outputs go to preallocated buffers
+on the chain's device, read to the host once at the run's end (in
+chunks of at most ``OUTPUT_BUDGET_BYTES``).
 """
 
 import math
@@ -27,7 +42,9 @@ import math
 import numpy as np
 import torch
 
+from .kernels.cg_loop import indexed
 from .ops import hmc_update
+from .ops.cg import round_atol
 from .ops.reg_coef import sample_gaussian_posterior
 from .ops.stepsize import target_log10_hamiltonian_error
 from .ops.summarizer import summarizer_init
@@ -38,6 +55,11 @@ from .utils.dtypes import full_float32
 from .utils.profiling import annotate
 
 SAMPLE_KEYS = ('coef', 'local_scale', 'global_scale', 'obs_prec', 'logp')
+# The largest chain batch one step graph serves.
+MAX_GRAPH_CHAINS = 8
+# Device bytes the saved outputs of a run may hold before they are read
+# to the host (a run that saves more reads them in chunks).
+OUTPUT_BUDGET_BYTES = 1 << 30
 
 
 class GibbsStepConfig:
@@ -58,6 +80,12 @@ class GibbsStepConfig:
             prior.param['gscale_neg_power']['rate'])
         self.gscale_update_method = options.gscale_update
         self.cg_atol_multiplier = float(options.cg_atol_multiplier)
+        # The CG tolerance (reg_coef.py:120), once a run, in the type of
+        # the solve's right-hand side (the design's), as the solve takes
+        # it (ops/cg.py:98).
+        self.cg_atol = round_atol(
+            self.cg_atol_multiplier * 1e-5 * np.sqrt(model.n_pred),
+            model.design.dtype)
         self.n_unshrunk = n_unshrunk
         self.prior_sd_for_unshrunk = np.asarray(prior_sd_for_unshrunk,
                                                 dtype=np.float64)
@@ -78,6 +106,23 @@ class GibbsStepConfig:
     @property
     def hmc(self):
         return self.coef_sampler_type in ('hmc', 'nuts')
+
+    def prior_sd_on(self, dtype, device):
+        """prior_sd_for_unshrunk as a tensor on `device`, made once (a
+        captured step copies nothing from the host)."""
+        cache = self.__dict__.setdefault('_prior_sd', {})
+        key = (dtype, indexed(device))
+        if key not in cache:
+            cache[key] = torch.as_tensor(self.prior_sd_for_unshrunk,
+                                         dtype=dtype, device=device)
+        return cache[key]
+
+    def key(self):
+        """Every setting the step reads, as a hashable tuple (a captured
+        step bakes them in)."""
+        return tuple((name, tuple(val.tolist()) if isinstance(
+            val, np.ndarray) else val) for name, val in sorted(
+                vars(self).items()) if not name.startswith('_'))
 
 
 def _gamma(gens, shape, dtype, device):
@@ -178,8 +223,7 @@ def compute_posterior_logprob(cfg, model, coef, gscale, obs_prec, lin_pred):
         loglik = loglik - 0.5 * rsum(scaled * scaled)
     coef_shrunk = coef[:, cfg.n_unshrunk:]
     coef_unshrunk = coef[:, :cfg.n_unshrunk]
-    prior_sd = torch.as_tensor(cfg.prior_sd_for_unshrunk,
-                               dtype=cfg.dtype, device=coef.device)
+    prior_sd = cfg.prior_sd_on(cfg.dtype, coef.device)
     prior_logp = -cfg.n_shrunk * torch.log(gscale) - rsum(pow_pos(
         (coef_shrunk / gscale[:, None]).abs(), cfg.bridge_exp))
     finite_sd = torch.isfinite(prior_sd)
@@ -207,14 +251,18 @@ def _collapsed_draw(cfg, model, gens, carry):
             cfg.dtype) / obs_prec
     coef, summ, info = sample_gaussian_posterior(
         gens, model.design, y_gauss, obs_prec, carry['gscale'],
-        carry['lscale'], cfg.prior_sd_for_unshrunk, cfg.slab_size,
-        carry['summ'], method=cfg.coef_sampler_type,
-        cg_precond_by=cfg.cg_preconditioner,
-        cg_atol_multiplier=cfg.cg_atol_multiplier)
-    n_unconverged = carry['n_cg_unconverged'] + (
-        ~info.pop('cg_converged', np.ones(k, dtype=bool))).astype(np.int64)
-    return coef, {**carry, 'summ': summ,
-                  'n_cg_unconverged': n_unconverged}, info
+        carry['lscale'], cfg.prior_sd_on(cfg.dtype, y_gauss.device),
+        cfg.slab_size, carry['summ'], method=cfg.coef_sampler_type,
+        cg_precond_by=cfg.cg_preconditioner, cg_atol=cfg.cg_atol)
+    carry = {**carry, 'summ': summ}
+    converged = info.pop('cg_converged', None)
+    if converged is not None:
+        # An int32 per chain, as the JAX carry counts (step.py:249-251):
+        # the flags stay on the device where the solve left them there.
+        converged = torch.as_tensor(converged, device=coef.device)
+        carry['n_cg_unconverged'] = carry['n_cg_unconverged'] \
+            + (~converged).to(torch.int32)
+    return coef, carry, info
 
 
 def update_regress_coef_chains(cfg, model, gens, carry):
@@ -229,8 +277,9 @@ def update_regress_coef_chains(cfg, model, gens, carry):
 def gibbs_step_chains(cfg, model, gens, carry):
     """One Gibbs iteration of k chains (carry entries with a leading
     chain axis, gens one generator per chain): returns (carry, outputs),
-    outputs with the same leading axis (the sampler's host counts, such
-    as 'n_cg_iter', (k,) numpy arrays)."""
+    outputs with the same leading axis (the sampler's counts, such as
+    'n_cg_iter', (k,) numpy arrays, or tensors on the device where a
+    step graph's capture solved)."""
     with annotate('gibbs:step'):
         return _gibbs_step_chains(cfg, model, gens, carry)
 
@@ -299,7 +348,7 @@ def init_carry(device, coef, obs_prec, gscale, lscale, summ=None,
         'summ': summ if summ is not None
         else summarizer_init(coef.shape[0], device, dtype=dtype),
         'n_gscale_clamped': zero, 'n_lscale_underflow': zero,
-        'n_lscale_overflow': zero, 'n_cg_unconverged': 0,
+        'n_lscale_overflow': zero, 'n_cg_unconverged': zero,
     }
     if cfg is not None and cfg.hmc:
         carry.update(hmc_update.init_hmc_carry(cfg, device))
@@ -337,34 +386,270 @@ def gibbs_step(cfg, model, gen, carry):
     return chain_of(carry, 0), chain_of(out, 0)
 
 
+class StepState:
+    """The chain's state in fixed buffers: `carry`, a chain-batched carry
+    (a dict of tensors, the summarizer's a nested dict) that
+    :func:`step_into` overwrites in place; `out`, the last iteration's
+    outputs (made on the first write, or like `like`'s); `cg_acc`, two
+    int64 device counters of the CG solves a step graph ran, the runs of
+    the loop's iteration and the sum of each solve's max(n_cg_iter),
+    which must agree (the loop runs while any chain runs)."""
+
+    def __init__(self, carry, like=None):
+        self.carry = _tree_map(torch.clone, carry)
+        self.device = self.carry['coef'].device
+        self.out = {} if like is None else {
+            key: torch.empty_like(val) for key, val in like.out.items()}
+        self.cg_acc = torch.zeros(2, dtype=torch.int64, device=self.device)
+
+    def load(self, carry):
+        """Copy a chain-batched carry's values into the buffers."""
+        _copy_tree(self.carry, carry)
+        self.cg_acc.zero_()
+
+    def write(self, carry, outputs):
+        """The step's result into the buffers: the next carry, then the
+        outputs (a numpy count as a tensor on the state's device)."""
+        _copy_tree(self.carry, carry)
+        outputs = dict(outputs)
+        runs = outputs.pop('cg_runs', None)
+        if runs is not None:
+            self.cg_acc[:1].add_(runs)
+            self.cg_acc[1:].add_(outputs['n_cg_iter'].amax())
+        for key, val in outputs.items():
+            val = torch.as_tensor(val, device=self.device)
+            if key not in self.out:
+                self.out[key] = torch.empty_like(val)
+            self.out[key].copy_(val)
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {key: _tree_map(fn, val) for key, val in tree.items()}
+    return fn(tree)
+
+
+def _copy_tree(dst, src):
+    """src's values into dst's tensors, which keep their addresses; a
+    change of shape or type raises (the state's buffers are fixed)."""
+    if set(dst) != set(src):
+        raise ValueError(f"the step's carry changed its keys: {sorted(dst)} "
+                         f"-> {sorted(src)}")
+    for key, val in src.items():
+        if isinstance(val, dict):
+            _copy_tree(dst[key], val)
+        elif val is not dst[key]:
+            val = torch.as_tensor(val, device=dst[key].device)
+            if val.shape != dst[key].shape or val.dtype != dst[key].dtype:
+                raise ValueError(
+                    f"the step's carry entry {key!r} changed from "
+                    f"{dst[key].dtype} {tuple(dst[key].shape)} to "
+                    f"{val.dtype} {tuple(val.shape)}")
+            dst[key].copy_(val)
+
+
+def step_into(cfg, model, gens, state):
+    """One Gibbs iteration of k chains from `state` (a :class:`StepState`)
+    into it: the next carry in the same buffers and the iteration's
+    outputs in ``state.out``, nothing read to the host. The CPU runs it
+    eagerly; a step graph captures it (``kernels.step_graph``)."""
+    carry, outputs = gibbs_step_chains(cfg, model, gens, state.carry)
+    state.write(carry, outputs)
+
+
+def emission_plan(n_burnin, n_sample, thin, n_remainder):
+    """The iterations (from 0) whose outputs a run of n_burnin +
+    n_sample * thin + n_remainder iterations keeps: every `thin`-th after
+    the burn-in, `n_sample` of them (gibbs_util.py:164-199; the block
+    ends of the JAX package's run_chain, step.py:341-350)."""
+    del n_remainder  # the iterations after the last save keep nothing
+    return [n_burnin + (j + 1) * thin - 1 for j in range(n_sample)]
+
+
+def _on_card(device):
+    """Whether `device` is a CUDA device (the seam the CPU tests patch)."""
+    return indexed(device).type == 'cuda'
+
+
+def takes_step_graph(cfg, model, k):
+    """Whether k chains of this configuration run as one step graph: the
+    CG sampler of the linear or logit model, 1-8 chains, and a design
+    whose products all run on one CUDA device in this process (the CG
+    device loop's rule, ``ops.cg.takes_device_loop``; a mesh whose pieces
+    all sit on that card included). Elsewhere the step runs eagerly."""
+    if cfg.coef_sampler_type != 'cg' or model.name not in (
+            'linear', 'logit') or not 1 <= k <= MAX_GRAPH_CHAINS:
+        return False
+    design = model.design
+    device = design.device
+    if not _on_card(device):
+        return False
+    devices = design.devices()
+    return devices is not None \
+        and {indexed(d) for d in devices} == {indexed(device)}
+
+
+def _step_graph(cfg, model, gens, carry):
+    """The step graph of this model, configuration, chain count and carry
+    layout, captured on its first run and kept with the design
+    (``kernels.step_graph.graph_of``)."""
+    from .kernels.step_graph import graph_of
+    return graph_of(cfg, model, gens, carry, step_into, StepState)
+
+
 def run_chains(cfg, model, gens, carry, n_burnin, n_sample, thin,
-               n_remainder, save_keys, status=None):
+               n_remainder, save_keys, status=None, _eager=False):
     """Run n_burnin + n_sample*thin + n_remainder iterations of k chains
     (a chain-batched carry, one generator per chain), keeping every
-    `thin`-th post-burn-in draw (gibbs_util.py:164-199 semantics, as in
-    step.run_chain). Returns (carry, outputs) with outputs[key] a list of
-    per-sample (k, ...) tensors, or (k,) numpy arrays for the sampler
-    diagnostics.
+    `thin`-th post-burn-in draw (:func:`emission_plan`). Returns (carry,
+    outputs) with outputs[key] a list of per-sample (k, ...) tensors on
+    the host, or (k,) numpy arrays for the sampler diagnostics; the
+    carry on the chain's device, the generators advanced past the run.
+
+    Where :func:`takes_step_graph` holds, each iteration is one replay of
+    the step graph and the host waits on the card only at the run's end
+    (and at each `status` report); `_eager` runs the eager step instead
+    (the A/B of the graph and the eager step). HMC and NUTS step eagerly
+    and keep each output as their step returns it.
 
     `status` (optional): (callback(iteration, n_iter), interval) for
     progress printing."""
     n_iter = n_burnin + n_sample * thin + n_remainder
-    outputs = {}
-    n_saved = 0
+    saves = set(emission_plan(n_burnin, n_sample, thin, n_remainder))
     # float32 products in full float32 whatever the process's TF32
     # setting (the JAX package forces 'float32' precision under its
     # chains' vmap, multichain.py:41-50).
     with full_float32():
-        for it in range(n_iter):
-            carry, out = gibbs_step_chains(cfg, model, gens, carry)
-            if it >= n_burnin and (it - n_burnin) % thin == thin - 1 \
-                    and n_saved < n_sample:
-                for key, val in out.items():
-                    if key in save_keys or key not in SAMPLE_KEYS:
-                        outputs.setdefault(key, []).append(val)
-                n_saved += 1
-            if status is not None and (it + 1) % status[1] == 0:
-                status[0](it + 1, n_iter)
+        if cfg.hmc:
+            return _run_listed(cfg, model, gens, carry, n_iter, saves,
+                               save_keys, status)
+        graph = None
+        if not _eager and takes_step_graph(cfg, model, len(gens)):
+            graph = _step_graph(cfg, model, gens, carry)
+        if graph is None:
+            state = StepState(carry)
+            return _drive(state, lambda: step_into(cfg, model, gens, state),
+                          n_iter, saves, save_keys, status)
+        with graph.lock:
+            graph.load(carry, gens)
+            carry, outputs = _drive(graph.state, graph.replay, n_iter,
+                                    saves, save_keys, status,
+                                    finish=graph.finish)
+            graph.store(gens)
+        return carry, outputs
+
+
+def _drive(state, advance, n_iter, saves, save_keys, status, finish=None):
+    """`n_iter` calls of advance() on `state`, the saved iterations'
+    outputs copied (asynchronously, on the card) into preallocated
+    buffers and read to the host with the CG accumulators in one transfer
+    at the end (or a chunk at a time). `finish(acc)`, where given, takes
+    the accumulators read to the host. Returns (a copy of the carry,
+    outputs)."""
+    saver = None
+    for it in range(n_iter):
+        advance()
+        if it in saves:
+            if saver is None:
+                saver = _Saver(state, save_keys, len(saves))
+            saver.save()
+        if status is not None and (it + 1) % status[1] == 0:
+            if state.device.type == 'cuda':
+                torch.cuda.synchronize(state.device)
+            status[0](it + 1, n_iter)
+    outputs, acc = ({}, _to_host([state.cg_acc])[0]) if saver is None \
+        else saver.finish(state.cg_acc)
+    if finish is not None:
+        finish(acc)
+    return _tree_map(torch.clone, state.carry), outputs
+
+
+class _Saver:
+    """The saved iterations' outputs in device buffers of at most
+    OUTPUT_BUDGET_BYTES (and at least one sample), read to the host each
+    time they fill and at the end."""
+
+    def __init__(self, state, save_keys, n_saves):
+        self.state = state
+        self.keys = [key for key in state.out
+                     if key in save_keys or key not in SAMPLE_KEYS]
+        per = sum(state.out[key].numel() * state.out[key].element_size()
+                  for key in self.keys)
+        self.chunk = max(1, min(n_saves, OUTPUT_BUDGET_BYTES // max(per, 1)))
+        self.bufs = {key: torch.empty(
+            (self.chunk,) + tuple(state.out[key].shape),
+            dtype=state.out[key].dtype, device=state.device)
+            for key in self.keys}
+        self.filled = 0
+        self.outputs = {key: [] for key in self.keys}
+
+    def save(self):
+        for key in self.keys:
+            self.bufs[key][self.filled].copy_(self.state.out[key])
+        self.filled += 1
+        if self.filled == self.chunk:
+            self._read(())
+
+    def _read(self, extra):
+        host = _to_host([self.bufs[key][:self.filled] for key in self.keys]
+                        + list(extra))
+        for key, vals in zip(self.keys, host):
+            for v in vals:
+                # The sampler's counts as (k,) numpy arrays, int64.
+                if key not in SAMPLE_KEYS:
+                    v = v.numpy() if v.is_floating_point() \
+                        else v.numpy().astype(np.int64)
+                self.outputs[key].append(v)
+        self.filled = 0
+        return host[len(self.keys):]
+
+    def finish(self, acc):
+        """(outputs, acc on the host): the last chunk and `acc` in one
+        read."""
+        (acc,) = self._read([acc])
+        return self.outputs, acc
+
+
+def _to_host(tensors):
+    """Copies of `tensors` on the host, in one transfer from the card
+    (their bytes packed into one buffer, each at a multiple of 8
+    bytes)."""
+    if not tensors or tensors[0].device.type == 'cpu':
+        return [t.clone() for t in tensors]
+    return _packed_copy(tensors)
+
+
+def _packed_copy(tensors):
+    """:func:`_to_host`'s transfer: one buffer of the tensors' bytes, read
+    once and cut back into the tensors."""
+    parts, spans, at = [], [], 0
+    for t in tensors:
+        size = t.numel() * t.element_size()
+        pad = -size % 8
+        parts.append(t.contiguous().view(-1).view(torch.uint8))
+        if pad:
+            parts.append(torch.zeros(pad, dtype=torch.uint8,
+                                     device=t.device))
+        spans.append((at, size))
+        at += size + pad
+    flat = torch.cat(parts).cpu()
+    return [flat[a:a + size].view(t.dtype).view(t.shape)
+            for t, (a, size) in zip(tensors, spans)]
+
+
+def _run_listed(cfg, model, gens, carry, n_iter, saves, save_keys,
+                status):
+    """The eager runner of the HMC and NUTS steps: outputs as each step
+    returns them, appended per saved iteration."""
+    outputs = {}
+    for it in range(n_iter):
+        carry, out = gibbs_step_chains(cfg, model, gens, carry)
+        if it in saves:
+            for key, val in out.items():
+                if key in save_keys or key not in SAMPLE_KEYS:
+                    outputs.setdefault(key, []).append(val)
+        if status is not None and (it + 1) % status[1] == 0:
+            status[0](it + 1, n_iter)
     return carry, outputs
 
 

@@ -16,10 +16,12 @@ Chrome trace (open it in Perfetto or ``chrome://tracing``):
     spans = span_stats('bb-profile')  # time inside each annotate span
 
 Named regions inside user code are marked with ``annotate("label")``;
-the Gibbs step marks its phases (``gibbs:step``, and inside it
+the eager Gibbs step marks its phases (``gibbs:step``, and inside it
 ``gibbs:coef`` with ``gibbs:cg_presolve`` and ``gibbs:cg_solve``, then
 ``gibbs:lin_pred``, ``gibbs:obs_prec``, ``gibbs:scales``,
-``gibbs:logp``).
+``gibbs:logp``); where the step runs as a graph, one ``gibbs:step``
+span holds each replay, whose device work the trace does not attribute
+(``kernels.cg_loop.timed_launches`` times it).
 """
 
 import glob

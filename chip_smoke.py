@@ -173,7 +173,8 @@ Phases, each of which raises on failure (exit code != 0):
    ``gibbs(10)`` in float64 (no product kernel launched, only the
    draws), and the CG sampler
    under ``fused='1'`` (the kernels on the lone block) and ``'auto'``
-   (the cuBLAS pair), ``gibbs(20)`` each; before the chains, the design
+   (the cuBLAS pair), ``gibbs(20)`` each and a profiler window; before
+   the chains, the design
    on the 2 x 2 grid (its stored columns cut at 4), the products and the
    float32 Gram against the unsharded ones;
 7. the bitpack slice: the same X with ``backend='bitpack'`` (bitmaps of
@@ -256,6 +257,20 @@ the bound: each vector read or written once over 3,350 GB/s). Every
 profiler window also splits each iteration's host wall ms and device ms
 between the CG solve and the rest of the step (``utils.profiling.
 span_stats`` over the step's ``gibbs:*`` spans), summarized at the end.
+
+Every one-card CG chain runs the Gibbs step as one CUDA graph, one
+replay an iteration (``step.takes_step_graph``, ``kernels/
+step_graph.py``). Each of its profiler windows runs three ways from the
+same state: the graph step (one replay an iteration, no host read
+between replays), the eager step (``eager_step()``: the same bits, every
+sample, state and generator), and the eager step on the host-driven CG
+loop, whose trace gives the device ms. The graph and the eager step are
+also timed untraced over 12 iterations from the same state: the wall
+ms an iteration from the run's first step to its end, the device ms an
+iteration, a call's ms before its first step and the steady busy share
+(``step_ab``,
+summarized as ``[step_ab]``); a graph holding a WHILE node is tried as a
+child graph node once (CUDA refuses it).
 
 The line before the last is ``nvidia-smi``'s name and power limit, the
 one before it a JSON summary of the kernels (each with the ``path``
@@ -1312,8 +1327,9 @@ def run_chain(model, label, step_bytes, n_first=30, n_more=20,
 def _traced_window(label, n_iter, run):
     """One profiler window (``utils.profiling.trace``) over ``run()``:
     (wall ms, the device events by kernel from ``op_stats_from_trace``,
-    the spans from ``span_stats``, the ms of each CG graph launch by CUDA
-    events)."""
+    the spans from ``span_stats``, the ms of each graph launch by CUDA
+    events (the CG solve's graphs, the step graph's replays), what run()
+    returned)."""
     import shutil
     import tempfile
     import torch
@@ -1326,28 +1342,163 @@ def _traced_window(label, n_iter, run):
         with timed_launches() as graphs, trace(log_dir):
             t0 = time.perf_counter()
             with annotate(f'{label} window'):
-                run()
+                result = run()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         rows = op_stats_from_trace(log_dir, device_only=True)
         spans = span_stats(log_dir, 'gibbs:')
     finally:
         shutil.rmtree(log_dir, ignore_errors=True)
-    return wall, rows, spans, [a.elapsed_time(b) for a, b in graphs]
+    return wall, rows, spans, [a.elapsed_time(b) for a, b in graphs], result
+
+
+@contextlib.contextmanager
+def eager_step():
+    """Within the block every Gibbs run steps eagerly (``step.run_chains``
+    as where ``takes_step_graph`` is False; its CG solves still on the
+    device loop where they take it)."""
+    from bayesbridge_tpu_torch import step
+    saved = step.takes_step_graph
+    step.takes_step_graph = lambda cfg, model, k: False
+    try:
+        yield
+    finally:
+        step.takes_step_graph = saved
 
 
 @contextlib.contextmanager
 def host_loop():
-    """Within the block every CG solve takes the host-driven loop
-    (``ops.cg.host_solve``): the same body, one host read an
-    iteration."""
+    """Within the block every Gibbs run steps eagerly and every CG solve
+    takes the host-driven loop (``ops.cg.host_solve``): the same body,
+    one host read an iteration."""
     from bayesbridge_tpu_torch.ops import cg
     saved = cg.takes_device_loop
     cg.takes_device_loop = lambda design, device: False
     try:
-        yield
+        with eager_step():
+            yield
     finally:
         cg.takes_device_loop = saved
+
+
+def _same_run(a, b, label, path=''):
+    """Two runs' (samples, info) equal bit for bit: every sample, the
+    sampling info, the final and resume states and the generators'."""
+    import numpy as np
+    import torch
+    if isinstance(a, (tuple, list)) and not isinstance(a, np.ndarray) \
+            and isinstance(b, (tuple, list)):
+        assert len(a) == len(b), (label, path)
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same_run(x, y, label, f'{path}[{i}]')
+        return
+    if isinstance(a, dict):
+        for key in a:
+            if key in ('runtime', '_init_optim_info'):
+                continue
+            assert key in b, (label, path, key)
+            _same_run(a[key], b[key], label, f'{path}.{key}')
+        return
+    if torch.is_tensor(a):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        assert np.array_equal(np.asarray(a), np.asarray(b)), (label, path)
+    else:
+        assert a == b, (label, path, a, b)
+
+
+# The step graph against the eager step, per profiler window, by label.
+STEP_AB = {}
+
+
+def _run_timed(run, n):
+    """run(n) timed on the host clock, the card synchronized before and
+    after: (ms from its first step, a replay or an eager step, to its
+    end; ms of the whole call; ms of its graph launches by CUDA
+    events)."""
+    import torch
+    from bayesbridge_tpu_torch import step as step_mod
+    from bayesbridge_tpu_torch.kernels.cg_loop import timed_launches
+    from bayesbridge_tpu_torch.kernels.step_graph import StepGraph
+    first = []
+    replay, step_into = StepGraph.replay, step_mod.step_into
+
+    def mark(fn):
+        def wrapped(*args):
+            if not first:
+                first.append(time.perf_counter())
+            return fn(*args)
+        return wrapped
+    StepGraph.replay, step_mod.step_into = mark(replay), mark(step_into)
+    try:
+        torch.cuda.synchronize()
+        with timed_launches() as graphs:
+            t0 = time.perf_counter()
+            run(n)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+    finally:
+        StepGraph.replay, step_mod.step_into = replay, step_into
+    return ((t1 - first[0]) * 1e3, (t1 - t0) * 1e3,
+            sum(a.elapsed_time(b) for a, b in graphs))
+
+
+def step_ab(label, bridge, n_iter, graph_win, eager_win, replays, resume,
+            n_timed=12):
+    """Log and keep (STEP_AB) a window's graph step against the eager
+    step from the same state, per iteration: the traced window's wall
+    ms, device ms by CUDA events (the graphs' launches plus the other
+    device work the host launched in the window: ``span_stats``) and busy
+    share; untraced, over `n_timed` iterations from the same state, the
+    wall ms an iteration (from the run's first step to its end: the
+    iterations and the one read at the end), a call's ms before its first
+    step, the device ms an iteration (the step graph's replays by CUDA
+    events; the eager step runs the same kernels to the same bits) and
+    the steady busy share (the one over the other); the step graph's
+    build seconds and pool MB, and the window's mean CG iterations (a
+    chain's, over its chains)."""
+    import numpy as np
+    from bayesbridge_tpu_torch.kernels.step_graph import _graphs_of
+    n_cg = graph_win[4][1]['_reg_coef_sampling_info'].get('n_cg_iter')
+    out = {'mean_cg': None if n_cg is None else float(np.mean(n_cg))}
+    for name, (wall, _, spans, graphs, _) in (('graph', graph_win),
+                                             ('eager', eager_win)):
+        events = spans['']['device_ms'] + sum(graphs)
+        out[f'{name}_wall_ms'] = round(wall / n_iter, 4)
+        out[f'{name}_device_ms'] = round(events / n_iter, 4)
+        out[f'{name}_busy'] = round(events / wall, 4)
+        with contextlib.ExitStack() as stack:
+            if name == 'eager':
+                stack.enter_context(eager_step())
+            steps, whole, graph_ms = _run_timed(resume, n_timed)
+        out[f'{name}_step_ms'] = round(steps / n_timed, 4)
+        out[f'{name}_call_ms'] = round(whole - steps, 4)
+        if name == 'graph':
+            out['step_device_ms'] = round(graph_ms / n_timed, 4)
+        out[f'{name}_steady_busy'] = round(
+            out['step_device_ms'] * n_timed / steps, 4)
+    graphs = list(_graphs_of(bridge.model.design).values())
+    out.update(replays=replays, step_graphs=len(graphs),
+               build_s=round(sum(g.build_seconds for g in graphs), 3),
+               pool_mb=round(sum(g.pool_bytes for g in graphs) / 1e6, 3))
+    STEP_AB[label] = out
+    log(f"[{label}] step graph against the eager step, the same "
+        f"{n_iter} iterations (the same bits): window wall "
+        f"{out['graph_wall_ms']:.2f} / {out['eager_wall_ms']:.2f} ms an "
+        f"iteration, device {out['graph_device_ms']:.2f} / "
+        f"{out['eager_device_ms']:.2f} ms by events, busy "
+        f"{100 * out['graph_busy']:.1f}% / {100 * out['eager_busy']:.1f}%; "
+        f"untraced, an iteration's wall {out['graph_step_ms']:.2f} / "
+        f"{out['eager_step_ms']:.2f} ms, device {out['step_device_ms']:.2f}"
+        f" ms (steady busy "
+        f"{100 * out['graph_steady_busy']:.1f}% / "
+        f"{100 * out['eager_steady_busy']:.1f}%), a call's ms before its "
+        f"first step {out['graph_call_ms']:.1f} / "
+        f"{out['eager_call_ms']:.1f}; "
+        f"{replays} replays, no host read between them; mean CG "
+        f"iterations {out['mean_cg']}; {len(graphs)} step graph(s) on the "
+        f"design, built in {out['build_s']:.2f} s, pool "
+        f"{out['pool_mb']:.2f} MB")
 
 
 def profile_window(bridge, info, label, n_iter=3, resume=None):
@@ -1371,9 +1522,29 @@ def profile_window(bridge, info, label, n_iter=3, resume=None):
     if resume is None:
         def resume(n):
             return bridge.gibbs_resume(info, n)
-    wall, rows, spans, graphs = _traced_window(label, n_iter,
-                                               lambda: resume(n_iter))
+    from bayesbridge_tpu_torch.gibbs_util import SamplerOptions
+    from bayesbridge_tpu_torch.step import takes_step_graph
+    with ReplayReads() as rr:
+        window = _traced_window(label, n_iter, lambda: resume(n_iter))
+    wall, rows, spans, graphs, result = window
     host = None
+    cfg = bridge._step_config(SamplerOptions.from_info(info['options']))
+    if takes_step_graph(cfg, bridge.model, info.get('n_chains', 1)):
+        assert rr.marks, (label, 'no step graph replay')
+    if rr.marks:
+        # The step graph ran: one replay an iteration, no host read
+        # between them; the same iterations on the eager step give the
+        # same bits.
+        assert len(rr.marks) == n_iter and rr.between == 0, (
+            label, len(rr.marks), rr.between)
+        with eager_step():
+            resume(1)  # lazy work off the clock (the CG solve's graph)
+            eager = _traced_window(label, n_iter, lambda: resume(n_iter))
+        _same_run(result, eager[4], label)
+        step_ab(label, bridge, n_iter, window, eager, len(rr.marks),
+                resume)
+        # The split of the step between its phases: the eager step's.
+        spans, graphs = eager[2], eager[3]
     if graphs:
         with host_loop():
             host = _traced_window(label, n_iter, lambda: resume(n_iter))
@@ -1392,10 +1563,10 @@ def profile_window(bridge, info, label, n_iter=3, resume=None):
         events = spans['']['device_ms'] + graph_ms
         log(f"[{label}] the same iterations on the host loop: {host[0]:.1f} "
             f"ms wall, busy {100 * busy / host[0]:.1f}% (device ms from "
-            f"this run's trace, above); the device loop by its own measure: "
-            f"{events:.1f} ms ({len(graphs)} CG graph launches, "
+            f"this run's trace, above); the CG device loop by its own "
+            f"measure: {events:.1f} ms ({len(graphs)} CG graph launches, "
             f"{graph_ms:.2f} ms by CUDA events, gaps between nodes "
-            f"included), {100 * events / wall:.1f}% busy")
+            f"included)")
     for r in rows[:8]:
         log(f"    {r['self_us'] / 1e3:9.2f} ms  {r['occurrences']:6d} x  "
             f"{r['name'][:90]}")
@@ -1523,6 +1694,32 @@ class HostReads:
             setattr(torch.Tensor, name, orig)
 
 
+class ReplayReads(HostReads):
+    """:class:`HostReads` that also notes the count at each step-graph
+    replay: a read between the first and the last replay of a run would
+    be a read inside the run (``replays`` counts them)."""
+
+    def __enter__(self):
+        from bayesbridge_tpu_torch.kernels.step_graph import StepGraph
+        super().__enter__()
+        self.marks, self.orig = [], StepGraph.replay
+
+        def replay(graph, _orig=self.orig):
+            self.marks.append(self.n)
+            return _orig(graph)
+        StepGraph.replay = replay
+        return self
+
+    def __exit__(self, *exc):
+        from bayesbridge_tpu_torch.kernels.step_graph import StepGraph
+        StepGraph.replay = self.orig
+        super().__exit__(*exc)
+
+    @property
+    def between(self):
+        return self.marks[-1] - self.marks[0] if self.marks else 0
+
+
 def cg_loop_case(design, label):
     """The cg_loop phase on one design: one solve of CG_K chains (chains
     of different iteration counts, one that starts converged) at the
@@ -1542,7 +1739,9 @@ def cg_loop_case(design, label):
     import torch
     from bayesbridge_tpu_torch.kernels import (
         launch_counts, reset_launch_counts)
-    from bayesbridge_tpu_torch.kernels.cg_loop import cuda_versions
+    from bayesbridge_tpu_torch.kernels import load_library
+    from bayesbridge_tpu_torch.kernels.cg_loop import (
+        child_while_error, cuda_versions)
     from bayesbridge_tpu_torch.ops import cg
     lin = design.fused_ne_mode('quad') is None
     inp = cg_inputs(design, CG_K, CG_SEED, lin)
@@ -1605,6 +1804,12 @@ def cg_loop_case(design, label):
     for _, name, n in loop.graph.counts[1]:
         per_iteration[name] = per_iteration.get(name, 0) + n
     built, runtime, driver = cuda_versions()
+    if not CG_LOOP:
+        rc = child_while_error()
+        log(f"[{label}] a graph holding a WHILE node as another's child "
+            f"graph node: cudaGraphAddChildGraphNode returns {rc} ("
+            f"{load_library().lib.bb_error_string(abs(rc)).decode()}); the "
+            f"step graph adds its WHILE node to the capture itself")
     CG_LOOP[label] = dict(
         n_cg_iter=n_iter.astype(int).tolist(), host_ms=host_ms,
         device_ms=dev_ms, first_ms=first_ms, pool_bytes=loop.graph.pool_bytes,
@@ -3581,6 +3786,7 @@ def run_dense(m2d):
             f"{time.perf_counter() - t1:.1f} s; mean CG iterations "
             f"{n_cg.mean():.2f}; mean coef[1:11] "
             f"{s['coef'][1:11].mean():.4f}; launch counts {c}")
+        profile_window(bridge, i, label)
         cg_loop_case(m.design, label)
         del bridge, m
     del model, design
@@ -5038,6 +5244,8 @@ def main():
     results.update(CG_RESULTS)
     log(f"[cg_loop] summary: {json.dumps(CG_LOOP)}")
     log(f"[splits] per iteration: {json.dumps(SPLITS)}")
+    log(f"[step_ab] per iteration, graph against eager: "
+        f"{json.dumps(STEP_AB)}")
 
     # The path whose run each kernel's launch count is read from. The
     # linear model's MAP search runs the one-read kernel's 'linear' mode

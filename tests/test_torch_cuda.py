@@ -46,8 +46,17 @@ on every backend the device loop serves, the solve as one graph launch
 must give the host-driven loop's n_cg_iter and, within the same
 tolerance, its coef, a rerun's bits from the cached graph with one host
 read, launch counters at the captured iteration's launches times
-max(n_iter), and each chain's bits alone; a Gibbs run on the card takes
-one graph for all its solves.
+max(n_iter), and each chain's bits alone; a Gibbs run on the card's
+eager step takes one graph for all its solves. The Gibbs step as one
+CUDA graph (``kernels.step_graph``, one replay an iteration) must give
+the eager step's bits (every saved output, the carry and its counters,
+the generators' states after) on every CG backend, for 3 chains and on a
+4-shard mesh of the one card, with the eager run's launch and design
+counts and a number of host reads that does not grow with the
+iterations; resume stays exact on it, a shallow copy of the design
+captures its own, and ``gibbs_chains(mesh=)`` groups on one card give
+the chains of the run without a mesh; CUDA refuses a graph holding a
+WHILE node as a child graph node (why the step graph adds its own).
 """
 
 import numpy as np
@@ -2136,15 +2145,18 @@ def test_cg_device_loop_on_a_copy_of_the_design(dev, monkeypatch):
         <= 1e-4 * float(ref[0].abs().max())
 
 
-def test_gibbs_takes_the_device_loop(dev):
-    """A logit chain on the card runs every CG solve as the device loop:
-    one graph for the run (captured on the first iteration, then taken
-    from the cache), cg_update launched max(n_cg_iter) times a solve, and
-    at most one host read in each solve."""
+def test_gibbs_takes_the_device_loop(dev, monkeypatch):
+    """A logit chain on the card's eager step (where no step graph runs)
+    runs every CG solve as the device loop: one graph for the run
+    (captured on the first iteration, then taken from the cache),
+    cg_update launched max(n_cg_iter) times a solve, and at most one host
+    read in each solve."""
     from bayesbridge_tpu_torch import (
         BayesBridge, RegressionCoefPrior, RegressionModel,
     )
+    from bayesbridge_tpu_torch import step as step_mod
     from bayesbridge_tpu_torch.ops import cg
+    monkeypatch.setattr(step_mod, 'takes_step_graph', lambda *a: False)
     X, outcome = _chain_problem()
     model = RegressionModel(outcome, X, family='logit')
     bridge = BayesBridge(model, RegressionCoefPrior(bridge_exponent=.5))
@@ -2195,3 +2207,245 @@ def test_cg_device_loop_from_threads(dev):
     for g, s in zip(got, serial * 2):
         assert torch.equal(g[0], s[0]) and torch.equal(g[1], s[1])
         np.testing.assert_array_equal(g[2]['n_cg_iter'], s[2]['n_cg_iter'])
+
+
+# The Gibbs step as one CUDA graph (kernels/step_graph.py) against the
+# eager step on the same state.
+STEP_CASES = ['hybrid_auto', 'hybrid_fused', 'int4', 'bitpack', 'winell',
+              'ell64', 'dense', 'linear', 'sharded', 'chains3']
+
+
+def _step_setup(case, dev, monkeypatch):
+    """(cfg, model, generators, chain-batched carry) of `case` on the
+    card: _chain_problem's X as the case's design, CG, numpy starts."""
+    from bayesbridge_tpu_torch import (
+        BayesBridge, RegressionCoefPrior, RegressionModel,
+    )
+    from bayesbridge_tpu_torch import step as step_mod
+    from bayesbridge_tpu_torch.gibbs_util import SamplerOptions
+    from bayesbridge_tpu_torch.parallel import make_mesh, shard_model
+    X, outcome = _chain_problem()
+    family, kw = 'logit', {}
+    if case == 'int4':
+        monkeypatch.setenv('BB_HYBRID_INT4', '1')
+    else:
+        monkeypatch.delenv('BB_HYBRID_INT4', raising=False)
+    if case == 'hybrid_fused':
+        kw['fused'] = '1'
+    elif case in ('bitpack', 'winell'):
+        kw['backend'] = case
+    elif case == 'ell64':
+        kw.update(backend='ell', dtype=np.float64)
+    elif case == 'dense':
+        X = X.toarray()
+    elif case == 'linear':
+        family = 'linear'
+        outcome = X @ np.r_[np.ones(3), np.zeros(57)] \
+            + np.random.default_rng(3).standard_normal(X.shape[0])
+    model = RegressionModel(outcome, X, family=family, **kw)
+    if case == 'sharded':
+        model = shard_model(model, make_mesh(devices=[dev] * 4))
+    bridge = BayesBridge(model, RegressionCoefPrior(bridge_exponent=.5))
+    cfg = bridge._step_config(SamplerOptions('cg'))
+    k = 3 if case == 'chains3' else 1
+    rng = np.random.default_rng(7)
+    carries = []
+    for _ in range(k):
+        obs_prec = rng.uniform(.1, .3, model.n_obs) if family == 'logit' \
+            else rng.uniform(.5, 2.)
+        carries.append(step_mod.init_carry(
+            dev, rng.standard_normal(bridge.n_pred) * .3, obs_prec,
+            rng.uniform(.05, .2), rng.uniform(.5, 2., bridge.n_pred - 1),
+            dtype=bridge.dtype, cfg=cfg))
+    gens = [torch.Generator(device=dev).manual_seed(40 + c)
+            for c in range(k)]
+    return cfg, model, gens, step_mod.stack_carries(carries)
+
+
+def _copy_gens(gens, dev):
+    from bayesbridge_tpu_torch.random.basic import (
+        generator_from_state, generator_state,
+    )
+    return [generator_from_state(generator_state(g), dev) for g in gens]
+
+
+def _same_tree(a, b):
+    assert set(a) == set(b)
+    for key in a:
+        if isinstance(a[key], dict):
+            _same_tree(a[key], b[key])
+        else:
+            x, y = (torch.as_tensor(np.asarray(v.cpu() if torch.is_tensor(v)
+                                               else v)) for v in
+                    (a[key], b[key]))
+            assert x.dtype == y.dtype and torch.equal(x, y), key
+
+
+def _design_counts(design):
+    return [getattr(o, a) for o, a in design.counters()]
+
+
+@pytest.mark.parametrize('case', STEP_CASES)
+def test_step_graph_equals_eager_step(dev, case, monkeypatch):
+    """One replay an iteration against the eager step from the same state
+    and generators (burn-in 1, thin 2, a remainder: 6 iterations): every
+    saved output, the carry with its counters and the generators' states
+    after equal bit for bit; a second run from the cached graph launches
+    what the eager run launched (every kernel counter, the design's
+    matvec counts) and reads the card as often over 6 iterations as over
+    3."""
+    from bayesbridge_tpu_torch import step as step_mod
+    from bayesbridge_tpu_torch.kernels.step_graph import _graphs_of
+    cfg, model, gens, carry = _step_setup(case, dev, monkeypatch)
+    k = len(gens)
+    design = model.design
+    assert step_mod.takes_step_graph(cfg, model, k)
+    keys = step_mod.SAMPLE_KEYS
+    eager_gens = _copy_gens(gens, dev)
+    reset_launch_counts()
+    mv0 = _design_counts(design)
+    e_carry, e_out = step_mod.run_chains(cfg, model, eager_gens, carry, 1, 2,
+                                         2, 1, keys, _eager=True)
+    torch.cuda.synchronize()
+    e_counts = launch_counts()
+    e_mv = [b - a for a, b in zip(mv0, _design_counts(design))]
+    assert not _graphs_of(design)
+    first_gens = _copy_gens(gens, dev)
+    g_carry, g_out = step_mod.run_chains(cfg, model, first_gens, carry, 1, 2,
+                                         2, 1, keys)
+    (graph,) = _graphs_of(design).values()
+    assert graph.replays == 6
+    assert list(g_out) == list(e_out)
+    for key in e_out:
+        assert len(g_out[key]) == len(e_out[key]) == 2
+        for a, b in zip(g_out[key], e_out[key]):
+            _same_tree({key: a}, {key: b})
+    _same_tree(g_carry, e_carry)
+    for a, b in zip(first_gens, eager_gens):
+        assert torch.equal(a.get_state(), b.get_state())
+    reset_launch_counts()
+    mv0 = _design_counts(design)
+    again_gens = _copy_gens(gens, dev)
+    with pytest.MonkeyPatch.context() as mp:
+        reads = _count_reads(mp)
+        a_carry, a_out = step_mod.run_chains(cfg, model, again_gens, carry,
+                                             1, 2, 2, 1, keys)
+        reads_6 = reads[0]
+    torch.cuda.synchronize()
+    assert launch_counts() == e_counts
+    assert [b - a for a, b in zip(mv0, _design_counts(design))] == e_mv
+    _same_tree(a_carry, e_carry)
+    assert list(_graphs_of(design).values()) == [graph]
+    with pytest.MonkeyPatch.context() as mp:
+        reads = _count_reads(mp)
+        step_mod.run_chains(cfg, model, _copy_gens(gens, dev), carry, 0, 3,
+                            1, 0, keys)
+        assert reads[0] == reads_6, (reads[0], reads_6)
+    # A run with a configuration of its own (equal settings), after the
+    # first one's is gone and the freed memory refilled with NaN: the
+    # graph keeps what it reads.
+    import copy
+    import gc
+    fresh = copy.copy(cfg)
+    fresh.__dict__.pop('_prior_sd', None)  # its own cached tensors
+    assert fresh.key() == cfg.key()
+    del cfg
+    gc.collect()
+    junk = [torch.full((n,), float('nan'), device=dev)
+            for n in (1, 7, 64, 500, 4096) for _ in range(50)]
+    f_carry, f_out = step_mod.run_chains(fresh, model, _copy_gens(gens, dev),
+                                         carry, 1, 2, 2, 1, keys)
+    del junk
+    _same_tree(f_carry, e_carry)
+    for key in e_out:
+        for a, b in zip(f_out[key], e_out[key]):
+            _same_tree({key: a}, {key: b})
+    assert list(_graphs_of(design).values()) == [graph]
+    assert e_counts['cg_update'] > 0 and e_counts['pg_draw' if
+                                                 model.name == 'logit'
+                                                 else 'ts_draw'] > 0
+
+
+def test_step_graph_resumes_exactly(dev, monkeypatch):
+    """gibbs(7) + gibbs_resume(3, merge=True) on the step graph equals
+    gibbs(10), and equals the eager step's gibbs(10)."""
+    from bayesbridge_tpu_torch import (
+        BayesBridge, RegressionCoefPrior, RegressionModel,
+    )
+    from bayesbridge_tpu_torch import step as step_mod
+    from bayesbridge_tpu_torch.kernels.step_graph import _graphs_of
+    monkeypatch.delenv('BB_HYBRID_INT4', raising=False)
+    X, outcome = _chain_problem()
+    model = RegressionModel(outcome, X, family='logit')
+    bridge = BayesBridge(model, RegressionCoefPrior(bridge_exponent=.5))
+    kw = dict(seed=0, coef_sampler_type='cg', params_to_save='all')
+    full, i_full = bridge.gibbs(10, **kw)
+    assert _graphs_of(model.design)
+    part, info = bridge.gibbs(7, **kw)
+    merged, i_m = bridge.gibbs_resume(info, 3, merge=True, prev_samples=part)
+    for key in full:
+        np.testing.assert_array_equal(merged[key], full[key])
+    np.testing.assert_array_equal(
+        i_m['_reg_coef_sampling_info']['n_cg_iter'],
+        i_full['_reg_coef_sampling_info']['n_cg_iter'])
+    monkeypatch.setattr(step_mod, 'takes_step_graph', lambda *a: False)
+    eager, _ = bridge.gibbs(10, **kw)
+    for key in full:
+        np.testing.assert_array_equal(eager[key], full[key])
+
+
+def test_step_graph_on_a_copy_of_the_design(dev, monkeypatch):
+    """A shallow copy of a design that has run a step graph (the same
+    blocks under the fused policy) captures its own, which gives the
+    eager step's bits on the copy."""
+    import copy
+    from bayesbridge_tpu_torch import step as step_mod
+    from bayesbridge_tpu_torch.kernels.step_graph import _graphs_of
+    cfg, model, gens, carry = _step_setup('hybrid_auto', dev, monkeypatch)
+    keys = step_mod.SAMPLE_KEYS
+    step_mod.run_chains(cfg, model, _copy_gens(gens, dev), carry, 0, 2, 1, 0,
+                        keys)
+    (first,) = _graphs_of(model.design).values()
+    other = copy.copy(model)
+    other.design = model.design.with_policy('1')
+    assert other.design.__dict__.get('_step_graphs') is not None
+    got = step_mod.run_chains(cfg, other, _copy_gens(gens, dev), carry, 0, 3,
+                              1, 0, keys)
+    (mine,) = _graphs_of(other.design).values()
+    assert mine is not first
+    ref = step_mod.run_chains(cfg, other, _copy_gens(gens, dev), carry, 0, 3,
+                              1, 0, keys, _eager=True)
+    _same_tree(got[0], ref[0])
+    for key in ref[1]:
+        for a, b in zip(got[1][key], ref[1][key]):
+            _same_tree({key: a}, {key: b})
+
+
+def test_step_graph_mesh_groups_on_one_card(dev, monkeypatch):
+    """gibbs_chains(mesh=) with two groups on one card (a step graph a
+    group, each in its thread) gives the chains of the run without a
+    mesh (one graph of 4 chains) bit for bit."""
+    from bayesbridge_tpu_torch import (
+        BayesBridge, RegressionCoefPrior, RegressionModel, gibbs_chains,
+    )
+    from bayesbridge_tpu_torch.parallel import make_mesh
+    monkeypatch.delenv('BB_HYBRID_INT4', raising=False)
+    X, outcome = _chain_problem()
+    bridge = BayesBridge(RegressionModel(outcome, X, family='logit'),
+                         RegressionCoefPrior(bridge_exponent=.5))
+    kw = dict(seed=2, coef_sampler_type='cg', params_to_save=('coef',
+                                                               'logp'))
+    plain, _ = gibbs_chains(bridge, 5, 4, **kw)
+    meshed, _ = gibbs_chains(bridge, 5, 4, mesh=make_mesh(
+        devices=[dev] * 2), **kw)
+    for key in plain:
+        np.testing.assert_array_equal(meshed[key], plain[key])
+
+
+def test_a_while_node_cannot_sit_in_a_child_graph(dev):
+    """CUDA refuses a graph that holds a conditional WHILE node as a child
+    graph node, so the step graph adds its WHILE node to the graph being
+    captured itself."""
+    from bayesbridge_tpu_torch.kernels.cg_loop import child_while_error
+    rc = child_while_error()
+    assert rc > 0, rc
