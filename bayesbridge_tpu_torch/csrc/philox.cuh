@@ -5,13 +5,23 @@
 //
 // The JAX package draws these bits with jax.random (threefry) inside its
 // lax.while_loops; the port cannot give the TPU's bits, so the kernels
-// are held to their plain versions in law (KS and moments). A stream is
-// (key, lane): the key is one 64-bit word per chain and call, drawn by
-// the wrapper from the chain's torch.Generator on the card; the counter
-// is (lane low, lane high, block low, block high) and each block of four
-// words is one Philox call. A lane's bits depend only on the key, the
-// lane and how many words it has taken, so a lane gives the same bits
-// whatever else the launch holds.
+// are held to their plain versions in law (KS and moments). The key is one
+// 64-bit word per chain and call, drawn by the wrapper from the chain's
+// torch.Generator on the card; the counter is (lane low, lane high, block
+// low, block high) and each block of four words is one Philox call. Two
+// streams:
+//
+// - Stream(key, lane): the lane's blocks 0, 1, 2, ... taken word by word,
+//   one sequence for all its rounds (pg_draw; ts_draw's first design). A
+//   lane's bits depend only on the key, the lane and how many words it
+//   has taken.
+// - RoundStream(key, lane, round * B): round r of the lane takes the
+//   blocks r B .. r B + B - 1 word by word, B blocks covering the most
+//   words a round takes (ts_draw: 2 in float, 4 in double). A round's
+//   bits depend only on the key, the lane and the round, so any thread
+//   can run any round of a lane.
+//
+// Either way a lane gives the same bits whatever else the launch holds.
 //
 // Uniforms lie on the open interval (0, 1). Double takes 53 bits of two
 // words, k 2^-53, clamped below at the smallest normal as the plain
@@ -78,23 +88,56 @@ struct Stream {
   }
 };
 
-__device__ __forceinline__ float uniform(Stream& s, float) {
+// Round r's words of a lane: the blocks (lane, first), (lane, first + 1),
+// ... taken in order; the caller never takes more than its B blocks.
+struct RoundStream {
+  uint2 key;
+  uint4 ctr;
+  uint4 buf;
+  int pos;
+
+  __device__ RoundStream(uint64_t key64, uint64_t lane, uint32_t first)
+      : key(make_uint2(static_cast<uint32_t>(key64),
+                       static_cast<uint32_t>(key64 >> 32))),
+        ctr(make_uint4(static_cast<uint32_t>(lane),
+                       static_cast<uint32_t>(lane >> 32), first, 0u)),
+        buf(make_uint4(0u, 0u, 0u, 0u)),
+        pos(4) {}
+
+  __device__ __forceinline__ uint32_t next() {
+    if (pos == 4) {
+      buf = philox4x32_10(ctr, key);
+      ++ctr.z;
+      pos = 0;
+    }
+    const uint32_t w = pos == 0 ? buf.x : pos == 1 ? buf.y
+                       : pos == 2 ? buf.z : buf.w;
+    ++pos;
+    return w;
+  }
+};
+
+template <class S>
+__device__ __forceinline__ float uniform(S& s, float) {
   return (static_cast<float>(s.next() >> 9) + 0.5f) * 0x1p-23f;
 }
 
-__device__ __forceinline__ double uniform(Stream& s, double) {
+template <class S>
+__device__ __forceinline__ double uniform(S& s, double) {
   const uint64_t hi = s.next(), lo = s.next();
   const double u =
       static_cast<double>((hi << 21) | (lo >> 11)) * 0x1p-53;
   return fmax(u, DBL_MIN);
 }
 
-__device__ __forceinline__ float normal(Stream& s, float) {
+template <class S>
+__device__ __forceinline__ float normal(S& s, float) {
   const float u1 = uniform(s, 0.f), u2 = uniform(s, 0.f);
   return sqrtf(-2.f * logf(u1)) * cospif(2.f * u2);
 }
 
-__device__ __forceinline__ double normal(Stream& s, double) {
+template <class S>
+__device__ __forceinline__ double normal(S& s, double) {
   const double u1 = uniform(s, 0.0), u2 = uniform(s, 0.0);
   return sqrt(-2.0 * log(u1)) * cospi(2.0 * u2);
 }

@@ -71,11 +71,15 @@ REGISTRY = {
     # (lax.while_loops under jit, run_rejection at rejection.py:76).
     'pg_draw': dict(source='bayesbridge_tpu_torch/csrc/polya_gamma.cu',
                     replaces='bayesbridge_tpu/random/polya_gamma.py:225'),
+    # ts_draw: the sweep design (T threads a lane); ts_draw[first]: the
+    # first design (one thread a lane), off the path.
     'ts_draw': dict(source='bayesbridge_tpu_torch/csrc/tilted_stable.cu',
                     replaces='bayesbridge_tpu/random/tilted_stable.py:311'),
     # No Pallas kernel: the CG solve's lax.while_loop (ops/cg.py:196 and
-    # :209), its vector updates as cg_start and cg_update (three kernels
-    # an iteration), looped on the card as one CUDA graph.
+    # :209), its vector updates as cg_start and cg_update, looped on the
+    # card as one CUDA graph. cg_update: one cluster kernel an iteration
+    # (cg_iter); cg_update[three]: the first design's three kernels, the
+    # route for vectors longer than cg_iter takes.
     'cg_start': dict(source='bayesbridge_tpu_torch/csrc/cg_loop.cu',
                      replaces='bayesbridge_tpu/ops/cg.py:196'),
     'cg_update': dict(source='bayesbridge_tpu_torch/csrc/cg_loop.cu',
@@ -99,8 +103,10 @@ def launch_counts():
     'tdots_i4[u4,bin]' (single-vector launches), and their '...[chains]'
     counts ('tdots_i4[u4,bin,chains]': one single launch per chain of a
     chain batch, which has no nibble mode), the draws 'pg_draw' and
-    'ts_draw', and the CG loop's 'cg_start' and 'cg_update' (one call:
-    an iteration's three update kernels)}."""
+    'ts_draw' (the sweep design) and 'ts_draw[first]' (the first
+    design), and the CG loop's 'cg_start', 'cg_update' (one launch of
+    the one-kernel update, an iteration) and 'cg_update[three]' (one
+    call of the three-kernel route, an iteration)}."""
     counts = {f'ne_sweep[{key}]': k for key, k in _ne.launches.items()
               if not key.endswith('_k') and 'i4' not in key}
     for name, key in (('ne_rows_i4', 'rows_i4'), ('colpass_i4', 'cols_i4')):
@@ -126,8 +132,10 @@ def launch_counts():
                        for tag, k in mod.launches.items()})
     counts['pg_draw'] = _dr.launches['pg']
     counts['ts_draw'] = _dr.launches['ts']
+    counts['ts_draw[first]'] = _dr.launches['ts_first']
     counts['cg_start'] = _cg.launches['start']
     counts['cg_update'] = _cg.launches['update']
+    counts['cg_update[three]'] = _cg.launches['update_three']
     counts['ne_onepass'] = _op.launches['onepass']
     counts['ne_oneread'] = _or.launches['ne']
     counts.update({f'ne_oneread[{mid}]': _or.launches[mid]

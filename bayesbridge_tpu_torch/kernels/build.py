@@ -80,13 +80,20 @@ _SIGNATURES = {
     'bb_rows_per_block': [],
     'bb_has_int4': [],
     'bb_pg_draw': [_I, _P, _P, _P, _I, _L, _I, _P, _P, _P, _P],
-    'bb_ts_draw': [_I, _P, _P, _I, _L, ctypes.c_double, _I, _I, _I, _I, _P,
-                   _P, _P, _P, _P],
+    'bb_ts_draw': [_I, _P, _P, _I, _L, ctypes.c_double, _I, _I, _I, _I, _I,
+                   _P, _P, _P, _P, _P],
+    'bb_ts_draw_first': [_I, _P, _P, _I, _L, ctypes.c_double, _I, _I, _I,
+                         _I, _P, _P, _P, _P, _P],
     'bb_philox_check': [_P, _P, _P, _P, _I, _P],
     'bb_philox_stream': [_I, _L, _L, _P, _I, _P, _P, _I, _P],
     'bb_cg_blocks': [_L],
     'bb_cg_start': [_I, _P, _P],
     'bb_cg_update': [_I, _P, _P],
+    'bb_cg_iter': [_I, _P, _P],
+    'bb_cg_iter_fits': [_I, _L, _L],
+    'bb_cg_iter_clusters': [_I, _I, _L],
+    'bb_cg_iter_blocks': [_I, _I, _L],
+    'bb_cg_cluster_while_probe': [_I, _P],
     'bb_cg_versions': [_P],
     'bb_cg_graph_new': [_P, _P],
     'bb_cg_graph_finish': [_P, ctypes.c_ulonglong, _P, _P, _P],

@@ -7,9 +7,15 @@ Counterpart of the body of the JAX package's CG ``lax.while_loop``
 :func:`cg_update` takes one iteration's step for every chain whose flag
 is set, given the operator's design part ``out`` (and its forward
 intermediate ``t`` where the loop keeps the linear predictor). On a CUDA
-tensor each launches ``csrc/cg_loop.cu`` (``cg_start``; ``cg_ap``,
-``cg_step`` and ``cg_dir``), on a CPU tensor it runs its plain version,
-the same formulas in torch with the sums in :func:`..utils.chains.rdot`.
+tensor each launches ``csrc/cg_loop.cu``, on a CPU tensor it runs its
+plain version, the same formulas in torch with the sums in
+:func:`..utils.chains.rdot`. :func:`cg_update` takes one of two routes
+by the vectors' length and the device's room for a cluster
+(:func:`update_route`), both with the same bits: ``'cluster'``, one
+kernel an iteration (``cg_iter``: the chain's blocks as one thread-block
+cluster, m up to 65,536 in float32 and 32,768 in float64), and
+``'three'``, the first design's ``cg_ap``, ``cg_step`` and ``cg_dir``,
+for longer vectors or a device that holds no such cluster.
 
 :class:`SolveGraph` holds one captured solve: the prologue (whatever
 ``setup`` launches, then ``cg_start``) and one iteration (``step``:
@@ -26,15 +32,18 @@ captured, :func:`capture_while` appends the node after it and starts
 capturing a second stream (:func:`body_stream`) into the node's body,
 which :func:`end_body_capture` ends (``bb_cg_capture_handle``,
 ``bb_cg_capture_while``, ``bb_cg_capture_end``; ``ops.cg.LoopCapture``).
+:func:`cluster_while_runs` checks that a cluster launch loops in such a
+body.
 
-Launch counters: ``launches['start']`` and ``launches['update']`` (one
-call, that is one iteration of the three update kernels). A wrapper
-counts where Python calls it; inside a capture that is once, so
+Launch counters: ``launches['start']``, ``launches['update']`` (one
+call on the cluster route: one ``cg_iter`` launch, an iteration) and
+``launches['update_three']`` (one call on the three-kernel route). A
+wrapper counts where Python calls it; inside a capture that is once, so
 :func:`.build.recording` keeps the captures' counts aside (and drops the
 warm-up's, scratch work before them), and a solve adds the prologue's
 once and the iteration's times the iterations the card ran
 (:meth:`SolveGraph.count`): the state's counter ``iters``, which
-``cg_start`` zeroes and ``cg_dir`` advances once a run of the iteration,
+``cg_start`` zeroes and the update advances once a run of the iteration,
 read with the chains' counts at the solve's end.
 """
 
@@ -49,7 +58,8 @@ import torch
 from .build import count_launch, load_library, recording
 from ..utils.chains import rdot, rnorm
 
-launches = {'start': 0, 'update': 0}
+launches = {'start': 0, 'update': 0, 'update_three': 0}
+ROUTES = ('cluster', 'three')
 _DTYPES = (torch.float32, torch.float64)
 _VECTORS = ('x', 'r', 'p', 'sp', 'ap', 'out', 's', 'd', 'b', 'y', 't', 'rs',
             'thresh', 'alpha', 'beta', 'atol', 'n_iter', 'running', 'moved',
@@ -203,9 +213,40 @@ def cg_update_plain(st, out, t=None):
     st.iters.add_(1)
 
 
-def cg_update(st, out, t=None):
-    """:func:`cg_update_plain` on the card: ``cg_ap``, ``cg_step`` and
-    ``cg_dir``, the last of which sets the loop's condition to
+_ROUTES = {}
+
+
+def route_for(device, dtype, m, n):
+    """The route :func:`cg_update` takes on the CUDA device `device` for
+    vectors of length m in `dtype` and a linear predictor of n (0: none):
+    ``'cluster'`` where ``cg_iter`` takes m and the device holds at least
+    one of its clusters at that shape (``bb_cg_iter_fits``), else
+    ``'three'``. Kept per device, type and shape; raises on a CUDA
+    error."""
+    device = indexed(device)
+    f64 = int(dtype == torch.float64)
+    key = (device.index, f64, m, n)
+    if key not in _ROUTES:
+        kl = load_library()
+        with torch.cuda.device(device):
+            rc = kl.lib.bb_cg_iter_fits(f64, m, n)
+        if rc < 0:
+            kl.check(-rc, 'bb_cg_iter_fits')
+        _ROUTES[key] = 'cluster' if rc else 'three'
+    return _ROUTES[key]
+
+
+def update_route(st):
+    """The route :func:`cg_update` takes on the card for the state `st`
+    (:func:`route_for` at its device, type and shape)."""
+    return route_for(st.device, st.dtype, st.m,
+                     0 if st.y is None else st.n)
+
+
+def cg_update(st, out, t=None, route=None):
+    """:func:`cg_update_plain` on the card: on the route `route` (None:
+    :func:`update_route`'s; ``'cluster'`` raises where ``cg_iter`` does
+    not take the shape), whose update sets the loop's condition to
     any(running) where ``st.handle`` is a graph's."""
     out = out.to(st.dtype).contiguous()
     if t is not None:
@@ -213,13 +254,20 @@ def cg_update(st, out, t=None):
     if (st.y is None) != (t is None) or out.shape != (st.k, st.m):
         raise ValueError("cg_update: out must be (k, m), and t given "
                          "exactly where the state keeps y")
+    if route not in (None,) + ROUTES:
+        raise ValueError(f"cg_update: no route {route!r}")
     if st.device.type == 'cpu':
         return cg_update_plain(st, out, t)
     if st.device.type != 'cuda':
         raise ValueError(f"no cg_update for device {st.device}")
     _check(st, out, t)
-    _launch('bb_cg_update', st, st.args(out, t))
-    count_launch(launches, 'update')
+    route = route or update_route(st)
+    if route == 'cluster':
+        _launch('bb_cg_iter', st, st.args(out, t))
+        count_launch(launches, 'update')
+    else:
+        _launch('bb_cg_update', st, st.args(out, t))
+        count_launch(launches, 'update_three')
 
 
 def cuda_versions():
@@ -292,6 +340,19 @@ def child_while_error():
     the probe itself failed): why the step graph adds its WHILE node
     during the capture rather than the CG solve's graph as a child."""
     return load_library().lib.bb_cg_child_while_probe()
+
+
+def cluster_while_runs(want=5):
+    """The runs of a WHILE node's body that holds one cluster launch
+    (captured as the step graph captures the CG iteration) and loops
+    until `want` runs (``bb_cg_cluster_while_probe``): `want` where CUDA
+    takes a cluster kernel in a conditional body."""
+    runs = ctypes.c_int()
+    rc = load_library().lib.bb_cg_cluster_while_probe(
+        int(want), ctypes.byref(runs))
+    if rc:
+        _raise_graph(rc, 'a cluster launch in a WHILE body')
+    return runs.value
 
 
 class SolveGraph:

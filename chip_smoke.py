@@ -71,9 +71,18 @@ Phases, each of which raises on failure (exit code != 0):
    0.25 and 0.5, tilts 1e-30 to 1e4 and 16, the crossover's edge), in
    float32 and float64, each against its plain rounds by KS (p > 1e-4)
    and the closed-form moments, with the rounds a lane took and no
-   capped lane; both timed at the flagship shapes (each kernel alone
-   from a profiler trace, the wrapper by CUDA events and the host clock)
-   beside the plain rounds, and run under
+   capped lane; ``ts_draw`` (T threads a lane on round-indexed Philox
+   streams) against its plain sweep (``draws.tilted_stable_indexed_plain``,
+   the same keys) on 4,000 of the flagship's lanes (attempts equal on
+   99.9%, values within rtol 1e-4 / 1e-10 where they are), its first
+   design (``ts_draw[first]``, one thread a lane) against the plain
+   rounds by KS; both draws timed at the flagship shapes (each kernel
+   alone from a profiler trace, the wrapper by CUDA events and the host
+   clock) beside the plain rounds, the tilted-stable designs in turns
+   (``baselines.device_loop_turns``: the regrouping design from T = 1-32
+   and the first design, 1 and 4 chains, float32 and float64; again at
+   the ell slice's p = 16,384 and state, with its bound from the rounds
+   there: ``ts_draw@ell64``), and run under
    ``torch.cuda.set_sync_debug_mode('error')`` (every chain phase of
    the smoke asserts ``ts_draw``, and on logit ``pg_draw``, at least
    once an iteration); then the int4 phase (``BB_HYBRID_INT4=1``): the nibble modes of
@@ -250,10 +259,14 @@ same n_cg_iter, coef within RTOL (1e-12 in float64), a rerun's bits from
 the cached graph with one host read, the launch counters at the captured
 iteration's launches times max(n_iter), each chain equal to the chain
 alone bit for bit, each way's wall ms, the graph pool's bytes and the
-CUDA versions; ``cg_start`` and ``cg_update`` are checked against their
-plain versions and timed at the composed flagship chain's state and the
-ell float64 one's (the device's time by CUDA events, median of 10, beside
-the bound: each vector read or written once over 3,350 GB/s). Every
+CUDA versions; ``cg_start`` and ``cg_update``'s two routes (the cluster
+kernel ``cg_iter`` the path takes, the first design's three kernels) are
+checked against their plain versions and each other (the same bits) at
+the composed flagship chain's shape, winell's and ell float64's, the
+update's routes timed in turns at 1 and 4 chains
+(``baselines.device_loop_turns``), ``cg_start`` by CUDA events (median
+of 10), each beside the bound: each vector read or written once over
+3,350 GB/s. Every
 profiler window also splits each iteration's host wall ms and device ms
 between the CG solve and the rest of the step (``utils.profiling.
 span_stats`` over the step's ``gibbs:*`` spans), summarized at the end.
@@ -1849,18 +1862,33 @@ def device_ms(fn, reps=10, inner=20):
     return statistics.median(times)
 
 
+# The launches of the update's harness turns (cg_kernel_results), where
+# the kernels line reads the three-kernel route's launches (check-only).
+CG_TURN_COUNTS = {}
+
+
 def cg_kernel_results(design, suffix=''):
-    """cg_start and cg_update at one chain's state of the design's shape
-    (the main path's: the linear predictor where the CG operator
-    composes), against their plain versions from the same state (RTOL of
-    max|plain|, 1e-12 in float64), each timed by CUDA events (median of
-    10, the device's time: :func:`device_ms`) beside its bound (bytes:
-    each input vector read once, each output written once, over the HBM
-    rate) and the plain version; no PyTorch call computes either.
-    Timing runs CG on the diagonal part (out = 0), every call a step."""
+    """cg_start and cg_update's two routes at one chain's state of the
+    design's shape (the main path's: the linear predictor where the CG
+    operator composes), against their plain versions from the same state
+    (RTOL of max|plain|, 1e-12 in float64), the cluster route equal to the
+    three kernels bit for bit. cg_start timed by CUDA events (median of
+    10, the device's time: :func:`device_ms`); the update's two routes in
+    turns (``baselines.device_loop_turns``) at 1 and CG_K chains; each
+    beside its bound (bytes: each input vector read once, each output
+    written once, over the HBM rate; operations over the type's rate) and
+    the plain version; no PyTorch call computes either. Timing runs CG on
+    the diagonal part (out = 0), every call a step. Returns entries
+    'cg_start', 'cg_update' (the cluster route) and 'cg_update[three]',
+    each with `suffix`."""
     import torch
+    from bayesbridge_tpu_torch.baselines.device_loop_turns import (
+        cg_update_turns)
+    from bayesbridge_tpu_torch.kernels import (
+        launch_counts, reset_launch_counts)
     from bayesbridge_tpu_torch.kernels.cg_loop import (
-        CgState, cg_start, cg_start_plain, cg_update, cg_update_plain)
+        CgState, cg_start, cg_start_plain, cg_update, cg_update_plain,
+        update_route)
     n, p = design.shape
     lin = design.fused_ne_mode('quad') is None
     dt, dev = design.dtype, design.device
@@ -1888,11 +1916,11 @@ def cg_kernel_results(design, suffix=''):
                 getattr(other, name).copy_(v)
         return other
 
+    vecs = ('x', 'r', 'p', 'sp', 'y', 'rs')
+
     def agree(name, a, b):
-        got = [getattr(a, v) for v in ('x', 'r', 'p', 'sp', 'y', 'rs')
-               if getattr(a, v) is not None]
-        ref = [getattr(b, v) for v in ('x', 'r', 'p', 'sp', 'y', 'rs')
-               if getattr(b, v) is not None]
+        got = [getattr(a, v) for v in vecs if getattr(a, v) is not None]
+        ref = [getattr(b, v) for v in vecs if getattr(b, v) is not None]
         err, scale = max_err(got, ref)
         assert err <= tol * scale, (name, err, scale)
         assert torch.equal(a.running, b.running)
@@ -1907,36 +1935,66 @@ def cg_kernel_results(design, suffix=''):
     cg_start(st)
     cg_start_plain(plain)
     err_start = agree('cg_start', st, plain)
-    plain = twin(st)
-    cg_update(st, out, t)
-    cg_update_plain(plain, out, t)
-    err_update = agree('cg_update', st, plain)
+    assert update_route(st) == 'cluster', (p, dt)
+    errs, after = {}, {}
+    for route in ('cluster', 'three'):
+        a, plain = twin(st), twin(st)
+        cg_update(a, out, t, route=route)
+        cg_update_plain(plain, out, t)
+        errs[route] = agree(f'cg_update[{route}]', a, plain)
+        after[route] = a
+    assert all(getattr(after['cluster'], v) is None
+               or torch.equal(getattr(after['cluster'], v),
+                              getattr(after['three'], v))
+               for v in vecs + ('n_iter', 'running')), suffix
     item = torch.empty((), dtype=dt).element_size()
+    rate = FP64_OPS_PER_S if dt == torch.float64 else F32_OPS_PER_S
     zero_out = torch.zeros_like(out)
     zero_t = None if t is None else torch.zeros_like(t)
+    reset_launch_counts()
+    turns = {k: cg_update_turns(p, n if lin else 0, dt, k, dev)
+             for k in (1, CG_K)}
+    for key, v in launch_counts().items():
+        CG_TURN_COUNTS[key] = CG_TURN_COUNTS.get(key, 0) + v
+    a = state()
+    cg_start(a)
+    a.thresh.zero_()  # every timed call a step
+    start_ms = device_ms(lambda: cg_start(a))
+    b = state()
+    cg_start(b)
+    b.thresh.zero_()
+    start_plain = device_ms(lambda: cg_start_plain(b), inner=5)
+    update_plain = device_ms(
+        lambda: cg_update_plain(b, zero_out, zero_t), inner=5)
+    # The update's work a chain: Ap (3 operations an element), p . Ap (2),
+    # x, r (2 each), r . r (2), p (2), sp (1); y (2 an element of n).
+    rows = {'cg_start': (err_start, start_ms, start_plain, 5 * p, 5 * p,
+                         None),
+            'cg_update': (errs['cluster'], turns[1]['cluster'],
+                          update_plain, 10 * p + (3 * n if lin else 0),
+                          14 * p + (2 * n if lin else 0), 'cluster'),
+            'cg_update[three]': (errs['three'], turns[1]['three'],
+                                 update_plain,
+                                 10 * p + (3 * n if lin else 0),
+                                 14 * p + (2 * n if lin else 0), 'three')}
     results = {}
-    for name, err, kern, plain_fn, vectors in (
-            ('cg_start', err_start, lambda s: cg_start(s),
-             lambda s: cg_start_plain(s), 5 * p),
-            ('cg_update', err_update,
-             lambda s: cg_update(s, zero_out, zero_t),
-             lambda s: cg_update_plain(s, zero_out, zero_t),
-             10 * p + (3 * n if lin else 0))):
-        a, b = state(), state()
-        cg_start(a)
-        cg_start(b)
-        a.thresh.zero_()  # every timed call a step
-        b.thresh.zero_()
-        ms = device_ms(lambda: kern(a))
-        plain_ms = device_ms(lambda: plain_fn(b), inner=5)
-        bound, by = bound_ms(vectors * item, 0)
-        results[name + suffix] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bound,
-            bound_by=by, library_ms=None)
+    for name, (err, ms, plain_ms, vectors, ops, route) in rows.items():
+        bound, by = bound_ms(vectors * item, ops, rate)
+        res = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bound, bound_by=by, library_ms=None)
+        if route is not None:
+            res['ms_chains'] = turns[CG_K][route]
+            res['bound_ms_chains'] = CG_K * bound
+        results[name + suffix] = res
         log(f"  {name}{suffix} ({dt}, p = {p}"
-            + (f", n = {n}" if lin else "") + f"): kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+            + (f", n = {n}" if lin else "") + f"): kernel {ms:.4f} ms"
+            + ("" if route is None else
+               f" ({CG_K} chains {turns[CG_K][route]:.4f} ms)")
+            + f", plain {plain_ms:.4f} ms, bound {bound:.5f} ms ({by}), "
             f"{100 * bound / ms:.1f}% of it; max_abs_err {err:.3e}")
+    log(f"  cg_update{suffix} routes in turns (device ms an iteration): "
+        f"{json.dumps({k: {r: round(v, 5) for r, v in tu.items()} for k, tu in turns.items()})}"
+        f"; the cluster route's bits equal the three kernels'")
     return results
 
 
@@ -2144,10 +2202,35 @@ PG_GRID = (0.0, 0.1, 1.0, 4.0, 20.0, 40.0)
 TS_GRID = ((0.25, 16.0),) + tuple((a, t) for a in (0.25, 0.5)
                                   for t in (1e-30, 1e-6, 0.1, 1.0, 100.0,
                                             1e4))
-# Floating-point operations of one rejection round, counted loosely from
-# csrc/polya_gamma.cu and csrc/tilted_stable.cu (a transcendental as one):
-# the operations side of the draws' bound, with the rounds the lanes took.
-DRAW_OPS_PER_ROUND = {'pg': 60, 'ts': 120}
+# Floating-point operations the draws' lanes need, counted from
+# csrc/polya_gamma.cu and csrc/tilted_stable.cu with a library call (exp,
+# log, sin, sqrt, ...) as one operation and Philox's integer work left out:
+# the operations side of the draws' bound, with the rounds the lanes took
+# (a lower bound). Polya-Gamma: 48 a round (the proposal, the series' first
+# terms), 30 a lane (its masses); tilted stable: 46 a divide-and-conquer
+# round (Kanter's draw and its test), 80 a double-rejection round (the
+# auxiliary proposal and its test), 75 more for its accepting round's final
+# proposal, 25 a lane (its method, scale or constants).
+DRAW_OPS = {'pg_round': 48, 'pg_lane': 30, 'ts_dc': 46, 'ts_dr': 80,
+            'ts_dr_final': 75, 'ts_lane': 25}
+# The draws phase's launches off the path (the first tilted-stable design's
+# checks), where the kernels line reads them (check-only).
+DRAW_COUNTS = {}
+
+
+def draw_ops(kind, attempts, plan=None):
+    """The operations of the lanes' draws (DRAW_OPS) from their rounds
+    `attempts` and, for the tilted stable, their `plan` (0: double
+    rejection)."""
+    att = attempts.double()
+    if kind == 'pg':
+        return DRAW_OPS['pg_round'] * float(att.sum()) \
+            + DRAW_OPS['pg_lane'] * att.numel()
+    dr = plan == 0
+    return (DRAW_OPS['ts_dc'] * float(att[~dr].sum())
+            + DRAW_OPS['ts_dr'] * float(att[dr].sum())
+            + DRAW_OPS['ts_dr_final'] * int(dr.sum())
+            + DRAW_OPS['ts_lane'] * att.numel())
 
 
 def pg_moments(z):
@@ -2245,8 +2328,8 @@ def draw_kernel_ms(lin_pred, tilt, alpha, gens, calls=20):
         finally:
             shutil.rmtree(log_dir, ignore_errors=True)
         for kind in ('pg', 'ts'):
-            row = [r for r in rows
-                   if f'{kind}_kernel<{ctype}>' in r['name']]
+            kname = {'pg': 'pg_kernel', 'ts': 'ts_regroup_kernel'}[kind]
+            row = [r for r in rows if f'{kname}<{ctype}>' in r['name']]
             # The timed calls' launches, and the first pair's where the
             # trace holds it.
             assert row and row[0]['occurrences'] in (calls, calls + 1), \
@@ -2256,6 +2339,43 @@ def draw_kernel_ms(lin_pred, tilt, alpha, gens, calls=20):
     return out
 
 
+def ts_against_indexed_plain(tilt, alpha, gens, tag, sample=4000):
+    """ts_draw's kernel against its plain sweep
+    (``draws.tilted_stable_indexed_plain``) on `sample` lanes of one
+    launch at `tilt` (1, p), the same key: the plan equal, attempts equal
+    on at least 99.9% of the lanes, the values within rtol 1e-4 (float32)
+    / 1e-10 (float64) where they are. Returns (share of equal attempts,
+    max relative error there, max absolute error there)."""
+    import torch
+    from bayesbridge_tpu_torch.kernels import draws
+    dev = tilt.device
+    seeds = [g.initial_seed() for g in gens]
+    keys = draws.chain_keys([torch.Generator(device=dev).manual_seed(sd)
+                             for sd in seeds], dev)
+    att = torch.empty(tilt.shape, dtype=torch.int32, device=dev)
+    plan = torch.empty_like(att)
+    kern = draws.tilted_stable_draw(gens, alpha, tilt, attempts=att,
+                                    plan=plan)
+    pick = torch.randperm(tilt.shape[1], generator=torch.Generator(
+        device=dev).manual_seed(3), device=dev)[:sample]
+    val, p_att, p_plan, _ = draws.tilted_stable_indexed_plain(
+        keys, alpha, tilt[:, pick].contiguous(), threads_per_lane=4,
+        lanes=pick)
+    assert torch.equal(p_plan, plan[:, pick]), tag
+    same = p_att == att[:, pick]
+    share = float(same.double().mean())
+    ref = kern[:, pick][same].double()
+    diff = (val[same].double() - ref).abs()
+    rel = float((diff / ref.abs().clamp_min(1e-300)).max())
+    tol = 1e-4 if tilt.dtype == torch.float32 else 1e-10
+    log(f"  ts_draw {tag} against its plain sweep on {sample} lanes: plan "
+        f"equal; attempts equal on {100 * share:.2f}%; max rel error "
+        f"{rel:.3e} where equal (tolerance {tol:g}), max abs error "
+        f"{float(diff.max()):.3e}")
+    assert share >= 0.999 and rel <= tol, (tag, share, rel)
+    return share, rel, float(diff.max())
+
+
 def run_draws(design, state):
     """The draws phase on the hybrid slice's stored flagship blocks and
     its composed chain's state: Polya-Gamma draws at its linear predictor
@@ -2263,14 +2383,21 @@ def run_draws(design, state):
     (p = 50,000, alpha 0.25), then the fixed-tilt grids at 100,000 lanes,
     in float32 and float64: each kernel against its plain version (KS)
     and the closed form, rounds per lane, capped lanes (none allowed);
-    each kernel's ms from a profiler trace, the wrapper's by CUDA events
-    and by the host clock, against the plain version's; both draws under
+    the tilted-stable kernel against its plain sweep on a sample of lanes
+    and its first design against the plain rounds (KS); each kernel's ms
+    from a profiler trace, the wrapper's by CUDA events and by the host
+    clock, against the plain version's; the tilted-stable designs in
+    turns (``baselines.device_loop_turns``: the regrouping design from
+    each T and the first design, 1 and 4 chains); both draws under
     torch.cuda.set_sync_debug_mode('error').
-    Returns {'pg_draw': result, 'ts_draw': result} (float32, the flagship
-    chain's dtype) and a summary."""
+    Returns {'pg_draw': result, 'ts_draw': result, 'ts_draw[first]':
+    result} (float32, the flagship chain's dtype) and a summary."""
     import numpy as np
     import torch
-    from bayesbridge_tpu_torch.kernels import draws
+    from bayesbridge_tpu_torch.baselines.device_loop_turns import (
+        ts_draw_turns)
+    from bayesbridge_tpu_torch.kernels import (
+        draws, launch_counts, reset_launch_counts)
     from bayesbridge_tpu_torch.random.polya_gamma import (
         sample_polya_gamma_chains, sample_polya_gamma_plain)
     from bayesbridge_tpu_torch.random.tilted_stable import (
@@ -2301,13 +2428,16 @@ def run_draws(design, state):
         kern = draws.polya_gamma_draw(gens(), z, None, attempts=att)
         return kern, sample_polya_gamma_plain(gens(), None, z), att
 
-    def ts_pair(a, t):
+    def ts_pair(a, t, first=False):
         att = torch.empty(t.shape, dtype=torch.int32, device=dev)
-        kern = draws.tilted_stable_draw(gens(), a, t, attempts=att)
-        return kern, sample_tilted_stable_plain(gens(), a, t), att
+        plan = torch.empty_like(att)
+        fn = draws.tilted_stable_draw_first if first \
+            else draws.tilted_stable_draw
+        kern = fn(gens(), a, t, attempts=att, plan=plan)
+        return kern, sample_tilted_stable_plain(gens(), a, t), att, plan
 
     draws.reset_capped(dev)
-    summary, results = {}, {}
+    summary, results, flagship = {}, {}, {}
     for dtype in (torch.float32, torch.float64):
         tag = str(dtype).split('.')[-1]
         z = lin_pred.to(dtype)[None].contiguous()
@@ -2317,10 +2447,22 @@ def run_draws(design, state):
         summary[f'pg flagship {tag}'] = draw_check(
             f"pg_draw flagship {tag}", kern, plain, pg_moments(zn), att,
             np.ones(zn.size, bool))
-        kern, plain, att = ts_pair(alpha, t)
+        flagship[('pg', tag)] = (att, None)
+        kern, plain, att, plan = ts_pair(alpha, t)
         summary[f'ts flagship {tag}'] = draw_check(
             f"ts_draw flagship {tag}", kern, plain, ts_moments(alpha, tn),
             att, tn >= 0.1)
+        flagship[('ts', tag)] = (att, plan)
+        reset_launch_counts()
+        kern, plain, att, plan = ts_pair(alpha, t, first=True)
+        summary[f'ts first flagship {tag}'] = draw_check(
+            f"ts_draw[first] flagship {tag}", kern, plain,
+            ts_moments(alpha, tn), att, tn >= 0.1)
+        for key, v in launch_counts().items():
+            DRAW_COUNTS[key] = DRAW_COUNTS.get(key, 0) + v
+        flagship[('ts_first', tag)] = (att, plan)
+        summary[f'ts indexed plain {tag}'] = ts_against_indexed_plain(
+            t, alpha, gens(), f"flagship {tag}")
         zg = torch.tensor(np.repeat(PG_GRID, DRAW_LANES), dtype=dtype,
                           device=dev)[None]
         kern, plain, att = pg_pair(zg)
@@ -2334,7 +2476,7 @@ def run_draws(design, state):
             grid = [tt for aa, tt in TS_GRID if aa == a]
             tg = torch.tensor(np.repeat(grid, DRAW_LANES), dtype=dtype,
                               device=dev)[None]
-            kern, plain, att = ts_pair(a, tg)
+            kern, plain, att, _ = ts_pair(a, tg)
             for i, ti in enumerate(grid):
                 sl = slice(i * DRAW_LANES, (i + 1) * DRAW_LANES)
                 summary[f'ts alpha={a} tilt={ti:g} {tag}'] = draw_check(
@@ -2347,6 +2489,18 @@ def run_draws(design, state):
         f"phase's kernel draws: {capped}")
     assert capped == (0, 0), capped
 
+    # The tilted-stable designs in turns at the flagship's tilt, kernels
+    # alone on fixed keys: the regrouping design from each T against the
+    # first design.
+    turns = {}
+    for dtype in (torch.float32, torch.float64):
+        tag = str(dtype).split('.')[-1]
+        for k in (1, CG_K):
+            turns[(tag, k)] = ts_draw_turns(tilt_f.to(dtype), alpha, k)
+            log(f"  ts_draw turns, flagship p = {tilt_f.numel()}, {tag}, "
+                f"{k} chain(s), device ms a launch: "
+                f"{json.dumps({n: round(v, 5) for n, v in turns[(tag, k)].items()})}")
+
     # Timings at the flagship shapes: each kernel alone from a profiler
     # trace of 20 calls (a call's host work, some 40-90 us, is longer
     # than the Polya-Gamma kernel, so events over back-to-back calls time
@@ -2356,6 +2510,7 @@ def run_draws(design, state):
     kernel_ms = draw_kernel_ms(lin_pred, tilt_f, alpha, gens)
     for dtype in (torch.float32, torch.float64):
         tag = str(dtype).split('.')[-1]
+        rate = FP64_OPS_PER_S if dtype == torch.float64 else F32_OPS_PER_S
         z = lin_pred.to(dtype)[None].contiguous()
         t = tilt_f.to(dtype)[None].contiguous()
         g1, g2 = gens(), gens()
@@ -2376,27 +2531,42 @@ def run_draws(design, state):
                     fn()
                 torch.cuda.synchronize()
                 walls.append((time.perf_counter() - t0) * 1e3 / reps)
-            rounds = summary[f"{kind} flagship {tag}"][2] * x.numel()
-            bound, by = bound_ms(2 * nbytes(x) + 8,
-                                 rounds * DRAW_OPS_PER_ROUND[kind])
-            k_ms = kernel_ms[(kind, tag)]
-            log(f"  {name} {tag} at {tuple(x.shape)}: kernel {k_ms:.4f} ms "
-                f"(profiler); wrapper {ms:.4f} ms "
-                f"(events), {walls[0]:.4f} ms (host clock, 20 calls); "
-                f"plain {plain_ms:.2f} ms (events), {walls[1]:.2f} ms (host "
-                f"clock); bound {bound:.5f} ms ({by}; bounded in fact by "
-                f"the longest lane of a warp: rounds a lane mean "
-                f"{summary[f'{kind} flagship {tag}'][2]:.3f}, max "
-                f"{summary[f'{kind} flagship {tag}'][3]})")
-            if dtype == torch.float32:
-                ks_d = summary[f'{kind} flagship {tag}'][0]
-                results[name] = dict(
-                    max_abs_err=ks_d, ms=k_ms, plain_ms=plain_ms,
-                    bound_ms=bound, bound_by=by, library_ms=None,
-                    wrapper_ms=ms, wall_ms=walls[0],
-                    plain_wall_ms=walls[1],
-                    rounds_mean=summary[f'{kind} flagship {tag}'][2],
-                    rounds_max=summary[f'{kind} flagship {tag}'][3])
+            rows = [(name, kind, kernel_ms[(kind, tag)])]
+            if kind == 'ts':
+                auto = turns[(tag, 1)]['auto']
+                path = f'R={auto}'
+                rows = [(name, kind, turns[(tag, 1)][path]),
+                        ('ts_draw[first]', 'ts_first',
+                         turns[(tag, 1)]['first'])]
+            for row_name, key, k_ms in rows:
+                att, plan = flagship[(key, tag)]
+                ops = draw_ops(kind, att, plan)
+                bound, by = bound_ms(2 * nbytes(x) + 8, ops, rate)
+                sm = summary[{'pg': 'pg flagship', 'ts': 'ts flagship',
+                              'ts_first': 'ts first flagship'}[key]
+                             + f' {tag}']
+                log(f"  {row_name} {tag} at {tuple(x.shape)}: kernel "
+                    f"{k_ms:.4f} ms ("
+                    + ("profiler" if kind == 'pg' else
+                       "events, in turns" if key == 'ts_first' else
+                       f"events, in turns ({path}); profiler "
+                       f"{kernel_ms[('ts', tag)]:.4f} ms")
+                    + f"); wrapper {ms:.4f} ms "
+                    f"(events), {walls[0]:.4f} ms (host clock, 20 calls); "
+                    f"plain {plain_ms:.2f} ms (events), {walls[1]:.2f} ms "
+                    f"(host clock); bound {bound:.5f} ms ({by}: "
+                    f"{ops:.4g} operations at {rate / 1e12:g} TFLOP/s, "
+                    f"{100 * bound / k_ms:.2f}% of the kernel); rounds a "
+                    f"lane mean {sm[2]:.3f}, max {sm[3]}")
+                if dtype == torch.float32:
+                    results[row_name] = dict(
+                        max_abs_err=sm[0], ms=k_ms, plain_ms=plain_ms,
+                        bound_ms=bound, bound_by=by, library_ms=None,
+                        wrapper_ms=ms, wall_ms=walls[0],
+                        plain_wall_ms=walls[1], rounds_mean=sm[2],
+                        rounds_max=sm[3])
+                    if row_name == 'ts_draw':
+                        results[row_name]['threads_per_lane'] = auto
 
     # No host sync in either draw, through the dispatch points the chain
     # step calls.
@@ -2410,7 +2580,7 @@ def run_draws(design, state):
     torch.cuda.synchronize()
     log("[draws] both draws ran under torch.cuda.set_sync_debug_mode("
         "'error')")
-    return results, {k: [round(x, 5) for x in v[:3]] + [v[3]]
+    return results, {k: [round(x, 5) for x in v[:3]] + list(v[3:])
                      for k, v in summary.items()}
 
 
@@ -2796,6 +2966,8 @@ def run_packed(X, outcome, backend, m2d, map_ref=None, n_first=15,
     assert counts['ne_sweep[ne]'] == counts['tdots_sweep'] == 0, counts
     assert counts['winell[dot]'] == counts['winell[tdot]'] == 0, counts
     cg_loop_case(model.design, backend)
+    if backend == 'winell':
+        CG_RESULTS.update(cg_kernel_results(model.design, '@winell'))
     if map_ref is not None:
         map_witness(model, backend, map_ref)
     del model
@@ -4163,8 +4335,12 @@ def run_ell(X, outcome, m2d):
     import torch
     from bayesbridge_tpu_torch import (
         BayesBridge, RegressionCoefPrior, RegressionModel)
+    from bayesbridge_tpu_torch.baselines.device_loop_turns import (
+        ts_draw_turns)
     from bayesbridge_tpu_torch.kernels import (
-        launch_counts, reset_launch_counts)
+        draws, launch_counts, reset_launch_counts)
+    from bayesbridge_tpu_torch.random.tilted_stable import (
+        sample_tilted_stable_plain)
     counts = {}
     t0 = time.perf_counter()
     with warnings.catch_warnings(record=True) as caught:
@@ -4243,6 +4419,57 @@ def run_ell(X, outcome, m2d):
         f"the start {logp0:.6g}, then {[f'{x:.6g}' for x in logps]}; "
         f"mean coef[1:11] {coef[1:11].mean():.4f}")
     assert np.all(np.isfinite(logps)) and logps[-1] > logps[0], logps
+    # ts_draw at this design's width (p = 16,384) and state: the kernel
+    # against its plain sweep in float64, the designs in turns (the
+    # starting T is larger at fewer lanes), each beside its bound from the
+    # rounds the lanes took at this tilt (one draw through the wrapper)
+    # and the plain rounds' time; the float64 chain's entry in the
+    # kernels line.
+    # The step's tilt, (coef / gscale)^2 at characteristic exponent
+    # bridge_exp / 2 (step.update_local_scale).
+    tilt = torch.as_tensor((shrunk / gscale) ** 2, device='cuda')
+    gen = torch.Generator(device='cuda').manual_seed(77)
+    _, _, ts_err = ts_against_indexed_plain(
+        tilt[None], alpha / 2, [gen], f"ell64 p = {tilt.numel()} float64")
+    for dtype in (torch.float64, torch.float32):
+        tag = str(dtype).split('.')[-1]
+        rate = FP64_OPS_PER_S if dtype == torch.float64 else F32_OPS_PER_S
+        x = tilt.to(dtype)[None].contiguous()
+        att = torch.empty(x.shape, dtype=torch.int32, device='cuda')
+        plan = torch.empty_like(att)
+        draws.tilted_stable_draw(
+            [torch.Generator(device='cuda').manual_seed(78)], alpha / 2, x,
+            attempts=att, plan=plan)
+        ops = draw_ops('ts', att, plan)
+        bound, by = bound_ms(2 * nbytes(x) + 8, ops, rate)
+        rounds_mean, rounds_max = float(att.double().mean()), int(att.max())
+        g_plain = [torch.Generator(device='cuda').manual_seed(79)]
+        plain_ms = time_ms(
+            lambda: sample_tilted_stable_plain(g_plain, alpha / 2, x),
+            reps=3)
+        for k in (1, CG_K):
+            turns = ts_draw_turns(x[0], alpha / 2, k)
+            auto = turns['auto']
+            log(f"  ts_draw turns, ell p = {tilt.numel()}, {tag}, {k} "
+                f"chain(s), device ms a launch: "
+                f"{json.dumps({n: round(v, 5) for n, v in turns.items()})}")
+            if k > 1:
+                continue
+            ms = turns[f'R={auto}']
+            log(f"  ts_draw@ell64 {tag} at {tuple(x.shape)}: kernel "
+                f"{ms:.4f} ms (events, in turns, R={auto}), first design "
+                f"{turns['first']:.4f} ms; plain {plain_ms:.2f} ms; bound "
+                f"{bound:.6f} ms ({by}: {ops:.4g} operations at "
+                f"{rate / 1e12:g} TFLOP/s, {100 * bound / ms:.2f}% of the "
+                f"kernel; bytes {nbytes(x) * 2 / HBM_BYTES_PER_S * 1e3:.6f} "
+                f"ms); rounds a lane mean {rounds_mean:.3f}, max "
+                f"{rounds_max}")
+            if dtype == torch.float64:
+                results['ts_draw@ell64'] = dict(
+                    max_abs_err=ts_err, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bound, bound_by=by, library_ms=None,
+                    first_ms=turns['first'], threads_per_lane=auto,
+                    rounds_mean=rounds_mean, rounds_max=rounds_max)
     del model, design, bridge, stats, info
     torch.cuda.empty_cache()
 
@@ -5167,7 +5394,9 @@ def main():
             # The nibble modes' entry names too, beside their registers.
             if 'registers' in line or 'spill' in line or 'Nib4' in line \
                     or 'tdots_i4' in line or 'pg_kernel' in line \
-                    or 'ts_kernel' in line or 'cg_loop' in line:
+                    or 'ts_kernel' in line or 'ts_regroup' in line \
+                    or 'cg_iter' in line \
+                    or 'cg_loop' in line:
                 log('  ptxas: ' + line.strip())
         X, outcome = data.result()
     t0 = phase('build and flagship data', t0)
@@ -5242,6 +5471,8 @@ def main():
     counts.update(m2d['counts'])
     results.update(m2d['results'])
     results.update(CG_RESULTS)
+    counts['cg_turns'] = CG_TURN_COUNTS
+    counts['draws_checks'] = DRAW_COUNTS
     log(f"[cg_loop] summary: {json.dumps(CG_LOOP)}")
     log(f"[splits] per iteration: {json.dumps(SPLITS)}")
     log(f"[step_ab] per iteration, graph against eager: "
@@ -5292,7 +5523,13 @@ def main():
                'ne_rows_i4': 'hybrid_int4', 'colpass_i4': 'hybrid_int4',
                'tdots_i4[u4,bin]': 'hybrid_int4',
                'cg_start': 'hybrid_composed', 'cg_update': 'hybrid_composed',
-               'cg_update@ell64': 'ell64', 'cg_start@ell64': 'ell64'}
+               'cg_update@ell64': 'ell64', 'cg_start@ell64': 'ell64',
+               'cg_update@winell': 'winell', 'cg_start@winell': 'winell',
+               'ts_draw@ell64': 'ell64',
+               'cg_update[three]': 'cg_turns',
+               'cg_update[three]@ell64': 'cg_turns',
+               'cg_update[three]@winell': 'cg_turns',
+               'ts_draw[first]': 'draws_checks'}
     # The pre-solve's other nibble modes: the four-reduction ones are the
     # fused pre-solve's, which no int4 design runs (it composes), and the
     # flagship's exact block is 0/1; each counted on its checks
@@ -5332,7 +5569,8 @@ def main():
             path='check-only' if path in ('winell_packing', 'link_turns',
                                           'ell64_checks', 'ell32_checks',
                                           'int4_checks',
-                                          'mesh2d_bitpack_checks')
+                                          'mesh2d_bitpack_checks',
+                                          'cg_turns', 'draws_checks')
             else path))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({'kernels': kernels}))

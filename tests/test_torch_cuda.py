@@ -56,7 +56,13 @@ counts and a number of host reads that does not grow with the
 iterations; resume stays exact on it, a shallow copy of the design
 captures its own, and ``gibbs_chains(mesh=)`` groups on one card give
 the chains of the run without a mesh; CUDA refuses a graph holding a
-WHILE node as a child graph node (why the step graph adds its own).
+WHILE node as a child graph node (why the step graph adds its own). The
+update's cluster route (one kernel an iteration) must give the three
+kernels' bits at every shape it takes and in the graph solve on every
+CG_CASES design, and a cluster launch must loop in a WHILE body; the
+tilted-stable kernel's sweep design must give the same bits for every T
+and each chain alone, and match its plain sweep lane for lane; its first
+design must still draw the plain rounds' law.
 """
 
 import numpy as np
@@ -2449,3 +2455,272 @@ def test_a_while_node_cannot_sit_in_a_child_graph(dev):
     from bayesbridge_tpu_torch.kernels.cg_loop import child_while_error
     rc = child_while_error()
     assert rc > 0, rc
+
+
+# -- the redesigned device-loop kernels: cg_update's cluster route and
+# ts_draw's sweep design ---------------------------------------------------- #
+
+def test_a_cluster_launch_loops_in_a_while_body(dev):
+    """A cluster launch (cudaLaunchKernelEx with a cluster dimension)
+    captured into a conditional WHILE node's body, as the step graph
+    captures the CG iteration, runs and sets the node's condition: the
+    body runs as often as it asks."""
+    from bayesbridge_tpu_torch.kernels.cg_loop import cluster_while_runs
+    assert cluster_while_runs(5) == 5
+    assert cluster_while_runs(1) == 1
+
+
+_CG_NAMES = ('x', 'r', 'p', 'sp', 'b', 's', 'd', 'y', 'rs', 'thresh',
+             'atol', 'n_iter', 'running', 'iters')
+
+
+def _cg_twin(st, k, m, n, dtype, dev, rows=slice(None)):
+    from bayesbridge_tpu_torch.kernels.cg_loop import CgState
+    other = CgState(k, m, n, dtype, dev, maxiter=st.maxiter)
+    for name in _CG_NAMES:
+        v = getattr(st, name)
+        if v is not None:
+            getattr(other, name).copy_(
+                v if name in ('atol', 'iters') else v[rows])
+    return other
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_cg_update_cluster_route_gives_the_three_kernels_bits(dev, dtype):
+    """cg_update's one-kernel route (a cluster a chain) against the
+    three-kernel route from the same state, torch.equal on every vector,
+    scalar, flag and count, for k = 1, 3, 5 chains and m from 1 past
+    32,768 (with and without the linear predictor), four steps with a
+    frozen chain that stays untouched; the dispatch takes the cluster
+    route up to 65,536 elements in float32 and 32,768 in float64 and the
+    three kernels above (where the cluster route raises), each counted
+    under its own key."""
+    from bayesbridge_tpu_torch.kernels.cg_loop import (
+        CgState, cg_start, cg_update, update_route,
+    )
+    most = 65_536 if dtype == torch.float32 else 32_768
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=g, device=dev, dtype=dtype)
+
+    for k, m, n in ((1, 1, 0), (3, 255, 17), (5, 1024, 0), (3, 1025, 300),
+                    (1, 4097, 0), (5, 16_385, 1777), (3, 32_768, 0),
+                    (1, 32_769, 50), (3, 50_001, 4000), (1, 65_536, 0),
+                    (1, 70_001, 0)):
+        st = CgState(k, m, n, dtype, dev, maxiter=50)
+        for name in ('x', 'r', 'b') + (('y',) if n else ()):
+            getattr(st, name).copy_(rnd(*getattr(st, name).shape))
+        st.s.copy_(rnd(k, m).abs() + .1)
+        st.d.copy_(rnd(k, m).abs() + .1)
+        cg_start(st)
+        assert update_route(st) == ('cluster' if m <= most else 'three'), m
+        if m > most:
+            out, t = rnd(k, m), rnd(k, n) if n else None
+            with pytest.raises(RuntimeError):
+                cg_update(st, out, t, route='cluster')
+            reset_launch_counts()
+            cg_update(st, out, t)
+            counts = launch_counts()
+            assert counts['cg_update[three]'] == 1, counts
+            assert counts['cg_update'] == 0, counts
+            continue
+        if k > 1:
+            st.running[1] = 0
+        three = _cg_twin(st, k, m, n, dtype, dev)
+        frozen = {name: getattr(st, name)[1].clone() for name in
+                  ('x', 'r', 'p', 'sp', 'rs')} if k > 1 else {}
+        for _ in range(4):
+            out, t = rnd(k, m), rnd(k, n) if n else None
+            reset_launch_counts()
+            cg_update(st, out, t)
+            cg_update(three, out, t, route='three')
+            counts = launch_counts()
+            assert counts['cg_update'] == 1, counts
+            assert counts['cg_update[three]'] == 1, counts
+            for name in _CG_NAMES + ('alpha', 'beta', 'moved'):
+                a, b = getattr(st, name), getattr(three, name)
+                assert (a is None) == (b is None), name
+                assert a is None or torch.equal(a, b), (k, m, name)
+        for name, v in frozen.items():
+            assert torch.equal(getattr(st, name)[1], v), (m, name)
+        # Each chain of the batch equals the chain alone.
+        if k > 1:
+            start = _cg_twin(three, k, m, n, dtype, dev)
+            out, t = rnd(k, m), rnd(k, n) if n else None
+            cg_update(three, out, t)
+            for c in range(k):
+                one = _cg_twin(start, 1, m, n, dtype, dev, slice(c, c + 1))
+                cg_update(one, out[c:c + 1], None if t is None
+                          else t[c:c + 1])
+                for name in ('x', 'r', 'p', 'sp', 'rs', 'n_iter'):
+                    assert torch.equal(getattr(one, name)[0],
+                                       getattr(three, name)[c]), (c, name)
+
+
+def test_cg_cluster_route_on_every_card(dev, monkeypatch):
+    """The cluster route on each card of the machine in turn, the default
+    card first (a function's attributes, the non-portable cluster size
+    among them, hold for one device): at the flagship's shape (m =
+    50,001, n = 100,000: a cluster of 16 blocks) in both types it is the
+    dispatch's route and gives the three kernels' bits on that card, and
+    the graph solve on the hybrid design there runs one cg_update an
+    iteration, with the n_cg_iter and bits of the default card's."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from bayesbridge_tpu_torch.kernels.cg_loop import (
+        CgState, cg_start, cg_update, update_route,
+    )
+    from bayesbridge_tpu_torch.ops import cg
+    kl = load_library()
+    m, n = 50_001, 100_000
+    solves = []
+    for i in range(torch.cuda.device_count()):
+        d = torch.device('cuda', i)
+        for dtype in (torch.float32, torch.float64):
+            f64 = int(dtype == torch.float64)
+            assert kl.lib.bb_cg_iter_blocks(f64, kl.lib.bb_cg_blocks(m),
+                                            n) > 8
+            g = torch.Generator(device=d).manual_seed(3)
+            st = CgState(2, m, n, dtype, d, maxiter=50)
+            for name in ('x', 'r', 'b', 'y'):
+                v = getattr(st, name)
+                v.copy_(torch.randn(v.shape, generator=g, device=d,
+                                    dtype=dtype))
+            for name in ('s', 'd'):
+                getattr(st, name).copy_(torch.rand(
+                    (2, m), generator=g, device=d, dtype=dtype) + .5)
+            cg_start(st)
+            assert update_route(st) == 'cluster', (d, dtype)
+            three = _cg_twin(st, 2, m, n, dtype, d)
+            out = torch.randn((2, m), generator=g, device=d, dtype=dtype)
+            t = torch.randn((2, n), generator=g, device=d, dtype=dtype)
+            reset_launch_counts()
+            cg_update(st, out, t)
+            cg_update(three, out, t, route='three')
+            counts = launch_counts()
+            assert counts['cg_update'] == 1, (d, counts)
+            for name in _CG_NAMES:
+                a, b = getattr(st, name), getattr(three, name)
+                assert torch.equal(a, b), (d, dtype, name)
+        design = _cg_design('hybrid', d, monkeypatch)
+        inp = _cg_inputs(design, 4, 13, True, True)
+        atol = 1e-5 * np.sqrt(design.shape[1])
+        cg.device_solve(design, inp, 500, atol, True)
+        reset_launch_counts()
+        got = cg.device_solve(design, inp, 500, atol, True)
+        torch.cuda.synchronize(d)
+        counts = launch_counts()
+        iters = int(got[2]['n_cg_iter'].max())
+        assert iters > 2 and counts['cg_update'] == iters, (d, counts)
+        assert counts['cg_update[three]'] == 0, (d, counts)
+        solves.append(got)
+    for got in solves[1:]:
+        np.testing.assert_array_equal(got[2]['n_cg_iter'],
+                                      solves[0][2]['n_cg_iter'])
+        for x, y in zip(got[:2], solves[0][:2]):
+            assert (x is None) == (y is None)
+            assert x is None or torch.equal(x.cpu(), y.cpu())
+
+
+@pytest.mark.parametrize('case', CG_CASES)
+def test_cg_device_loop_routes_give_the_same_solve(dev, case, monkeypatch):
+    """The graph solve on every CG_CASES design with the update on the
+    cluster route (the dispatch's, one cg_update launch an iteration) and
+    on the three-kernel route (forced): the same n_cg_iter, the same
+    bits of coef and the linear predictor, and the launch counters of
+    each route at max(n_cg_iter)."""
+    from bayesbridge_tpu_torch.kernels import cg_loop
+    from bayesbridge_tpu_torch.ops import cg
+    got = {}
+    for route in ('cluster', 'three'):
+        with monkeypatch.context() as mp:
+            if route == 'three':
+                mp.setattr(cg_loop, 'update_route', lambda st: 'three')
+            design = _cg_design(case, dev, monkeypatch)
+            inp = _cg_inputs(design, 4, 13, True, True)
+            atol = 1e-5 * np.sqrt(design.shape[1])
+            cg.device_solve(design, inp, 500, atol, True)
+            reset_launch_counts()
+            got[route] = cg.device_solve(design, inp, 500, atol, True)
+            torch.cuda.synchronize()
+            counts = launch_counts()
+        iters = int(got[route][2]['n_cg_iter'].max())
+        assert iters > 2, (route, got[route][2])
+        key = 'cg_update' if route == 'cluster' else 'cg_update[three]'
+        other = 'cg_update[three]' if route == 'cluster' else 'cg_update'
+        assert counts[key] == iters and counts[other] == 0, (route, counts)
+    a, b = got['cluster'], got['three']
+    np.testing.assert_array_equal(a[2]['n_cg_iter'], b[2]['n_cg_iter'])
+    for x, y in zip(a[:2], b[:2]):
+        assert (x is None) == (y is None)
+        assert x is None or torch.equal(x, y)
+
+
+@pytest.mark.parametrize('dtype', [torch.float32, torch.float64])
+def test_ts_draw_bits_do_not_depend_on_threads_per_lane(dev, dtype):
+    """ts_draw's regrouping design: values, attempts and plan equal bit
+    for bit from T = 1, 2, 4, 8, 16, 32 threads a lane at the start and
+    the wrapper's own choice, for k = 1 and 3 chains, each chain equal to
+    the chain alone;
+    against the plain sweep (kernels.draws.tilted_stable_indexed_plain on
+    the same keys) attempts equal on at least 99.9% of lanes and the
+    values within rtol 1e-4 (float32) / 1e-10 (float64) where they
+    agree."""
+    from bayesbridge_tpu_torch.kernels import draws
+    g = torch.Generator(device=dev).manual_seed(12)
+    n = 6_000
+    tol = 1e-4 if dtype == torch.float32 else 1e-10
+    for k in (1, 3):
+        t = torch.exp(torch.randn((k, n), generator=g, device=dev,
+                                  dtype=dtype) * 6)
+        t[:, ::5] = torch.rand((k, t[:, ::5].shape[1]), generator=g,
+                               device=dev, dtype=dtype) * 16 + 8
+        seeds = [40 + c for c in range(k)]
+
+        def run(tl, gens_seeds=seeds, x=t):
+            att = torch.empty(x.shape, dtype=torch.int32, device=dev)
+            plan = torch.empty_like(att)
+            out = draws.tilted_stable_draw(_gens(dev, gens_seeds), 0.25, x,
+                                           attempts=att, plan=plan,
+                                           threads_per_lane=tl)
+            return out, att, plan
+
+        ref = run(1)
+        for tl in (2, 4, 8, 16, 32, None):
+            for a, b in zip(run(tl), ref):
+                assert torch.equal(a, b), (k, tl)
+        for c in range(k):
+            alone = run(4, [seeds[c]], t[c:c + 1])
+            for a, b in zip(alone, ref):
+                assert torch.equal(a[0], b[c]), (k, c)
+        keys = draws.chain_keys(_gens(dev, seeds), dev)
+        val, att, plan, capped = draws.tilted_stable_indexed_plain(
+            keys, 0.25, t, threads_per_lane=8)
+        assert torch.equal(plan, ref[2])
+        same = att == ref[1]
+        assert float(same.double().mean()) >= 0.999, float(
+            same.double().mean())
+        err = (val - ref[0]).abs()[same]
+        assert bool((err <= tol * ref[0].abs()[same]).all()), float(
+            err.max())
+
+
+def test_ts_draw_first_design_matches_plain_in_law(dev):
+    """The first design (one thread a lane, kept for timing in turns)
+    still draws the plain rounds' law (KS, p > 1e-4) at a tilt on each
+    side of the crossover, and is counted under its own key."""
+    from scipy.stats import ks_2samp
+    from bayesbridge_tpu_torch.kernels import draws
+    from bayesbridge_tpu_torch.random.tilted_stable import (
+        sample_tilted_stable_plain,
+    )
+    for tilt in (1.0, 1e4):
+        x = torch.full((1, DRAW_N), tilt, device=dev)
+        reset_launch_counts()
+        first = draws.tilted_stable_draw_first(_gens(dev, [50]), 0.5, x)
+        counts = launch_counts()
+        assert counts['ts_draw[first]'] == 1 and counts['ts_draw'] == 0
+        plain = sample_tilted_stable_plain(_gens(dev, [51]), 0.5, x)
+        assert ks_2samp(first.double().cpu().numpy()[0],
+                        plain.double().cpu().numpy()[0]).pvalue > 1e-4
